@@ -2,7 +2,7 @@ PYTHON ?= python
 export PYTHONPATH := src$(if $(PYTHONPATH),:$(PYTHONPATH),)
 
 .PHONY: test test-sched bench-sched calibrate audit docs-check \
-  deprecated-check gateway-smoke check
+  deprecated-check gateway-smoke check test-torch chip-smoke
 
 test:
 	$(PYTHON) -m pytest -q
@@ -21,6 +21,17 @@ test-sched:
 	  tests/test_routing.py tests/test_gateway.py \
 	  tests/test_arrival_queue.py tests/test_pools_auto.py \
 	  tests/test_event_stream_live.py
+
+# PyTorch/CUDA port, CPU tier: repro_torch against the JAX package (plain
+# versions of the kernels; needs no GPU, nvcc or triton).
+test-torch:
+	JAX_PLATFORMS=cpu $(PYTHON) -m pytest -q tests/test_torch_*.py
+
+# PyTorch/CUDA port, GPU tier: build the CUDA kernels with nvcc, hold them
+# against their plain versions on the card, and serve the FATE-planned
+# workflow at full model size (needs one NVIDIA GPU; exits nonzero without).
+chip-smoke:
+	python3 chip_smoke.py
 
 bench-sched:
 	$(PYTHON) -m benchmarks.sched_bench --quick --profile --serve \
