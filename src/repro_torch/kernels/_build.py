@@ -145,6 +145,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fate_decode_attention.restype = i32
     lib.fate_decode_attention.argtypes = (
         [ptr] * 7 + [i32] * 7 + [i64] * 10 + [i32] + [ptr])
+    lib.fate_moe_gemm.restype = i32
+    lib.fate_moe_gemm.argtypes = (
+        [ptr] * 3 + [i32] * 5 + [i64] * 10 + [i32] + [ptr])
+    lib.fate_rwkv6_scan.restype = i32
+    lib.fate_rwkv6_scan.argtypes = (
+        [ptr] * 8 + [i32] * 5 + [i64] * 15 + [i32] + [ptr])
 
 
 def load() -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels: typed 4-element loads that
+// Helpers shared by the kernels: typed 4-element loads that
 // widen to float32, float32 -> storage-type rounding, half-warp and
 // full-warp reductions.  All arithmetic in the kernels is float32; the
 // storage type T (float or __nv_bfloat16) only appears at the loads

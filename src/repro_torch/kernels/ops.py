@@ -12,14 +12,18 @@ from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 KERNELS = {
     "flash_attention": flash_attention,
     "decode_attention": decode_attention,
+    "moe_gemm": moe_gemm,
+    "rwkv6_scan": rwkv6_scan,
 }
 
-__all__ = ["KERNELS", "decode_attention", "flash_attention",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "decode_attention", "flash_attention", "moe_gemm",
+           "rwkv6_scan", "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> dict[str, int]:

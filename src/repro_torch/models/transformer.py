@@ -1,7 +1,9 @@
 """Model assembly: stacked-parameter blocks and a loop over layers.
 
 :class:`DecoderLM` mirrors ``repro.models.transformer.DecoderLM`` for the
-dense, non-interleaved, non-MoE GQA configurations:
+non-interleaved GQA configurations, dense or MoE (``models/moe.py``; with
+``moe_layer_start > 0`` the first layers are dense, stacked apart as
+``dense_blocks``):
 
   * ``param_defs()``                      — ParamDef tree
   * ``init(generator)``                   — concrete params on the device
@@ -24,6 +26,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
                                        embed_defs, ffn_defs, init_params,
                                        norm_defs, rms_norm, stack_defs,
@@ -44,9 +47,9 @@ def _unstack(tree):
 
 
 class DecoderLM:
-    """GQA decoder-only LM; optional VLM patch embeddings (llava) via
-    ``extra_embeds``.  MoE FFNs, MLA and the local:global sliding-window
-    interleave (gemma3) are not ported yet and raise
+    """GQA decoder-only LM; optional MoE FFN; optional VLM patch
+    embeddings (llava) via ``extra_embeds``.  MLA and the local:global
+    sliding-window interleave (gemma3) are not ported yet and raise
     ``NotImplementedError`` at construction."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
@@ -54,10 +57,6 @@ class DecoderLM:
             raise NotImplementedError(
                 f"{cfg.name}: attention={cfg.attention!r} is not ported "
                 f"yet (ROADMAP queue 1: MLA)")
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP queue "
-                f"1: moe.py + moe_gemm kernel)")
         if cfg.local_global_pattern or cfg.sliding_window:
             raise NotImplementedError(
                 f"{cfg.name}: local/global sliding-window layers are not "
@@ -66,14 +65,28 @@ class DecoderLM:
         self.device = resolve_device(device)
 
     # --- params ------------------------------------------------------------
-    def _block_defs(self) -> dict:
+    def _block_defs(self, is_moe_layer: bool) -> dict:
         cfg = self.cfg
-        return {
+        d = {
             "ln_attn": norm_defs(cfg.d_model),
             "ln_ffn": norm_defs(cfg.d_model),
             "attn": attn.gqa_defs(cfg),
-            "ffn": ffn_defs(cfg.d_model, cfg.d_ff, cfg.dtype),
         }
+        if is_moe_layer:
+            d["moe"] = moe_mod.moe_defs(cfg)
+        else:
+            d["ffn"] = ffn_defs(cfg.d_model, cfg.d_ff, cfg.dtype)
+        return d
+
+    def _stacks(self) -> list[tuple[str, str, int]]:
+        """(param key, cache key, layers) of each stack, in execution
+        order: ``dense_blocks`` then ``blocks`` when an MoE config starts
+        with dense layers, else ``blocks`` alone."""
+        cfg = self.cfg
+        if cfg.moe is not None and cfg.moe_layer_start > 0:
+            return [("dense_blocks", "dense", cfg.moe_layer_start),
+                    ("blocks", "moe", cfg.num_layers - cfg.moe_layer_start)]
+        return [("blocks", "blocks", cfg.num_layers)]
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -84,7 +97,9 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                     (FSDP, TP), cfg.dtype)
-        defs["blocks"] = stack_defs(self._block_defs(), cfg.num_layers)
+        for key, _, n in self._stacks():
+            defs[key] = stack_defs(
+                self._block_defs(cfg.moe is not None and key == "blocks"), n)
         return defs
 
     def init(self, generator: torch.Generator) -> dict:
@@ -100,19 +115,25 @@ class DecoderLM:
                                        cache=cache, cache_len=cache_len)
         x = x + a
         h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
-        return x + apply_ffn(p["ffn"], h), new_cache
+        if "moe" in p:
+            f = moe_mod.apply_moe(p["moe"], cfg, h)
+        else:
+            f = apply_ffn(p["ffn"], h)
+        return x + f, new_cache
 
     def _apply_layers(self, params, x, positions, *, caches=None,
                       cache_len=0):
-        layers = _unstack(params["blocks"])
+        for key, ckey, _ in self._stacks():
+            layers = _unstack(params[key])
+            if caches is None:
+                for p in layers:
+                    x, _ = self._block(p, x, positions)
+                continue
+            for p, c in zip(layers, _unstack(caches[ckey])):
+                x, _ = self._block(p, x, positions, cache=(c["k"], c["v"]),
+                                   cache_len=cache_len)
         if caches is None:
-            for p in layers:
-                x, _ = self._block(p, x, positions)
             return x
-        layer_caches = _unstack(caches["blocks"])
-        for p, c in zip(layers, layer_caches):
-            x, _ = self._block(p, x, positions, cache=(c["k"], c["v"]),
-                               cache_len=cache_len)
         return x, caches      # the per-layer views wrote into ``caches``
 
     def _embed_tokens(self, params, tokens, extra_embeds=None):
@@ -146,15 +167,20 @@ class DecoderLM:
 
     # --- caches ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed static cache ``{"blocks": {"k", "v"}}``, each leaf
-        [layers, batch, max_len, KV, head_dim] in the config's dtype."""
+        """Zeroed static cache ``{"blocks": {"k", "v"}}`` (``{"dense":
+        ..., "moe": ...}`` when an MoE config starts with dense layers),
+        each leaf [layers, batch, max_len, KV, head_dim] in the config's
+        dtype."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
         dt = torch_dtype(cfg.dtype)
-        return {"blocks": {
-            "k": torch.zeros(shape, dtype=dt, device=self.device),
-            "v": torch.zeros(shape, dtype=dt, device=self.device)}}
+        out = {}
+        for _, ckey, n in self._stacks():
+            shape = (n, batch, max_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            out[ckey] = {
+                "k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        return out
 
     # prefill / decode ------------------------------------------------------
     def prefill(self, params: dict, tokens: torch.Tensor, cache,

@@ -1,5 +1,6 @@
-"""The port's layers, GQA block and DecoderLM against the JAX package, from
-converted parameters, on the SMOKE configs of the dense GQA family.
+"""The port's layers, GQA block, MoE layer, DecoderLM and RWKVLM against
+the JAX package, from converted parameters, on the SMOKE configs of the
+GQA family (dense and MoE) and of rwkv6.
 
 The same inputs (numpy, seeded) go through both.  On the CPU the port's
 attention goes through the plain versions of its kernels, which keep
@@ -20,16 +21,21 @@ import torch
 from repro.configs.archs import SMOKE as JAX_SMOKE
 from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
+from repro.models import moe as jax_moe
 from repro.models.families import build_model as jax_build_model
 from repro_torch.configs.archs import SMOKE
 from repro_torch.convert import params_from_jax
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.models import moe
 from repro_torch.models.families import build_model
 
-ARCHS = ["qwen3-1.7b", "glm4-9b", "qwen1.5-4b", "llava-next-mistral-7b"]
-NOT_PORTED = ["gemma3-4b", "granite-moe-3b-a800m", "deepseek-v2-236b",
-              "zamba2-2.7b", "rwkv6-3b", "whisper-small"]
+ARCHS = ["qwen3-1.7b", "glm4-9b", "qwen1.5-4b", "llava-next-mistral-7b",
+         "granite-moe-3b-a800m"]
+# every ported model, GQA or not: the model-level cases run on these
+MODELS = ARCHS + ["rwkv6-3b"]
+NOT_PORTED = ["gemma3-4b", "deepseek-v2-236b", "zamba2-2.7b",
+              "whisper-small"]
 B, S = 2, 16
 
 
@@ -64,9 +70,9 @@ def softmax_err(a, b) -> float:
 class Pair:
     """One config built in both packages from the same parameters."""
 
-    def __init__(self, arch: str, dtype: str):
-        self.jcfg = dataclasses.replace(JAX_SMOKE[arch], dtype=dtype)
-        self.cfg = dataclasses.replace(SMOKE[arch], dtype=dtype)
+    def __init__(self, arch: str, dtype: str, **over):
+        self.jcfg = dataclasses.replace(JAX_SMOKE[arch], dtype=dtype, **over)
+        self.cfg = dataclasses.replace(SMOKE[arch], dtype=dtype, **over)
         self.jmodel = jax_build_model(self.jcfg)
         self.jparams = self.jmodel.init(jax.random.PRNGKey(1))
         # biases and norm weights are zero-initialised: perturb them so
@@ -101,10 +107,11 @@ _PAIRS: dict = {}
 @pytest.fixture(scope="module")
 def pair():
     """Factory with a per-module cache: ``pair(arch, dtype)``."""
-    def get(arch, dtype):
-        if (arch, dtype) not in _PAIRS:
-            _PAIRS[(arch, dtype)] = Pair(arch, dtype)
-        return _PAIRS[(arch, dtype)]
+    def get(arch, dtype, **over):
+        key = (arch, dtype, tuple(sorted(over.items())))
+        if key not in _PAIRS:
+            _PAIRS[key] = Pair(arch, dtype, **over)
+        return _PAIRS[key]
     yield get
     _PAIRS.clear()
 
@@ -167,7 +174,7 @@ def test_unembed_logits_both_layouts():
         assert max_err(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_param_tree_lines_up_with_jax(arch, pair):
     """Same keys, shapes and dtypes as the JAX package's tree, and the
     port's own init is deterministic in its generator's seed."""
@@ -274,7 +281,7 @@ def _torch_logits(p):
     return full, pre, dec
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_decoder_lm_float32_logits_match_jax(arch, pair):
     p = pair(arch, "float32")
     jfull, jpre, jdec = _jax_logits(p)
@@ -286,7 +293,7 @@ def test_decoder_lm_float32_logits_match_jax(arch, pair):
     assert max_err(tdec, jdec) < 1e-4
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 def test_decoder_lm_bfloat16_softmax_matches_jax(arch, pair):
     p = pair(arch, "bfloat16")
     jfull, jpre, jdec = _jax_logits(p)
@@ -298,7 +305,7 @@ def test_decoder_lm_bfloat16_softmax_matches_jax(arch, pair):
     assert softmax_err(tdec, jdec) < 0.05
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", MODELS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_decode_consistent_with_forward(arch, dtype, pair):
     """The port's own prefill + decode against its full forward."""
@@ -347,3 +354,156 @@ def test_convert_rejects_mismatched_trees(pair):
     bad = {k: v for k, v in tree.items() if k != "ln_f"}
     with pytest.raises(ValueError, match="keys"):
         params_from_jax(bad, p.cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# MoE layer
+# ---------------------------------------------------------------------------
+
+GRANITE = "granite-moe-3b-a800m"
+SHARED_MOE = dict(
+    moe=dataclasses.replace(SMOKE[GRANITE].moe, num_shared_experts=1,
+                            d_shared=32),
+    moe_layer_start=1)
+
+
+@pytest.mark.parametrize("variant", ["routed", "shared"])
+def test_apply_moe_matches_jax_with_dropped_tokens(variant, pair):
+    """S = 64 with capacity factor 0.5: capacity 16 for 128 (token,
+    expert) pairs over 4 experts, so tokens are dropped; the shared
+    expert adds its dense FFN."""
+    over = SHARED_MOE if variant == "shared" else {}
+    p = pair(GRANITE, "float32", **over)
+    m = dataclasses.replace(p.cfg.moe, capacity_factor=0.5)
+    cfg = dataclasses.replace(p.cfg, moe=m)
+    jcfg = dataclasses.replace(p.jcfg, moe=dataclasses.replace(
+        p.jcfg.moe, capacity_factor=0.5))
+    assert moe._capacity(64, cfg) == 16
+    x = np.random.default_rng(21).standard_normal(
+        (B, 64, cfg.d_model), dtype=np.float32)
+    jp = jax.tree.map(lambda a: a[0], p.jparams["blocks"]["moe"])
+    tp = {k: (v[0] if not isinstance(v, dict) else
+              {kk: vv[0] for kk, vv in v.items()})
+          for k, v in p.params["blocks"]["moe"].items()}
+    assert ("shared" in tp) == (variant == "shared")
+    want = jax_moe.apply_moe(jp, jcfg, jnp.asarray(x))
+    got = moe.apply_moe(tp, cfg, torch.from_numpy(x))
+    assert got.shape == (B, 64, cfg.d_model)
+    assert max_err(got, want) < 1e-5
+    # tokens were dropped: some per-expert load exceeds the capacity
+    logits = torch.from_numpy(x) @ tp["router"]
+    top_e = torch.topk(torch.softmax(logits, -1), m.top_k, -1).indices
+    load = torch.nn.functional.one_hot(top_e, m.num_experts).sum((1, 2))
+    assert int(load.max()) > 16
+
+
+def test_moe_route_holds_given_experts(pair):
+    """``route`` picks the top-k experts, or takes them as given and
+    renormalises their gates (a measurement's way of holding two runs to
+    one routing)."""
+    p = pair(GRANITE, "float32")
+    rp = {"router": p.params["blocks"]["moe"]["router"][0]}
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, 5, p.cfg.d_model), dtype=np.float32))
+    g, e = moe.route(rp, p.cfg, x)
+    assert e.shape == (B, 5, p.cfg.moe.top_k)
+    assert torch.allclose(g.sum(-1), torch.ones(B, 5))
+    g2, e2 = moe.route(rp, p.cfg, x, experts=e)
+    assert torch.equal(e2, e) and torch.allclose(g2, g)
+    other = torch.flip(e, dims=[-1]) if p.cfg.moe.top_k > 1 else e
+    g3, _ = moe.route(rp, p.cfg, x, experts=other)
+    assert torch.allclose(g3, torch.flip(g, dims=[-1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_with_dense_first_layer_and_shared_experts(dtype, pair):
+    """``moe_layer_start = 1``: a ``dense_blocks`` stack before the MoE
+    ``blocks``, caches ``{"dense", "moe"}``; logits against the JAX model
+    and prefill/decode against forward."""
+    p = pair(GRANITE, dtype, **SHARED_MOE)
+    assert set(p.params) >= {"dense_blocks", "blocks"}
+    assert "ffn" in p.params["dense_blocks"]
+    assert "shared" in p.params["blocks"]["moe"]
+    jfull, jpre, jdec = _jax_logits(p)
+    tfull, tpre, tdec = _torch_logits(p)
+    cache = p.model.init_cache(B, 4)
+    assert set(cache) == {"dense", "moe"}
+    assert cache["dense"]["k"].shape[0] == 1
+    assert cache["moe"]["k"].shape[0] == p.cfg.num_layers - 1
+    if dtype == "float32":
+        assert max_err(tfull, jfull) < 1e-4
+        assert max_err(tpre, jpre) < 1e-4
+        assert max_err(tdec, jdec) < 1e-4
+        assert max_err(tfull[:, S], tdec[:, 0]) < 1e-4
+    else:
+        assert softmax_err(tfull, jfull) < 0.03
+        assert softmax_err(tdec, jdec) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# RWKVLM
+# ---------------------------------------------------------------------------
+
+RWKV = "rwkv6-3b"
+
+
+def _rwkv_logits_both(p, plen):
+    """Prefill over ``plen`` tokens (not a chunk multiple), two decode
+    steps, and the full forward, in both packages."""
+    toks = p.tokens[:, : plen + 2]
+    jcache = p.jmodel.init_cache(B, 0)
+    jpre, jcache = p.jmodel.prefill(p.jparams, jnp.asarray(toks[:, :plen]),
+                                    jcache)
+    jdec = []
+    for i in range(2):
+        lg, jcache = p.jmodel.decode_step(
+            p.jparams, jnp.asarray(toks[:, plen + i: plen + i + 1]), jcache,
+            jnp.int32(plen + i))
+        jdec.append(lg)
+    jfull = p.jmodel.forward(p.jparams, jnp.asarray(toks))
+    with torch.inference_mode():
+        tt = torch.from_numpy(toks)
+        cache = p.model.init_cache(B, 0)
+        tpre, out = p.model.prefill(p.params, tt[:, :plen], cache)
+        assert out is cache
+        tdec = []
+        for i in range(2):
+            lg, cache = p.model.decode_step(
+                p.params, tt[:, plen + i: plen + i + 1], cache, plen + i)
+            tdec.append(lg)
+        tfull = p.model.forward(p.params, tt)
+    return (jpre, jdec, jfull, jcache), (tpre, tdec, tfull, cache)
+
+
+@pytest.mark.parametrize("plen", [7, 10])
+def test_rwkv_prefill_pads_and_decodes_like_jax(plen, pair):
+    p = pair(RWKV, "float32")
+    assert plen % p.cfg.rwkv.chunk
+    (jpre, jdec, jfull, jcache), (tpre, tdec, tfull, cache) = \
+        _rwkv_logits_both(p, plen)
+    assert max_err(tpre, jpre) < 1e-4
+    for a, b in zip(tdec, jdec):
+        assert max_err(a, b) < 1e-4
+    assert max_err(tfull, jfull) < 1e-4
+    # the port's own prefill + decode against its forward
+    assert max_err(tfull[:, plen - 1], tpre[:, 0]) < 1e-4
+    assert max_err(tfull[:, plen + 1], tdec[1][:, 0]) < 1e-4
+    for key in ("shift", "wkv", "cshift"):
+        assert max_err(cache[key], jcache[key]) < 1e-4
+
+
+def test_rwkv_strong_decay_through_the_model(pair):
+    """decay_base = 3 makes w = exp(-exp(3 + ...)) far below 1e-6: the
+    model's clamp holds it at 1e-6, the scan stays finite and equal to
+    the JAX model."""
+    base = pair(RWKV, "float32")
+    p = Pair(RWKV, "float32")
+    p.jparams["blocks"]["time"]["decay_base"] = jnp.full_like(
+        base.jparams["blocks"]["time"]["decay_base"], 3.0)
+    p.params = params_from_jax(to_numpy_tree(p.jparams), p.cfg,
+                               device="cpu")
+    (jpre, jdec, jfull, _), (tpre, tdec, tfull, _) = _rwkv_logits_both(p, 7)
+    assert bool(torch.isfinite(tfull).all())
+    assert max_err(tfull, jfull) < 1e-4
+    assert max_err(tpre, jpre) < 1e-4
+    assert max_err(tdec[1], jdec[1]) < 1e-4

@@ -1,7 +1,9 @@
 """The port's serving engine on the CPU: the cases of
 ``tests/test_serving.py`` and the engine case of ``tests/test_faults.py``
 re-run on ``repro_torch``, and — in float32, from converted parameters —
-the same greedy tokens as the JAX engine for every stage of the workflow.
+the same greedy tokens as the JAX engine for every stage of the workflow,
+served by the dense pair (qwen3 + glm4) and by the MoE + RWKV6 pair
+(granite-moe as ``"qwen-7b"``, rwkv6 as ``"llama-8b"``).
 """
 import dataclasses
 
@@ -259,3 +261,59 @@ def test_same_greedy_tokens_as_jax_engine(float32_engines, policy,
         if pres[sid].device_ids == jres[sid].device_ids:
             assert pres[sid].switched == jres[sid].switched
             assert pres[sid].prefix_hit == jres[sid].prefix_hit
+
+
+def _moe_rwkv_configs(smoke):
+    return {"qwen-7b": (dataclasses.replace(
+                smoke["granite-moe-3b-a800m"], dtype="float32"), 0),
+            "llama-8b": (dataclasses.replace(
+                smoke["rwkv6-3b"], dtype="float32"), 1)}
+
+
+@pytest.fixture(scope="module")
+def moe_rwkv_engines():
+    """granite-moe and rwkv6 SMOKE bundles in float32, JAX and port."""
+    jax_bundles, port_bundles = {}, {}
+    port_cfgs = _moe_rwkv_configs(SMOKE)
+    for name, (jcfg, seed) in _moe_rwkv_configs(JAX_SMOKE).items():
+        jb = jax_engine.ModelBundle.create(name, jcfg, seed=seed)
+        jax_bundles[name] = jb
+        tree = jax.tree.map(
+            lambda x: np.asarray(x.astype(jnp.float32)), jb.params)
+        cfg = port_cfgs[name][0]
+        port_bundles[name] = ModelBundle.create(
+            name, cfg, device="cpu",
+            params=params_from_jax(tree, cfg, device="cpu"))
+    return jax_bundles, port_bundles
+
+
+@pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
+                                              ("RoundRobin", 1)])
+def test_moe_rwkv_workflow_same_greedy_tokens_as_jax_engine(
+        moe_rwkv_engines, policy, n_devices):
+    """Prompt length 7 is not a multiple of rwkv6's chunk (4), so the
+    scan's state-neutral padding is on the served path."""
+    jax_bundles, port_bundles = moe_rwkv_engines
+    prompts = _prompts(8, plen=7)
+    gen_len = 4
+    assert 7 % port_bundles["llama-8b"].cfg.rwkv.chunk
+
+    jeng = jax_engine.ServingEngine(jax_bundles, n_devices=n_devices,
+                                    gen_len=gen_len, prompt_len=7)
+    jres = jeng.run_workflow(
+        _workflow(JaxStage, JaxWorkflow), jax_make_policy(policy),
+        jax_fresh_state(jax_cluster(n_devices)), jnp.asarray(prompts))
+
+    peng = ServingEngine(port_bundles, n_devices=n_devices, device="cpu",
+                         gen_len=gen_len, prompt_len=7)
+    pres = peng.run_workflow(
+        _workflow(), make_policy(policy),
+        fresh_state(homogeneous_cluster(n_devices)),
+        torch.from_numpy(prompts))
+
+    assert set(pres) == set(jres) == set(_workflow().stages)
+    for sid in jres:
+        want = np.asarray(jres[sid].tokens_out)
+        got = pres[sid].tokens_out.numpy()
+        assert got.shape == want.shape == (4, gen_len)
+        assert np.array_equal(got, want), sid
