@@ -14,8 +14,10 @@ ends the run with a non-zero exit code and no result line:
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
    sweep (1e-5 / 3e-2 relative) plus a strided [B, E, C, D] case,
    rwkv6_scan over its sweep (5e-4, finite under strong decay) plus an
-   initial state and bf16 inputs; and each at the serving paths' own
-   shapes, where it is also timed beside its plain version, one PyTorch
+   initial state and bf16 inputs, mamba2_scan over its sweep (5e-4 on
+   the output and the final state) plus an initial state and bf16 inputs;
+   and each at the serving paths' own shapes (zamba2's attention at head
+   dim 80), where it is also timed beside its plain version, one PyTorch
    call computing the same function where there is one (yardstick only;
    the port never calls it) and the least time the card could take.
 3. ``serve``   – the retrieve -> work_a, work_b -> merge workflow of
@@ -38,6 +40,18 @@ ends the run with a non-zero exit code and no result line:
    at full depth (the kernel path must reproduce the served tokens) and
    in float32 at full width with 4 layers (logits within 1e-3 of their
    largest magnitude, every greedy token equal).
+7. ``serve_hybrid`` – the same workflow with zamba2-2.7b (54 Mamba2
+   layers, one shared attention block at 9 sites, head dim 80) as
+   "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and depth with
+   their published vocabularies, after the second pair's weights are
+   freed: the Mamba2 scan (K4) launches once per layer at zamba2's
+   prefills, K1 and K2 once per attention site.
+8. ``parity_hybrid`` – zamba2's first served shard teacher-forced with
+   the kernels and with the plain versions: in bf16 at full depth (the
+   kernel path must reproduce the served tokens) and in float32 at full
+   width with 7 layers, one attention site and one tail layer (logits
+   within 1e-3 of their largest magnitude, every greedy token equal);
+   every block's own difference reported beside both.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers, the
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  There is no
@@ -67,10 +81,15 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 PARITY_LOGIT_TOL = 0.1
 PROMPT_LEN, GEN_LEN, NUM_QUERIES, N_DEVICES = 512, 32, 8, 2
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
-RWKV_TOL = 5e-4          # absolute, float32 outputs
-RWKV_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
-# float32 parity at full width, cut to this many layers
+SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
+SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
+# float32 parity at full width, cut to this many layers (the hybrid to
+# one attention site, after 6 layers, plus a tail layer)
 PARITY_F32_LAYERS, PARITY_F32_REL = 4, 1e-3
+HYBRID_F32_LAYERS = 7
+# bf16 hybrid at full depth: each block's kernel-vs-plain difference on
+# the same input, relative to its output (a few bf16 rounding steps)
+HYBRID_BF16_BLOCK_REL = 2 ** -6
 
 FLASH_SWEEP = [(1, 128, 128, 4, 2, 64), (2, 256, 256, 4, 4, 32),
                (1, 64, 64, 8, 2, 128), (2, 100, 100, 4, 2, 64)]
@@ -78,10 +97,12 @@ FLASH_MODES = [(True, 0), (False, 0), (True, 64)]
 DECODE_SWEEP = [512, 300, 17, 1]
 MOE_SWEEP = [(4, 96, 160, 192), (2, 128, 64, 64), (8, 40, 100, 70)]
 RWKV_SWEEP = [(64, 16), (96, 32)]
+MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
     "moe_gemm": "src/repro/kernels/moe_gemm.py:39",
+    "mamba2_scan": "src/repro/kernels/mamba2_scan.py:66",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
 }
 
@@ -278,6 +299,16 @@ def rwkv_flops(b, s, h, d, chunk) -> float:
     return b * h * (s // chunk) * per_chunk
 
 
+def scan_tols(dtype, want, wfin) -> tuple[float, float]:
+    """Bars of a scan's output and final state: SCAN_TOL in float32; a
+    bf16 output rounded once (SCAN_BF16_REL of its largest magnitude),
+    its float32 state to SCAN_TOL of its own magnitude."""
+    if dtype == torch.float32:
+        return SCAN_TOL, SCAN_TOL
+    return (SCAN_BF16_REL * float(want.float().abs().max()),
+            SCAN_TOL * max(1.0, float(wfin.abs().max())))
+
+
 def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
               state=False, timed=False):
     b, s, h, d = shape
@@ -293,11 +324,7 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
     torch.cuda.synchronize()
     want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0)
     err, fin_err = max_abs_err(out, want), max_abs_err(fin, wfin)
-    if dtype == torch.float32:
-        tol, fin_tol = RWKV_TOL, RWKV_TOL
-    else:
-        tol = RWKV_BF16_REL * float(want.float().abs().max())
-        fin_tol = RWKV_TOL * max(1.0, float(wfin.abs().max()))
+    tol, fin_tol = scan_tols(dtype, want, wfin)
     rec = {"shape": list(shape), "chunk": chunk,
            "dtype": str(dtype).split(".")[-1], "strong_decay": strong_decay,
            "initial_state": state, "max_abs_err": err,
@@ -316,12 +343,65 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
     return rec
 
 
+def mamba_flops(b, s, h, p, n, chunk) -> float:
+    """Float32 operations of the chunked Mamba2 scan, pairs on and below
+    the diagonal only (exp counted as one): the scores c . b once per
+    (batch, chunk), since b and c are shared by every head; per head
+    their decay and dt, the intra-chunk product with x, the carried
+    state's contribution and its update."""
+    pairs = chunk * (chunk + 1) / 2
+    per_head = pairs * (3 + 2 * p) + 4 * chunk * p * n
+    return b * (s // chunk) * (h * per_head + pairs * 2 * n)
+
+
+def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
+               sliced=False, timed=False):
+    """``sliced``: xh, b and c are column slices of one [B, S, H*P + 2N]
+    tensor, as ``mamba2_forward`` hands them to the kernel."""
+    b, s, h, p, n = shape
+    if sliced:
+        xbc = randn(rng, (b, s, h * p + 2 * n), dtype)
+        xh = xbc[..., :h * p].view(b, s, h, p)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        xh = randn(rng, (b, s, h, p), dtype)
+        bm = randn(rng, (b, s, n), dtype)
+        cm = randn(rng, (b, s, n), dtype)
+    dt = torch.nn.functional.softplus(randn(rng, (b, s, h), torch.float32))
+    a_log = randn(rng, (h,), torch.float32) * 0.5
+    st0 = randn(rng, (b, h, p, n), torch.float32) if state else None
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=chunk, state0=st0)
+    torch.cuda.synchronize()
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    err, fin_err = max_abs_err(y, want), max_abs_err(fin, wfin)
+    tol, fin_tol = scan_tols(dtype, want, wfin)
+    rec = {"shape": [list(xh.shape), list(bm.shape)], "chunk": chunk,
+           "dtype": str(dtype).split(".")[-1], "initial_state": state,
+           "column_slices": sliced,
+           "max_abs_err": err, "state_max_abs_err": fin_err, "tol": tol,
+           "state_tol": fin_tol,
+           "ok": bool(err <= tol) and bool(fin_err <= fin_tol)
+           and bool(torch.isfinite(y.float()).all())}
+    if timed:
+        given = [st0] if st0 is not None else []
+        b_ms, by = bound(nbytes(xh, bm, cm, dt, a_log, y, fin, *given),
+                         mamba_flops(b, s, h, p, n, chunk), torch.float32)
+        rec.update(
+            ms=time_ms(lambda: ops.mamba2_scan(xh, bm, cm, dt, a_log,
+                                               chunk=chunk, state0=st0)),
+            plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
+                xh, bm, cm, dt, a_log, state0=st0), iters=2, warmup=1),
+            library_ms=None, bound_ms=b_ms, bound_by=by)
+    return rec
+
+
 def sweep_err(cases, field="max_abs_err"):
     return {dt: max(c[field] for c in cases if c["dtype"] == dt)
             for dt in sorted({c["dtype"] for c in cases})}
 
 
-def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, seed: int) -> dict:
+def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
+                  seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
     flash_sweep, decode_sweep = [], []
@@ -393,11 +473,32 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, seed: int) -> dict:
     rwkv_main = {f"prefill/nq{NUM_QUERIES}": rwkv_case(
         ops, ref, rng, rshape, rwkv_cfg.rwkv.chunk,
         getattr(torch, rwkv_cfg.dtype), timed=True)}
+    # K4: the sweep, an initial state, bf16 inputs, the serving shape (in
+    # the model's dtype, timed, and in float32 against the 5e-4 bar) on
+    # column-slice operands and a carried state, as the model passes them
+    mamba_sweep = [mamba_case(ops, ref, rng, (2, s_len, 3, 16, 8), chunk,
+                              torch.float32)
+                   for s_len, chunk in MAMBA_SWEEP]
+    mamba_sweep.append(mamba_case(ops, ref, rng, (2, 256, 3, 64, 64), 128,
+                                  torch.float32, state=True))
+    mamba_sweep.append(mamba_case(ops, ref, rng, (2, 256, 3, 64, 64), 128,
+                                  torch.bfloat16, state=True))
+    sc = mamba_cfg.ssm
+    nh = sc.expand * mamba_cfg.d_model // sc.head_dim
+    mshape = (NUM_QUERIES, PROMPT_LEN, nh, sc.head_dim, sc.state_dim)
+    mamba_main = {
+        f"prefill/nq{NUM_QUERIES}": mamba_case(
+            ops, ref, rng, mshape, sc.chunk, getattr(torch, mamba_cfg.dtype),
+            state=True, sliced=True, timed=True),
+        f"prefill_float32/nq{NUM_QUERIES}": mamba_case(
+            ops, ref, rng, mshape, sc.chunk, torch.float32, state=True,
+            sliced=True)}
 
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
              + list(decode_main.values()) + moe_sweep
              + list(moe_main.values()) + rwkv_sweep
-             + list(rwkv_main.values()))
+             + list(rwkv_main.values()) + mamba_sweep
+             + list(mamba_main.values()))
     bad = [c for c in cases if not c["ok"]]
     out = {
         "phase": "kernels", "ok": not bad, "n_cases": len(cases),
@@ -417,6 +518,12 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, seed: int) -> dict:
             "sweep_cases": len(rwkv_sweep),
             "sweep_max_abs_err": sweep_err(rwkv_sweep),
             "main_path": rwkv_main},
+        "mamba2_scan": {
+            "sweep_cases": len(mamba_sweep),
+            "sweep_max_abs_err": sweep_err(mamba_sweep),
+            "sweep_state_max_abs_err": sweep_err(mamba_sweep,
+                                                 "state_max_abs_err"),
+            "main_path": mamba_main},
         "failed": bad,
     }
     emit(out)
@@ -461,14 +568,22 @@ def expected_launches(bundles, wf, placements) -> dict:
     model that attends launches K1 once per layer at prefill and K2 once
     per layer at each of the GEN_LEN - 1 decode steps; an MoE model K3
     three times per MoE layer at prefill and at every decode step; an
-    RWKV6 model K5 once per layer at prefill (its decode step is plain)."""
-    exp = {"flash_attention": 0, "decode_attention": 0, "moe_gemm": 0,
-           "rwkv6_scan": 0}
+    RWKV6 model K5 once per layer at prefill (its decode step is plain);
+    a Mamba2 hybrid K4 once per layer at prefill (its decode step is
+    plain), and K1, K2 as above once per attention site instead of per
+    layer."""
+    exp = dict.fromkeys(REPLACES, 0)
     for p in placements:
         cfg = bundles[wf.stages[p.sid].model].cfg
         runs = sum(1 for n in p.shard_sizes if n)
         if cfg.rwkv is not None:
             exp["rwkv6_scan"] += cfg.num_layers * runs
+            continue
+        if cfg.ssm is not None:
+            sites = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+            exp["mamba2_scan"] += cfg.num_layers * runs
+            exp["flash_attention"] += sites * runs
+            exp["decode_attention"] += sites * runs * (GEN_LEN - 1)
             continue
         exp["flash_attention"] += cfg.num_layers * runs
         exp["decode_attention"] += cfg.num_layers * runs * (GEN_LEN - 1)
@@ -719,6 +834,54 @@ def layerwise(ops, ref, moe_mod, bundle, shard, served) -> dict:
     return worst
 
 
+def hybrid_layerwise(ops, ref, bundle, shard, served) -> dict:
+    """Every block of a Mamba2Hybrid run twice on the same input: with the
+    kernels, and with the plain versions.  Per kind of block, the largest
+    difference of the two outputs relative to the largest magnitude of
+    the block's update (output less input) and of its output, over the
+    prefill and every decode step (a Mamba2 block reaches its kernel at
+    prefill only).  In bf16 the output is the residual sum rounded once,
+    so one rounding step there (2**-8 of the output) can be a large share
+    of a small update.  The plain call of an attention block writes the
+    same cache rows again: the projections that fill them use no
+    kernel."""
+    model = bundle._model
+    ssm_block, attn_block = model._ssm_block, model._attn_block
+    worst = {kind: {"rel_to_update": 0.0, "rel_to_output": 0.0}
+             for kind in ("mamba2", "attention")}
+    worst["block_calls"] = 0
+
+    def note(kind, x, out, plain):
+        diff = float((plain.float() - out.float()).abs().max())
+        w = worst[kind]
+        w["rel_to_update"] = max(w["rel_to_update"], diff / max(
+            1e-30, float((out - x).float().abs().max())))
+        w["rel_to_output"] = max(w["rel_to_output"], diff / max(
+            1e-30, float(out.float().abs().max())))
+        worst["block_calls"] += 1
+
+    def checked_ssm(p, x, state, decode):
+        out, new = ssm_block(p, x, state, decode)
+        with plain_versions(ops, ref):
+            plain, _ = ssm_block(p, x, state, decode)
+        note("mamba2", x, out, plain)
+        return out, new
+
+    def checked_attn(p, x, positions, cache, cache_len):
+        out = attn_block(p, x, positions, cache, cache_len)
+        with plain_versions(ops, ref):
+            plain = attn_block(p, x, positions, cache, cache_len)
+        note("attention", x, out, plain)
+        return out
+
+    model._ssm_block, model._attn_block = checked_ssm, checked_attn
+    try:
+        teacher_forced(bundle, shard, served)
+    finally:
+        del model._ssm_block, model._attn_block
+    return worst
+
+
 def first_shard(placements, wf, prompts, results, model: str):
     """The sid, prompts and served tokens of the first shard ``model``
     served (a stage's first non-empty shard takes its first queries)."""
@@ -803,6 +966,58 @@ def phase_parity_moe_rwkv(mods, bundles, prompts, policy, results, wf,
     emit(out)
     if problems:
         fail("parity_moe_rwkv phase failed: " + "; ".join(problems))
+    return out
+
+
+@torch.inference_mode()
+def phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
+                        seed: int) -> dict:
+    """The hybrid, served as "qwen-7b": bf16 at full depth (gates: finite logits, the
+    served tokens reproduced, each block's difference within
+    HYBRID_BF16_BLOCK_REL of its output; the logit difference and greedy
+    agreement are reported), then float32 at full width and HYBRID_F32_LAYERS
+    layers (gates: logits within PARITY_F32_REL of their largest
+    magnitude and every greedy token equal).  Beside both, each block's
+    own difference on the same input (``hybrid_layerwise``): where the
+    whole model's kernel and plain runs part, it tells a kernel that
+    disagrees from a model that amplifies agreeing blocks' roundings."""
+    ops, ref = mods["ops"], mods["ref"]
+    name = "qwen-7b"
+    bundle = bundles[name]
+    sid, shard, served = first_shard(policy.placements, wf, prompts,
+                                     results, name)
+    problems = []
+    bf16 = kernel_vs_plain(ops, ref, bundle, shard, served)
+    bf16["layerwise"] = hybrid_layerwise(ops, ref, bundle, shard, served)
+    bf16["block_tol"] = HYBRID_BF16_BLOCK_REL
+    if not (bf16["finite"] and bf16["kernel_path_reproduces_served_tokens"]):
+        problems.append(f"{bundle.cfg.name} bf16: logits not finite or "
+                        f"served tokens not reproduced")
+    for kind in ("mamba2", "attention"):
+        if bf16["layerwise"][kind]["rel_to_output"] > HYBRID_BF16_BLOCK_REL:
+            problems.append(f"{bundle.cfg.name} bf16: a {kind} block's "
+                            f"kernel and plain outputs differ beyond "
+                            f"{HYBRID_BF16_BLOCK_REL} of its output")
+    cfg32 = dataclasses.replace(bundle.cfg, dtype="float32",
+                                num_layers=HYBRID_F32_LAYERS)
+    b32 = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+    f32 = kernel_vs_plain(ops, ref, b32, shard, served)
+    f32["attention_sites"] = b32._model.n_attn
+    f32["tol"] = PARITY_F32_REL * f32["logit_abs_max"]
+    f32["layerwise"] = hybrid_layerwise(ops, ref, b32, shard, served)
+    del b32
+    if not (f32["finite"] and f32["max_logit_diff"] <= f32["tol"]
+            and f32["greedy_tokens_agree"]):
+        problems.append(f"{cfg32.name} float32: kernels and plain versions "
+                        f"differ beyond {f32['tol']} or greedy tokens "
+                        f"differ")
+    out = {"phase": "parity_hybrid", "ok": not problems,
+           name: {"stage": sid, "bf16_full_depth": bf16,
+                  "float32_cut_depth": f32},
+           "problems": problems}
+    emit(out)
+    if problems:
+        fail("parity_hybrid phase failed: " + "; ".join(problems))
     return out
 
 
@@ -891,11 +1106,13 @@ def phase_profile(bundles, prompts, name: str) -> dict:
 def kernel_summary(kernels_out, serve_outs) -> dict:
     """One row per kernel: its time at the main shape (the first timed
     one: qwen3's for K1 and K2, the gate/up projection at prefill for K3,
-    rwkv6's prefill for K5) and its launches summed over the serve
-    phases, with the other timed shapes and the launches per phase."""
+    zamba2's prefill for K4, rwkv6's prefill for K5) and its launches
+    summed over the serve phases, with the other timed shapes and the
+    launches per phase."""
     main_key = {"flash_attention": "qwen3-1.7b",
                 "decode_attention": "qwen3-1.7b",
-                "moe_gemm": "prefill_up", "rwkv6_scan": "prefill"}
+                "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
+                "rwkv6_scan": "prefill"}
     rows = []
     for name in REPLACES:
         main = kernels_out[name]["main_path"]
@@ -953,13 +1170,14 @@ def main() -> None:
     qwen = ARCHS["qwen3-1.7b"]
     glm = dataclasses.replace(ARCHS["glm4-9b"], vocab_size=qwen.vocab_size)
     granite, rwkv = ARCHS["granite-moe-3b-a800m"], ARCHS["rwkv6-3b"]
+    zamba = ARCHS["zamba2-2.7b"]
     attn_cfgs = {"qwen3-1.7b": qwen, "glm4-9b": glm,
-                 "granite-moe-3b-a800m": granite}
+                 "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
 
     t_all = time.perf_counter()
     _, smi_line = phase_device(_build)
-    kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv,
+    kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
                                 args.seed)
     serve_out, bundles, prompts, policy, results = phase_serve(
         mods, {"qwen-7b": (qwen, args.seed), "llama-8b": (glm, args.seed + 1)},
@@ -980,7 +1198,18 @@ def main() -> None:
             phase_profile(bundles, prompts, name)
     phase_parity_moe_rwkv(mods, bundles, prompts, policy, results, wf,
                           args.seed)
-    emit(kernel_summary(kernels_out, [serve_out, serve2_out]))
+    del bundles, policy, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve3_out, bundles, prompts, policy, results = phase_serve(
+        mods, {"qwen-7b": (zamba, args.seed),
+               "llama-8b": (qwen, args.seed + 1)},
+        args.seed, phase="serve_hybrid")
+    if args.profile:
+        phase_profile(bundles, prompts, "qwen-7b")
+    phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
+                        args.seed)
+    emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {

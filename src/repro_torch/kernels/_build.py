@@ -30,7 +30,9 @@ LIB_NAME = "libfate_kernels.so"
 
 # conventions of the C interface, shared by the wrappers
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims both attention kernels are instantiated for (their dispatch
+# switches in csrc/)
+ATTN_HEAD_DIMS = (16, 32, 64, 80, 128)
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0      # wall time of the build this process made
@@ -151,6 +153,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fate_rwkv6_scan.restype = i32
     lib.fate_rwkv6_scan.argtypes = (
         [ptr] * 8 + [i32] * 5 + [i64] * 15 + [i32] + [ptr])
+    lib.fate_mamba2_scan.restype = i32
+    lib.fate_mamba2_scan.argtypes = (
+        [ptr] * 8 + [i32] * 6 + [i64] * 13 + [i32] + [ptr])
 
 
 def load() -> ctypes.CDLL:

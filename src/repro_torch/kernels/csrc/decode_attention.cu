@@ -227,6 +227,7 @@ int dispatch_head_dim(const DecodeArgs& a, int D) {
     case 16: return launch_decode<T, 16>(a);
     case 32: return launch_decode<T, 32>(a);
     case 64: return launch_decode<T, 64>(a);
+    case 80: return launch_decode<T, 80>(a);
     case 128: return launch_decode<T, 128>(a);
     default: return -1;
   }

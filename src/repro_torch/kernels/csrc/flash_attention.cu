@@ -254,6 +254,7 @@ int dispatch_head_dim(const FlashArgs& a, int D) {
     case 16: return launch_flash<T, 16>(a);
     case 32: return launch_flash<T, 32>(a);
     case 64: return launch_flash<T, 64>(a);
+    case 80: return launch_flash<T, 80>(a);
     case 128: return launch_flash<T, 128>(a);
     default: return -1;
   }

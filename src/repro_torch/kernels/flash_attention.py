@@ -84,8 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"no flash_attention kernel for {q.device}")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if d not in _build.HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_build.HEAD_DIMS}")
+    if d not in _build.ATTN_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_build.ATTN_HEAD_DIMS}")
     if sq < 1 or sk < 1 or window < 0:
         raise ValueError(f"need Sq, Sk >= 1 and window >= 0, got "
                          f"{sq}, {sk}, {window}")

@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_CHUNK = 64
+HEAD_DIMS = (16, 32, 64, 128)    # D the kernel is instantiated for
 SMEM_LIMIT = 232448          # shared memory one block may use on sm_90
 
 
@@ -108,8 +109,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return rwkv6_scan_ref(r, k, v, w, bonus, chunk=chunk, state0=state0)
     if r.device.type != "cuda":
         raise RuntimeError(f"no rwkv6_scan kernel for {r.device}")
-    if d not in _build.HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_build.HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if chunk > MAX_CHUNK or smem_bytes(d, chunk) > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk} at head dim {d} exceeds the "
                          f"kernel's shared memory")

@@ -1,9 +1,9 @@
 """Model registry of the port (the counterpart of
 ``repro.models.families``).
 
-Ported: the GQA decoder family (``DecoderLM``, dense and MoE) and
-:class:`RWKVLM`.  ``Mamba2Hybrid`` and ``EncDecLM`` raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+Ported: the GQA decoder family (``DecoderLM``, dense and MoE),
+:class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
+``NotImplementedError`` naming the ROADMAP item it waits for.
 """
 from __future__ import annotations
 
@@ -11,12 +11,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.layers import (FSDP, TP, ParamDef, embed_defs,
-                                       init_params, norm_defs, rms_norm,
-                                       stack_defs, torch_dtype,
-                                       unembed_logits)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
+                                       embed_defs, ffn_defs, init_params,
+                                       norm_defs, rms_norm, stack_defs,
+                                       torch_dtype, unembed_logits)
 from repro_torch.models.transformer import DecoderLM, _unstack
+
+
+def _head_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Final norm and the untied head of RWKVLM and Mamba2Hybrid."""
+    return unembed_logits(rms_norm(x, params["ln_f"], eps), params["head"],
+                          False)
 
 
 class RWKVLM:
@@ -79,14 +87,11 @@ class RWKVLM:
         return rms_norm(params["embed"][tokens], params["ln_in"],
                         self.cfg.norm_eps)
 
-    def _logits(self, params, x):
-        x = rms_norm(x, params["ln_f"], self.cfg.norm_eps)
-        return unembed_logits(x, params["head"], False)
-
     def forward(self, params: dict, tokens: torch.Tensor,
                 extra_embeds=None) -> torch.Tensor:
-        return self._logits(params, self._run(params,
-                                              self._embed(params, tokens)))
+        return _head_logits(params, self._run(params,
+                                              self._embed(params, tokens)),
+                            self.cfg.norm_eps)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeroed recurrent states, each leaf [layers, batch, ...]
@@ -102,21 +107,148 @@ class RWKVLM:
         """Logits of the last position, [B, 1, vocab], and the cache
         (every layer's state written in place)."""
         x = self._run(params, self._embed(params, tokens), cache)
-        return self._logits(params, x[:, -1:]), cache
+        return _head_logits(params, x[:, -1:], self.cfg.norm_eps), cache
 
     def decode_step(self, params: dict, token: torch.Tensor, cache,
                     pos: int):
         """token: [B, 1]; ``pos`` is not used (the state carries the
         position).  Returns logits [B, 1, vocab] and the cache."""
         x = self._run(params, self._embed(params, token), cache)
-        return self._logits(params, x), cache
+        return _head_logits(params, x, self.cfg.norm_eps), cache
 
 
 class Mamba2Hybrid:
+    """zamba2-2.7b: a stack of Mamba2 blocks with ONE shared attention
+    block applied after every ``attn_every``-th of them (same parameters,
+    a KV cache per site).  The facade of :class:`RWKVLM`; the cache
+    ``{"ssm": {"ssm", "conv"}, "kv": {"k", "v"}}`` (leaves [layers or
+    sites, batch, ...]) is updated IN PLACE, and ``cache_len`` / ``pos``
+    are Python ints."""
+
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 hybrid models are not ported yet (ROADMAP "
-            f"queue 1: ssm.py + mamba2_scan kernel)")
+        if cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: a Mamba2 hybrid needs cfg.ssm")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_attn = (cfg.num_layers // cfg.attn_every
+                       if cfg.attn_every else 0)
+
+    def _ssm_block_defs(self) -> dict:
+        cfg = self.cfg
+        return {"ln": norm_defs(cfg.d_model),
+                "ssm": ssm_mod.mamba2_defs(cfg)}
+
+    def _attn_block_defs(self) -> dict:
+        cfg = self.cfg
+        return {"ln_attn": norm_defs(cfg.d_model),
+                "ln_ffn": norm_defs(cfg.d_model),
+                "attn": attn.gqa_defs(cfg),
+                "ffn": ffn_defs(cfg.d_model, cfg.d_ff, cfg.dtype)}
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embed_defs(cfg.vocab_size, cfg.d_model, cfg.dtype),
+            "ln_f": norm_defs(cfg.d_model),
+            "head": ParamDef((cfg.d_model, cfg.vocab_size), (FSDP, TP),
+                             cfg.dtype),
+            "blocks": stack_defs(self._ssm_block_defs(), cfg.num_layers),
+            "shared_attn": self._attn_block_defs(),    # ONE shared block
+        }
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters drawn from ``generator``, which must live on
+        the model's device."""
+        return init_params(self.param_defs(), generator, self.device)
+
+    def _ssm_block(self, p, x, state, decode: bool):
+        h = rms_norm(x, p["ln"], self.cfg.norm_eps)
+        if decode:
+            out, new = ssm_mod.mamba2_decode(p["ssm"], self.cfg, h, state)
+        else:
+            out, new = ssm_mod.mamba2_forward(p["ssm"], self.cfg, h,
+                                              state=state)
+        return x + out, new
+
+    def _attn_block(self, p, x, positions, cache, cache_len):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        a, _ = attn.gqa_attend(p["attn"], cfg, h, positions, cache=cache,
+                               cache_len=cache_len)
+        x = x + a
+        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+        return x + apply_ffn(p["ffn"], h)
+
+    def _run(self, params, x, positions, cache=None, cache_len=0,
+             decode=False):
+        """Layer i is a Mamba2 block; after every ``attn_every``-th comes
+        the shared attention block with its site's KV cache, and the last
+        ``num_layers % attn_every`` layers form the tail.  With a cache,
+        each layer starts from its state there and writes its new state
+        back into it."""
+        k = self.cfg.attn_every
+        layers = _unstack(params["blocks"])
+        states = (_unstack(cache["ssm"]) if cache is not None
+                  else [None] * len(layers))
+        kvs = (_unstack(cache["kv"]) if cache is not None
+               else [None] * self.n_attn)
+        for i, (p, st) in enumerate(zip(layers, states)):
+            x, new = self._ssm_block(p, x, st, decode)
+            if st is not None:
+                for key, view in st.items():
+                    view.copy_(new[key])
+            if k and (i + 1) % k == 0:
+                kv = kvs[(i + 1) // k - 1]
+                x = self._attn_block(
+                    params["shared_attn"], x, positions,
+                    (kv["k"], kv["v"]) if kv is not None else None,
+                    cache_len)
+        return x
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                extra_embeds=None) -> torch.Tensor:
+        positions = torch.arange(tokens.shape[1],
+                                 device=tokens.device)[None, :]
+        x = self._run(params, params["embed"][tokens], positions)
+        return _head_logits(params, x, self.cfg.norm_eps)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Zeroed states ``{"ssm": {"ssm", "conv"}}``, each leaf
+        [layers, batch, ...], and a KV cache ``{"kv": {"k", "v"}}``, each
+        leaf [sites, batch, max_len, KV, head_dim] in the config's dtype."""
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        kv_shape = (self.n_attn, batch, max_len, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+        return {
+            "ssm": {k: torch.zeros((cfg.num_layers,) + shape,
+                                   dtype=torch_dtype(sdt), device=self.device)
+                    for k, (shape, sdt) in
+                    ssm_mod.mamba2_state_defs(cfg, batch).items()},
+            "kv": {"k": torch.zeros(kv_shape, dtype=dt, device=self.device),
+                   "v": torch.zeros(kv_shape, dtype=dt, device=self.device)},
+        }
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache,
+                extra_embeds=None):
+        """Logits of the last position, [B, 1, vocab], and the cache
+        (states written in place, KV rows [0, S) filled)."""
+        positions = torch.arange(tokens.shape[1],
+                                 device=tokens.device)[None, :]
+        x = self._run(params, params["embed"][tokens], positions, cache,
+                      cache_len=0)
+        return _head_logits(params, x[:, -1:], self.cfg.norm_eps), cache
+
+    def decode_step(self, params: dict, token: torch.Tensor, cache,
+                    pos: int):
+        """token: [B, 1]; pos: Python int, the current cache length.
+        Returns logits [B, 1, vocab] and the cache (updated in place)."""
+        pos = int(pos)
+        positions = torch.full((1, 1), pos, dtype=torch.int64,
+                               device=token.device)
+        x = self._run(params, params["embed"][token], positions, cache,
+                      cache_len=pos, decode=True)
+        return _head_logits(params, x, self.cfg.norm_eps), cache
 
 
 class EncDecLM:

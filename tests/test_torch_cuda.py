@@ -7,8 +7,9 @@ Every test here carries the ``cuda`` marker and skips (from inside a
 fixture, never at import) where there is no card; ``chip_smoke.py`` makes
 the same comparisons without pytest.  Tolerances are those of
 ``tests/test_kernels.py``: attention 2e-5 / 2e-2 absolute, the grouped
-GEMM 1e-5 / 3e-2 relative to the largest output, the RWKV6 scan 5e-4
-absolute in float32 (1e-2 relative for bfloat16 outputs, one rounding).
+GEMM 1e-5 / 3e-2 relative to the largest output, the Mamba2 and RWKV6
+scans 5e-4 absolute in float32 (1e-2 relative for bfloat16 outputs, one
+rounding).
 """
 import numpy as np
 import pytest
@@ -208,3 +209,124 @@ def test_rwkv6_scan_kernel_bf16_strided_and_past_sequence_poisoned(card):
     want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus)
     assert _rel(out, want) < 1e-2
     assert float((fin - wfin).abs().max()) < 5e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(32, 32), (8, 4)])
+def test_flash_attention_kernel_head_dim_80(card, causal, dtype, h, kv):
+    """zamba2's shared attention: head dim 80 (20 float4 per row, 5
+    output columns per thread), G = 1 as zamba2 has it, and G = 2;
+    a ragged query tile."""
+    rng = np.random.default_rng(80)
+    q = _randn(rng, (2, 100, h, 80), dtype, card)
+    k = _randn(rng, (2, 100, kv, 80), dtype, card)
+    v = _randn(rng, (2, 100, kv, 80), dtype, card)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("clen", [1, 77, 544])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(32, 32), (8, 4)])
+def test_decode_attention_kernel_head_dim_80(card, clen, dtype, h, kv):
+    rng = np.random.default_rng(81)
+    q = _randn(rng, (3, 1, h, 80), dtype, card)
+    kc = _randn(rng, (3, 544, kv, 80), dtype, card)
+    vc = _randn(rng, (3, 544, kv, 80), dtype, card)
+    kc[:, clen:] = float("nan")
+    vc[:, clen:] = float("nan")
+    out = ops.decode_attention(q, kc, vc, clen)
+    want = ref.decode_attention_ref(q, kc[:, :clen], vc[:, :clen], clen)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+def _mamba(rng, b, s, h, p, n, dtype, card):
+    xh = _randn(rng, (b, s, h, p), dtype, card)
+    bm = _randn(rng, (b, s, n), dtype, card)
+    cm = _randn(rng, (b, s, n), dtype, card)
+    dt = torch.nn.functional.softplus(
+        _randn(rng, (b, s, h), torch.float32, card))
+    a_log = _randn(rng, (h,), torch.float32, card) * 0.5
+    return xh, bm, cm, dt, a_log
+
+
+@pytest.mark.parametrize("s,chunk,p,n", [
+    (64, 16, 16, 8), (128, 32, 16, 8), (32, 32, 16, 8),   # the sweep
+    (256, 128, 64, 64), (256, 64, 64, 64),                # zamba2's dims
+    (96, 32, 64, 64), (40, 40, 16, 8), (7, 7, 16, 8),
+])
+@pytest.mark.parametrize("initial_state", [False, True])
+def test_mamba2_scan_kernel(card, s, chunk, p, n, initial_state):
+    rng = np.random.default_rng(7)
+    xh, bm, cm, dt, a_log = _mamba(rng, 2, s, 3, p, n, torch.float32, card)
+    st0 = (_randn(rng, (2, 3, p, n), torch.float32, card)
+           if initial_state else None)
+    before = ops.mamba2_scan.launches
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=chunk, state0=st0)
+    torch.cuda.synchronize()
+    assert ops.mamba2_scan.launches == before + 1
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    assert bool(torch.isfinite(y).all())
+    assert float((y - want).abs().max()) < 5e-4
+    assert float((fin - wfin).abs().max()) < 5e-4
+
+
+def test_mamba2_scan_kernel_long_sequence_float32(card):
+    """zamba2's dims over 512 steps and 32 heads with an initial state:
+    outputs reach about 100, and the decay weights exp(cum_i - cum_j)
+    must keep float32 precision although cum reaches about -100 within a
+    chunk of 128."""
+    rng = np.random.default_rng(11)
+    xh, bm, cm, dt, a_log = _mamba(rng, 4, 512, 32, 64, 64, torch.float32,
+                                   card)
+    st0 = _randn(rng, (4, 32, 64, 64), torch.float32, card)
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    assert float((y - want).abs().max()) < 5e-4
+    assert float((fin - wfin).abs().max()) < 5e-4
+
+
+def test_mamba2_scan_kernel_strong_decay_stays_finite(card):
+    """Large dt and a: |sum dt a| over a chunk of 128 reaches about
+    1e4, so exp(cum_i - cum_j) above the diagonal would overflow; the
+    kernel never forms it."""
+    rng = np.random.default_rng(3)
+    xh, bm, cm, _, _ = _mamba(rng, 1, 256, 2, 64, 64, torch.float32, card)
+    dt = torch.full((1, 256, 2), 20.0, device=card)
+    a_log = torch.full((2,), 1.5, device=card)
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128)
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    assert float((y - want).abs().max()) < 5e-4 * max(
+        1.0, float(want.abs().max()))
+    assert float((fin - wfin).abs().max()) < 5e-4 * max(
+        1.0, float(wfin.abs().max()))
+
+
+def test_mamba2_scan_kernel_bf16_column_slices_and_poison(card):
+    """The model's operands: bf16 xh, b, c as column slices of one conv
+    output [B, S + 16, H*P + 2N] whose steps past the sequence are NaN,
+    float32 dt, an initial state; the serving dims P = N = 64, chunk
+    128."""
+    rng = np.random.default_rng(5)
+    b, s, h, p, n = 2, 256, 4, 64, 64
+    fused = _randn(rng, (b, s + 16, h * p + 2 * n), torch.bfloat16, card)
+    fused[:, s:] = float("nan")
+    xh = fused[:, :s, :h * p].view(b, s, h, p)
+    bm, cm = fused[:, :s, h * p: h * p + n], fused[:, :s, h * p + n:]
+    _, _, _, dt, a_log = _mamba(rng, b, s, h, p, n, torch.float32, card)
+    st0 = _randn(rng, (b, h, p, n), torch.float32, card)
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    assert _rel(y, want) < 1e-2
+    assert float((fin - wfin).abs().max()) < 5e-4 * max(
+        1.0, float(wfin.abs().max()))
+    # every head reads the same b, c: one head alone gives its slice
+    one, _ = ops.mamba2_scan(xh[:, :, 2:3], bm, cm, dt[:, :, 2:3],
+                             a_log[2:3], chunk=128, state0=st0[:, 2:3])
+    assert torch.equal(one, y[:, :, 2:3])
+

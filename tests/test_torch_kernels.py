@@ -9,8 +9,8 @@ plain version.  Inputs are made with numpy from a seed and handed to both
 frameworks.  Tolerances are those of ``tests/test_kernels.py``: attention
 2e-5 in float32 (sums taken in another order), 2e-2 in bfloat16 (output
 rounding); the grouped GEMM 1e-5 / 3e-2 relative to the largest output;
-the RWKV6 scan 5e-4 absolute (a sequential recurrence against chunked
-forms) and finite.
+the Mamba2 and RWKV6 scans 5e-4 absolute (a sequential recurrence
+against chunked forms), the RWKV6 scan finite.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import rwkv as jax_rwkv
+from repro.models import ssm as jax_ssm
 from repro_torch.kernels import decode_attention as torch_decode_mod
 from repro_torch.kernels import ops, ref
 
@@ -45,6 +46,7 @@ def _err(t: torch.Tensor, j) -> float:
     (2, 256, 256, 4, 4, 32),
     (1, 64, 64, 8, 2, 128),
     (2, 100, 100, 4, 2, 64),      # ragged tail blocks
+    (2, 72, 72, 4, 4, 80),        # zamba2's head dim, G = 1
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
@@ -156,14 +158,15 @@ def test_launch_counts_reset():
     ops.flash_attention.launches = 5
     ops.decode_attention.launches = 7
     ops.moe_gemm.launches = 3
+    ops.mamba2_scan.launches = 4
     ops.rwkv6_scan.launches = 2
     assert ops.launch_counts() == {"flash_attention": 5,
                                    "decode_attention": 7, "moe_gemm": 3,
-                                   "rwkv6_scan": 2}
+                                   "mamba2_scan": 4, "rwkv6_scan": 2}
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0, "moe_gemm": 0,
-                                   "rwkv6_scan": 0}
+                                   "mamba2_scan": 0, "rwkv6_scan": 0}
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -172,6 +175,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     falls back to the plain version."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import mamba2_scan as ms_mod
     from repro_torch.kernels import moe_gemm as mg_mod
     from repro_torch.kernels import rwkv6_scan as rs_mod
 
@@ -185,6 +189,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(torch_decode_mod, "decode_attention_ref", no_plain)
     monkeypatch.setattr(mg_mod, "moe_gemm_ref", no_plain)
     monkeypatch.setattr(rs_mod, "rwkv6_scan_ref", no_plain)
+    monkeypatch.setattr(ms_mod, "mamba2_scan_ref", no_plain)
     monkeypatch.setattr(_build, "load", no_build)
     q = torch.zeros(1, 4, 4, 16, device="meta")
     kc = torch.zeros(1, 4, 2, 16, device="meta")
@@ -199,6 +204,47 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError):
         ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 16, device="meta"),
                        chunk=4)
+    bc = torch.zeros(1, 8, 8, device="meta")
+    with pytest.raises(RuntimeError):
+        ops.mamba2_scan(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
+                        torch.zeros(2, device="meta"), chunk=4)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "rwkv6_scan", "mamba2_scan"])
+def test_wrapper_dims_match_kernel_instantiations(name):
+    """Each wrapper accepts exactly the dims its source's dispatch
+    instantiates (a dim outside them would reach the kernel and come
+    back as -1): 80 for both attention kernels (zamba2), not for the
+    RWKV6 scan; K4's (P, N) pairs."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    from repro_torch.kernels import rwkv6_scan as rs_mod
+
+    src = (Path(_build.CSRC) / f"{name}.cu").read_text()
+    if name == "mamba2_scan":
+        got = {(int(p), int(n)) for p, n in
+               re.findall(r"if \(P == (\d+) && N == (\d+)\)", src)}
+        assert got == set(ms_mod.DIMS)
+        assert (64, 64) in got and (16, 8) in got
+        return
+    got = {int(d) for d in re.findall(r"case (\d+): return launch_", src)}
+    dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else _build.ATTN_HEAD_DIMS
+    assert got == set(dims)
+    assert (80 in got) == (name != "rwkv6_scan")
+
+
+def test_decode_attention_head_dim_80_plain_vs_jax():
+    """G = 1 and G = 2 at head dim 80 against the JAX oracle."""
+    rng = np.random.default_rng(80)
+    for h, kv in ((4, 4), (4, 2)):
+        qj, qt = _pair(rng, (2, 1, h, 80), "float32")
+        kj, kt = _pair(rng, (2, 40, kv, 80), "float32")
+        vj, vt = _pair(rng, (2, 40, kv, 80), "float32")
+        out = ops.decode_attention(qt, kt, vt, 33)
+        assert _err(out, jax_ref.decode_attention_ref(qj, kj, vj, 33)) < 2e-5
 
 
 # ---------------------------------------------------------------------------
@@ -372,3 +418,120 @@ def test_rwkv6_scan_rejects_bad_arguments(bad):
         kw["chunk"] = 3
     with pytest.raises(err):
         ops.rwkv6_scan(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# K4: Mamba2 (SSD) scan
+# ---------------------------------------------------------------------------
+
+
+def _mamba_inputs(s, b=2, h=3, p=16, n=8, seed=7):
+    """xh, b, c, dt (softplus of a normal) and a_log (non-zero, so that
+    the decay is not the same for every head)."""
+    rng = np.random.default_rng(seed)
+    xh = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    bm = rng.standard_normal((b, s, n), dtype=np.float32)
+    cm = rng.standard_normal((b, s, n), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h), dtype=np.float32)))
+    a_log = (0.5 * rng.standard_normal(h, dtype=np.float32))
+    return xh, bm, cm, dt, a_log
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32), (32, 32)])
+def test_mamba2_scan_plain_vs_jax(s, chunk):
+    """The sweep of tests/test_kernels.py: against the JAX oracle and the
+    Pallas kernel in interpret mode."""
+    arrays = _mamba_inputs(s)
+    ts = [torch.from_numpy(a) for a in arrays]
+    js = [jnp.asarray(a) for a in arrays]
+    y, fin = ref.mamba2_scan_ref(*ts, chunk=chunk)
+    assert y.shape == (2, s, 3, 16) and fin.shape == (2, 3, 16, 8)
+    assert y.dtype == fin.dtype == torch.float32
+    for want_y, want_fin in (
+            jax_ref.mamba2_scan_ref(*js),
+            jax_ops.mamba2_scan(*js, chunk=chunk, interpret=True)):
+        assert _abs(y, want_y) < 5e-4
+        assert _abs(fin, want_fin) < 5e-4
+    before = ops.mamba2_scan.launches
+    via_ops = ops.mamba2_scan(*ts, chunk=chunk)
+    assert torch.equal(via_ops[0], y) and torch.equal(via_ops[1], fin)
+    assert ops.mamba2_scan.launches == before
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 32)])
+def test_mamba2_scan_initial_state_matches_model_chunked_form(s, chunk):
+    """With a non-zero initial state, against the JAX model's own chunked
+    form (``_ssd_chunked(state0=)``)."""
+    arrays = _mamba_inputs(s, seed=3)
+    st0 = np.random.default_rng(8).standard_normal((2, 3, 16, 8),
+                                                   dtype=np.float32)
+    y, fin = ops.mamba2_scan(*(torch.from_numpy(a) for a in arrays),
+                             chunk=chunk, state0=torch.from_numpy(st0))
+    jy, jfin = jax_ssm._ssd_chunked(*(jnp.asarray(a) for a in arrays),
+                                    chunk, jnp.asarray(st0))
+    assert _abs(y, jy) < 5e-4
+    assert _abs(fin, jfin) < 5e-4
+
+
+def test_mamba2_scan_state_carries_across_calls():
+    """Two calls over the halves, the second starting from the first's
+    final state, equal one call over the whole sequence."""
+    xh, bm, cm, dt, a_log = (torch.from_numpy(a)
+                             for a in _mamba_inputs(64, seed=5))
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=16)
+    y1, f1 = ops.mamba2_scan(xh[:, :32], bm[:, :32], cm[:, :32], dt[:, :32],
+                             a_log, chunk=16)
+    y2, f2 = ops.mamba2_scan(xh[:, 32:], bm[:, 32:], cm[:, 32:], dt[:, 32:],
+                             a_log, chunk=16, state0=f1)
+    assert float((torch.cat([y1, y2], 1) - y).abs().max()) < 1e-5
+    assert float((f2 - fin).abs().max()) < 1e-5
+
+
+def test_mamba2_scan_reads_column_slices_of_the_conv_output():
+    """xh, b, c as the model hands them over: column slices of one
+    [B, S, H*P + 2N] conv output (row stride H*P + 2N), and bf16 inputs
+    give a bf16 output and a float32 state."""
+    b, s, h, p, n = 2, 32, 3, 16, 8
+    rng = np.random.default_rng(9)
+    fused = torch.from_numpy(
+        rng.standard_normal((b, s, h * p + 2 * n), dtype=np.float32))
+    xh = fused[..., :h * p].view(b, s, h, p)
+    bm, cm = fused[..., h * p: h * p + n], fused[..., h * p + n:]
+    assert not (xh.is_contiguous() or bm.is_contiguous())
+    _, _, _, dt, a_log = (torch.from_numpy(a) for a in _mamba_inputs(s))
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=16)
+    want, wfin = ref.mamba2_scan_ref(xh.contiguous(), bm.contiguous(),
+                                     cm.contiguous(), dt, a_log)
+    assert torch.equal(y, want) and torch.equal(fin, wfin)
+    yb, finb = ops.mamba2_scan(xh.bfloat16(), bm.bfloat16(), cm.bfloat16(),
+                               dt, a_log, chunk=16)
+    assert yb.dtype == torch.bfloat16 and finb.dtype == torch.float32
+    assert float((yb.float() - want).abs().max()) < \
+        2e-2 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("bad", ["rank", "bc", "dt", "a_log", "state",
+                                 "dtype", "chunk"])
+def test_mamba2_scan_rejects_bad_arguments(bad):
+    xh, bm, dt, a_log = (torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 4),
+                         torch.zeros(1, 8, 2), torch.zeros(2))
+    args = [xh, bm, bm, dt, a_log]
+    kw = {"chunk": 4}
+    err = ValueError
+    if bad == "rank":
+        args[0] = xh[0]
+    elif bad == "bc":
+        args[2] = torch.zeros(1, 8, 5)
+    elif bad == "dt":
+        args[3] = torch.zeros(1, 8, 3)
+    elif bad == "a_log":
+        args[4] = torch.zeros(3)
+    elif bad == "state":
+        kw["state0"] = torch.zeros(1, 2, 16, 5)
+    elif bad == "dtype":
+        args[1] = bm.half()
+        err = TypeError
+    else:
+        kw["chunk"] = 3
+    with pytest.raises(err):
+        ops.mamba2_scan(*args, **kw)

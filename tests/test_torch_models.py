@@ -1,6 +1,7 @@
-"""The port's layers, GQA block, MoE layer, DecoderLM and RWKVLM against
-the JAX package, from converted parameters, on the SMOKE configs of the
-GQA family (dense and MoE) and of rwkv6.
+"""The port's layers, GQA block, MoE layer, Mamba2 block, DecoderLM,
+RWKVLM and Mamba2Hybrid against the JAX package, from converted
+parameters, on the SMOKE configs of the GQA family (dense and MoE), of
+rwkv6 and of zamba2.
 
 The same inputs (numpy, seeded) go through both.  On the CPU the port's
 attention goes through the plain versions of its kernels, which keep
@@ -22,20 +23,21 @@ from repro.configs.archs import SMOKE as JAX_SMOKE
 from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
+from repro.models import ssm as jax_ssm
 from repro.models.families import build_model as jax_build_model
 from repro_torch.configs.archs import SMOKE
 from repro_torch.convert import params_from_jax
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import moe
+from repro_torch.models import ssm
 from repro_torch.models.families import build_model
 
 ARCHS = ["qwen3-1.7b", "glm4-9b", "qwen1.5-4b", "llava-next-mistral-7b",
          "granite-moe-3b-a800m"]
 # every ported model, GQA or not: the model-level cases run on these
-MODELS = ARCHS + ["rwkv6-3b"]
-NOT_PORTED = ["gemma3-4b", "deepseek-v2-236b", "zamba2-2.7b",
-              "whisper-small"]
+MODELS = ARCHS + ["rwkv6-3b", "zamba2-2.7b"]
+NOT_PORTED = ["gemma3-4b", "deepseek-v2-236b", "whisper-small"]
 B, S = 2, 16
 
 
@@ -507,3 +509,153 @@ def test_rwkv_strong_decay_through_the_model(pair):
     assert max_err(tfull, jfull) < 1e-4
     assert max_err(tpre, jpre) < 1e-4
     assert max_err(tdec[1], jdec[1]) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block and Mamba2Hybrid
+# ---------------------------------------------------------------------------
+
+ZAMBA = "zamba2-2.7b"
+
+
+def _ssm_layer(p, i=0):
+    """Layer ``i``'s Mamba2 params in both packages."""
+    jp = jax.tree.map(lambda a: a[i], p.jparams["blocks"]["ssm"])
+    tp = {k: v[i] for k, v in p.params["blocks"]["ssm"].items()}
+    return jp, tp
+
+
+@pytest.mark.parametrize("seq", [7, 8])
+def test_mamba2_forward_with_state_then_decode_match_jax(seq, pair):
+    """One Mamba2 block from a non-zero carried state: prefill over
+    ``seq`` steps (chunk 4: padding on at 7, off at 8) through the scan,
+    then one decode step, against the JAX block; the conv as well."""
+    p = pair(ZAMBA, "float32")
+    cfg, jcfg = p.cfg, p.jcfg
+    jp, tp = _ssm_layer(p, 1)
+    rng = np.random.default_rng(30 + seq)
+    x = rng.standard_normal((B, seq, cfg.d_model), dtype=np.float32)
+    x1 = rng.standard_normal((B, 1, cfg.d_model), dtype=np.float32)
+    shapes = ssm.mamba2_state_defs(cfg, B)
+    st = {k: rng.standard_normal(shape, dtype=np.float32) * 0.5
+          for k, (shape, _) in shapes.items()}
+    jst = {k: jnp.asarray(v) for k, v in st.items()}
+    jout, jst = jax_ssm.mamba2_forward(jp, jcfg, jnp.asarray(x), state=jst)
+    jout1, jst1 = jax_ssm.mamba2_decode(jp, jcfg, jnp.asarray(x1), jst)
+    tst = {k: torch.from_numpy(v) for k, v in st.items()}
+    tout, tst = ssm.mamba2_forward(tp, cfg, torch.from_numpy(x), state=tst)
+    tout1, tst1 = ssm.mamba2_decode(tp, cfg, torch.from_numpy(x1), tst)
+    assert tuple(tout.shape) == (B, seq, cfg.d_model)
+    for got, want in ((tout, jout), (tout1, jout1),
+                      (tst["ssm"], jst["ssm"]), (tst["conv"], jst["conv"]),
+                      (tst1["ssm"], jst1["ssm"])):
+        assert max_err(got, want) < 1e-4
+    # no state: the forward branch of the reference's stack
+    free, _ = ssm.mamba2_forward(tp, cfg, torch.from_numpy(x))
+    jfree, _ = jax_ssm.mamba2_forward(jp, jcfg, jnp.asarray(x))
+    assert max_err(free, jfree) < 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_causal_conv_matches_jax(dtype, tol):
+    """Both dtypes against the JAX conv (bf16: one rounding of the
+    output, H18)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 6, 12), dtype=np.float32)
+    w = rng.standard_normal((4, 12), dtype=np.float32) * 0.3
+    hist = rng.standard_normal((2, 3, 12), dtype=np.float32)
+    dt = layers.torch_dtype(dtype)
+    for st in (None, hist):
+        want, wnew = jax_ssm._causal_conv(
+            jnp.asarray(x).astype(dtype), jnp.asarray(w).astype(dtype),
+            None if st is None else jnp.asarray(st))
+        got, new = ssm._causal_conv(
+            torch.from_numpy(x).to(dt), torch.from_numpy(w).to(dt),
+            None if st is None else torch.from_numpy(st))
+        assert got.dtype == dt
+        assert max_err(got, want) < tol
+        assert max_err(new, wnew) < tol
+
+
+def _hybrid_both(p, plen, steps=3):
+    """Prefill over ``plen`` tokens then ``steps`` decode steps, in both
+    packages; returns the logits and the final caches."""
+    toks = p.tokens[:, : plen + steps]
+    jcache = p.jmodel.init_cache(B, plen + steps)
+    jpre, jcache = p.jmodel.prefill(p.jparams, jnp.asarray(toks[:, :plen]),
+                                    jcache)
+    jdec = []
+    for i in range(steps):
+        lg, jcache = p.jmodel.decode_step(
+            p.jparams, jnp.asarray(toks[:, plen + i: plen + i + 1]), jcache,
+            jnp.int32(plen + i))
+        jdec.append(lg)
+    with torch.inference_mode():
+        tt = torch.from_numpy(toks)
+        cache = p.model.init_cache(B, plen + steps)
+        tpre, out = p.model.prefill(p.params, tt[:, :plen], cache)
+        assert out is cache
+        tdec = []
+        for i in range(steps):
+            lg, cache = p.model.decode_step(
+                p.params, tt[:, plen + i: plen + i + 1], cache, plen + i)
+            tdec.append(lg)
+    return (jpre, jdec, jcache), (tpre, tdec, cache)
+
+
+@pytest.mark.parametrize("plen", [7, 8])
+def test_hybrid_prefill_and_decode_match_jax(plen, pair):
+    """SMOKE zamba2 (5 layers, attention after layers 2 and 4, one tail
+    layer): prefill at a length that is (8) and is not (7) a multiple of
+    the chunk (4), then decode steps, logits and every cache leaf against
+    the JAX model."""
+    p = pair(ZAMBA, "float32")
+    assert p.model.n_attn == 2
+    assert p.cfg.num_layers % p.cfg.attn_every == 1     # a tail layer
+    (jpre, jdec, jcache), (tpre, tdec, cache) = _hybrid_both(p, plen)
+    assert max_err(tpre, jpre) < 1e-4
+    for a, b in zip(tdec, jdec):
+        assert max_err(a, b) < 1e-4
+    # cache leaves to 1e-5 of their largest magnitude (the k rows reach
+    # about 11, where 1e-4 is a few float32 steps)
+    for group, key in (("ssm", "ssm"), ("ssm", "conv"), ("kv", "k"),
+                       ("kv", "v")):
+        got, want = cache[group][key], jcache[group][key]
+        assert got.shape == want.shape
+        assert max_err(got, want) < 1e-5 * max(1.0, float(np.abs(npy(want)).max()))
+
+
+def test_hybrid_cache_written_in_place(pair):
+    p = pair(ZAMBA, "float32")
+    toks = torch.from_numpy(p.tokens)
+    with torch.inference_mode():
+        cache = p.model.init_cache(B, S + 2)
+        leaves = {(g, k): v for g in cache for k, v in cache[g].items()}
+        _, out = p.model.prefill(p.params, toks[:, :S], cache)
+        for (g, k), leaf in leaves.items():
+            assert out[g][k] is leaf
+            assert bool((leaf != 0).any()), (g, k)
+        k_cache = cache["kv"]["k"]
+        assert bool((k_cache[:, :, S:] == 0).all())
+        ssm_before = cache["ssm"]["ssm"].clone()
+        p.model.decode_step(p.params, toks[:, S: S + 1], cache, S)
+        assert bool((k_cache[:, :, S] != 0).any())
+        assert bool((k_cache[:, :, S + 1] == 0).all())
+        assert not torch.equal(cache["ssm"]["ssm"], ssm_before)
+
+
+def test_convert_takes_the_hybrid_tree(pair):
+    """``blocks`` stacked over the layers, ``shared_attn`` not stacked."""
+    p = pair(ZAMBA, "bfloat16")
+    cfg = p.cfg
+    assert p.params["blocks"]["ssm"]["w_in"].shape[0] == cfg.num_layers
+    assert p.params["blocks"]["ssm"]["a_log"].dtype == torch.float32
+    wq = p.params["shared_attn"]["attn"]["wq"]
+    assert tuple(wq.shape) == (cfg.d_model, cfg.num_heads,
+                               cfg.resolved_head_dim)
+    assert wq.dtype == torch.bfloat16
+    tree = to_numpy_tree(p.jparams)
+    bad = dict(tree, shared_attn={k: v for k, v in tree["shared_attn"].items()
+                                  if k != "ffn"})
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(bad, cfg, device="cpu")

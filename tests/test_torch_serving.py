@@ -2,8 +2,9 @@
 ``tests/test_serving.py`` and the engine case of ``tests/test_faults.py``
 re-run on ``repro_torch``, and — in float32, from converted parameters —
 the same greedy tokens as the JAX engine for every stage of the workflow,
-served by the dense pair (qwen3 + glm4) and by the MoE + RWKV6 pair
-(granite-moe as ``"qwen-7b"``, rwkv6 as ``"llama-8b"``).
+served by the dense pair (qwen3 + glm4), by the MoE + RWKV6 pair
+(granite-moe as ``"qwen-7b"``, rwkv6 as ``"llama-8b"``) and by the hybrid
+pair (zamba2 as ``"qwen-7b"``, qwen3 as ``"llama-8b"``).
 """
 import dataclasses
 
@@ -263,19 +264,20 @@ def test_same_greedy_tokens_as_jax_engine(float32_engines, policy,
             assert pres[sid].prefix_hit == jres[sid].prefix_hit
 
 
-def _moe_rwkv_configs(smoke):
-    return {"qwen-7b": (dataclasses.replace(
-                smoke["granite-moe-3b-a800m"], dtype="float32"), 0),
-            "llama-8b": (dataclasses.replace(
-                smoke["rwkv6-3b"], dtype="float32"), 1)}
+def _pair_configs(smoke, arch_a, arch_b):
+    """``arch_a`` as "qwen-7b" and ``arch_b`` as "llama-8b", in float32."""
+    return {"qwen-7b": (dataclasses.replace(smoke[arch_a], dtype="float32"),
+                        0),
+            "llama-8b": (dataclasses.replace(smoke[arch_b], dtype="float32"),
+                         1)}
 
 
-@pytest.fixture(scope="module")
-def moe_rwkv_engines():
-    """granite-moe and rwkv6 SMOKE bundles in float32, JAX and port."""
+def _float32_bundles(arch_a, arch_b):
+    """SMOKE bundles in float32, JAX and port (converted parameters)."""
     jax_bundles, port_bundles = {}, {}
-    port_cfgs = _moe_rwkv_configs(SMOKE)
-    for name, (jcfg, seed) in _moe_rwkv_configs(JAX_SMOKE).items():
+    port_cfgs = _pair_configs(SMOKE, arch_a, arch_b)
+    for name, (jcfg, seed) in _pair_configs(JAX_SMOKE, arch_a,
+                                            arch_b).items():
         jb = jax_engine.ModelBundle.create(name, jcfg, seed=seed)
         jax_bundles[name] = jb
         tree = jax.tree.map(
@@ -287,16 +289,22 @@ def moe_rwkv_engines():
     return jax_bundles, port_bundles
 
 
-@pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
-                                              ("RoundRobin", 1)])
-def test_moe_rwkv_workflow_same_greedy_tokens_as_jax_engine(
-        moe_rwkv_engines, policy, n_devices):
-    """Prompt length 7 is not a multiple of rwkv6's chunk (4), so the
-    scan's state-neutral padding is on the served path."""
-    jax_bundles, port_bundles = moe_rwkv_engines
+@pytest.fixture(scope="module")
+def moe_rwkv_engines():
+    """granite-moe and rwkv6 SMOKE bundles in float32, JAX and port."""
+    return _float32_bundles("granite-moe-3b-a800m", "rwkv6-3b")
+
+
+@pytest.fixture(scope="module")
+def hybrid_engines():
+    """zamba2 and qwen3 SMOKE bundles in float32, JAX and port."""
+    return _float32_bundles("zamba2-2.7b", "qwen3-1.7b")
+
+
+def _same_tokens_at_prompt_7(engines, policy, n_devices):
+    jax_bundles, port_bundles = engines
     prompts = _prompts(8, plen=7)
     gen_len = 4
-    assert 7 % port_bundles["llama-8b"].cfg.rwkv.chunk
 
     jeng = jax_engine.ServingEngine(jax_bundles, n_devices=n_devices,
                                     gen_len=gen_len, prompt_len=7)
@@ -317,3 +325,25 @@ def test_moe_rwkv_workflow_same_greedy_tokens_as_jax_engine(
         got = pres[sid].tokens_out.numpy()
         assert got.shape == want.shape == (4, gen_len)
         assert np.array_equal(got, want), sid
+
+
+@pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
+                                              ("RoundRobin", 1)])
+def test_moe_rwkv_workflow_same_greedy_tokens_as_jax_engine(
+        moe_rwkv_engines, policy, n_devices):
+    """Prompt length 7 is not a multiple of rwkv6's chunk (4), so the
+    scan's state-neutral padding is on the served path."""
+    assert 7 % moe_rwkv_engines[1]["llama-8b"].cfg.rwkv.chunk
+    _same_tokens_at_prompt_7(moe_rwkv_engines, policy, n_devices)
+
+
+@pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
+                                              ("RoundRobin", 1)])
+def test_hybrid_workflow_same_greedy_tokens_as_jax_engine(
+        hybrid_engines, policy, n_devices):
+    """zamba2 serves retrieve, work_b and merge (its Mamba2 prefill
+    padded from 7 to 8 steps, its shared attention at two sites), qwen3
+    serves work_a."""
+    assert 7 % hybrid_engines[1]["qwen-7b"].cfg.ssm.chunk
+    _same_tokens_at_prompt_7(hybrid_engines, policy, n_devices)
+
