@@ -8,7 +8,10 @@ sm_90a), then runs these phases, each printing one JSON line; any failure
 ends the run with a non-zero exit code and no result line:
 
 1. ``device``  – card name and power limit (nvidia-smi), torch / CUDA /
-   nvcc versions, seconds the kernels took to build.
+   nvcc versions, seconds the kernels took to build; for every
+   instantiation of K3's wgmma kernel and K1's mma.sync kernel its
+   tensor-core instructions in the SASS (cuobjdump; it fails without
+   them) and its registers and spills (ptxas -v).
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
    CARD: flash_attention and decode_attention over the sweep of
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
@@ -19,7 +22,10 @@ ends the run with a non-zero exit code and no result line:
    and each at the serving paths' own shapes (zamba2's attention at head
    dim 80), where it is also timed beside its plain version, one PyTorch
    call computing the same function where there is one (yardstick only;
-   the port never calls it) and the least time the card could take.
+   the port never calls it) and the least time the card could take:
+   ``ms`` per back-to-back wrapper call (CUDA events, host gaps
+   included) and ``device_ms``, the kernel's own device time per call
+   (torch.profiler).
 3. ``serve``   – the retrieve -> work_a, work_b -> merge workflow of
    examples/serve_workflow_torch.py: 8 queries, 2 virtual devices, FATE
    placements, qwen3-1.7b (28 layers) and glm4-9b (40 layers) at full
@@ -53,8 +59,11 @@ ends the run with a non-zero exit code and no result line:
    within 1e-3 of their largest magnitude, every greedy token equal);
    every block's own difference reported beside both.
 
-Then one line ``{"kernels": [...]}`` with every kernel's numbers, the
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.  There is no
+Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
+``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's bf16 paths, which
+the main path takes, ``fma`` for the others; K3's decode shape beside its
+prefill row), the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
 from __future__ import annotations
@@ -98,6 +107,12 @@ DECODE_SWEEP = [512, 300, 17, 1]
 MOE_SWEEP = [(4, 96, 160, 192), (2, 128, 64, 64), (8, 40, 100, 70)]
 RWKV_SWEEP = [(64, 16), (96, 32)]
 MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
+# the bf16 redesigns and the tensor-core instruction each must compile to
+TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
+                    "flash_mma_kernel": "HMMA"}
+# the kernel design each wrapper takes in bf16, the main path's type (the
+# float32 paths of K1 and K3, and every path of K2, K4, K5, are FMA code)
+BF16_DESIGN = {"flash_attention": "mma.sync", "moe_gemm": "wgmma"}
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
@@ -140,6 +155,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, marker: str | None = None, iters: int = 10):
+    """Mean device milliseconds per call of ``fn`` spent in kernels whose
+    name holds ``marker``, or in every kernel (and copy) it runs on the
+    card when ``marker`` is None, as for a library call (torch.profiler,
+    CUDA activity): the device's own time without the host's gaps
+    between calls; None if the trace shows no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+            continue            # the host's runtime calls
+        if marker is None or marker in e.key:
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+            n += e.count
+    return us / 1e3 / iters if n else None
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -176,11 +216,66 @@ def phase_device(build_mod) -> tuple[dict, str]:
         "python": sys.version.split()[0],
         "build_seconds": round(build_mod.build_seconds, 2),
         "load_seconds": round(time.perf_counter() - t0, 2),
+        "tensor_core_sass": tensor_core_check(build_mod),
         "kernel_sources": [str(p.relative_to(Path(__file__).parent))
                            for p in build_mod.sources()],
     }
     emit(info)
     return info, smi_line
+
+
+def short_kernel_name(mangled: str):
+    """``moe_gemm_wgmma_kernel<128,1>`` for a mangled instantiation of one
+    of TENSOR_CORE_SASS's kernels, None for any other function."""
+    import re
+    for kern in TENSOR_CORE_SASS:
+        m = re.search(kern + r"I(.+?)EEv", mangled)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            return f"{kern}<{','.join(args)}>"
+    return None
+
+
+def tensor_core_check(build_mod) -> dict:
+    """Per instantiation of the bf16 redesigns: the count of its
+    tensor-core instruction in the library's SASS and one such line, and
+    its registers and spill bytes from the build's ptxas -v log."""
+    import re
+    lib = build_mod.build()
+    cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    found, cur = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            cur = short_kernel_name(line)
+            if cur:
+                found[cur] = {"instruction": TENSOR_CORE_SASS[
+                    cur.split("<")[0]], "count": 0, "example": None}
+        elif cur and found[cur]["instruction"] in line:
+            found[cur]["count"] += 1
+            if found[cur]["example"] is None:
+                # "/*0a30*/  HGMMA.64x128x16.F32.BF16 ... ;  /* 0x... */"
+                text = line.split("*/", 1)[-1].split("/*")[0]
+                found[cur]["example"] = " ".join(text.split())
+    log = (lib.parent / "build.log").read_text()
+    cur = None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            cur = short_kernel_name(line)
+        elif cur in found and "spill stores" in line:
+            found[cur]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif cur in found and "registers" in line:
+            found[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    missing = [k for k, v in found.items() if not v["count"]]
+    if len(found) != 9 or missing:
+        fail(f"tensor-core instructions missing: found {sorted(found)}, "
+             f"none in {missing}")
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +291,31 @@ def sdpa(q, k, v, causal):
         qh, kh, vh, is_causal=causal, enable_gqa=True)
 
 
-def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False):
+# |output| bands for K1's error report: one bf16 step is 0.0156 in
+# [2, 4) and 0.0313 in [4, 8), against the 2e-2 bar
+ERR_BANDS = (0.0, 1.0, 2.0, 4.0, 8.0, float("inf"))
+
+
+def err_by_band(out: torch.Tensor, want: torch.Tensor) -> dict:
+    """Largest |want| and, per band of |want|, the element count, the
+    largest error and the largest spacing of bf16 values in the band (at
+    the bottom of the open last band)."""
+    w = want.float()
+    mag, err = w.abs(), (out.float() - w).abs()
+    bands = {}
+    for lo, hi in zip(ERR_BANDS, ERR_BANDS[1:]):
+        sel = (mag >= lo) & (mag < hi)
+        n = int(sel.sum())
+        if n:
+            bands[f"[{lo:g},{hi:g})"] = {
+                "n": n, "max_abs_err": float(err[sel].max()),
+                "bf16_step": (lo if hi == float("inf") else hi / 2)
+                * 2.0 ** -7}
+    return {"out_abs_max": float(mag.max()), "err_by_band": bands}
+
+
+def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
+               bands=False):
     b, sq, sk, h, kv, d = shape
     q = randn(rng, (b, sq, h, d), dtype)
     k = randn(rng, (b, sk, kv, d), dtype)
@@ -209,15 +328,20 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False):
            "causal": causal, "window": window, "max_abs_err": err,
            "tol": TOL[dtype], "ok": bool(err < TOL[dtype])
            and bool(torch.isfinite(out.float()).all())}
+    if bands:
+        rec.update(err_by_band(out, want))
     if timed:
         pairs = sq * (sq + 1) // 2 if causal else sq * sk
         b_ms, by = bound(nbytes(q, k, v, out), 4.0 * b * h * d * pairs, dtype)
         rec.update(
             ms=time_ms(lambda: ops.flash_attention(
                 q, k, v, causal=causal, window=window)),
+            device_ms=device_ms(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window), "flash_"),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window), iters=5, warmup=1),
             library_ms=time_ms(sdpa(q, k, v, causal)),
+            library_device_ms=device_ms(sdpa(q, k, v, causal)),
             bound_ms=b_ms, bound_by=by)
     return rec
 
@@ -242,10 +366,14 @@ def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False):
         rec.update(
             ms=time_ms(lambda: ops.decode_attention(q, kc, vc, cache_len),
                        iters=50),
+            device_ms=device_ms(lambda: ops.decode_attention(
+                q, kc, vc, cache_len), "decode_"),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(
                 q, kc, vc, cache_len), iters=20),
             library_ms=time_ms(sdpa(q, kc[:, :cache_len], vc[:, :cache_len],
                                     False), iters=50),
+            library_device_ms=device_ms(sdpa(
+                q, kc[:, :cache_len], vc[:, :cache_len], False)),
             bound_ms=b_ms, bound_by=by)
     return rec
 
@@ -282,10 +410,39 @@ def moe_case(ops, ref, x, w, timed=False):
             if x.dim() == 4 else x
         rec.update(
             ms=time_ms(lambda: ops.moe_gemm(x, w)),
+            device_ms=device_ms(lambda: ops.moe_gemm(x, w), "moe_gemm"),
             plain_ms=time_ms(lambda: ref.moe_gemm_ref(x, w), iters=5,
                              warmup=1),
             library_ms=time_ms(lambda: torch.bmm(xt, w)),
-            bound_ms=b_ms, bound_by=by)
+            library_device_ms=device_ms(lambda: torch.bmm(xt, w)),
+            bound_ms=b_ms, bound_by=by, **wrapper_host_us(ops, x, w))
+    return rec
+
+
+def wrapper_host_us(ops, x, w, iters: int = 200) -> dict:
+    """Host microseconds per K3 wrapper call (launches queued back to
+    back, timed before the card catches up) and, for bf16, the share of
+    them its tile and loader plan takes, with the strides and addresses
+    it reads."""
+    import importlib
+    mg = importlib.import_module("repro_torch.kernels.moe_gemm")
+    ops.moe_gemm(x, w)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        ops.moe_gemm(x, w)
+    host = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    rec = {"host_us": host, "plan_us": None}
+    if x.dtype == torch.bfloat16:
+        x4 = x if x.dim() == 4 else x.unsqueeze(0)
+        b, e, c, d = x4.shape
+        f = w.shape[2]
+        t = time.perf_counter()
+        for _ in range(iters * 10):
+            mg.gemm_plan(b, e, c, d, f, x4.stride(), w.stride(),
+                         x4.data_ptr(), w.data_ptr())
+        rec["plan_us"] = (time.perf_counter() - t) / (iters * 10) * 1e6
     return rec
 
 
@@ -337,9 +494,12 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
         rec.update(
             ms=time_ms(lambda: ops.rwkv6_scan(r, k, v, w, bonus,
                                               chunk=chunk, state0=st0)),
+            device_ms=device_ms(lambda: ops.rwkv6_scan(
+                r, k, v, w, bonus, chunk=chunk, state0=st0), "rwkv6_scan"),
             plain_ms=time_ms(lambda: ref.rwkv6_scan_ref(
                 r, k, v, w, bonus, state0=st0), iters=2, warmup=1),
-            library_ms=None, bound_ms=b_ms, bound_by=by)
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=by)
     return rec
 
 
@@ -389,9 +549,13 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
         rec.update(
             ms=time_ms(lambda: ops.mamba2_scan(xh, bm, cm, dt, a_log,
                                                chunk=chunk, state0=st0)),
+            device_ms=device_ms(lambda: ops.mamba2_scan(
+                xh, bm, cm, dt, a_log, chunk=chunk, state0=st0),
+                "mamba2_scan"),
             plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
                 xh, bm, cm, dt, a_log, state0=st0), iters=2, warmup=1),
-            library_ms=None, bound_ms=b_ms, bound_by=by)
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=by)
     return rec
 
 
@@ -424,7 +588,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
             timed = nq == NUM_QUERIES
             flash_main[f"{name}/nq{nq}"] = flash_case(
                 ops, ref, rng, (nq, PROMPT_LEN, PROMPT_LEN, h, kv, d), dt,
-                True, 0, timed=timed)
+                True, 0, timed=timed, bands=True)
             for clen in (PROMPT_LEN + 1, s_max):
                 decode_main[f"{name}/nq{nq}/len{clen}"] = decode_case(
                     ops, ref, rng, (nq, s_max, h, kv, d), dt, clen,
@@ -456,6 +620,9 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
         moe_main[f"decode_up/nq{nq}"] = moe_case(
             ops, ref, dispatch_view(rng, nq, m.num_experts, 8, dm, dt),
             w_up, timed=timed)
+        moe_main[f"decode_down/nq{nq}"] = moe_case(
+            ops, ref, randn(rng, (nq, m.num_experts, 8, m.d_expert), dt),
+            w_down, timed=timed)
         del w_up, w_down
     # K5: the sweep, an initial state, bf16 inputs, the serving shape
     rwkv_sweep = []
@@ -571,8 +738,14 @@ def expected_launches(bundles, wf, placements) -> dict:
     RWKV6 model K5 once per layer at prefill (its decode step is plain);
     a Mamba2 hybrid K4 once per layer at prefill (its decode step is
     plain), and K1, K2 as above once per attention site instead of per
-    layer."""
+    layer.  ``moe_gemm_decode_tile``: those K3 launches whose B*C rows
+    per expert (queries of the shard times the capacity of the call)
+    fall below the 128-row tile's threshold, every decode step at these
+    shard sizes."""
+    from repro_torch.kernels.moe_gemm import PREFILL_MIN_ROWS
+    from repro_torch.models.moe import _capacity
     exp = dict.fromkeys(REPLACES, 0)
+    exp["moe_gemm_decode_tile"] = 0
     for p in placements:
         cfg = bundles[wf.stages[p.sid].model].cfg
         runs = sum(1 for n in p.shard_sizes if n)
@@ -588,8 +761,14 @@ def expected_launches(bundles, wf, placements) -> dict:
         exp["flash_attention"] += cfg.num_layers * runs
         exp["decode_attention"] += cfg.num_layers * runs * (GEN_LEN - 1)
         if cfg.moe is not None:
-            exp["moe_gemm"] += (3 * (cfg.num_layers - cfg.moe_layer_start)
-                                * runs * GEN_LEN)
+            gemms = 3 * (cfg.num_layers - cfg.moe_layer_start)
+            exp["moe_gemm"] += gemms * runs * GEN_LEN
+            for n in p.shard_sizes:
+                if n:
+                    exp["moe_gemm_decode_tile"] += gemms * (
+                        int(n * _capacity(PROMPT_LEN, cfg) < PREFILL_MIN_ROWS)
+                        + (GEN_LEN - 1) * int(
+                            n * _capacity(1, cfg) < PREFILL_MIN_ROWS))
     return exp
 
 
@@ -626,6 +805,8 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
     ops.reset_launch_counts()
     engine, policy, results, wall = run_once()
     counts = ops.launch_counts()
+    counts["moe_gemm_decode_tile"] = ops.KERNELS["moe_gemm"].\
+        decode_tile_launches
 
     expect = expected_launches(bundles, wf, policy.placements)
     stages, problems = [], []
@@ -1108,7 +1289,9 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     one: qwen3's for K1 and K2, the gate/up projection at prefill for K3,
     zamba2's prefill for K4, rwkv6's prefill for K5) and its launches
     summed over the serve phases, with the other timed shapes and the
-    launches per phase."""
+    launches per phase; for K3 also its decode gate/up shape with the
+    launches of the 64-row tile that the serve phases counted, and the
+    wrapper's host microseconds per call beside its plan's."""
     main_key = {"flash_attention": "qwen3-1.7b",
                 "decode_attention": "qwen3-1.7b",
                 "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
@@ -1119,22 +1302,38 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
         timed = {k: c for k, c in main.items() if "ms" in c}
         key = next(k for k in timed if k.startswith(main_key[name]))
         c = timed[key]
-        rows.append({
+        fields = ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                  "bound_by", "library_ms", "library_device_ms")
+        launches = sum(o["launches"][name] for o in serve_outs)
+        row = {
             "name": name, "route": "cuda",
+            "design": (BF16_DESIGN.get(name, "fma")
+                       if c["dtype"] == "bfloat16" else "fma"),
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": sum(o["launches"][name] for o in serve_outs),
+            "launches": launches,
             "launches_by_phase": {o["phase"]: o["launches"][name]
                                   for o in serve_outs},
             "max_abs_err": max(x["max_abs_err"] for x in main.values()),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "ms": c["ms"], "device_ms": c["device_ms"],
+            "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+            "library_device_ms": c["library_device_ms"],
             "shape": c["shape"], "dtype": c["dtype"],
-            "other_shapes": {k: {f: x[f] for f in (
-                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")} for k, x in timed.items() if k != key},
-        })
+            "other_shapes": {k: {f: x[f] for f in fields}
+                             for k, x in timed.items() if k != key},
+        }
+        if name == "moe_gemm":
+            dkey = next(k for k in timed if k.startswith("decode_up"))
+            row["decode"] = {
+                **{f: timed[dkey][f] for f in fields},
+                "launches": sum(o["launches"]["moe_gemm_decode_tile"]
+                                for o in serve_outs)}
+            row["host_us"] = {k: {f: timed[k][f]
+                                  for f in ("host_us", "plan_us")}
+                              for k in (key, dkey)}
+        rows.append(row)
     return {"kernels": rows}
 
 

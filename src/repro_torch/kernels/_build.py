@@ -126,14 +126,26 @@ def build() -> Path:
     return lib_path
 
 
+def aligned16(sizes, strides, ptr: int, itemsize: int) -> bool:
+    """Whether a tensor of these sizes and (element) strides at address
+    ``ptr`` can be read in 16-byte pieces along its last dimension: unit
+    stride there, every other stride a whole number of 16 bytes, a 16-byte
+    aligned base.  A dimension of size 1 never moves the address, so its
+    stride does not count.  The rule of K1's, K2's and K3's vector loads
+    (8 bf16 or 4 float32 elements)."""
+    if ptr % 16:
+        return False
+    *outer, last = zip(sizes, strides)
+    if last[0] != 1 and last[1] != 1:
+        return False
+    return all(n == 1 or (st * itemsize) % 16 == 0 for n, st in outer)
+
+
 def kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in a layout the kernels' 4-element loads take: unit stride
-    in the last dimension, every other stride a multiple of 4 elements and
-    a 16-byte aligned base.  Anything else is copied to a contiguous
-    tensor (a fresh allocation is always aligned)."""
-    ok = (x.stride(-1) == 1
-          and all(s % 4 == 0 for s in x.stride()[:-1])
-          and x.data_ptr() % 16 == 0)
+    """``x`` in a layout the kernels' 16-byte loads take (:func:`aligned16`);
+    anything else is copied to a contiguous tensor (a fresh allocation is
+    always aligned)."""
+    ok = aligned16(x.shape, x.stride(), x.data_ptr(), x.element_size())
     return x if ok else x.contiguous()
 
 
@@ -149,7 +161,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [ptr] * 7 + [i32] * 7 + [i64] * 10 + [i32] + [ptr])
     lib.fate_moe_gemm.restype = i32
     lib.fate_moe_gemm.argtypes = (
-        [ptr] * 3 + [i32] * 5 + [i64] * 10 + [i32] + [ptr])
+        [ptr] * 3 + [i32] * 5 + [i64] * 10 + [i32] * 2 + [ptr])
     lib.fate_rwkv6_scan.restype = i32
     lib.fate_rwkv6_scan.argtypes = (
         [ptr] * 8 + [i32] * 5 + [i64] * 15 + [i32] + [ptr])

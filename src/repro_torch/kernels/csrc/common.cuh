@@ -1,8 +1,9 @@
 // Helpers shared by the kernels: typed 4-element loads that
 // widen to float32, float32 -> storage-type rounding, half-warp and
-// full-warp reductions.  All arithmetic in the kernels is float32; the
-// storage type T (float or __nv_bfloat16) only appears at the loads
-// from and the stores to device memory.
+// full-warp reductions, asynchronous 16-byte copies.  Sums in the kernels
+// are float32; the storage type T (float or __nv_bfloat16) appears at the
+// loads from and the stores to device memory, and as the operand type of
+// the tensor-core products of K1's and K3's bf16 paths.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,6 +81,57 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// --- asynchronous copies (cp.async, sm_80+) --------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes from `src` (16-byte aligned) to shared address `dst`; only
+// the first `src_bytes` (0..16) are read, the rest of the 16 are zeroed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The rule of the bf16 kernels' 16-byte copies, tested by the C entry
+// points before they launch (the wrappers apply the same rule,
+// kernels/_build.py :: aligned16): a 16-byte aligned base, and every
+// outer stride a whole number of 16 bytes (8 bf16 elements) unless its
+// dim has size 1, which never moves the address.
+inline bool base16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+inline bool stride16(int64_t size, int64_t stride) {
+  return size == 1 || stride % 8 == 0;
+}
+
+// Allow `kern` `bytes` of dynamic shared memory (needed above 48 KB) once
+// per device; `done` is the caller's per-instantiation bit set of devices.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kern, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && ((done >> dev) & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
 }
 
 }  // namespace fate

@@ -5,33 +5,50 @@
 // What it computes (per batch b, query head h, KV head h / G):
 //   s = (q . k) * D^-0.5, masked to -1e30 where k_pos >= Sk, or
 //   (causal) q_pos < k_pos, or (window) q_pos - k_pos >= window;
-//   out = softmax(s) @ v, with float32 scores, float32 p and a float32
-//   accumulator; out = acc / max(l, 1e-30) cast to the input type.
+//   out = softmax(s) @ v, with float32 scores and a float32 accumulator;
+//   out = acc / max(l, 1e-30) cast to the input type.
 //
-// Shape of the kernel.  The TPU grid (B*KV*G, nQ, nK) carried (m, l, acc)
-// in VMEM across sequential nK steps.  Here one block owns one
+// Shape of both kernels.  The TPU grid (B*KV*G, nQ, nK) carried (m, l,
+// acc) in VMEM across sequential nK steps.  Here one block owns one
 // (batch, head, 64-row query tile) and loops over KV tiles itself; the
 // running (m, l, acc) stay in registers.  KV tiles wholly above the
 // causal diagonal or wholly below the window are never visited.  q, k, v
 // are read through their strides ([B, S, heads, D] as the models hold
 // them): no transposed copy is made.
 //
-// Work split inside a block: 256 threads as a 16 x 16 grid.  Thread
-// (ty, tx) owns query rows 4*ty .. 4*ty+3, score columns tx + 16*c and
-// output columns tx + 16*j, so the 16 threads of a row are one half-warp
-// and the row statistics are reduced with shuffles.  Q, K, V tiles are
-// widened to float32 in shared memory; p goes through shared memory into
-// the PV product as float32, as the TPU kernel keeps it.
-//
 // What bounds it.  On an H100 (3.35 TB/s, 989 TFLOP/s bf16: 295 flops per
 // byte) the least time for the function is set by bytes: causal bf16
 // prefill at B = 8, S = 512, H = 16, KV = 8, D = 128 does about 171 flops
-// per byte of q/k/v/out moved once, 0.015 ms of traffic.  THIS version is
-// limited elsewhere: it does the products as float32 FMAs on the CUDA
-// cores (67 TFLOP/s peak, no tensor cores), so it runs at the float32 FMA
-// rate, far above that bound.  The design keeps the FMA pipe fed (4 x CN
-// and 4 x DN register tiles, 128-bit shared-memory loads, conflict-free
-// strides) and leaves mma/wgmma, TMA and pipelining for a later version.
+// per byte of q/k/v/out moved once, 0.015 ms of traffic.
+//
+// bf16: tensor cores through mma.sync.  4 warps per block, each owning 16
+// query rows.  The Q tile is copied once into shared memory and held in
+// registers as mma A fragments (ldmatrix).  K and V tiles of 64 rows come
+// through a 2-stage ring of 16-byte cp.async copies, kept in bf16 (rows
+// padded by 16 bytes: conflict-free ldmatrix for every head dim, 80
+// included), the next tile loading while this one is used.  S = Q K^T is
+// mma.sync m16n8k16 (bf16 operands, float32 accumulation: the products of
+// the Pallas kernel, which casts bf16 to float32 before its dot).  The
+// accumulator fragments are masked and online-softmaxed in registers;
+// each row lives in one quad of 4 threads, whose max is reduced with two
+// shuffles per tile and whose sum once at the end.  p never leaves the
+// registers: rounded to bf16 (as the JAX model's XLA twin rounds it; the
+// Pallas kernel keeps it float32, ROADMAP H1b / H19), the score fragments
+// are the A operand of P V, with V read through ldmatrix.trans.  Query
+// tiles are issued longest first, so the causal tail is not one late
+// block.  mma.sync rather than wgmma: the function is bound by bytes at
+// the served shapes, and the register-resident p saves the shared-memory
+// round trip that a wgmma with p in shared memory would need.  The bf16
+// path needs 16-byte aligned rows (strides multiples of 8 elements); the
+// wrapper copies anything else first (kernels/_build.py :: kernel_operand).
+// Left undone: wgmma with a TMA producer, splitting long KV ranges over
+// blocks, a K / V wait split so that S starts before V lands.
+//
+// float32: the FMA kernel of the first port, kept for the 2e-5 bar, which
+// needs true float32 products (TF32 would miss it).  256 threads as a
+// 16 x 16 grid; thread (ty, tx) owns query rows 4*ty .. 4*ty+3, score
+// columns tx + 16*c and output columns tx + 16*j; Q, K, V tiles in shared
+// memory, p through shared memory as float32.  No bf16 input reaches it.
 //
 // Rows that have no valid key at all (possible only with a window and
 // Sq > Sk + window) are degenerate in the reference (a uniform average
@@ -42,13 +59,18 @@
 namespace {
 
 using namespace fate;
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// float32: FMA kernel
+// ---------------------------------------------------------------------------
 
 constexpr int BM = 64;          // query rows per block
 constexpr int NTHREADS = 256;   // 16 x 16
 
 template <typename T, int D, int BN>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  int Sq, int Sk, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
@@ -218,6 +240,249 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: mma.sync kernel
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_BM = 64;         // query rows per block, 16 per warp
+constexpr int MMA_BN = 64;         // keys per KV tile
+constexpr int MMA_THREADS = 128;   // 4 warps
+
+template <int D>
+struct MmaTile {
+  static constexpr int RS = D + 8;   // row stride (elements): 16-byte pad
+  static constexpr int SMEM = (MMA_BM + 4 * MMA_BN) * RS * 2;  // Q, 2 K, 2 V
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8]: bf16 operands, float32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out,
+                 int Sq, int Sk, int G,
+                 int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                 int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                 int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                 int64_t o_sb, int64_t o_ss, int64_t o_sh,
+                 int causal, int window, float scale_log2) {
+  constexpr int RS = MmaTile<D>::RS;
+  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr int KS = D / 16;   // k16 steps of Q K^T
+  constexpr int NT = D / 8;    // 8-column tiles of the output
+
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(mma_smem);   // [BM][RS]
+  bf16* Ks = Qs + MMA_BM * RS;                    // [2][BN][RS]
+  bf16* Vs = Ks + 2 * MMA_BN * RS;                // [2][BN][RS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * MMA_BM;   // longest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / G;
+  const bf16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  const bf16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
+  const bf16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
+
+  // KV tiles that can hold a valid key for some row of this query tile.
+  int k_end = Sk;
+  if (causal) k_end = min(Sk, q0 + MMA_BM);
+  int k_begin = 0;
+  if (window > 0) k_begin = (max(0, q0 - window + 1) / MMA_BN) * MMA_BN;
+
+  // the Q tile and the first KV tile form the first copy group; rows
+  // beyond Sq or Sk are zero-filled
+  for (int idx = tid; idx < MMA_BM * CH; idx += MMA_THREADS) {
+    const int r = idx / CH;
+    const int c = idx % CH;
+    const bool ok = q0 + r < Sq;
+    cp_async16(smem_addr(Qs + r * RS + 8 * c),
+               ok ? qb + (int64_t)(q0 + r) * q_ss + 8 * c : q, ok ? 16 : 0);
+  }
+  auto load_kv = [&](int stage, int k0) {
+    bf16* ks = Ks + stage * MMA_BN * RS;
+    bf16* vs = Vs + stage * MMA_BN * RS;
+    for (int idx = tid; idx < MMA_BN * CH; idx += MMA_THREADS) {
+      const int r = idx / CH;
+      const int c = idx % CH;
+      const bool ok = k0 + r < Sk;
+      const int64_t row = k0 + r;
+      cp_async16(smem_addr(ks + r * RS + 8 * c),
+                 ok ? kb + row * k_ss + 8 * c : k, ok ? 16 : 0);
+      cp_async16(smem_addr(vs + r * RS + 8 * c),
+                 ok ? vb + row * v_ss + 8 * c : v, ok ? 16 : 0);
+    }
+  };
+  if (k_begin < k_end) load_kv(0, k_begin);
+  cp_async_commit();
+
+  // m16n8 fragment layout: this thread holds rows row0 and row0 + 8 of the
+  // warp's 16, columns col0 and col0 + 1 of every 8-column tile
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int col0 = 2 * (lane & 3);
+  float o[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};      // this thread's share of the row sums
+  uint32_t qf[KS][4];
+
+  int st = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += MMA_BN, st ^= 1) {
+    if (k0 + MMA_BN < k_end) {
+      load_kv(st ^ 1, k0 + MMA_BN);   // read at the previous iteration,
+      cp_async_commit();              // released by its closing barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (k0 == k_begin) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * RS +
+                                  16 * kk + 8 * (lane >> 4)));
+    }
+    const bf16* ks = Ks + st * MMA_BN * RS;
+    const bf16* vs = Vs + st * MMA_BN * RS;
+
+    // s = q . k: 8 tiles of 8 keys; one ldmatrix.x4 gives the B fragments
+    // of two key tiles at one k16 step
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bf[4];
+        ldsm_x4(bf, smem_addr(ks + (16 * jj + (lane & 7) + 8 * (lane >> 4)) * RS +
+                              16 * kk + 8 * ((lane >> 3) & 1)));
+        mma_bf16(s[2 * jj], qf[kk], bf[0], bf[1]);
+        mma_bf16(s[2 * jj + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // scale (log2 domain) and mask
+    const bool full = k0 + MMA_BN <= Sk &&
+                      (!causal || k0 + MMA_BN - 1 <= q0) &&
+                      (window <= 0 || q0 + MMA_BM - 1 - k0 < window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kp = k0 + 8 * j + col0 + (r & 1);
+        const int qp = row0 + 8 * (r >> 1);
+        const bool ok = full || (kp < Sk && (!causal || qp >= kp) &&
+                                 (window <= 0 || qp - kp < window));
+        s[j][r] = ok ? s[j][r] * scale_log2 : NEG_INF;
+      }
+
+    // online softmax per row: max over the quad, rescale, p = 2^(s - m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[i], mx);
+      const float alpha = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][2 * i] = exp2f(s[j][2 * i] - m_new);
+        s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_new);
+        sum += s[j][2 * i] + s[j][2 * i + 1];
+      }
+      l_r[i] = l_r[i] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][2 * i] *= alpha;
+        o[j][2 * i + 1] *= alpha;
+      }
+    }
+
+    // o += p v: the score fragments of key tiles 2t, 2t + 1 are the A
+    // fragment of k16 step t; V's B fragments through ldmatrix.trans, two
+    // 8-column tiles per load
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint32_t a[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
+                             pack_bf16(s[2 * t][2], s[2 * t][3]),
+                             pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
+                             pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+#pragma unroll
+      for (int jd = 0; jd < NT / 2; ++jd) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, smem_addr(vs + (16 * t + (lane & 7) +
+                                          8 * ((lane >> 3) & 1)) * RS +
+                                    8 * (2 * jd + (lane >> 4))));
+        mma_bf16(o[2 * jd], a, bf[0], bf[1]);
+        mma_bf16(o[2 * jd + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();   // this stage is refilled two iterations on
+  }
+  cp_async_wait<0>();  // the Q copy, where no KV tile was visited
+
+  bf16* ob = out + (int64_t)b * o_sb + (int64_t)h * o_sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float denom = fmaxf(l, 1e-30f);
+    const int r = row0 + 8 * i;
+    if (r >= Sq) continue;
+    bf16* orow = ob + (int64_t)r * o_ss;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
+          __floats2bfloat162_rn(o[j][2 * i] / denom, o[j][2 * i + 1] / denom);
+  }
+}
+
 struct FlashArgs {
   const void* q;
   const void* k;
@@ -229,43 +494,84 @@ struct FlashArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 int launch_flash(const FlashArgs& a) {
   constexpr int BN = (D > 64) ? 32 : 64;
   constexpr size_t smem_bytes =
       sizeof(float) * (BM * (D + 4) + BN * (D + 4) + BN * D + BM * (BN + 4));
-  auto kern = flash_fwd_kernel<T, D, BN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  static unsigned smem_set = 0;
+  auto kern = flash_fma_kernel<float, D, BN>;
+  cudaError_t err = allow_smem(kern, (int)smem_bytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + BM - 1) / BM, a.H, a.B);
   const float scale = (float)(1.0 / sqrt((double)D));
   kern<<<grid, NTHREADS, smem_bytes, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.Sq, a.Sk,
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq, a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
       a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_head_dim(const FlashArgs& a, int D) {
+template <int D>
+int launch_flash_mma(const FlashArgs& a) {
+  static unsigned smem_set = 0;
+  auto kern = flash_mma_kernel<D>;
+  cudaError_t err = allow_smem(kern, MmaTile<D>::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.Sq + MMA_BM - 1) / MMA_BM, a.H, a.B);
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  kern<<<grid, MMA_THREADS, MmaTile<D>::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.Sq, a.Sk,
+      a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
+      a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_fma(const FlashArgs& a, int D) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(a);
-    case 32: return launch_flash<T, 32>(a);
-    case 64: return launch_flash<T, 64>(a);
-    case 80: return launch_flash<T, 80>(a);
-    case 128: return launch_flash<T, 128>(a);
+    case 16: return launch_flash<16>(a);
+    case 32: return launch_flash<32>(a);
+    case 64: return launch_flash<64>(a);
+    case 80: return launch_flash<80>(a);
+    case 128: return launch_flash<128>(a);
     default: return -1;
   }
 }
 
+int dispatch_mma(const FlashArgs& a, int D) {
+  switch (D) {
+    case 16: return launch_flash_mma<16>(a);
+    case 32: return launch_flash_mma<32>(a);
+    case 64: return launch_flash_mma<64>(a);
+    case 80: return launch_flash_mma<80>(a);
+    case 128: return launch_flash_mma<128>(a);
+    default: return -1;
+  }
+}
+
+// The bf16 kernel's 16-byte copies: the 16-byte rule (common.cuh) on q,
+// k and v; the output's pair stores: even strides.
+bool aligned_for_mma(const FlashArgs& a) {
+  return base16(a.q) && base16(a.k) && base16(a.v) &&
+         reinterpret_cast<uintptr_t>(a.out) % 4 == 0 &&
+         stride16(a.B, a.q_sb) && stride16(a.Sq, a.q_ss) &&
+         stride16(a.H, a.q_sh) && stride16(a.B, a.k_sb) &&
+         stride16(a.Sk, a.k_ss) && stride16(a.KV, a.k_sh) &&
+         stride16(a.B, a.v_sb) && stride16(a.Sk, a.v_ss) &&
+         stride16(a.KV, a.v_sh) && (a.o_sb | a.o_ss | a.o_sh) % 2 == 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; the last
+// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the mma.sync kernel,
+// which needs aligned_for_mma).  Strides are in elements; the last
 // dimension of every tensor has stride 1.  Returns cudaGetLastError()
-// after the launch (0 on success), -1 for an unsupported head dim or
-// dtype.  Launches on `stream`, does not synchronise, allocates nothing.
+// after the launch (0 on success), -1 for an unsupported head dim, dtype
+// or alignment.  Launches on `stream`, does not synchronise, allocates
+// nothing.
 extern "C" int fate_flash_attention(
     const void* q, const void* k, const void* v, void* out,
     int B, int Sq, int Sk, int H, int KV, int D,
@@ -278,7 +584,7 @@ extern "C" int fate_flash_attention(
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window,
               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_head_dim<float>(a, D);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(a, D);
+  if (dtype == 0) return dispatch_fma(a, D);
+  if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D) : -1;
   return -1;
 }

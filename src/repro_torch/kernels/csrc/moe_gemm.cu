@@ -7,71 +7,101 @@
 // per-sample dispatch blocks), w [E, D, F] -> out [B, E, C, F].  The TPU
 // kernel took [E, C, D] and was called once per sample by vmap; here the
 // batch axis is read through its stride and the B*C rows (b, c) of one
-// expert form one row range, so each block loads its slice of the
-// expert's weights once for all samples, and the strided view the model
-// hands over (its dispatch buffer minus the dropped-token slot) is read
-// as it lies: nothing is copied.  Dims need not be tile multiples.
-//
-// Shape of the kernel.  Grid (F / 64, B*C / 64, E); 256 threads, each
-// owning a 4 x 4 tile of outputs spaced 16 rows / 16 columns apart (no
-// shared-memory bank conflicts on the reads).  The contraction walks D in
-// steps of 16 through two shared-memory tiles; every element is widened
-// to float32 at the load and the products are float32 FMAs, so float32
-// inputs keep true float32 accumulation (the 1e-5 relative bar) and bf16
-// inputs accumulate exactly as the TPU kernel's preferred_element_type.
+// expert form one row range (row r: b = r / C, c = r % C), so each block
+// loads its slice of the expert's weights once for all samples, and the
+// strided view the model hands over (its dispatch buffer minus the
+// dropped-token slot) is read as it lies: nothing is copied.  Dims need
+// not be tile multiples.
 //
 // What bounds it on an NVIDIA H100 SXM (data-sheet rates, 700 W power
-// limit).  At granite-moe's decode (B*C = 64 rows per expert) the
-// function is bound by bytes: the 63 MB of bf16 expert weights are read
-// once.  At its prefill (B*C = 1024) it does 64 GFLOP per call, about 280
-// flops per byte, near that card's bf16 ridge of 295.  This version
-// reaches neither bound: it runs on the float32 FMA pipe of the CUDA
-// cores (67 TFLOP/s peak on that card), with no tensor cores, no vector
-// loads and no copy/compute overlap.  mma.sync / wgmma with TMA
-// pipelining, and skipping empty capacity rows, are later work; the times
-// are in PERF.md.
+// limit).  At granite-moe's prefill (B*C = 1024 rows per expert) one call
+// does 64.4 GFLOP and moves 230 MB once, about 280 flops per byte: the
+// card's bf16 ridge is 295, so operations (0.065 ms at 989 TFLOP/s) and
+// bytes (0.069 ms at 3.35 TB/s) bound it alike, and only the tensor
+// cores can reach either.  At its decode (B*C = 64 or 32) the 63 MB of
+// bf16 expert weights must be read once: bytes bound it (0.022 ms).
+//
+// bf16: warpgroup tensor cores fed by a cp.async ring.  One block owns a
+// BM x 128 output tile of one expert: BM = 128 (two warpgroups, 64 rows
+// each) where an expert has >= 256 rows, else BM = 64 (one warpgroup).
+// Each warpgroup issues wgmma.mma_async m64n128k16 with both operands in
+// shared memory and 64 float32 accumulators per thread.  x is the K-major
+// A operand; w [D, F] with F contiguous is an MN-major B operand, taken
+// through the descriptor's transpose bit, so the weights are never
+// transposed or copied.  Depth goes in stages of 64 through a ring of 4
+// shared-memory stages, laid out in the 128-byte swizzle the descriptors
+// name (a 64-element row segment is one 128-byte line, its 16-byte chunks
+// XORed with the line index mod 8: no bank conflicts).  Every thread
+// issues 16-byte cp.async copies two stages ahead of the one the tensor
+// cores read, and one wgmma group stays in flight while the next stage
+// is waited for, so loads overlap the products.  Rows beyond B*C, depth
+// beyond D and columns beyond F are zero-filled by the copies (source
+// size below 16).  Operands whose rows are not 16-byte aligned (odd D or
+// F, a weight with F not contiguous) take an element-wise loader that
+// writes the same swizzled layout, and the same pipeline runs on it.
+// There is no split-K: every output sums its k16 steps in increasing
+// depth with the same instruction in both tile shapes, so a sample's
+// rows do not depend on what else is in the call.  The tile shape and the
+// loader are chosen in Python (kernels/moe_gemm.py :: gemm_plan) and
+// passed as a code; this file refuses the vector loader for operands it
+// cannot read that way.
+//
+// Left undone: a persistent grid (granite's decode gate/up has 160 blocks
+// for 132 SMs), warp specialisation with a TMA producer for the regular w
+// operand, and skipping empty capacity rows (at decode about 97 % of the
+// [B, E, 8] slots are empty, but the call is bound by the weights' bytes,
+// which every expert needs).
+//
+// float32: the FMA kernel of the first port, kept for the 1e-5 relative
+// bar, which needs true float32 products (TF32 would miss it).  Grid
+// (F / 64, B*C / 64, E), 256 threads with 4 x 4 outputs each, depth in
+// steps of 16 through shared memory.  No bf16 input reaches it.
 #include "common.cuh"
 
 namespace {
 
 using namespace fate;
+using bf16 = __nv_bfloat16;
 
-constexpr int BM = 64;    // rows (b, c) of one expert per block
-constexpr int BN = 64;    // output columns per block
-constexpr int BK = 16;    // contraction depth per shared-memory stage
-constexpr int NT = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
-constexpr int LOADS = BM * BK / NT;   // elements of each tile per thread
+// ---------------------------------------------------------------------------
+// float32: FMA kernel
+// ---------------------------------------------------------------------------
 
-static_assert(BM * BK == BK * BN, "A and B tiles are loaded alike");
+constexpr int FMA_BM = 64;    // rows (b, c) of one expert per block
+constexpr int FMA_BN = 64;    // output columns per block
+constexpr int FMA_BK = 16;    // contraction depth per shared-memory stage
+constexpr int FMA_NT = 256;   // a 16 x 16 grid of threads, 4 x 4 outputs each
+constexpr int FMA_LOADS = FMA_BM * FMA_BK / FMA_NT;   // elements per thread
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ out, int C, int D, int F, int rows,
-                int64_t x_sb, int64_t x_se, int64_t x_sc, int64_t x_sd,
-                int64_t w_se, int64_t w_sd, int64_t w_sf,
-                int64_t o_sb, int64_t o_se, int64_t o_sc) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
+static_assert(FMA_BM * FMA_BK == FMA_BK * FMA_BN, "A and B tiles load alike");
+
+__global__ void __launch_bounds__(FMA_NT)
+moe_gemm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    float* __restrict__ out, int C, int D, int F, int rows,
+                    int64_t x_sb, int64_t x_se, int64_t x_sc, int64_t x_sd,
+                    int64_t w_se, int64_t w_sd, int64_t w_sf,
+                    int64_t o_sb, int64_t o_se, int64_t o_sc) {
+  __shared__ float As[FMA_BK][FMA_BM + 4];
+  __shared__ float Bs[FMA_BK][FMA_BN + 4];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * FMA_BN;
+  const int r0 = blockIdx.y * FMA_BM;
   const int e = blockIdx.z;
-  const T* xe = x + (int64_t)e * x_se;
-  const T* we = w + (int64_t)e * w_se;
+  const float* xe = x + (int64_t)e * x_se;
+  const float* we = w + (int64_t)e * w_se;
 
   // the A elements this thread loads: row m of the tile, depth a_k
-  int64_t a_row[LOADS];
-  int a_m[LOADS], a_k[LOADS];
-  bool a_ok[LOADS];
+  int64_t a_row[FMA_LOADS];
+  int a_m[FMA_LOADS], a_k[FMA_LOADS];
+  bool a_ok[FMA_LOADS];
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * NT;
-    a_m[i] = idx / BK;
-    a_k[i] = idx % BK;
+  for (int i = 0; i < FMA_LOADS; ++i) {
+    const int idx = tid + i * FMA_NT;
+    a_m[i] = idx / FMA_BK;
+    a_k[i] = idx % FMA_BK;
     const int r = r0 + a_m[i];
     a_ok[i] = r < rows;
     const int b = a_ok[i] ? r / C : 0;
@@ -79,12 +109,12 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     a_row[i] = (int64_t)b * x_sb + (int64_t)c * x_sc;
   }
   // the B elements: depth b_k, column b_n
-  int b_k[LOADS], b_n[LOADS];
+  int b_k[FMA_LOADS], b_n[FMA_LOADS];
 #pragma unroll
-  for (int i = 0; i < LOADS; ++i) {
-    const int idx = tid + i * NT;
-    b_k[i] = idx / BN;
-    b_n[i] = idx % BN;
+  for (int i = 0; i < FMA_LOADS; ++i) {
+    const int idx = tid + i * FMA_NT;
+    b_k[i] = idx / FMA_BN;
+    b_n[i] = idx % FMA_BN;
   }
 
   float acc[4][4];
@@ -93,23 +123,20 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < D; k0 += BK) {
+  for (int k0 = 0; k0 < D; k0 += FMA_BK) {
 #pragma unroll
-    for (int i = 0; i < LOADS; ++i) {
+    for (int i = 0; i < FMA_LOADS; ++i) {
       const int kx = k0 + a_k[i];
       As[a_k[i]][a_m[i]] =
-          (a_ok[i] && kx < D) ? to_float<T>(xe[a_row[i] + (int64_t)kx * x_sd])
-                              : 0.f;
+          (a_ok[i] && kx < D) ? xe[a_row[i] + (int64_t)kx * x_sd] : 0.f;
       const int kw = k0 + b_k[i];
       const int n = n0 + b_n[i];
       Bs[b_k[i]][b_n[i]] =
-          (kw < D && n < F)
-              ? to_float<T>(we[(int64_t)kw * w_sd + (int64_t)n * w_sf])
-              : 0.f;
+          (kw < D && n < F) ? we[(int64_t)kw * w_sd + (int64_t)n * w_sf] : 0.f;
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < FMA_BK; ++kk) {
       float a[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
@@ -123,62 +150,347 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     __syncthreads();   // the tiles are overwritten by the next stage
   }
 
-  T* oe = out + (int64_t)e * o_se;
+  float* oe = out + (int64_t)e * o_se;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty + 16 * i;
     if (r >= rows) continue;
     const int b = r / C;
     const int c = r % C;
-    T* orow = oe + (int64_t)b * o_sb + (int64_t)c * o_sc;
+    float* orow = oe + (int64_t)b * o_sb + (int64_t)c * o_sc;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < F) orow[n] = from_float<T>(acc[i][j]);
+      if (n < F) orow[n] = acc[i][j];
     }
   }
 }
 
-template <typename T>
-int launch_moe_gemm(const void* x, const void* w, void* out, int B, int E,
-                    int C, int D, int F, long long x_sb, long long x_se,
-                    long long x_sc, long long x_sd, long long w_se,
-                    long long w_sd, long long w_sf, long long o_sb,
-                    long long o_se, long long o_sc, cudaStream_t stream) {
-  const int rows = B * C;
-  const dim3 grid((F + BN - 1) / BN, (rows + BM - 1) / BM, E);
-  moe_gemm_kernel<T><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<T*>(out), C, D, F, rows, x_sb, x_se, x_sc, x_sd, w_se,
-      w_sd, w_sf, o_sb, o_se, o_sc);
+// ---------------------------------------------------------------------------
+// bf16: wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int BN = 128;        // output columns per block (the wgmma's N)
+constexpr int BK = 64;         // depth per stage: one 128-byte swizzle line
+constexpr int STAGES = 4;      // shared-memory ring
+constexpr int B_BYTES = BK * BN * 2;
+constexpr int B_HALF = BK * 64 * 2;   // one 64-column half of the B stage
+
+template <int BM>
+struct Tile {
+  static constexpr int THREADS = 2 * BM;            // BM / 64 warpgroups
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
+};
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  Offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Make this thread's generic-proxy writes to shared memory (cp.async,
+// plain stores) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pin the accumulators: no read or write of them moves across this point.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] (K-major) . B[16 x 128] (MN-major: the
+// transpose bit of B is set), float32 accumulators.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Byte offset of element (line, col) of a swizzled region of 128-byte
+// lines (64 bf16 each; the region starts 1024-byte aligned).
+__device__ __forceinline__ int sw128_offset(int line, int col) {
+  return line * 128 + ((((col >> 3) ^ line) & 7) << 4) + (col & 7) * 2;
+}
+
+template <int BM, bool VEC>
+__global__ void __launch_bounds__(Tile<BM>::THREADS, 1)
+moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                      bf16* __restrict__ out, int C, int D, int F, int rows,
+                      int64_t x_sb, int64_t x_se, int64_t x_sc, int64_t x_sd,
+                      int64_t w_se, int64_t w_sd, int64_t w_sf,
+                      int64_t o_sb, int64_t o_se, int64_t o_sc) {
+  constexpr int T = Tile<BM>::THREADS;
+  constexpr int A_BYTES = Tile<BM>::A_BYTES;
+  constexpr int STAGE = Tile<BM>::STAGE;
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle atom's size
+  uint8_t* sbase = smem_raw + (base - raw);
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN;
+  const int r0 = blockIdx.y * BM;
+  const int e = blockIdx.z;
+  const bf16* xe = x + (int64_t)e * x_se;
+  const bf16* we = w + (int64_t)e * w_se;
+  const int KT = (D + BK - 1) / BK;
+
+  // Vector loader: this thread's fixed 16-byte chunk column in A (a_c)
+  // and in B (b_cc), its A rows' offsets, its B columns' byte count.
+  constexpr int A_PT = BM * 8 / T;       // A chunks per thread (4)
+  constexpr int B_PT = BK * 16 / T;      // B chunks per thread (8 or 4)
+  const int a_c = tid & 7;
+  const int b_cc = tid & 15;
+  const int b_n = n0 + 8 * b_cc;
+  const int b_bytes = max(0, min(16, (F - b_n) * 2));
+  int64_t a_off[A_PT];
+  bool a_ok[A_PT];
+#pragma unroll
+  for (int i = 0; i < A_PT; ++i) {
+    const int r = r0 + (tid >> 3) + i * (T / 8);
+    a_ok[i] = r < rows;
+    const int b = a_ok[i] ? r / C : 0;
+    const int c = a_ok[i] ? r % C : 0;
+    a_off[i] = (int64_t)b * x_sb + (int64_t)c * x_sc;
+  }
+
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kt * BK;
+    uint8_t* sa = sbase + stage * STAGE;
+    uint8_t* sb = sa + A_BYTES;
+    if constexpr (VEC) {
+      const int ka = k0 + 8 * a_c;
+      const int ka_bytes = max(0, min(16, (D - ka) * 2));
+#pragma unroll
+      for (int i = 0; i < A_PT; ++i) {
+        const int m = (tid >> 3) + i * (T / 8);
+        const int nb = a_ok[i] ? ka_bytes : 0;
+        const bf16* src = nb ? xe + a_off[i] + ka : x;
+        cp_async16(smem_addr(sa + m * 128 + (((a_c ^ m) & 7) << 4)), src, nb);
+      }
+#pragma unroll
+      for (int i = 0; i < B_PT; ++i) {
+        const int kr = (tid >> 4) + i * (T / 16);
+        const int nb = (k0 + kr < D) ? b_bytes : 0;
+        const bf16* src = nb ? we + (int64_t)(k0 + kr) * w_sd + b_n : w;
+        cp_async16(smem_addr(sb + (b_cc >> 3) * B_HALF + kr * 128 +
+                             ((((b_cc & 7) ^ kr) & 7) << 4)),
+                   src, nb);
+      }
+    } else {
+      const bf16 zero = __float2bfloat16_rn(0.f);
+      const int k = tid & 63;                 // this thread's A column
+#pragma unroll 4
+      for (int j = 0; j < BM * BK / T; ++j) {
+        const int m = (tid >> 6) + j * (T / 64);
+        const int r = r0 + m;
+        bf16 val = zero;
+        if (r < rows && k0 + k < D)
+          val = xe[(int64_t)(r / C) * x_sb + (int64_t)(r % C) * x_sc +
+                   (int64_t)(k0 + k) * x_sd];
+        *reinterpret_cast<bf16*>(sa + sw128_offset(m, k)) = val;
+      }
+      const int n = tid & 127;                // this thread's B column
+#pragma unroll 4
+      for (int j = 0; j < BK * BN / T; ++j) {
+        const int kr = (tid >> 7) + j * (T / 128);
+        bf16 val = zero;
+        if (k0 + kr < D && n0 + n < F)
+          val = we[(int64_t)(k0 + kr) * w_sd + (int64_t)(n0 + n) * w_sf];
+        *reinterpret_cast<bf16*>(sb + (n >> 6) * B_HALF +
+                                 sw128_offset(kr, n & 63)) = val;
+      }
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const int wg = tid >> 7;      // this warpgroup's 64 rows of the tile
+
+  // Ring: stage kt % STAGES holds depth tile kt.  Tiles are loaded
+  // STAGES - 2 ahead; one wgmma group stays in flight, so the stage
+  // written at iteration kt (tile kt + 2) was last read by tile kt - 2,
+  // whose group every warpgroup retired before this iteration's barrier.
+#pragma unroll
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < KT) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 3>();    // this thread's copies of tile kt
+    fence_proxy_async();
+    __syncthreads();                // everyone's copies of tile kt
+    if (kt + STAGES - 2 < KT)
+      load_stage((kt + STAGES - 2) % STAGES, kt + STAGES - 2);
+    cp_async_commit();
+    const uint32_t sa = base + (kt % STAGES) * STAGE;
+    const uint32_t sb = sa + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // A: this warpgroup's 64 lines, k16 step = 32 bytes along the line;
+      // B: two 64-column halves B_HALF apart (LBO), 8-deep line groups
+      // 1024 bytes apart (SBO), k16 step = 16 lines
+      const uint64_t da = sw128_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db = sw128_desc(sb + kk * 16 * 128, B_HALF, 1024);
+      wgmma_m64n128k16(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_async_wait<0>();
+
+  // Accumulator layout of m64nNk16: thread (warp w, lane l) of the
+  // warpgroup holds rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4)
+  // (+ 1) of every 8-column group j.
+  const int warp = (tid & 127) >> 5;
+  const int lane = tid & 31;
+  const bool pairs = ((o_sb | o_se | o_sc) & 1) == 0 &&
+                     (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+  bf16* oe = out + (int64_t)e * o_se;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * half;
+    if (r >= rows) continue;
+    bf16* orow = oe + (int64_t)(r / C) * o_sb + (int64_t)(r % C) * o_sc;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      const float v0 = acc[4 * j + 2 * half];
+      const float v1 = acc[4 * j + 2 * half + 1];
+      if (pairs && n + 1 < F) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (n < F) orow[n] = __float2bfloat16_rn(v0);
+        if (n + 1 < F) orow[n + 1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+struct GemmArgs {
+  const void* x;
+  const void* w;
+  void* out;
+  int B, E, C, D, F;
+  int64_t x_sb, x_se, x_sc, x_sd, w_se, w_sd, w_sf, o_sb, o_se, o_sc;
+  cudaStream_t stream;
+};
+
+int launch_fma(const GemmArgs& a) {
+  const int rows = a.B * a.C;
+  const dim3 grid((a.F + FMA_BN - 1) / FMA_BN, (rows + FMA_BM - 1) / FMA_BM,
+                  a.E);
+  if (grid.y > 65535) return -1;
+  moe_gemm_fma_kernel<<<grid, FMA_NT, 0, a.stream>>>(
+      static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+      static_cast<float*>(a.out), a.C, a.D, a.F, rows, a.x_sb, a.x_se,
+      a.x_sc, a.x_sd, a.w_se, a.w_sd, a.w_sf, a.o_sb, a.o_se, a.o_sc);
   return (int)cudaGetLastError();
+}
+
+template <int BM, bool VEC>
+int launch_wgmma(const GemmArgs& a) {
+  static unsigned smem_set = 0;
+  auto kern = moe_gemm_wgmma_kernel<BM, VEC>;
+  cudaError_t err = allow_smem(kern, Tile<BM>::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = a.B * a.C;
+  const dim3 grid((a.F + BN - 1) / BN, (rows + BM - 1) / BM, a.E);
+  if (grid.y > 65535) return -1;
+  kern<<<grid, Tile<BM>::THREADS, Tile<BM>::SMEM, a.stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.w),
+      static_cast<bf16*>(a.out), a.C, a.D, a.F, rows, a.x_sb, a.x_se,
+      a.x_sc, a.x_sd, a.w_se, a.w_sd, a.w_sf, a.o_sb, a.o_se, a.o_sc);
+  return (int)cudaGetLastError();
+}
+
+// The vector loader's condition: the 16-byte rule (common.cuh) on both
+// operands, unit stride along D in x and along F in w.
+bool vector_ok(const GemmArgs& a) {
+  return base16(a.x) && base16(a.w) && (a.D == 1 || a.x_sd == 1) &&
+         (a.F == 1 || a.w_sf == 1) && stride16(a.B, a.x_sb) &&
+         stride16(a.E, a.x_se) && stride16(a.C, a.x_sc) &&
+         stride16(a.E, a.w_se) && stride16(a.D, a.w_sd);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  Strides are
-// in elements; x and w may have any strides (each element is loaded on
-// its own), out's last dimension has stride 1.  x [B, E, C, D],
-// w [E, D, F], out [B, E, C, F].  Requires every dimension >= 1,
-// B * C < 2^31 and E <= 65535.  Returns
-// cudaGetLastError() after the launch (0 on success), -1 for arguments
-// it does not take.  Launches on `stream`, does not synchronise,
-// allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  plan (bf16
+// only): bit 0 = the 128-row tile (else 64 rows), bit 1 = the element-wise
+// loader (else 16-byte cp.async copies, refused with -1 for operands that
+// vector_ok rejects).  Strides are in elements; out's last dimension has
+// stride 1.  x [B, E, C, D], w [E, D, F], out [B, E, C, F].  Requires every
+// dimension >= 1, B * C < 2^31, at most 65535 row tiles and E <= 65535.
+// Returns cudaGetLastError() after the launch (0 on success), -1 for
+// arguments it does not take.  Launches on `stream`, does not
+// synchronise, allocates nothing.
 extern "C" int fate_moe_gemm(const void* x, const void* w, void* out, int B,
                              int E, int C, int D, int F, long long x_sb,
                              long long x_se, long long x_sc, long long x_sd,
                              long long w_se, long long w_sd, long long w_sf,
                              long long o_sb, long long o_se, long long o_sc,
-                             int dtype, void* stream) {
+                             int dtype, int plan, void* stream) {
   if (B < 1 || E < 1 || C < 1 || D < 1 || F < 1 || E > 65535) return -1;
   if ((long long)B * C >= (1LL << 31)) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_moe_gemm<float>(x, w, out, B, E, C, D, F, x_sb, x_se, x_sc,
-                                  x_sd, w_se, w_sd, w_sf, o_sb, o_se, o_sc, s);
-  if (dtype == 1)
-    return launch_moe_gemm<__nv_bfloat16>(x, w, out, B, E, C, D, F, x_sb,
-                                          x_se, x_sc, x_sd, w_se, w_sd, w_sf,
-                                          o_sb, o_se, o_sc, s);
-  return -1;
+  const GemmArgs a{x, w, out, B, E, C, D, F, x_sb, x_se, x_sc, x_sd,
+                   w_se, w_sd, w_sf, o_sb, o_se, o_sc,
+                   static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_fma(a);
+  if (dtype != 1 || plan < 0 || plan > 3) return -1;
+  const bool wide = plan & 1;
+  const bool element = plan & 2;
+  if (!element && !vector_ok(a)) return -1;
+  if (wide)
+    return element ? launch_wgmma<128, false>(a) : launch_wgmma<128, true>(a);
+  return element ? launch_wgmma<64, false>(a) : launch_wgmma<64, true>(a);
 }

@@ -8,14 +8,18 @@ online-softmax state in registers, skips tiles above the causal diagonal
 or below the window, and reads ``q [B, Sq, H, D]`` and ``k, v
 [B, Sk, KV, D]`` through their strides.  On an H100 the function's least
 time is set by bytes (about 171 flops per byte at B = 8, S = 512, H = 16,
-KV = 8, D = 128 in bf16, against 295 for the card: 0.015 ms); this version
-is limited by the float32 FMA rate of the CUDA cores (67 TFLOP/s) because
-it does not use tensor cores, which are left for a later version (see the
-source note).
+KV = 8, D = 128 in bf16, against 295 for the card: 0.015 ms).  bf16 runs on
+the tensor cores (``mma.sync`` m16n8k16, K and V through a ``cp.async``
+ring, p kept in registers); float32 keeps the FMA kernel of the first port
+for its 2e-5 bar (see the source note).
 
-Scores, ``p`` and the accumulator are float32 for either input type, as
-in the TPU kernel body (``p`` is NOT rounded to bf16 before the PV
-product, unlike the XLA twin in ``repro.models.attention``).
+Scores and the accumulator are float32 for either input type.  In float32
+``p`` stays float32, as in the TPU kernel body; in bf16 the kernel rounds
+``p`` to bf16 for the PV product, as the XLA twin in
+``repro.models.attention`` does (the plain version below keeps it
+float32; ROADMAP H19).  The bf16 kernel reads rows in 16-byte pieces:
+an operand whose strides are not multiples of 8 elements is copied first
+(``_build.kernel_operand``).
 """
 from __future__ import annotations
 

@@ -34,6 +34,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0."""
+    """Set every wrapper's launch count to 0 (K3's count of 64-row tile
+    launches too)."""
     for fn in KERNELS.values():
         fn.launches = 0
+    moe_gemm.decode_tile_launches = 0

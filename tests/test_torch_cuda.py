@@ -128,16 +128,32 @@ MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
 @pytest.mark.parametrize("e,c,d,f", [(4, 96, 160, 192), (2, 128, 64, 64),
                                      (8, 40, 100, 70), (3, 1, 7, 5),
-                                     (40, 8, 1536, 512)])
+                                     (40, 8, 1536, 512),
+                                     (1, 64, 16, 64),     # one wgmma tile
+                                     (2, 300, 72, 136),   # 128-row tiles
+                                     (2, 300, 36, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gemm_kernel(card, e, c, d, f, dtype):
+    """The sweep (bf16 on the wgmma kernel with the loader the plan
+    states: rows of a multiple of 8 elements take 16-byte copies, the
+    ragged D = 100, 7, 36 and F = 70, 5, 20 the element-wise loader)."""
+    from repro_torch.kernels import moe_gemm as mg_mod
     rng = np.random.default_rng(7)
     x = _randn(rng, (e, c, d), dtype, card)
     w = _randn(rng, (e, d, f), dtype, card)
+    if dtype == torch.bfloat16:
+        plan = mg_mod.gemm_plan(1, e, c, d, f, x.unsqueeze(0).stride(),
+                                w.stride(), x.data_ptr(), w.data_ptr())
+        assert plan.vector == (d % 8 == 0 and f % 8 == 0)
+        assert plan.block_rows == (128 if c >= 256 else 64)
     before = ops.moe_gemm.launches
+    before_tile = ops.moe_gemm.decode_tile_launches
     out = ops.moe_gemm(x, w)
     torch.cuda.synchronize()
     assert ops.moe_gemm.launches == before + 1
+    # only a bf16 call on the 64-row tile counts as a decode-tile launch
+    assert ops.moe_gemm.decode_tile_launches == before_tile + int(
+        dtype == torch.bfloat16 and c < 256)
     assert out.shape == (e, c, f) and out.dtype == dtype
     assert _rel(out, ref.moe_gemm_ref(x, w)) < MOE_TOL[dtype]
 
@@ -330,3 +346,97 @@ def test_mamba2_scan_kernel_bf16_column_slices_and_poison(card):
                              a_log[2:3], chunk=128, state0=st0[:, 2:3])
     assert torch.equal(one, y[:, :, 2:3])
 
+
+
+# ---------------------------------------------------------------------------
+# The bf16 redesigns: K3 on wgmma, K1 on mma.sync
+# ---------------------------------------------------------------------------
+
+
+def _dispatch_view(rng, b, e, c, d, card):
+    """x [B, E, C, D] as the MoE layer hands it over: a view of a
+    [B, E*C + 1, D] buffer without its last (dropped-token) row, which is
+    poisoned with NaN."""
+    buf = _randn(rng, (b, e * c + 1, d), torch.bfloat16, card)
+    buf[:, -1] = float("nan")
+    return buf[:, :-1].view(b, e, c, d)
+
+
+@pytest.mark.parametrize("b,c,d,f", [
+    (8, 128, 1536, 512),     # granite prefill, gate / up
+    (8, 128, 512, 1536),     # granite prefill, down
+    (8, 8, 1536, 512),       # decode, 8 queries
+    (4, 8, 1536, 512),       # decode, 4 queries (a 2-way shard)
+])
+def test_moe_gemm_kernel_bf16_granite_shapes(card, b, c, d, f):
+    """granite-moe's own shapes (40 experts) through the dispatch view:
+    the 128-row tile at prefill, the 64-row tile at decode, both on the
+    vector loader, never reading the poisoned slot."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    rng = np.random.default_rng(14)
+    x = _dispatch_view(rng, b, 40, c, d, card)
+    w = _randn(rng, (40, d, f), torch.bfloat16, card)
+    plan = mg_mod.gemm_plan(b, 40, c, d, f, x.stride(), w.stride(),
+                            x.data_ptr(), w.data_ptr())
+    assert plan.vector
+    assert plan.block_rows == (128 if b * c >= 256 else 64)
+    before = ops.moe_gemm.launches
+    before_tile = ops.moe_gemm.decode_tile_launches
+    out = ops.moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert ops.moe_gemm.launches == before + 1
+    assert ops.moe_gemm.decode_tile_launches == before_tile + int(
+        plan.block_rows == 64)
+    assert bool(torch.isfinite(out.float()).all())
+    assert _rel(out, ref.moe_gemm_ref(x, w)) < MOE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("name,h,kv,d", [
+    ("qwen3", 16, 8, 128), ("glm4", 32, 2, 128), ("granite", 24, 8, 64),
+    ("zamba2", 32, 32, 80),
+])
+def test_flash_attention_kernel_bf16_served_shapes(card, name, h, kv, d):
+    """The four served prefill shapes (prompt 512, causal) at B = 2."""
+    rng = np.random.default_rng(16)
+    q = _randn(rng, (2, 512, h, d), torch.bfloat16, card)
+    k = _randn(rng, (2, 512, kv, d), torch.bfloat16, card)
+    v = _randn(rng, (2, 512, kv, d), torch.bfloat16, card)
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert float((out.float() - want.float()).abs().max()) < 2e-2
+
+
+# (Sq, Sk, causal, window), leaving out windows under which a row has no
+# valid key at all (degenerate in the reference: ROADMAP H10)
+RAGGED = [(sq, sk, causal, window)
+          for sq, sk in ((100, 100), (70, 200), (150, 90))
+          for causal, window in ((True, 0), (True, 48), (False, 0))
+          if not window or sq - sk < window]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("g", [1, 3, 16])
+@pytest.mark.parametrize("sq,sk,causal,window", RAGGED)
+def test_flash_attention_kernel_bf16_ragged(card, d, g, sq, sk, causal,
+                                            window):
+    """Ragged and unequal Sq, Sk, every head dim, groups of 1, 3 and 16."""
+    rng = np.random.default_rng(17)
+    q = _randn(rng, (2, sq, 2 * g, d), torch.bfloat16, card)
+    k = _randn(rng, (2, sk, 2, d), torch.bfloat16, card)
+    v = _randn(rng, (2, sk, 2, d), torch.bfloat16, card)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_flash_attention_kernel_bf16_misaligned_view_is_copied(card):
+    """Heads of 32 inside rows of 36 elements: strides 4- but not
+    8-aligned, which the bf16 kernel's 16-byte copies cannot read; the
+    wrapper copies them, and the result equals the contiguous call."""
+    rng = np.random.default_rng(18)
+    buf = _randn(rng, (2, 80, 6, 36), torch.bfloat16, card)
+    q, k, v = buf[:, :, :4, :32], buf[:, :, 4:5, :32], buf[:, :, 5:6, :32]
+    assert q.stride(2) % 4 == 0 and q.stride(2) % 8
+    a = ops.flash_attention(q, k, v)
+    b = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(a, b)

@@ -160,6 +160,7 @@ def test_launch_counts_reset():
     ops.moe_gemm.launches = 3
     ops.mamba2_scan.launches = 4
     ops.rwkv6_scan.launches = 2
+    ops.moe_gemm.decode_tile_launches = 1
     assert ops.launch_counts() == {"flash_attention": 5,
                                    "decode_attention": 7, "moe_gemm": 3,
                                    "mamba2_scan": 4, "rwkv6_scan": 2}
@@ -167,6 +168,7 @@ def test_launch_counts_reset():
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "decode_attention": 0, "moe_gemm": 0,
                                    "mamba2_scan": 0, "rwkv6_scan": 0}
+    assert ops.moe_gemm.decode_tile_launches == 0
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -234,6 +236,13 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else _build.ATTN_HEAD_DIMS
     assert got == set(dims)
     assert (80 in got) == (name != "rwkv6_scan")
+    # every dispatch of the source (K1: the float32 FMA kernel's and the
+    # bf16 mma.sync kernel's) takes exactly those dims
+    switches = re.findall(r"switch \(D\) \{(.*?)\}", src, re.S)
+    assert len(switches) == (2 if name == "flash_attention" else 1)
+    for block in switches:
+        assert {int(d) for d in re.findall(r"case (\d+):", block)} == \
+            set(dims)
 
 
 def test_decode_attention_head_dim_80_plain_vs_jax():
@@ -305,6 +314,176 @@ def test_moe_gemm_rejects_bad_arguments(bad):
             "empty": (torch.zeros(2, 0, 8), w)}[bad]
     with pytest.raises(err):
         ops.moe_gemm(*args)
+
+
+# K3's tile and loader plan (the bf16 wgmma kernel's; decided in Python)
+
+BASE = 1 << 32           # an aligned device address for the plan's checks
+
+
+def _granite_operands(b, c, up=True):
+    """granite-moe's K3 operands on the meta device, with the layouts the
+    MoE layer gives them: the gate / up input is the dispatch buffer minus
+    its dropped slot, the down input the contiguous activation."""
+    from repro_torch.configs.archs import ARCHS
+    cfg = ARCHS["granite-moe-3b-a800m"]
+    e, dm, de = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_expert
+    if up:
+        buf = torch.empty((b, e * c + 1, dm), dtype=torch.bfloat16,
+                          device="meta")
+        return buf[:, :-1].view(b, e, c, dm), torch.empty(
+            (e, dm, de), dtype=torch.bfloat16, device="meta")
+    return (torch.empty((b, e, c, de), dtype=torch.bfloat16, device="meta"),
+            torch.empty((e, de, dm), dtype=torch.bfloat16, device="meta"))
+
+
+def _plan(x, w, x_ptr=BASE, w_ptr=BASE):
+    from repro_torch.kernels import moe_gemm as mg_mod
+    x4 = x if x.dim() == 4 else x.unsqueeze(0)
+    b, e, c, d = x4.shape
+    return mg_mod.gemm_plan(b, e, c, d, w.shape[2], x4.stride(), w.stride(),
+                            x_ptr, w_ptr)
+
+
+@pytest.mark.parametrize("stage,b,c,up,block_rows", [
+    ("prefill", 8, 128, True, 128), ("prefill", 8, 128, False, 128),
+    ("prefill", 4, 128, True, 128), ("prefill", 4, 128, False, 128),
+    ("decode", 8, 8, True, 64), ("decode", 8, 8, False, 64),
+    ("decode", 4, 8, True, 64), ("decode", 4, 8, False, 64),
+])
+def test_moe_gemm_plan_granite_serving_shapes(stage, b, c, up, block_rows):
+    """Every K3 call of granite's serving path (8 queries, or 4 in a
+    2-way shard; prompt 512 gives capacity 128, a decode step 8) takes the
+    16-byte vector loader with no copy, the 128-row two-warpgroup tile at
+    prefill and the 64-row tile at decode."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    from repro_torch.models.moe import _capacity
+    from repro_torch.configs.archs import ARCHS
+    cfg = ARCHS["granite-moe-3b-a800m"]
+    assert c == _capacity(512 if stage == "prefill" else 1, cfg)
+    x, w = _granite_operands(b, c, up)
+    plan = _plan(x, w)
+    assert plan.vector and plan.block_rows == block_rows
+    assert plan.code == (1 if block_rows == mg_mod.PREFILL_ROWS else 0)
+    f = w.shape[2]
+    assert plan.grid == (-(-f // mg_mod.BLOCK_N), -(-b * c // block_rows),
+                         cfg.moe.num_experts)
+
+
+@pytest.mark.parametrize("case", ["d100", "d7", "f70", "w_transposed",
+                                  "x_base", "w_base"])
+def test_moe_gemm_plan_ragged_operands_take_the_element_loader(case):
+    """Rows that are not 16-byte aligned (the sweep's D = 100, 7; F = 70),
+    a weight whose F is not contiguous, or an odd base address go through
+    the element-wise loader (code bit 1); aligned operands do not."""
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    x, w = t(8, 40, 64), t(8, 64, 64)
+    assert _plan(x, w).vector
+    x_ptr = w_ptr = BASE
+    if case == "d100":
+        x, w = t(8, 40, 100), t(8, 100, 72)
+    elif case == "d7":
+        x, w = t(3, 1, 7), t(3, 7, 8)
+    elif case == "f70":
+        w = t(8, 64, 70)
+    elif case == "w_transposed":
+        w = t(8, 64, 64).transpose(1, 2)
+    elif case == "x_base":
+        x_ptr += 8
+    else:
+        w_ptr += 2
+    plan = _plan(x, w, x_ptr, w_ptr)
+    assert not plan.vector and plan.code & 2
+
+
+@pytest.mark.parametrize("b,c,f", [(1, 1, 1), (1, 64, 128), (1, 65, 129),
+                                   (8, 8, 512), (4, 8, 1536), (2, 128, 200),
+                                   (8, 128, 512), (3, 255, 70), (1, 256, 5)])
+def test_moe_gemm_plan_covers_every_output_tile_once(b, c, f):
+    """The plan's grid of block_rows x BLOCK_N tiles covers the [B*C, F]
+    output of each expert exactly once: no element twice, none missed,
+    and no tile starts beyond the output."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    x = torch.empty((b, 3, c, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((3, 16, f), dtype=torch.bfloat16, device="meta")
+    plan = _plan(x, w)
+    cols, row_tiles, experts = plan.grid
+    assert experts == 3
+    rows = b * c
+    cover = np.zeros((rows, f), np.int32)
+    for bx in range(cols):
+        assert bx * mg_mod.BLOCK_N < f
+        for by in range(row_tiles):
+            assert by * plan.block_rows < rows
+            cover[by * plan.block_rows:(by + 1) * plan.block_rows,
+                  bx * mg_mod.BLOCK_N:(bx + 1) * mg_mod.BLOCK_N] += 1
+    assert (cover == 1).all()
+
+
+def test_moe_gemm_plan_rejects_grid_overflow():
+    from repro_torch.kernels import moe_gemm as mg_mod
+    rows = mg_mod.MAX_ROW_TILES * mg_mod.PREFILL_ROWS + 1
+    with pytest.raises(ValueError):
+        mg_mod.gemm_plan(1, 2, rows, 16, 16, (0, rows * 16, 16, 1),
+                         (256, 16, 1), BASE, BASE)
+
+
+def test_kernel_operand_16_byte_rule():
+    """bf16 views need strides that are multiples of 8 elements (16 bytes)
+    and a 16-byte base: 4-aligned heads inside 36-element rows are copied;
+    float32 needs 4 elements, so the same view in float32 passes; dims of
+    size 1 do not count."""
+    from repro_torch.kernels import _build
+    for dtype, copied in ((torch.bfloat16, True), (torch.float32, False)):
+        buf = torch.zeros((2, 40, 6, 36), dtype=dtype)
+        q = buf[:, :, :4, :32]
+        out = _build.kernel_operand(q)
+        assert (out is not q) == copied
+        assert torch.equal(out, q) and (not copied or out.is_contiguous())
+    fused = torch.zeros((2, 40, 8, 32), dtype=torch.bfloat16)
+    for view in (fused[:, :, :4], fused[:, :, 4:6], fused[:, :, 6:8]):
+        assert _build.kernel_operand(view) is view
+    assert _build.aligned16((1, 8, 16), (5, 16, 1), BASE, 2)
+    assert not _build.aligned16((2, 8, 16), (5, 16, 1), BASE, 2)
+    assert not _build.aligned16((2, 8, 16), (128, 16, 1), BASE + 8, 2)
+    assert not _build.aligned16((2, 8, 16), (256, 32, 2), BASE, 2)
+
+
+def test_kernel_operand_passes_mamba2_conv_slices_uncopied():
+    """zamba2's Mamba2 operands are column slices of one bf16 conv output
+    with row stride H*P + 2N = 5248 at offsets 0, 5120 and 5184: the
+    16-byte rule takes all three as they lie."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import _build
+    cfg = ARCHS["zamba2-2.7b"]
+    sc = cfg.ssm
+    d_inner, n = sc.expand * cfg.d_model, sc.state_dim
+    assert (d_inner, d_inner + 2 * n) == (5120, 5248)
+    xbc = torch.zeros((2, 8, d_inner + 2 * n), dtype=torch.bfloat16)
+    xh = xbc[..., :d_inner].view(2, 8, d_inner // sc.head_dim, sc.head_dim)
+    bm, cm = xbc[..., d_inner:d_inner + n], xbc[..., d_inner + n:]
+    assert [t.storage_offset() for t in (xh, bm, cm)] == [0, 5120, 5184]
+    for t in (xh, bm, cm):
+        assert not t.is_contiguous()
+        assert _build.kernel_operand(t) is t
+
+
+def test_bf16_never_reaches_an_fma_kernel():
+    """The FMA kernels of K1 and K3 are instantiated for float32 only, and
+    the C entry points send dtype 1 (bf16) to the tensor-core kernels."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    fa = (Path(_build.CSRC) / "flash_attention.cu").read_text()
+    assert re.findall(r"flash_fma_kernel<(\w+)", fa) == ["float"]
+    assert "if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D)" \
+        in fa
+    mg = (Path(_build.CSRC) / "moe_gemm.cu").read_text()
+    assert re.search(r"moe_gemm_fma_kernel\(const float\* __restrict__ x, "
+                     r"const float\* __restrict__ w,\s+float\*", mg)
+    assert "if (dtype == 0) return launch_fma(a);" in mg
+    assert mg.count("launch_fma(") == 2      # its definition and that call
 
 
 # ---------------------------------------------------------------------------
