@@ -9,9 +9,10 @@ ends the run with a non-zero exit code and no result line:
 
 1. ``device``  – card name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions, seconds the kernels took to build; for every
-   instantiation of K3's wgmma kernel and K1's mma.sync kernel its
-   tensor-core instructions in the SASS (cuobjdump; it fails without
-   them) and its registers and spills (ptxas -v).
+   instantiation of K3's wgmma kernel and of K1's, K2's and K4's mma.sync
+   kernels its tensor-core instructions in the SASS (cuobjdump; it fails
+   without them, or if an instantiation the sources launch is missing)
+   and its registers and spills (ptxas -v).
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
    CARD: flash_attention and decode_attention over the sweep of
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
@@ -60,10 +61,10 @@ ends the run with a non-zero exit code and no result line:
    every block's own difference reported beside both.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's bf16 paths, which
-the main path takes, ``fma`` for the others; K3's decode shape beside its
-prefill row), the nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``.  There is no
+``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's and K4's
+bf16 paths, which the main path takes, ``fma`` for K5; K3's decode shape
+beside its prefill row, K2's wrapper host time), the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
 from __future__ import annotations
@@ -109,10 +110,21 @@ RWKV_SWEEP = [(64, 16), (96, 32)]
 MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 # the bf16 redesigns and the tensor-core instruction each must compile to
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
-                    "flash_mma_kernel": "HMMA"}
+                    "flash_mma_kernel": "HMMA",
+                    "decode_mma_kernel": "HMMA",
+                    "mamba2_mma_kernel": "HMMA"}
+# the source and the launcher of each, whose calls `launcher<...>(a)` are
+# its instantiations
+TENSOR_CORE_LAUNCHERS = {
+    "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma"),
+    "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma"),
+    "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma"),
+    "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma"),
+}
 # the kernel design each wrapper takes in bf16, the main path's type (the
-# float32 paths of K1 and K3, and every path of K2, K4, K5, are FMA code)
-BF16_DESIGN = {"flash_attention": "mma.sync", "moe_gemm": "wgmma"}
+# float32 paths of K1-K4, and every path of K5, are FMA code)
+BF16_DESIGN = {"flash_attention": "mma.sync", "moe_gemm": "wgmma",
+               "decode_attention": "mma.sync", "mamba2_scan": "mma.sync"}
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
@@ -155,29 +167,50 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, marker: str | None = None, iters: int = 10):
+def device_ms(fn, marker: str | None = None, iters: int = 10,
+              count: bool = False):
     """Mean device milliseconds per call of ``fn`` spent in kernels whose
     name holds ``marker``, or in every kernel (and copy) it runs on the
     card when ``marker`` is None, as for a library call (torch.profiler,
     CUDA activity): the device's own time without the host's gaps
-    between calls; None if the trace shows no such kernel."""
+    between calls; None if the trace shows no such kernel.  ``count``:
+    also the number of such kernels run per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
-            continue            # the host's runtime calls
-        if marker is None or marker in e.key:
-            us += getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-            n += e.count
-    return us / 1e3 / iters if n else None
+    # a trace now and then comes back without its device activity: take
+    # the first of three that has it
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+                continue            # the host's runtime calls
+            if marker is None or marker in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+                n += e.count
+        if n:
+            break
+    ms = us / 1e3 / iters if n else None
+    return (ms, n / iters) if count else ms
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds per call of ``fn``, calls queued back to back
+    and timed before the card catches up."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def nbytes(*tensors) -> int:
@@ -236,6 +269,17 @@ def short_kernel_name(mangled: str):
     return None
 
 
+def expected_instantiations(build_mod) -> int:
+    """How many instantiations of TENSOR_CORE_SASS's kernels the sources
+    launch: the distinct template arguments of each launcher's calls."""
+    import re
+    n = 0
+    for src, launcher in TENSOR_CORE_LAUNCHERS.values():
+        text = (Path(build_mod.CSRC) / src).read_text()
+        n += len(set(re.findall(launcher + r"<([^>]+)>\(a\)", text)))
+    return n
+
+
 def tensor_core_check(build_mod) -> dict:
     """Per instantiation of the bf16 redesigns: the count of its
     tensor-core instruction in the library's SASS and one such line, and
@@ -272,7 +316,7 @@ def tensor_core_check(build_mod) -> dict:
             found[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     missing = [k for k, v in found.items() if not v["count"]]
-    if len(found) != 9 or missing:
+    if len(found) != expected_instantiations(build_mod) or missing:
         fail(f"tensor-core instructions missing: found {sorted(found)}, "
              f"none in {missing}")
     return found
@@ -363,11 +407,14 @@ def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False):
         valid = 2 * b * cache_len * kv * d * q.element_size()
         b_ms, by = bound(nbytes(q, out) + valid,
                          4.0 * b * h * d * cache_len, dtype)
+        dev, per_call = device_ms(lambda: ops.decode_attention(
+            q, kc, vc, cache_len), "decode_", count=True)
         rec.update(
             ms=time_ms(lambda: ops.decode_attention(q, kc, vc, cache_len),
                        iters=50),
-            device_ms=device_ms(lambda: ops.decode_attention(
-                q, kc, vc, cache_len), "decode_"),
+            device_ms=dev, device_kernels_per_call=per_call,
+            host_us=host_us(lambda: ops.decode_attention(
+                q, kc, vc, cache_len)),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(
                 q, kc, vc, cache_len), iters=20),
             library_ms=time_ms(sdpa(q, kc[:, :cache_len], vc[:, :cache_len],
@@ -426,14 +473,8 @@ def wrapper_host_us(ops, x, w, iters: int = 200) -> dict:
     it reads."""
     import importlib
     mg = importlib.import_module("repro_torch.kernels.moe_gemm")
-    ops.moe_gemm(x, w)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
-        ops.moe_gemm(x, w)
-    host = (time.perf_counter() - t) / iters * 1e6
-    torch.cuda.synchronize()
-    rec = {"host_us": host, "plan_us": None}
+    rec = {"host_us": host_us(lambda: ops.moe_gemm(x, w), iters),
+           "plan_us": None}
     if x.dtype == torch.bfloat16:
         x4 = x if x.dim() == 4 else x.unsqueeze(0)
         b, e, c, d = x4.shape
@@ -504,7 +545,7 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
 
 
 def mamba_flops(b, s, h, p, n, chunk) -> float:
-    """Float32 operations of the chunked Mamba2 scan, pairs on and below
+    """Operations of the chunked Mamba2 scan, pairs on and below
     the diagonal only (exp counted as one): the scores c . b once per
     (batch, chunk), since b and c are shared by every head; per head
     their decay and dt, the intra-chunk product with x, the carried
@@ -545,13 +586,13 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
     if timed:
         given = [st0] if st0 is not None else []
         b_ms, by = bound(nbytes(xh, bm, cm, dt, a_log, y, fin, *given),
-                         mamba_flops(b, s, h, p, n, chunk), torch.float32)
+                         mamba_flops(b, s, h, p, n, chunk), dtype)
         rec.update(
             ms=time_ms(lambda: ops.mamba2_scan(xh, bm, cm, dt, a_log,
                                                chunk=chunk, state0=st0)),
             device_ms=device_ms(lambda: ops.mamba2_scan(
                 xh, bm, cm, dt, a_log, chunk=chunk, state0=st0),
-                "mamba2_scan"),
+                "mamba2_"),
             plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
                 xh, bm, cm, dt, a_log, state0=st0), iters=2, warmup=1),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
@@ -1291,7 +1332,9 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     summed over the serve phases, with the other timed shapes and the
     launches per phase; for K3 also its decode gate/up shape with the
     launches of the 64-row tile that the serve phases counted, and the
-    wrapper's host microseconds per call beside its plan's."""
+    wrapper's host microseconds per call beside its plan's; for K2 the
+    wrapper's host microseconds and the device kernels per call at each
+    timed shape."""
     main_key = {"flash_attention": "qwen3-1.7b",
                 "decode_attention": "qwen3-1.7b",
                 "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
@@ -1333,6 +1376,10 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             row["host_us"] = {k: {f: timed[k][f]
                                   for f in ("host_us", "plan_us")}
                               for k in (key, dkey)}
+        if name == "decode_attention":
+            row["host_us"] = {k: x["host_us"] for k, x in timed.items()}
+            row["device_kernels_per_call"] = {
+                k: x["device_kernels_per_call"] for k, x in timed.items()}
         rows.append(row)
     return {"kernels": rows}
 

@@ -131,7 +131,7 @@ def aligned16(sizes, strides, ptr: int, itemsize: int) -> bool:
     ``ptr`` can be read in 16-byte pieces along its last dimension: unit
     stride there, every other stride a whole number of 16 bytes, a 16-byte
     aligned base.  A dimension of size 1 never moves the address, so its
-    stride does not count.  The rule of K1's, K2's and K3's vector loads
+    stride does not count.  The rule of K1-K4's 16-byte loads
     (8 bf16 or 4 float32 elements)."""
     if ptr % 16:
         return False
@@ -158,7 +158,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [ptr] * 4 + [i32] * 6 + [i64] * 12 + [i32] * 3 + [ptr])
     lib.fate_decode_attention.restype = i32
     lib.fate_decode_attention.argtypes = (
-        [ptr] * 7 + [i32] * 7 + [i64] * 10 + [i32] + [ptr])
+        [ptr] * 8 + [i32] * 7 + [i64] * 10 + [i32] + [ptr])
     lib.fate_moe_gemm.restype = i32
     lib.fate_moe_gemm.argtypes = (
         [ptr] * 3 + [i32] * 5 + [i64] * 10 + [i32] * 2 + [ptr])

@@ -2,14 +2,24 @@
 wrapper and plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/decode_attention.py ::
-decode_attention``.  The kernel is ``csrc/decode_attention.cu``: the valid
-part of the cache is split across blocks (``nsplit x KV x B``), each block
-runs the online softmax over its rows for all ``G`` query heads of its KV
-head and writes a partial ``(m, l, acc)``, and a second small kernel
-combines the partials.  It is bound by bytes (each cache row is read once,
-through the ``[B, S, KV, D]`` strides, and rows at or beyond ``cache_len``
-are never read); the split spreads the reads over the card's SMs (see the
-source note).
+decode_attention``.  The kernel is ``csrc/decode_attention.cu``.  It is
+bound by bytes: each valid cache row is read once, through the
+``[B, S, KV, D]`` strides, for ``4 G D`` flops, and rows at or beyond
+``cache_len`` are never read.  :func:`split_plan` spreads the valid rows
+over ``nsplit x KV x B`` blocks, so that about one block runs on each of
+the card's SMs (no split where ``B x KV`` already fills them).
+
+bf16 (the served type) runs on the tensor cores in ONE launch: the G
+query heads of a KV head, padded to 16 rows, are the A operand of
+``mma.sync`` products with K and V tiles that each warp streams through
+its own ``cp.async`` ring; the warps merge in shared memory, and where
+``nsplit > 1`` the last block of a (batch, KV head) to arrive combines
+the float32 partials in split order (an atomic ticket per pair says which
+block is last; it is handed back at 0).  p is rounded to bf16 for P V, as
+the JAX model rounds it (ROADMAP H20).  float32 keeps the FMA kernels of
+the first port (a partial pass and a combine pass) for the 2e-5 bar.  The
+scratch (partials and tickets) is allocated once per device and stream
+and reused: calls on one stream run in order.
 
 ``cache_len`` is a Python int: the serving engine knows it on the host,
 and nothing is read back from the device.
@@ -23,8 +33,13 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 
 MAX_GROUP = 16          # query heads per KV head the kernel takes
-TILE_ROWS = 32          # cache rows per tile inside a block
-TARGET_BLOCKS = 264     # two blocks for each of the card's 132 SMs
+TILE_ROWS = 16          # cache rows per tile of one warp (bf16 kernel)
+BLOCK_ROWS = 64         # one tile for each of a block's 4 warps
+TARGET_BLOCKS = 132     # one block for each of the card's SMs (and at most
+                        # the 132 splits the bf16 kernel combines)
+
+# (device, stream) -> (float32 partials, int32 tickets), grown on demand
+_scratch: dict = {}
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -49,15 +64,32 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def split_plan(cache_len: int, batch_kv: int) -> tuple[int, int]:
     """(chunk, nsplit): rows per block and blocks per (batch, KV head).
 
-    Enough splits to reach about ``TARGET_BLOCKS`` blocks in all, in
-    chunks that are whole tiles of ``TILE_ROWS`` rows and at least two
-    tiles long, and such that every split starts below ``cache_len``.
+    No split where ``batch_kv`` blocks reach ``TARGET_BLOCKS``; below
+    that, about ``TARGET_BLOCKS`` blocks in all, in chunks that are whole
+    tiles of ``TILE_ROWS`` rows and at least ``BLOCK_ROWS`` long (a tile
+    for every warp), and such that every split starts below
+    ``cache_len``.
     """
     want = max(1, TARGET_BLOCKS // max(1, batch_kv))
     chunk = -(-cache_len // want)
-    chunk = max(2 * TILE_ROWS, -(-chunk // TILE_ROWS) * TILE_ROWS)
+    chunk = max(BLOCK_ROWS, -(-chunk // TILE_ROWS) * TILE_ROWS)
     nsplit = -(-cache_len // chunk)
     return chunk, nsplit
+
+
+def _scratch_for(device: torch.device, stream: int, n_part: int,
+                 n_pairs: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float32 partials of at least ``n_part`` elements and ``n_pairs``
+    int32 tickets, zeroed once at allocation (the kernel hands every
+    ticket back at 0), kept for later calls on the same stream."""
+    key = (device, stream)
+    part, tickets = _scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_pairs:
+        tickets = torch.zeros(n_pairs, dtype=torch.int32, device=device)
+    _scratch[key] = (part, tickets)
+    return part, tickets
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -67,7 +99,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     A CUDA tensor goes through the kernel (which is built at first use)
     or raises; the plain version is taken only for tensors that lie on
     the CPU.  ``decode_attention.launches`` counts calls that launched
-    the kernel (its two passes count as one).
+    the kernel (the float32 path's two passes count as one).
     """
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape:
@@ -106,17 +138,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     v_cache = _build.kernel_operand(v_cache)
     chunk, nsplit = split_plan(cache_len, b * kv)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b, kv, nsplit, g, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((2, b, kv, nsplit, g), dtype=torch.float32,
-                          device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        n_ml = b * kv * nsplit * g
+        part, tickets = _scratch_for(q.device, stream, n_ml * (d + 2),
+                                     b * kv)
+        acc_ptr = part.data_ptr()
+        m_ptr = acc_ptr + 4 * n_ml * d
         rc = lib.fate_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(),
+            out.data_ptr(), acc_ptr, m_ptr, m_ptr + 4 * n_ml,
+            tickets.data_ptr(),
             b, h, kv, d, cache_len, chunk, nsplit,
             q.stride(0), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

@@ -3,14 +3,23 @@ wrapper and plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/mamba2_scan.py ::
 mamba2_scan``.  The kernel is ``csrc/mamba2_scan.cu``: one block per
-(batch, head) walks the chunks in order with the float32 state in shared
-memory, forms ``exp(cum_i - cum_j)`` only for ``j <= i`` (the TPU body
-exponentiates the whole ``[L, L]`` tile and masks after, where the upper
-half can overflow), and reads ``b, c [B, S, N]`` through their strides
-for every head instead of broadcasting them to ``[B*H, S, N]``.  Unlike the
-TPU kernel it takes an initial state (the model's carried ``ssm`` state)
-and forms ``dt * a`` itself.  Its arithmetic is float32 whatever the input
-dtype, and operations bound it on this card (see the source note).
+(batch, head) walks the chunks in order with the float32 state, scans
+``dt * a`` in float64, forms ``exp(cum_i - cum_j)`` only for ``j <= i``
+(the TPU body exponentiates the whole ``[L, L]`` tile and masks after,
+where the upper half can overflow), and reads ``b, c [B, S, N]`` through
+their strides for every head instead of broadcasting them to
+``[B*H, S, N]``.  Unlike the TPU kernel it takes an initial state (the
+model's carried ``ssm`` state) and forms ``dt * a`` itself.
+
+bf16 (the served type) runs the chunk products on the tensor cores
+(``mma.sync``), with x, b, c kept bf16 in shared memory and loaded by a
+two-stage ring of 16-byte ``cp.async`` copies straight from the conv
+output's column slices; every float32 factor (the decay-weighted scores
+G, ``w * x``, the state read for y) enters a product as two bf16 terms,
+and the state stays float32 (ROADMAP H21).  At zamba2's prefill bytes
+bound it (about 107 MB, 0.032 ms at 3.35 TB/s).  float32 keeps the FMA
+kernel of the first port for the 5e-4 bar, bound there by float32
+operations (see the source note).
 """
 from __future__ import annotations
 
@@ -110,8 +119,11 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"(head dim, state dim) {(p, n)} not in {DIMS}")
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} exceeds the kernel's {MAX_CHUNK}")
-    xh, b, c = (x if x.stride(-1) == 1 else x.contiguous()
-                for x in (xh, b, c))
+    if xh.dtype == torch.bfloat16:     # the 16-byte copies' rule
+        xh, b, c = (_build.kernel_operand(x) for x in (xh, b, c))
+    else:
+        xh, b, c = (x if x.stride(-1) == 1 else x.contiguous()
+                    for x in (xh, b, c))
     dt = dt.float()
     a_log = a_log.float().contiguous()
     state0 = (torch.zeros((bsz, h, p, n), dtype=torch.float32,

@@ -440,3 +440,118 @@ def test_flash_attention_kernel_bf16_misaligned_view_is_copied(card):
     a = ops.flash_attention(q, k, v)
     b = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 redesigns: K2 and K4 on mma.sync
+# ---------------------------------------------------------------------------
+
+# (name, H, KV, D) of the four served decode layouts, at B = 8 and the
+# served cache of prompt 512 + 32 rows
+DECODE_SERVED = [("qwen3", 16, 8, 128), ("glm4", 32, 2, 128),
+                 ("granite", 24, 8, 64), ("zamba2", 32, 32, 80)]
+
+
+def _decode_inputs(rng, h, kv, d, clen, card, b=8, s=544):
+    q = _randn(rng, (b, 1, h, d), torch.bfloat16, card)
+    kc = _randn(rng, (b, s, kv, d), torch.bfloat16, card)
+    vc = _randn(rng, (b, s, kv, d), torch.bfloat16, card)
+    kc[:, clen:] = float("nan")
+    vc[:, clen:] = float("nan")
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("clen", [1, 17, 513, 544])
+@pytest.mark.parametrize("name,h,kv,d", DECODE_SERVED)
+def test_decode_attention_kernel_bf16_served_shapes(card, name, h, kv, d,
+                                                    clen):
+    """The served decode shapes on the tensor-core kernel, rows past
+    cache_len poisoned with NaN, against the plain version (2e-2)."""
+    rng = np.random.default_rng(20)
+    q, kc, vc = _decode_inputs(rng, h, kv, d, clen, card)
+    before = ops.decode_attention.launches
+    out = ops.decode_attention(q, kc, vc, clen)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    want = ref.decode_attention_ref(q, kc[:, :clen], vc[:, :clen], clen)
+    assert float((out.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("name,h,kv,d", DECODE_SERVED)
+def test_decode_attention_kernel_bf16_repeats_bitwise(card, name, h, kv, d):
+    """Repeated calls give the same bits: the partials are combined in
+    split order whichever block arrives last, and the tickets are handed
+    back at 0 (a third call after a call of another size checks it)."""
+    rng = np.random.default_rng(21)
+    q, kc, vc = _decode_inputs(rng, h, kv, d, 544, card)
+    a = ops.decode_attention(q, kc, vc, 544)
+    b = ops.decode_attention(q, kc, vc, 544)
+    ops.decode_attention(q[:2], kc[:2], vc[:2], 100)
+    c = ops.decode_attention(q, kc, vc, 544)
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_decode_attention_kernel_bf16_one_device_kernel_per_call(card):
+    """A bf16 call runs one kernel on the card (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(22)
+    q, kc, vc = _decode_inputs(rng, 32, 2, 128, 544, card)   # split
+    ops.decode_attention(q, kc, vc, 544)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.decode_attention(q, kc, vc, 544)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.count
+             and "decode" in e.key]
+    counts = {e.key: e.count for e in prof.key_averages() if "decode" in e.key}
+    assert len(names) == 1 and "decode_mma_kernel" in names[0], counts
+    assert counts[names[0]] == 3
+
+
+def _scan_bars(want, wfin):
+    """scan_tols' bf16 bars: the output to 1e-2 of its largest magnitude,
+    the float32 state to 5e-4 of max(1, its largest magnitude)."""
+    return (1e-2 * float(want.float().abs().max()),
+            5e-4 * max(1.0, float(wfin.abs().max())))
+
+
+@pytest.mark.parametrize("s,chunk,p,n", [
+    (64, 16, 16, 8), (128, 32, 16, 8), (32, 32, 16, 8),
+    (256, 128, 64, 64), (256, 64, 64, 64),
+    (96, 32, 64, 64), (40, 40, 16, 8), (7, 7, 16, 8),
+])
+@pytest.mark.parametrize("initial_state", [False, True])
+def test_mamba2_scan_kernel_bf16(card, s, chunk, p, n, initial_state):
+    """The sweep of test_mamba2_scan_kernel in bf16 on the tensor-core
+    kernel, held to the bf16 bars of chip_smoke.scan_tols."""
+    rng = np.random.default_rng(7)
+    xh, bm, cm, dt, a_log = _mamba(rng, 2, s, 3, p, n, torch.bfloat16, card)
+    st0 = (_randn(rng, (2, 3, p, n), torch.float32, card)
+           if initial_state else None)
+    before = ops.mamba2_scan.launches
+    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=chunk, state0=st0)
+    torch.cuda.synchronize()
+    assert ops.mamba2_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    tol, fin_tol = _scan_bars(want, wfin)
+    assert bool(torch.isfinite(y.float()).all())
+    assert float((y.float() - want.float()).abs().max()) <= tol
+    assert float((fin - wfin).abs().max()) <= fin_tol
+
+
+def test_mamba2_scan_kernel_bf16_repeats_bitwise(card):
+    """zamba2's dims over 512 steps and 8 heads from column slices:
+    repeated calls give the same bits."""
+    rng = np.random.default_rng(23)
+    b, s, h, p, n = 2, 512, 8, 64, 64
+    fused = _randn(rng, (b, s, h * p + 2 * n), torch.bfloat16, card)
+    xh = fused[..., :h * p].view(b, s, h, p)
+    bm, cm = fused[..., h * p: h * p + n], fused[..., h * p + n:]
+    _, _, _, dt, a_log = _mamba(rng, b, s, h, p, n, torch.float32, card)
+    st0 = _randn(rng, (b, h, p, n), torch.float32, card)
+    y1, f1 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
+    y2, f2 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)

@@ -121,15 +121,48 @@ def test_flash_attention_reads_strided_views():
 @pytest.mark.parametrize("cache_len,batch_kv", [
     (1, 1), (17, 8), (300, 8), (512, 8), (544, 64), (544, 16), (544, 4),
     (4096, 2), (100000, 1), (33, 1000),
+    # the served decode calls, 8 queries (and 4 in a 2-way shard): qwen3
+    # and granite 64 (32), glm4 16 (8), zamba2 256 (128) (b, KV) pairs
+    (513, 64), (513, 16), (544, 256), (513, 256), (544, 32), (544, 8),
+    (544, 128),
 ])
 def test_decode_split_plan_covers_cache_exactly(cache_len, batch_kv):
     """Every split starts below cache_len (no block reads beyond it),
-    together they cover it, and chunks are whole tiles."""
+    together they cover it, chunks are whole tiles and give every warp
+    of a block a tile, and there is no split where the (batch, KV head)
+    pairs alone reach the card's block target."""
     chunk, nsplit = torch_decode_mod.split_plan(cache_len, batch_kv)
     assert chunk % torch_decode_mod.TILE_ROWS == 0 and chunk > 0
+    assert chunk >= torch_decode_mod.BLOCK_ROWS
     assert nsplit >= 1
     assert nsplit * chunk >= cache_len
     assert (nsplit - 1) * chunk < cache_len
+    if batch_kv >= torch_decode_mod.TARGET_BLOCKS:
+        assert nsplit == 1
+    else:
+        assert batch_kv * nsplit <= max(
+            batch_kv, torch_decode_mod.TARGET_BLOCKS)
+
+
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 128), (32, 2, 128), (6, 2, 64),
+                                    (4, 4, 80)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_served_layouts_plain_vs_jax(h, kv, d, dtype):
+    """The served head layouts, G = 2 / 16 at D = 128 (qwen3, glm4), G = 3
+    at D = 64 (granite), G = 1 at D = 80 (zamba2), at B = 2 and a cache
+    of 80 rows filled to 67: the plain version against the JAX oracle
+    and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(d + h)
+    qj, qt = _pair(rng, (2, 1, h, d), dtype)
+    kj, kt = _pair(rng, (2, 80, kv, d), dtype)
+    vj, vt = _pair(rng, (2, 80, kv, d), dtype)
+    out = ops.decode_attention(qt, kt, vt, 67)
+    assert out.shape == (2, 1, h, d) and out.dtype == TORCH[dtype]
+    assert _err(out, jax_ref.decode_attention_ref(qj, kj, vj, 67)) < \
+        TOL[dtype]
+    pallas = jax_ops.decode_attention(qj, kj, vj, jnp.int32(67),
+                                      interpret=True)
+    assert _err(out, pallas) < TOL[dtype]
 
 
 @pytest.mark.parametrize("bad", ["dtype", "heads", "head_dim", "len0",
@@ -236,10 +269,11 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else _build.ATTN_HEAD_DIMS
     assert got == set(dims)
     assert (80 in got) == (name != "rwkv6_scan")
-    # every dispatch of the source (K1: the float32 FMA kernel's and the
-    # bf16 mma.sync kernel's) takes exactly those dims
+    # every dispatch of the source (K1, K2: the float32 FMA kernel's and
+    # the bf16 mma.sync kernel's) takes exactly those dims
     switches = re.findall(r"switch \(D\) \{(.*?)\}", src, re.S)
-    assert len(switches) == (2 if name == "flash_attention" else 1)
+    assert len(switches) == (2 if name in ("flash_attention",
+                                           "decode_attention") else 1)
     for block in switches:
         assert {int(d) for d in re.findall(r"case (\d+):", block)} == \
             set(dims)
@@ -469,21 +503,50 @@ def test_kernel_operand_passes_mamba2_conv_slices_uncopied():
         assert _build.kernel_operand(t) is t
 
 
-def test_bf16_never_reaches_an_fma_kernel():
-    """The FMA kernels of K1 and K3 are instantiated for float32 only, and
-    the C entry points send dtype 1 (bf16) to the tensor-core kernels."""
+@pytest.mark.parametrize("name", ["flash_attention", "moe_gemm",
+                                  "decode_attention", "mamba2_scan"])
+def test_bf16_never_reaches_an_fma_kernel(name):
+    """The FMA kernels are instantiated for float32 only, and the C entry
+    points send dtype 1 (bf16) to the tensor-core kernels: K1's, K2's and
+    K4's mma.sync kernels (each for every dim its dispatch takes) and
+    K3's wgmma kernel."""
     import re
     from pathlib import Path
     from repro_torch.kernels import _build
-    fa = (Path(_build.CSRC) / "flash_attention.cu").read_text()
-    assert re.findall(r"flash_fma_kernel<(\w+)", fa) == ["float"]
-    assert "if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D)" \
-        in fa
-    mg = (Path(_build.CSRC) / "moe_gemm.cu").read_text()
-    assert re.search(r"moe_gemm_fma_kernel\(const float\* __restrict__ x, "
-                     r"const float\* __restrict__ w,\s+float\*", mg)
-    assert "if (dtype == 0) return launch_fma(a);" in mg
-    assert mg.count("launch_fma(") == 2      # its definition and that call
+    src = (Path(_build.CSRC) / f"{name}.cu").read_text()
+    if name == "flash_attention":
+        assert re.findall(r"flash_fma_kernel<(\w+)", src) == ["float"]
+        assert "if (dtype == 1) return aligned_for_mma(a) ? " \
+            "dispatch_mma(a, D)" in src
+    elif name == "moe_gemm":
+        assert re.search(r"moe_gemm_fma_kernel\(const float\* __restrict__ "
+                         r"x, const float\* __restrict__ w,\s+float\*", src)
+        assert "if (dtype == 0) return launch_fma(a);" in src
+        assert src.count("launch_fma(") == 2   # its definition, that call
+    elif name == "decode_attention":
+        # the FMA passes launch only in float32, reached from dtype 0
+        assert set(re.findall(r"return launch_decode<(\w+), \d+>", src)) \
+            == {"float"}
+        assert "if (dtype == 0) return dispatch_fma(a, D);" in src
+        assert "if (dtype == 1) return aligned_for_mma(a) ? " \
+            "dispatch_mma(a, D) : -1;" in src
+        mma = re.search(r"int dispatch_mma\(.*?\n\}", src, re.S).group(0)
+        assert {int(d) for d in re.findall(
+            r"return launch_decode_mma<(\d+)>", mma)} == \
+            set(_build.ATTN_HEAD_DIMS)
+        assert src.count("dispatch_fma(") == 2
+        assert src.count("decode_partial_kernel<") == 1   # in launch_decode
+    else:
+        from repro_torch.kernels import mamba2_scan as ms_mod
+        assert set(re.findall(r"return launch_scan<(\w+), \d+, \d+>", src)) \
+            == {"float"}
+        assert "if (dtype == 0) return dispatch_fma(a, P, N);" in src
+        assert "if (dtype == 1) return aligned_for_mma(a) ? " \
+            "dispatch_mma(a, P, N) : -1;" in src
+        assert {(int(p), int(n)) for p, n in re.findall(
+            r"return launch_scan_mma<(\d+), (\d+)>", src)} == set(ms_mod.DIMS)
+        assert src.count("dispatch_fma(") == 2
+        assert src.count("mamba2_scan_kernel<") == 2   # attribute, launch
 
 
 # ---------------------------------------------------------------------------
