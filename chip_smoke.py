@@ -9,8 +9,8 @@ ends the run with a non-zero exit code and no result line:
 
 1. ``device``  – card name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions, seconds the kernels took to build; for every
-   instantiation of K3's wgmma kernel and of K1's, K2's and K4's mma.sync
-   kernels its tensor-core instructions in the SASS (cuobjdump; it fails
+   instantiation of K3's wgmma kernel and of K1's, K2's, K4's and K5's
+   mma.sync kernels its tensor-core instructions in the SASS (cuobjdump; it fails
    without them, or if an instantiation the sources launch is missing)
    and its registers and spills (ptxas -v).
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
@@ -18,7 +18,8 @@ ends the run with a non-zero exit code and no result line:
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
    sweep (1e-5 / 3e-2 relative) plus a strided [B, E, C, D] case,
    rwkv6_scan over its sweep (5e-4, finite under strong decay) plus an
-   initial state and bf16 inputs, mamba2_scan over its sweep (5e-4 on
+   initial state and a bf16 sweep over every head dim (bf16 bars of
+   scan_tols, float32 and bf16 outputs), mamba2_scan over its sweep (5e-4 on
    the output and the final state) plus an initial state and bf16 inputs;
    and each at the serving paths' own shapes (zamba2's attention at head
    dim 80), where it is also timed beside its plain version, one PyTorch
@@ -61,9 +62,10 @@ ends the run with a non-zero exit code and no result line:
    every block's own difference reported beside both.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's and K4's
-bf16 paths, which the main path takes, ``fma`` for K5; K3's decode shape
-beside its prefill row, K2's wrapper host time), the nvidia-smi line, and
+``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
+K5's bf16 paths, which the main path takes; K3's decode shape beside its
+prefill row, K2's wrapper host time, K2's and K5's device kernels per
+call), the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -112,7 +114,8 @@ MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
                     "decode_mma_kernel": "HMMA",
-                    "mamba2_mma_kernel": "HMMA"}
+                    "mamba2_mma_kernel": "HMMA",
+                    "rwkv6_mma_kernel": "HMMA"}
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations
 TENSOR_CORE_LAUNCHERS = {
@@ -120,11 +123,21 @@ TENSOR_CORE_LAUNCHERS = {
     "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma"),
     "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma"),
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma"),
+    "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma"),
 }
 # the kernel design each wrapper takes in bf16, the main path's type (the
-# float32 paths of K1-K4, and every path of K5, are FMA code)
+# float32 paths of K1-K5 are FMA code)
 BF16_DESIGN = {"flash_attention": "mma.sync", "moe_gemm": "wgmma",
-               "decode_attention": "mma.sync", "mamba2_scan": "mma.sync"}
+               "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
+               "rwkv6_scan": "mma.sync"}
+# K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
+# dtype), the chunk of the SMOKE config (4, one padded sub-chunk) to 64
+RWKV_BF16_SWEEP = [(d, chunk, strong, state, out)
+                   for d in (16, 32, 64, 128)
+                   for chunk, strong, state, out in (
+                       (4, False, True, torch.bfloat16),
+                       (32, True, False, torch.float32),
+                       (64, False, True, torch.float32))]
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
@@ -258,13 +271,16 @@ def phase_device(build_mod) -> tuple[dict, str]:
 
 
 def short_kernel_name(mangled: str):
-    """``moe_gemm_wgmma_kernel<128,1>`` for a mangled instantiation of one
-    of TENSOR_CORE_SASS's kernels, None for any other function."""
+    """``moe_gemm_wgmma_kernel<128,1>`` (``rwkv6_mma_kernel<64,float>``
+    where a template argument is a type) for a mangled instantiation of
+    one of TENSOR_CORE_SASS's kernels, None for any other function."""
     import re
+    token = re.compile(r"L[ib](\d+)E|(f)|\d+(__nv_bfloat16)")
     for kern in TENSOR_CORE_SASS:
         m = re.search(kern + r"I(.+?)EEv", mangled)
         if m:
-            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            args = [n or ("float" if f else "bf16")
+                    for n, f, _ in token.findall(m.group(1))]
             return f"{kern}<{','.join(args)}>"
     return None
 
@@ -508,7 +524,9 @@ def scan_tols(dtype, want, wfin) -> tuple[float, float]:
 
 
 def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
-              state=False, timed=False):
+              state=False, out_dtype=None, timed=False):
+    """``dtype`` of r, k, v (w float32); ``out_dtype`` None: the output in
+    ``dtype``, the Pallas contract; the model asks for float32."""
     b, s, h, d = shape
     r = randn(rng, shape, dtype) * 0.5
     k = randn(rng, shape, dtype) * 0.5
@@ -518,27 +536,32 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
     bonus = randn(rng, (h, d), torch.float32) * 0.1
     st0 = (randn(rng, (b, h, d, d), torch.float32) if state
            else torch.zeros((b, h, d, d), device="cuda"))
-    out, fin = ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk, state0=st0)
+    call = lambda: ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk,
+                                  state0=st0, out_dtype=out_dtype)
+    out, fin = call()
     torch.cuda.synchronize()
-    want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0)
+    want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0,
+                                    out_dtype=out_dtype)
     err, fin_err = max_abs_err(out, want), max_abs_err(fin, wfin)
     tol, fin_tol = scan_tols(dtype, want, wfin)
     rec = {"shape": list(shape), "chunk": chunk,
-           "dtype": str(dtype).split(".")[-1], "strong_decay": strong_decay,
+           "dtype": str(dtype).split(".")[-1],
+           "out_dtype": str(out.dtype).split(".")[-1],
+           "strong_decay": strong_decay,
            "initial_state": state, "max_abs_err": err,
-           "state_max_abs_err": fin_err, "tol": tol,
+           "state_max_abs_err": fin_err, "tol": tol, "state_tol": fin_tol,
            "ok": bool(err < tol) and bool(fin_err < fin_tol)
            and bool(torch.isfinite(out.float()).all())}
     if timed:
         b_ms, by = bound(nbytes(r, k, v, w, bonus, st0, out, fin),
-                         rwkv_flops(b, s, h, d, chunk), torch.float32)
+                         rwkv_flops(b, s, h, d, chunk), dtype)
+        dev_ms, per_call = device_ms(call, "rwkv6_", count=True)
         rec.update(
-            ms=time_ms(lambda: ops.rwkv6_scan(r, k, v, w, bonus,
-                                              chunk=chunk, state0=st0)),
-            device_ms=device_ms(lambda: ops.rwkv6_scan(
-                r, k, v, w, bonus, chunk=chunk, state0=st0), "rwkv6_scan"),
+            ms=time_ms(call), device_ms=dev_ms,
+            device_kernels_per_call=per_call,
             plain_ms=time_ms(lambda: ref.rwkv6_scan_ref(
-                r, k, v, w, bonus, state0=st0), iters=2, warmup=1),
+                r, k, v, w, bonus, state0=st0, out_dtype=out_dtype),
+                iters=2, warmup=1),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
     return rec
@@ -676,11 +699,17 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
                                 torch.float32, state=True))
     rwkv_sweep.append(rwkv_case(ops, ref, rng, (2, 96, 3, 64), 32,
                                 torch.bfloat16, state=True))
+    for d, chunk, strong, state, out_dt in RWKV_BF16_SWEEP:
+        rwkv_sweep.append(rwkv_case(ops, ref, rng, (2, 128, 2, d), chunk,
+                                    torch.bfloat16, strong_decay=strong,
+                                    state=state, out_dtype=out_dt))
+    # the serving shape as the model calls it: float32 output, timed
     hd = rwkv_cfg.rwkv.head_dim
     rshape = (NUM_QUERIES, PROMPT_LEN, rwkv_cfg.d_model // hd, hd)
     rwkv_main = {f"prefill/nq{NUM_QUERIES}": rwkv_case(
         ops, ref, rng, rshape, rwkv_cfg.rwkv.chunk,
-        getattr(torch, rwkv_cfg.dtype), timed=True)}
+        getattr(torch, rwkv_cfg.dtype), out_dtype=torch.float32,
+        timed=True)}
     # K4: the sweep, an initial state, bf16 inputs, the serving shape (in
     # the model's dtype, timed, and in float32 against the 5e-4 bar) on
     # column-slice operands and a carried state, as the model passes them
@@ -725,6 +754,8 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
         "rwkv6_scan": {
             "sweep_cases": len(rwkv_sweep),
             "sweep_max_abs_err": sweep_err(rwkv_sweep),
+            "sweep_state_max_abs_err": sweep_err(rwkv_sweep,
+                                                 "state_max_abs_err"),
             "main_path": rwkv_main},
         "mamba2_scan": {
             "sweep_cases": len(mamba_sweep),
@@ -1378,6 +1409,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                               for k in (key, dkey)}
         if name == "decode_attention":
             row["host_us"] = {k: x["host_us"] for k, x in timed.items()}
+        if name in ("decode_attention", "rwkv6_scan"):
             row["device_kernels_per_call"] = {
                 k: x["device_kernels_per_call"] for k, x in timed.items()}
         rows.append(row)

@@ -149,25 +149,30 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    """Set ``argtypes``: without them ctypes would pass pointers as
-    32-bit ints."""
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fate_flash_attention.restype = i32
-    lib.fate_flash_attention.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [i64] * 12 + [i32] * 3 + [ptr])
-    lib.fate_decode_attention.restype = i32
-    lib.fate_decode_attention.argtypes = (
-        [ptr] * 8 + [i32] * 7 + [i64] * 10 + [i32] + [ptr])
-    lib.fate_moe_gemm.restype = i32
-    lib.fate_moe_gemm.argtypes = (
-        [ptr] * 3 + [i32] * 5 + [i64] * 10 + [i32] * 2 + [ptr])
-    lib.fate_rwkv6_scan.restype = i32
-    lib.fate_rwkv6_scan.argtypes = (
-        [ptr] * 8 + [i32] * 5 + [i64] * 15 + [i32] + [ptr])
-    lib.fate_mamba2_scan.restype = i32
-    lib.fate_mamba2_scan.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [i64] * 13 + [i32] + [ptr])
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argument types of each C entry point: without them ctypes would pass
+# pointers as 32-bit ints
+ARGTYPES = {
+    "fate_flash_attention": [_P] * 4 + [_I32] * 6 + [_I64] * 12 + [_I32] * 3
+    + [_P],
+    "fate_decode_attention": [_P] * 8 + [_I32] * 7 + [_I64] * 10 + [_I32]
+    + [_P],
+    "fate_moe_gemm": [_P] * 3 + [_I32] * 5 + [_I64] * 10 + [_I32] * 2 + [_P],
+    # ..., dtype, out_dtype, stream
+    "fate_rwkv6_scan": [_P] * 8 + [_I32] * 5 + [_I64] * 15 + [_I32] * 2
+    + [_P],
+    "fate_mamba2_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 13 + [_I32] * 2
+    + [_P],
+}
+
+
+def declare(lib: ctypes.CDLL, names=None) -> None:
+    """Set ``restype`` and ``argtypes`` of the entry points ``names`` (all
+    of :data:`ARGTYPES` if None) on ``lib``."""
+    for name in names or ARGTYPES:
+        fn = getattr(lib, name)
+        fn.restype = _I32
+        fn.argtypes = ARGTYPES[name]
 
 
 def load() -> ctypes.CDLL:
@@ -175,6 +180,6 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        _declare(lib)
+        declare(lib)
         _lib = lib
     return _lib

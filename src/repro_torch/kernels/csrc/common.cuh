@@ -3,8 +3,8 @@
 // full-warp reductions, asynchronous 16-byte copies.  Sums in the kernels
 // are float32; the storage type T (float or __nv_bfloat16) appears at the
 // loads from and the stores to device memory, and as the operand type of
-// the tensor-core products of the bf16 paths (K1, K2 and K4 through the
-// mma.sync helpers below, K3 through wgmma).
+// the tensor-core products of the bf16 paths (K1, K2, K4 and K5 through
+// the mma.sync helpers below, K3 through wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +52,15 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// Store two adjacent outputs (p aligned to two elements) as the output
+// type: a float2, or a pair of bf16 rounded to nearest even.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // Reductions over the 16 lanes that share (lane >> 4): xor offsets
@@ -117,6 +126,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// hi = bf16(v), lo = bf16(v - hi), packed in pairs: a float32 factor as
+// two bf16 terms whose sum keeps 16 bits of its mantissa
+__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
 // --- asynchronous copies (cp.async, sm_80+) --------------------------------

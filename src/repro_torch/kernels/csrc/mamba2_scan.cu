@@ -94,6 +94,9 @@
 // c [MAXL][N+1] and G [MAXL][MAXL+1]: 184,576 bytes at P = N = 64.  Rows
 // of S, b, c and G are padded by one float, so that the 16 threads of a
 // half-warp walking down a column hit 16 banks.  No bf16 input reaches it.
+//
+// Both kernels store y in the type the caller asks for (OT: float32, as
+// the model keeps the scan's output, or bf16, the Pallas contract).
 #include "common.cuh"
 
 namespace {
@@ -109,12 +112,12 @@ constexpr int NT = 256;          // 16 x 16 threads
 constexpr int MAXL = 128;        // longest chunk
 constexpr int RM = MAXL / 16;    // tile rows per thread
 
-template <typename T, int P, int N>
+template <typename T, int P, int N, typename OT>
 __global__ void __launch_bounds__(NT)
 mamba2_scan_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                    const T* __restrict__ cm, const float* __restrict__ dt,
                    const float* __restrict__ a_log, const float* state0,
-                   T* __restrict__ y, float* state_out, int H, int S, int L,
+                   OT* __restrict__ y, float* state_out, int H, int S, int L,
                    int64_t x_sb, int64_t x_ss, int64_t x_sh,
                    int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
                    int64_t dt_sb, int64_t dt_ss, int64_t dt_sh,
@@ -143,7 +146,7 @@ mamba2_scan_kernel(const T* __restrict__ x, const T* __restrict__ bm,
   const T* bb = bm + (int64_t)b * b_sb;
   const T* cb = cm + (int64_t)b * c_sb;
   const float* db = dt + (int64_t)b * dt_sb + (int64_t)h * dt_sh;
-  T* yb = y + (int64_t)b * y_sb + (int64_t)h * y_sh;
+  OT* yb = y + (int64_t)b * y_sb + (int64_t)h * y_sh;
   const float a = -expf(a_log[h]);
   const int64_t st_off = (int64_t)blockIdx.x * P * N;   // [B, H, P, N]
   const int JB = (L + 15) / 16;      // 16-column blocks of G in use
@@ -271,7 +274,7 @@ mamba2_scan_kernel(const T* __restrict__ x, const T* __restrict__ bm,
         if (i < L) {
 #pragma unroll
           for (int c = 0; c < PC; ++c)
-            yb[(int64_t)(t0 + i) * y_ss + tx + 16 * c] = from_float<T>(acc[r][c]);
+            yb[(int64_t)(t0 + i) * y_ss + tx + 16 * c] = from_float<OT>(acc[r][c]);
         }
       }
     }
@@ -351,26 +354,12 @@ struct ScanTile {
   static_assert((N / 8) % PER == 0, "a warp's state tiles share a row block");
 };
 
-// hi = bf16(v), lo = bf16(v - hi), packed in pairs: a float32 factor as
-// two bf16 terms whose sum keeps 16 bits of its mantissa
-__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-template <int P, int N>
+template <int P, int N, typename OT>
 __global__ void __launch_bounds__(32 * MMA_WARPS, 1)
 mamba2_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bm,
                   const bf16* __restrict__ cm, const float* __restrict__ dt,
                   const float* __restrict__ a_log, const float* state0,
-                  bf16* __restrict__ y, float* state_out, int H, int S, int L,
+                  OT* __restrict__ y, float* state_out, int H, int S, int L,
                   int64_t x_sb, int64_t x_ss, int64_t x_sh,
                   int64_t b_sb, int64_t b_ss, int64_t c_sb, int64_t c_ss,
                   int64_t dt_sb, int64_t dt_ss, int64_t dt_sh,
@@ -418,7 +407,7 @@ mamba2_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bm,
   const bf16* bb = bm + (int64_t)b * b_sb;
   const bf16* cb = cm + (int64_t)b * c_sb;
   const float* db = dt + (int64_t)b * dt_sb + (int64_t)hh * dt_sh;
-  bf16* yb = y + (int64_t)b * y_sb + (int64_t)hh * y_sh;
+  OT* yb = y + (int64_t)b * y_sb + (int64_t)hh * y_sh;
   const float a = -expf(a_log[hh]);
   const int64_t st_off = ((int64_t)b * H + hh) * P * N;   // [B, H, P, N]
 
@@ -649,11 +638,10 @@ mamba2_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ bm,
       for (int hr = 0; hr < 2; ++hr) {
         const int i = i_row[hr];
         if (i >= L) continue;
-        bf16* yrow = yb + (int64_t)(t0 + i) * y_ss;
+        OT* yrow = yb + (int64_t)(t0 + i) * y_ss;
 #pragma unroll
         for (int j = 0; j < P / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(yrow + 8 * j + col0) =
-              __floats2bfloat162_rn(acc[j][2 * hr], acc[j][2 * hr + 1]);
+          store2(yrow + 8 * j + col0, acc[j][2 * hr], acc[j][2 * hr + 1]);
       }
     }
     if (scanner && t0 + L < S) {   // the next chunk's scan, off the path
@@ -726,64 +714,73 @@ struct ScanArgs {
   int B, S, H, L;
   int64_t x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, dt_sb, dt_ss, dt_sh;
   int64_t y_sb, y_ss, y_sh;
+  bool out_f32;   // y float32, else bf16
   cudaStream_t stream;
 };
 
-template <typename T, int P, int N>
+template <typename T, int P, int N, typename OT>
 int launch_scan(const ScanArgs& a) {
   // the dynamic shared-memory ceiling is raised once per instantiation
   static bool granted = false;
   const size_t bytes = smem_bytes(P, N);
   if (!granted) {
     cudaError_t err = cudaFuncSetAttribute(
-        mamba2_scan_kernel<T, P, N>,
+        mamba2_scan_kernel<T, P, N, OT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     granted = true;
   }
-  mamba2_scan_kernel<T, P, N><<<a.B * a.H, NT, bytes, a.stream>>>(
+  mamba2_scan_kernel<T, P, N, OT><<<a.B * a.H, NT, bytes, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.b),
       static_cast<const T*>(a.c), a.dt, a.a_log, a.state0,
-      static_cast<T*>(a.y), a.state_out, a.H, a.S, a.L, a.x_sb, a.x_ss,
+      static_cast<OT*>(a.y), a.state_out, a.H, a.S, a.L, a.x_sb, a.x_ss,
       a.x_sh, a.b_sb, a.b_ss, a.c_sb, a.c_ss, a.dt_sb, a.dt_ss, a.dt_sh,
       a.y_sb, a.y_ss, a.y_sh);
   return (int)cudaGetLastError();
 }
 
-template <int P, int N>
+template <int P, int N, typename OT>
 int launch_scan_mma(const ScanArgs& a) {
   static unsigned smem_set = 0;
-  auto kern = mamba2_mma_kernel<P, N>;
+  auto kern = mamba2_mma_kernel<P, N, OT>;
   cudaError_t err = allow_smem(kern, ScanTile<P, N>::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int blocks = a.B * ((a.H + HEADS - 1) / HEADS);
   kern<<<blocks, 32 * MMA_WARPS, ScanTile<P, N>::SMEM, a.stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.b),
       static_cast<const bf16*>(a.c), a.dt, a.a_log, a.state0,
-      static_cast<bf16*>(a.y), a.state_out, a.H, a.S, a.L, a.x_sb, a.x_ss,
+      static_cast<OT*>(a.y), a.state_out, a.H, a.S, a.L, a.x_sb, a.x_ss,
       a.x_sh, a.b_sb, a.b_ss, a.c_sb, a.c_ss, a.dt_sb, a.dt_ss, a.dt_sh,
       a.y_sb, a.y_ss, a.y_sh);
   return (int)cudaGetLastError();
 }
 
 int dispatch_fma(const ScanArgs& a, int P, int N) {
-  if (P == 16 && N == 8) return launch_scan<float, 16, 8>(a);
-  if (P == 64 && N == 64) return launch_scan<float, 64, 64>(a);
+  if (P == 16 && N == 8)
+    return a.out_f32 ? launch_scan<float, 16, 8, float>(a)
+                     : launch_scan<float, 16, 8, bf16>(a);
+  if (P == 64 && N == 64)
+    return a.out_f32 ? launch_scan<float, 64, 64, float>(a)
+                     : launch_scan<float, 64, 64, bf16>(a);
   return -1;
 }
 
 int dispatch_mma(const ScanArgs& a, int P, int N) {
-  if (P == 16 && N == 8) return launch_scan_mma<16, 8>(a);
-  if (P == 64 && N == 64) return launch_scan_mma<64, 64>(a);
+  if (P == 16 && N == 8)
+    return a.out_f32 ? launch_scan_mma<16, 8, float>(a)
+                     : launch_scan_mma<16, 8, bf16>(a);
+  if (P == 64 && N == 64)
+    return a.out_f32 ? launch_scan_mma<64, 64, float>(a)
+                     : launch_scan_mma<64, 64, bf16>(a);
   return -1;
 }
 
 // The bf16 kernel's 16-byte copies: the 16-byte rule (common.cuh) on x, b
 // and c (column slices of the conv output pass it); its pair stores of y:
-// even strides.
+// an 8-byte aligned base and even strides.
 bool aligned_for_mma(const ScanArgs& a) {
   return base16(a.x) && base16(a.b) && base16(a.c) &&
-         reinterpret_cast<uintptr_t>(a.y) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(a.y) % 8 == 0 &&
          stride16(a.B, a.x_sb) && stride16(a.S, a.x_ss) &&
          stride16(a.H, a.x_sh) && stride16(a.B, a.b_sb) &&
          stride16(a.S, a.b_ss) && stride16(a.B, a.c_sb) &&
@@ -793,8 +790,8 @@ bool aligned_for_mma(const ScanArgs& a) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the mma.sync
-// kernel, which needs aligned_for_mma), for x, b, c and y; dt, a_log, state0
-// and state_out are float32.  x and y are [B, S, H, P], b and c
+// kernel, which needs aligned_for_mma), for x, b and c; out_dtype, the
+// same codes, for y; dt, a_log, state0 and state_out are float32.  x and y are [B, S, H, P], b and c
 // [B, S, N], dt [B, S, H], all with the given strides (in elements; the
 // last dimension of x, b, c and y has stride 1); a_log is a contiguous
 // [H], state0 and state_out contiguous [B, H, P, N] (they may be the same
@@ -809,14 +806,17 @@ extern "C" int fate_mamba2_scan(
     long long x_sb, long long x_ss, long long x_sh,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
     long long dt_sb, long long dt_ss, long long dt_sh,
-    long long y_sb, long long y_ss, long long y_sh, int dtype, void* stream) {
+    long long y_sb, long long y_ss, long long y_sh, int dtype, int out_dtype,
+    void* stream) {
   if (B < 1 || H < 1 || S < 1 || L < 1 || L > MAXL || S % L != 0) return -1;
+  if (out_dtype != 0 && out_dtype != 1) return -1;
   ScanArgs a{x, b, c,
              static_cast<const float*>(dt), static_cast<const float*>(a_log),
              static_cast<const float*>(state0), y,
              static_cast<float*>(state_out), B, S, H, L,
              x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, dt_sb, dt_ss, dt_sh,
-             y_sb, y_ss, y_sh, static_cast<cudaStream_t>(stream)};
+             y_sb, y_ss, y_sh, out_dtype == 0,
+             static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_fma(a, P, N);
   if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, P, N) : -1;
   return -1;

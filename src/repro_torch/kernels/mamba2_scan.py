@@ -9,7 +9,9 @@ mamba2_scan``.  The kernel is ``csrc/mamba2_scan.cu``: one block per
 where the upper half can overflow), and reads ``b, c [B, S, N]`` through
 their strides for every head instead of broadcasting them to
 ``[B*H, S, N]``.  Unlike the TPU kernel it takes an initial state (the
-model's carried ``ssm`` state) and forms ``dt * a`` itself.
+model's carried ``ssm`` state) and an output dtype (the model asks for
+float32, as its reference keeps the scan's output), and forms ``dt * a``
+itself.
 
 bf16 (the served type) runs the chunk products on the tensor cores
 (``mma.sync``), with x, b, c kept bf16 in shared memory and loaded by a
@@ -37,7 +39,8 @@ DIMS = ((16, 8), (64, 64))
 def mamba2_scan_ref(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                     dt: torch.Tensor, a_log: torch.Tensor, *,
                     chunk: int = 128,
-                    state0: Optional[torch.Tensor] = None):
+                    state0: Optional[torch.Tensor] = None,
+                    out_dtype: Optional[torch.dtype] = None):
     """Plain version: the sequential SSD recurrence, step by step, in
     float32 (``chunk`` is accepted for the wrapper's signature and not
     used).
@@ -46,7 +49,8 @@ def mamba2_scan_ref(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     with ``a = -exp(a_log)`` and ``S`` starting at ``state0`` (zeros if
     None).  xh: [B, S, H, P]; b, c: [B, S, N]; dt: [B, S, H] (softplus'd);
     a_log: [H]; state0: [B, H, P, N].  Returns (y [B, S, H, P] in
-    ``xh.dtype``, final state [B, H, P, N] float32)."""
+    ``out_dtype``, ``xh.dtype`` if None, final state [B, H, P, N]
+    float32)."""
     bsz, s, h, p = xh.shape
     n = b.shape[-1]
     a = -torch.exp(a_log.float())
@@ -58,10 +62,10 @@ def mamba2_scan_ref(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         st = st * torch.exp(dt_t * a)[..., None, None] + torch.einsum(
             "bh,bhp,bn->bhpn", dt_t, xh[:, t].float(), b[:, t].float())
         ys.append(torch.einsum("bhpn,bn->bhp", st, c[:, t].float()))
-    return torch.stack(ys, dim=1).to(xh.dtype), st
+    return torch.stack(ys, dim=1).to(out_dtype or xh.dtype), st
 
 
-def _check(xh, b, c, dt, a_log, state0):
+def _check(xh, b, c, dt, a_log, state0, out_dtype):
     if xh.dim() != 4 or b.dim() != 3 or b.shape != c.shape:
         raise ValueError(
             f"expected xh [B,S,H,P] and b, c [B,S,N], got "
@@ -85,6 +89,9 @@ def _check(xh, b, c, dt, a_log, state0):
         if x is not None and x.dtype not in _build.DTYPE_CODE:
             raise TypeError(f"{name} must be float32 or bfloat16, got "
                             f"{x.dtype}")
+    if out_dtype is not None and out_dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"out_dtype must be float32, bfloat16 or None, got "
+                        f"{out_dtype}")
     devs = {x.device for x in (xh, b, c, dt, a_log, state0) if x is not None}
     if len(devs) != 1:
         raise ValueError("xh, b, c, dt, a_log and state0 must lie on one "
@@ -93,17 +100,21 @@ def _check(xh, b, c, dt, a_log, state0):
 
 def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                 dt: torch.Tensor, a_log: torch.Tensor, *, chunk: int = 128,
-                state0: Optional[torch.Tensor] = None):
+                state0: Optional[torch.Tensor] = None,
+                out_dtype: Optional[torch.dtype] = None):
     """xh: [B, S, H, P]; b, c: [B, S, N]; dt: [B, S, H] (softplus'd);
     a_log: [H]; state0: [B, H, P, N] or None (zeros).  Returns (y
-    [B, S, H, P] in ``xh.dtype``, final state [B, H, P, N] float32).
-    ``S`` must be a multiple of ``min(chunk, S)``.
+    [B, S, H, P] in ``out_dtype``, final state [B, H, P, N] float32).
+    ``out_dtype`` None keeps the Pallas kernel's contract, y in
+    ``xh.dtype``; the model asks for float32, as its reference keeps the
+    scan's output.  ``S`` must be a multiple of ``min(chunk, S)``.
 
     A CUDA tensor goes through the kernel (which is built at first use)
     or raises; the plain version is taken only for tensors that lie on
     the CPU.  ``mamba2_scan.launches`` counts kernel launches.
     """
-    _check(xh, b, c, dt, a_log, state0)
+    _check(xh, b, c, dt, a_log, state0, out_dtype)
+    out_dtype = out_dtype or xh.dtype
     bsz, s, h, p = xh.shape
     n = b.shape[-1]
     chunk = min(int(chunk), s)
@@ -112,7 +123,7 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"chunk {chunk}: pad it first")
     if xh.device.type == "cpu":
         return mamba2_scan_ref(xh, b, c, dt, a_log, chunk=chunk,
-                               state0=state0)
+                               state0=state0, out_dtype=out_dtype)
     if xh.device.type != "cuda":
         raise RuntimeError(f"no mamba2_scan kernel for {xh.device}")
     if (p, n) not in DIMS:
@@ -129,7 +140,7 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     state0 = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
                           device=xh.device)
               if state0 is None else state0.float().contiguous())
-    y = torch.empty((bsz, s, h, p), dtype=xh.dtype, device=xh.device)
+    y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=xh.device)
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=xh.device)
     lib = _build.load()
     with torch.cuda.device(xh.device):
@@ -140,7 +151,8 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             fin.data_ptr(), bsz, s, h, p, n, chunk,
             *xh.stride()[:3], *b.stride()[:2], *c.stride()[:2],
             *dt.stride(), *y.stride()[:3],
-            _build.DTYPE_CODE[xh.dtype], stream)
+            _build.DTYPE_CODE[xh.dtype], _build.DTYPE_CODE[out_dtype],
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"mamba2_scan kernel launch failed (code {rc}) for xh "

@@ -11,9 +11,8 @@ recurrence, as in the reference, since no TPU kernel exists for it.
 Two clips (ROADMAP queue 3, H4): the model clamps ``w`` to
 ``[1e-6, 1 - 1e-6]`` as the reference's ``_wkv_chunked`` does, after the
 state-neutral padding with ``w = 1``, and only then calls K5, whose own
-``[1e-8, 1]`` clip is then a no-op.  K5 returns its output in the dtype of
-``r``, so in bf16 the scan's output is rounded once before ``_ln``, where
-the reference keeps it float32 (queue 3, H15).
+``[1e-8, 1]`` clip is then a no-op.  The scan's output comes back in
+float32, as the reference keeps it into ``_ln``.
 """
 from __future__ import annotations
 
@@ -65,7 +64,8 @@ def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]):
 def _wkv_prefill(r, k, v, w, bonus, chunk: int, state0):
     """The chunked scan of the reference's prefill branch through K5:
     state-neutral padding to a chunk multiple (``k = v = 0``, ``w = 1``),
-    the model's clamp, the kernel, the padding cut off again."""
+    the model's clamp, the kernel with a float32 output, the padding cut
+    off again.  Returns (out [B, S, H, D] float32, final state)."""
     s = r.shape[1]
     pad = (-s) % chunk
     if pad:
@@ -73,7 +73,8 @@ def _wkv_prefill(r, k, v, w, bonus, chunk: int, state0):
         r, k, v = zp(r), zp(k), zp(v)
         w = torch.nn.functional.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
     w = w.clamp(1e-6, 1 - 1e-6)
-    y, st = ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk, state0=state0)
+    y, st = ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk, state0=state0,
+                           out_dtype=torch.float32)
     return y[:, :s], st
 
 

@@ -7,9 +7,8 @@ chunked scan through the hand-written kernel (``kernels.ops.mamba2_scan``,
 K4), starting from the carried state, where the reference wrote the
 chunked form in jnp (``_ssd_chunked``; ROADMAP queue 3, H1); decode (one
 token) is the plain recurrence, as in the reference, since no TPU kernel
-exists for it.  K4 returns its output in the dtype of ``xh``, so in bf16
-the scan's output is rounded once before the ``d_skip`` sum, where the
-reference keeps it float32 (queue 3, H17).
+exists for it.  The scan's output comes back in float32, as the
+reference keeps it into the ``d_skip`` sum.
 """
 from __future__ import annotations
 
@@ -77,6 +76,22 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     return torch.nn.functional.silu(out).to(wdt), new_state
 
 
+def _ssd_prefill(xh, b, c, dt, a_log, chunk: int, state0):
+    """The chunked scan of the reference's ``_ssd_chunked`` through K4:
+    state-neutral padding to a chunk multiple (``dt = 0``: no decay, no
+    state update), the kernel with a float32 output, the padding cut off
+    again.  Returns (y [B, S, H, P] float32, final state)."""
+    seq = xh.shape[1]
+    pad = (-seq) % chunk
+    if pad:
+        zp = lambda a: torch.nn.functional.pad(
+            a, (0, 0) * (a.dim() - 2) + (0, pad))
+        xh, b, c, dt = zp(xh), zp(b), zp(c), zp(dt)
+    y, fin = ops.mamba2_scan(xh, b, c, dt, a_log, chunk=chunk,
+                             state0=state0, out_dtype=torch.float32)
+    return y[:, :seq], fin
+
+
 def mamba2_forward(p: dict, cfg, x: torch.Tensor, *,
                    state: Optional[dict] = None):
     """Full-sequence forward.  ``state`` {"ssm": [B,H,P,N], "conv":
@@ -89,18 +104,9 @@ def mamba2_forward(p: dict, cfg, x: torch.Tensor, *,
     xs, b, c = torch.split(xbc, [d_in, s.state_dim, s.state_dim], dim=-1)
     dt = torch.nn.functional.softplus(dt_raw.float() + p["dt_bias"])
     xh = xs.view(bsz, seq, nh, s.head_dim)        # column slices, read in place
-    pad = (-seq) % s.chunk
-    if pad:
-        # state-neutral padding: dt = 0 => no decay and no state update
-        zp = lambda a: torch.nn.functional.pad(
-            a, (0, 0) * (a.dim() - 2) + (0, pad))
-        xh_s, b, c, dt = zp(xh), zp(b), zp(c), zp(dt)
-    else:
-        xh_s = xh
-    y, fin = ops.mamba2_scan(xh_s, b, c, dt, p["a_log"], chunk=s.chunk,
-                             state0=state["ssm"] if state is not None
-                             else None)
-    y = y[:, :seq].float() + xh.float() * p["d_skip"][None, None, :, None]
+    y, fin = _ssd_prefill(xh, b, c, dt, p["a_log"], s.chunk,
+                          state["ssm"] if state is not None else None)
+    y = y + xh.float() * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, seq, d_in).to(x.dtype)
     y = y * torch.nn.functional.silu(z.float()).to(x.dtype)
     # the reference's _group_norm: one group over all of d_inner

@@ -555,3 +555,90 @@ def test_mamba2_scan_kernel_bf16_repeats_bitwise(card):
     y1, f1 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
     y2, f2 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=128, state0=st0)
     assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("chunk", [4, 16, 32, 64])
+@pytest.mark.parametrize("strong_decay", [False, True])
+@pytest.mark.parametrize("initial_state", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_rwkv6_scan_kernel_bf16(card, d, chunk, strong_decay, initial_state,
+                                out_dtype):
+    """bf16 r, k, v on the tensor-core kernel against the plain version,
+    held to the bf16 bars of chip_smoke.scan_tols, over every head dim and
+    chunks from the SMOKE config's 4 (one padded sub-chunk) to 64."""
+    rng = np.random.default_rng(11)
+    r, k, v, w, bonus = _rwkv(rng, 2, 128, 3, d, torch.bfloat16, card,
+                              strong_decay)
+    st0 = (_randn(rng, (2, 3, d, d), torch.float32, card)
+           if initial_state else None)
+    before = ops.rwkv6_scan.launches
+    out, fin = ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk, state0=st0,
+                              out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    assert out.dtype == out_dtype and fin.dtype == torch.float32
+    want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0,
+                                    out_dtype=out_dtype)
+    tol, fin_tol = _scan_bars(want, wfin)
+    assert bool(torch.isfinite(out.float()).all())
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    assert float((fin - wfin).abs().max()) <= fin_tol
+
+
+@pytest.mark.parametrize("chunk", [4, 40, 64])
+def test_rwkv6_scan_kernel_bf16_fused_views_float32_out(card, chunk):
+    """The model's call: r, k, v sliced out of one fused buffer with NaN in
+    the steps past the sequence, float32 w, a carried state and a float32
+    output (a chunk of 40 pads its last sub-chunk)."""
+    rng = np.random.default_rng(13)
+    b, s, h, d = 2, 120 if chunk == 40 else 128, 4, 64
+    fused = _randn(rng, (b, s + 16, 3, h, d), torch.bfloat16, card)
+    fused[:, s:] = float("nan")
+    r, k, v = (fused[:, :s, i] for i in range(3))
+    w = torch.sigmoid(_randn(rng, (b, s, h, d), torch.float32, card))
+    bonus = _randn(rng, (h, d), torch.float32, card) * 0.1
+    st0 = _randn(rng, (b, h, d, d), torch.float32, card)
+    out, fin = ops.rwkv6_scan(r, k, v, w, bonus, chunk=chunk, state0=st0,
+                              out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0,
+                                    out_dtype=torch.float32)
+    tol, fin_tol = _scan_bars(want, wfin)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - want).abs().max()) <= tol
+    assert float((fin - wfin).abs().max()) <= fin_tol
+
+
+def test_rwkv6_scan_kernel_bf16_repeats_bitwise(card):
+    """rwkv6-3b's head dim and chunk over 512 steps: repeated calls give
+    the same bits, with a call of another shape in between."""
+    rng = np.random.default_rng(29)
+    r, k, v, w, bonus = _rwkv(rng, 2, 512, 8, 64, torch.bfloat16, card)
+    st0 = _randn(rng, (2, 8, 64, 64), torch.float32, card)
+    o1, f1 = ops.rwkv6_scan(r, k, v, w, bonus, chunk=32, state0=st0,
+                            out_dtype=torch.float32)
+    other = _rwkv(rng, 1, 80, 2, 16, torch.bfloat16, card)
+    ops.rwkv6_scan(*other, chunk=40)
+    o2, f2 = ops.rwkv6_scan(r, k, v, w, bonus, chunk=32, state0=st0,
+                            out_dtype=torch.float32)
+    assert torch.equal(o1, o2) and torch.equal(f1, f2)
+
+
+def test_scan_kernels_float32_out_of_bf16_inputs(card):
+    """K4 and K5 store a float32 output of bf16 inputs (the models' call)
+    that agrees with their bf16 output up to its one rounding."""
+    rng = np.random.default_rng(31)
+    r, k, v, w, bonus = _rwkv(rng, 2, 64, 3, 64, torch.bfloat16, card)
+    o32, f32 = ops.rwkv6_scan(r, k, v, w, bonus, chunk=32,
+                              out_dtype=torch.float32)
+    o16, f16 = ops.rwkv6_scan(r, k, v, w, bonus, chunk=32)
+    assert o32.dtype == torch.float32 and o16.dtype == torch.bfloat16
+    assert torch.equal(o32.bfloat16(), o16) and torch.equal(f32, f16)
+    xh, bm, cm, dt, a_log = _mamba(rng, 2, 128, 3, 64, 64, torch.bfloat16,
+                                   card)
+    y32, g32 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=64,
+                               out_dtype=torch.float32)
+    y16, g16 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=64)
+    assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
+    assert torch.equal(y32.bfloat16(), y16) and torch.equal(g32, g16)

@@ -265,15 +265,14 @@ def test_wrapper_dims_match_kernel_instantiations(name):
         assert got == set(ms_mod.DIMS)
         assert (64, 64) in got and (16, 8) in got
         return
-    got = {int(d) for d in re.findall(r"case (\d+): return launch_", src)}
+    got = {int(d) for d in re.findall(r"case (\d+): return ", src)}
     dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else _build.ATTN_HEAD_DIMS
     assert got == set(dims)
     assert (80 in got) == (name != "rwkv6_scan")
-    # every dispatch of the source (K1, K2: the float32 FMA kernel's and
-    # the bf16 mma.sync kernel's) takes exactly those dims
+    # every dispatch of the source (the float32 FMA kernel's and the bf16
+    # mma.sync kernel's) takes exactly those dims
     switches = re.findall(r"switch \(D\) \{(.*?)\}", src, re.S)
-    assert len(switches) == (2 if name in ("flash_attention",
-                                           "decode_attention") else 1)
+    assert len(switches) == 2
     for block in switches:
         assert {int(d) for d in re.findall(r"case (\d+):", block)} == \
             set(dims)
@@ -504,12 +503,13 @@ def test_kernel_operand_passes_mamba2_conv_slices_uncopied():
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "moe_gemm",
-                                  "decode_attention", "mamba2_scan"])
+                                  "decode_attention", "mamba2_scan",
+                                  "rwkv6_scan"])
 def test_bf16_never_reaches_an_fma_kernel(name):
-    """The FMA kernels are instantiated for float32 only, and the C entry
-    points send dtype 1 (bf16) to the tensor-core kernels: K1's, K2's and
-    K4's mma.sync kernels (each for every dim its dispatch takes) and
-    K3's wgmma kernel."""
+    """The FMA kernels are instantiated for float32 inputs only, and the C
+    entry points send dtype 1 (bf16) to the tensor-core kernels: K1's,
+    K2's, K4's and K5's mma.sync kernels (each for every dim its dispatch
+    takes, K4's and K5's for both output types) and K3's wgmma kernel."""
     import re
     from pathlib import Path
     from repro_torch.kernels import _build
@@ -536,17 +536,37 @@ def test_bf16_never_reaches_an_fma_kernel(name):
             set(_build.ATTN_HEAD_DIMS)
         assert src.count("dispatch_fma(") == 2
         assert src.count("decode_partial_kernel<") == 1   # in launch_decode
-    else:
+    elif name == "mamba2_scan":
         from repro_torch.kernels import mamba2_scan as ms_mod
-        assert set(re.findall(r"return launch_scan<(\w+), \d+, \d+>", src)) \
+        # the first template argument is the input type, the last y's
+        assert set(re.findall(r"launch_scan<(\w+), \d+, \d+, \w+>", src)) \
             == {"float"}
         assert "if (dtype == 0) return dispatch_fma(a, P, N);" in src
         assert "if (dtype == 1) return aligned_for_mma(a) ? " \
             "dispatch_mma(a, P, N) : -1;" in src
-        assert {(int(p), int(n)) for p, n in re.findall(
-            r"return launch_scan_mma<(\d+), (\d+)>", src)} == set(ms_mod.DIMS)
+        mma = set(re.findall(r"launch_scan_mma<(\d+), (\d+), (\w+)>", src))
+        assert {(int(p), int(n)) for p, n, _ in mma} == set(ms_mod.DIMS)
+        assert {ot for _, _, ot in mma} == {"float", "bf16"}
         assert src.count("dispatch_fma(") == 2
         assert src.count("mamba2_scan_kernel<") == 2   # attribute, launch
+    else:
+        from repro_torch.kernels import rwkv6_scan as rs_mod
+        # the FMA kernel's r, k, v are float32 by its signature
+        assert re.search(r"rwkv6_scan_kernel\(const float\* __restrict__ r, "
+                         r"const float\* __restrict__ k,\s+const float\* "
+                         r"__restrict__ v,", src)
+        assert "return dispatch_fma(a, D);" in src
+        assert "return aligned_for_mma(a) ? dispatch_mma(a, D) : -1;" in src
+        entry = src[src.index('extern "C" int fate_rwkv6_scan('):]
+        assert entry.index("if (dtype == 0) {") < \
+            entry.index("dispatch_fma(a, D)") < \
+            entry.index("if (dtype == 1) {") < entry.index("dispatch_mma(a, D)")
+        mma = re.search(r"int dispatch_mma\(.*?\n\}", src, re.S).group(0)
+        got = set(re.findall(r"launch_scan_mma<(\d+), (\w+)>", mma))
+        assert {int(d) for d, _ in got} == set(rs_mod.HEAD_DIMS)
+        assert {ot for _, ot in got} == {"float", "bf16"}
+        assert src.count("dispatch_fma(") == 2
+        assert src.count("rwkv6_scan_kernel<") == 2   # attribute, launch
 
 
 # ---------------------------------------------------------------------------
@@ -660,6 +680,137 @@ def test_rwkv6_scan_rejects_bad_arguments(bad):
         kw["chunk"] = 3
     with pytest.raises(err):
         ops.rwkv6_scan(*args, **kw)
+
+
+def _bf16_round(a: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def test_rwkv6_model_scan_output_stays_float32_as_in_the_reference():
+    """The model's prefill scan (``_wkv_prefill``) on bf16 r, k, v hands a
+    float32 output on, as the reference's ``_wkv_chunked`` keeps it: within
+    1e-4 of its largest magnitude, where one bf16 rounding of the output
+    costs up to about 2e-3 of it."""
+    from repro_torch.models import rwkv as rwkv_mod
+    r, k, v, w, bonus = _rwkv_inputs(64, False, seed=17)
+    r, k, v = (_bf16_round(a) for a in (r, k, v))
+    st0 = np.random.default_rng(18).standard_normal((2, 2, 16, 16),
+                                                    dtype=np.float32)
+    out, fin = rwkv_mod._wkv_prefill(
+        *(torch.from_numpy(a).bfloat16() for a in (r, k, v)),
+        torch.from_numpy(w), torch.from_numpy(bonus), 16,
+        torch.from_numpy(st0))
+    assert out.dtype == torch.float32 and fin.dtype == torch.float32
+    jout, jfin = jax_rwkv._wkv_chunked(
+        *(jnp.asarray(a) for a in (r, k, v, w, bonus)), 16, jnp.asarray(st0))
+    assert _abs(out, jout) <= 1e-4 * float(np.abs(np.asarray(jout)).max())
+    assert _abs(fin, jfin) < 5e-4
+
+
+def _split_bf16(x: torch.Tensor):
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _mm_split(a: torch.Tensor, b: torch.Tensor, b_exact: bool = False):
+    """a @ b as the mma.sync kernel forms it: each float32 factor as hi + lo
+    bf16 terms, hi.hi + hi.lo + lo.hi (hi + lo against an exact bf16 b),
+    every product and sum in float32."""
+    ah, al = _split_bf16(a)
+    if b_exact:
+        return al @ b + ah @ b
+    bh, bl = _split_bf16(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _factored_scores(rc, kc, ce, ci, e, rows, cols):
+    """Scores of ``rows`` against earlier ``cols`` factored through the
+    boundary row e: (r * exp(ce - ce_e)) (k * exp(ce_e - ci))^T, both
+    exponents <= 0, on split terms."""
+    qt = rc[:, :, rows] * torch.exp(
+        torch.clamp(ce[:, :, rows] - ce[:, :, e:e + 1], max=0.0))
+    kt = kc[:, :, cols] * torch.exp(
+        torch.clamp(ce[:, :, e:e + 1] - ci[:, :, cols], max=0.0))
+    return _mm_split(qt, kt.transpose(-1, -2))
+
+
+def _rwkv6_mma_emulation(r, k, v, w, bonus, chunk, state0):
+    """The bf16 kernel's arithmetic (csrc/rwkv6_scan.cu, rwkv6_mma_kernel)
+    in torch: per chunk the cumulative log decays in float32; the diagonal
+    8 x 8 blocks pair by pair in float32, every other score below the
+    diagonal factored through a boundary row (the first row of the 16-row
+    sub-chunk, or its row 8 for the block of its rows 8..15 and columns
+    0..7); every product on split terms.  r, k, v: bf16-exact float32
+    [B, S, H, D]."""
+    bsz, s, h, d = r.shape
+    lp = -(-chunk // 16) * 16
+    to_bh = lambda x: x.permute(0, 2, 1, 3)            # [B, H, S, D]
+    r, k, v = to_bh(r), to_bh(k), to_bh(v)
+    lw = to_bh(torch.log(w.clamp(1e-8, 1.0)))
+    st = state0.clone()
+    outs = []
+    tri = torch.tril(torch.ones(8, 8, dtype=torch.bool), -1)
+    for t0 in range(0, s, chunk):
+        pad = lambda x: torch.nn.functional.pad(
+            x[:, :, t0:t0 + chunk], (0, 0, 0, lp - chunk))
+        rc, kc, vc, lwc = pad(r), pad(k), pad(v), pad(lw)
+        cum = torch.cat([torch.zeros_like(lwc[:, :, :1]),
+                         torch.cumsum(lwc, dim=2)], dim=2)
+        ce, ci = cum[:, :, :lp], cum[:, :, 1:]
+        sc = torch.zeros(bsz, h, lp, lp)
+        for b0 in range(0, lp, 8):
+            rows = slice(b0, b0 + 8)
+            pair = torch.exp(torch.clamp(
+                ce[:, :, rows, None] - ci[:, :, None, rows], max=0.0))
+            blk = torch.einsum("bhik,bhjk,bhijk->bhij", rc[:, :, rows],
+                               kc[:, :, rows], pair) * tri
+            sc[:, :, rows, rows] = blk + torch.diag_embed(
+                (rc[:, :, rows] * bonus[None, :, None] * kc[:, :, rows])
+                .sum(-1))
+        for a0 in range(0, lp, 16):
+            sc[:, :, a0 + 8:a0 + 16, a0:a0 + 8] = _factored_scores(
+                rc, kc, ce, ci, a0 + 8, slice(a0 + 8, a0 + 16),
+                slice(a0, a0 + 8))
+            if a0:
+                sc[:, :, a0:a0 + 16, :a0] = _factored_scores(
+                    rc, kc, ce, ci, a0, slice(a0, a0 + 16), slice(0, a0))
+        out = (_mm_split(rc * torch.exp(ce), st)
+               + _mm_split(sc, vc, b_exact=True))
+        outs.append(out[:, :, :chunk])
+        total = cum[:, :, lp]
+        fac = kc * torch.exp(torch.clamp(total[:, :, None] - ci, max=0))
+        st = (st * torch.exp(total)[..., None]
+              + _mm_split(fac.transpose(-1, -2), vc, b_exact=True))
+    return torch.cat(outs, dim=2).permute(0, 2, 1, 3), st
+
+
+@pytest.mark.parametrize("d,chunk,strong_decay,initial_state", [
+    (64, 32, False, True), (64, 32, True, True), (64, 32, False, False),
+    (16, 4, False, True),
+])
+def test_rwkv6_mma_kernel_arithmetic_holds_the_bf16_bars(d, chunk,
+                                                         strong_decay,
+                                                         initial_state):
+    """The bf16 kernel's precision design, emulated on the CPU (the
+    kernel itself runs only on the card): the sub-chunk factoring and the
+    hi + lo splits hold chip_smoke.scan_tols' bf16 bars against the plain
+    version, the output within 1e-2 of its largest magnitude and the state
+    within 5e-4 of max(1, its largest magnitude), with strong decay (w =
+    1e-6) too."""
+    r, k, v, w, bonus = (torch.from_numpy(a) for a in _rwkv_inputs(
+        128, strong_decay, b=1, h=2, d=d, seed=23))
+    r, k, v = (a.bfloat16().float() for a in (r, k, v))
+    st0 = (torch.from_numpy(np.random.default_rng(24).standard_normal(
+        (1, 2, d, d), dtype=np.float32)) if initial_state
+        else torch.zeros(1, 2, d, d))
+    out, fin = _rwkv6_mma_emulation(r, k, v, w, bonus, chunk, st0)
+    want, wfin = ref.rwkv6_scan_ref(r, k, v, w, bonus, state0=st0)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(fin).all())
+    assert float((out - want).abs().max()) <= \
+        1e-2 * float(want.abs().max())
+    assert float((fin - wfin).abs().max()) <= \
+        5e-4 * max(1.0, float(wfin.abs().max()))
 
 
 # ---------------------------------------------------------------------------
@@ -777,3 +928,48 @@ def test_mamba2_scan_rejects_bad_arguments(bad):
         kw["chunk"] = 3
     with pytest.raises(err):
         ops.mamba2_scan(*args, **kw)
+
+
+def test_mamba2_model_scan_output_stays_float32_as_in_the_reference():
+    """The model's prefill scan (``_ssd_prefill``) on bf16 xh, b, c hands
+    a float32 output on, as the reference's ``_ssd_chunked`` keeps it
+    into the ``d_skip`` sum: within 1e-4 of its largest magnitude, where
+    one bf16 rounding of the output costs up to about 2e-3 of it."""
+    from repro_torch.models import ssm as ssm_mod
+    xh, bm, cm, dt, a_log = _mamba_inputs(64, seed=19)
+    xh, bm, cm = (_bf16_round(a) for a in (xh, bm, cm))
+    st0 = np.random.default_rng(20).standard_normal((2, 3, 16, 8),
+                                                    dtype=np.float32)
+    y, fin = ssm_mod._ssd_prefill(
+        *(torch.from_numpy(a).bfloat16() for a in (xh, bm, cm)),
+        torch.from_numpy(dt), torch.from_numpy(a_log), 16,
+        torch.from_numpy(st0))
+    assert y.dtype == torch.float32 and fin.dtype == torch.float32
+    jy, jfin = jax_ssm._ssd_chunked(
+        *(jnp.asarray(a) for a in (xh, bm, cm, dt, a_log)), 16,
+        jnp.asarray(st0))
+    assert _abs(y, jy) <= 1e-4 * float(np.abs(np.asarray(jy)).max())
+    assert _abs(fin, jfin) < 5e-4
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "mamba2_scan"])
+def test_scan_out_dtype_keeps_the_pallas_contract_by_default(name):
+    """``out_dtype=None`` returns the input dtype (the Pallas kernels'
+    contract); float32 and bf16 may be asked for, anything else raises."""
+    if name == "rwkv6_scan":
+        r, k, v, w, bonus = (torch.from_numpy(a)
+                             for a in _rwkv_inputs(32, False))
+        args = [r.bfloat16(), k.bfloat16(), v.bfloat16(), w, bonus]
+    else:
+        xh, bm, cm, dt, a_log = (torch.from_numpy(a)
+                                 for a in _mamba_inputs(32))
+        args = [xh.bfloat16(), bm.bfloat16(), cm.bfloat16(), dt, a_log]
+    fn = getattr(ops, name)
+    plain = getattr(ref, name + "_ref")
+    assert fn(*args, chunk=16)[0].dtype == torch.bfloat16
+    out32 = fn(*args, chunk=16, out_dtype=torch.float32)[0]
+    assert out32.dtype == torch.float32
+    assert torch.equal(out32.bfloat16(), fn(*args, chunk=16)[0])
+    assert torch.equal(out32, plain(*args, out_dtype=torch.float32)[0])
+    with pytest.raises(TypeError):
+        fn(*args, chunk=16, out_dtype=torch.float16)

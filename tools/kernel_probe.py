@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Probe two of the port's bf16 kernels on one NVIDIA GPU.
+"""Probe three of the port's bf16 kernels on one NVIDIA GPU.
 
     python3 tools/kernel_probe.py decode-splits   # K2 over split_plan's block target
     python3 tools/kernel_probe.py mamba2-phases   # K4 with one phase removed at a time
+    python3 tools/kernel_probe.py rwkv6-phases    # K5 the same, and split over columns
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -19,6 +20,15 @@ chunk's scan, the state update), each into its own library under
 CUDA events, the full kernel first and last.  A variant computes wrong
 numbers; only its time is read.  The difference to the full kernel is
 what the phase costs on the critical path.
+
+``rwkv6-phases`` does the same for ``csrc/rwkv6_scan.cu`` at rwkv6-3b's
+prefill (B 8, S 512, 40 heads, D 64, chunk 32, bf16 r, k, v, float32 w,
+a carried state, float32 output): the loads, the cumulative sums, the
+diagonal 8 x 8 blocks' pairwise scores, the factored scores, scores . v, the
+inter-chunk product and the state update.  Its ``split_columns`` variant
+is the other layout: two blocks per (batch, head), each with half of the
+output units and half of the state's tiles (the scores computed by both),
+640 blocks where the one-block layout has 320.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -52,6 +62,45 @@ MAMBA2_CUTS = {
     "next_scan": [("    if (scanner && t0 + L < S) {", "    if (false) {")],
     "state_update": [("    if (owner) {\n      const float decay",
                       "    if (false) {\n      const float decay")],
+}
+
+# phase -> [(text in rwkv6_scan.cu, its replacement), ...]
+RWKV6_CUTS = {
+    "loads": [("for (int i = tid / DC; i < LP; i += NTH / DC) {",
+               "for (int i = tid / DC; i < 0; i += NTH / DC) {"),
+              ("for (int i = tid / WC; i < LP; i += NTH / WC) {",
+               "for (int i = tid / WC; i < 0; i += NTH / WC) {")],
+    "cumsum": [("    if (tid < D) {\n      float run = 0.f;",
+                "    if (false) {\n      float run = 0.f;")],
+    "diag_scores": [("for (int p = NTH - 1 - tid; p < NSUB * 72; p += NTH) {",
+                     "for (int p = NTH - 1 - tid; p < 0; p += NTH) {")],
+    "factored_scores": [("for (int u = warp; u < n_off + NSUB; u += NW) {",
+                         "for (int u = warp; u < 0; u += NW) {")],
+    "scores_v": [("for (int cb = 0; cb <= a; ++cb) {",
+                  "for (int cb = 0; cb < 0; ++cb) {")],
+    "inter_chunk": [("for (int kk = 0; kk < D / 16; ++kk) {   // (r * exp(ce)) S",
+                     "for (int kk = 0; kk < 0; ++kk) {")],
+    "state_update": [("    if (owner) {\n      float tot[2], dec[2];",
+                      "    if (false) {\n      float tot[2], dec[2];")],
+    # the other layout, priced whole: two blocks per (b, h), each with half
+    # of the output units and of the state's tiles
+    "split_columns": [
+        ("static constexpr int PER = (TILES + NW - 1) / NW;",
+         "static constexpr int PER = (TILES / 2 + NW - 1) / NW;"),
+        ("const bool owner = tile0 < Tile::TILES;",
+         "const bool owner = tile0 < Tile::TILES / 2;"),
+        ("for (int u = warp; u < NSUB * Tile::CSPLIT; u += NW) {",
+         "for (int u = warp; u < (NSUB * Tile::CSPLIT + 1) / 2; u += NW) {"),
+        ("  const int b = blockIdx.x / H;\n  const int h = blockIdx.x % H;\n\n"
+         "  const MmaLayout",
+         "  const int b = (blockIdx.x >> 1) / H;\n"
+         "  const int h = (blockIdx.x >> 1) % H;\n\n  const MmaLayout"),
+        ("const int64_t st_off = (int64_t)blockIdx.x * D * D;   // [B, H, D, D]\n\n"
+         "  // scores above",
+         "const int64_t st_off = (int64_t)(blockIdx.x >> 1) * D * D;\n\n"
+         "  // scores above"),
+        ("kern<<<a.B * a.H, 32 * MmaTile<D>::NW",
+         "kern<<<2 * a.B * a.H, 32 * MmaTile<D>::NW")],
 }
 
 
@@ -102,40 +151,70 @@ def decode_splits() -> None:
                           "rows": rows}), flush=True)
 
 
-def build_variant(name: str, source: str, out: Path) -> ctypes.CDLL:
+def build_variant(kernel: str, name: str, source: str,
+                  out: Path) -> ctypes.CDLL:
+    """Compile one variant of ``csrc/<kernel>.cu`` into its own library
+    and declare its C entry point."""
     from repro_torch.kernels import _build
-    cu = out / f"mamba2_{name}.cu"
-    lib = out / f"mamba2_{name}.so"
+    cu = out / f"{kernel}_{name}.cu"
+    lib = out / f"{kernel}_{name}.so"
     cu.write_text(source)
     subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared",
                     "-I", str(_build.CSRC), "-o", str(lib), str(cu)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    dll.fate_mamba2_scan.restype = i32
-    dll.fate_mamba2_scan.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [i64] * 13 + [i32] + [ptr])
+    _build.declare(dll, [f"fate_{kernel}"])
     return dll
 
 
-def mamba2_phases() -> None:
+def build_variants(kernel: str, cuts_by_name: dict) -> dict:
+    """The full source and one variant per entry of ``cuts_by_name``,
+    each built in parallel; exits naming a cut that is not found once."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "mamba2_scan.cu").read_text()
+    src = (_build.CSRC / f"{kernel}.cu").read_text()
     out = _build.build_root().parent / "probe"
     out.mkdir(parents=True, exist_ok=True)
     sources = {"full": src}
-    for name, cuts in MAMBA2_CUTS.items():
+    for name, cuts in cuts_by_name.items():
         variant = src
         for old, new in cuts:
             if variant.count(old) != 1:
                 sys.exit(f"kernel_probe: a text cut for {name!r} is not "
-                         f"found once in mamba2_scan.cu: update MAMBA2_CUTS")
+                         f"found once in {kernel}.cu: update its cuts")
             variant = variant.replace(old, new)
         sources[name] = variant
     with ThreadPoolExecutor(len(sources)) as pool:
-        libs = dict(zip(sources, pool.map(
-            lambda kv: build_variant(kv[0], kv[1], out), sources.items())))
+        return dict(zip(sources, pool.map(
+            lambda kv: build_variant(kernel, kv[0], kv[1], out),
+            sources.items())))
+
+
+def events_ms(call, lib, iters: int = 30) -> float:
+    """Mean milliseconds per call of ``call(lib)`` on CUDA events."""
+    for _ in range(3):
+        call(lib)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        call(lib)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def in_turns(call, libs: dict) -> dict:
+    """Each library timed twice, in the order full .. last, last .. full."""
+    order = list(libs) + list(reversed(list(libs)))
+    times: dict = {}
+    for name in order:
+        times.setdefault(name, []).append(events_ms(call, libs[name]))
+    return times
+
+
+def mamba2_phases() -> None:
+    libs = build_variants("mamba2_scan", MAMBA2_CUTS)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     b, s, h, p, n, chunk = 8, 512, 80, 64, 64, 128
@@ -155,27 +234,12 @@ def mamba2_phases() -> None:
             xh.data_ptr(), bm.data_ptr(), cm.data_ptr(), dt.data_ptr(),
             a_log.data_ptr(), st0.data_ptr(), y.data_ptr(), fin.data_ptr(),
             b, s, h, p, n, chunk, *xh.stride()[:3], *bm.stride()[:2],
-            *cm.stride()[:2], *dt.stride(), *y.stride()[:3], 1,
+            *cm.stride()[:2], *dt.stride(), *y.stride()[:3], 1, 1,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             sys.exit(f"kernel_probe: launch failed with code {rc}")
 
-    def events_ms(lib, iters=30):
-        for _ in range(3):
-            call(lib)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            call(lib)
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
-    order = list(libs) + list(reversed(list(libs)))
-    times: dict = {}
-    for name in order:
-        times.setdefault(name, []).append(events_ms(libs[name]))
+    times = in_turns(call, libs)
     full = sum(times["full"]) / 2
     print(json.dumps({
         "probe": "mamba2-phases", "shape": [[b, s, h, p], [b, s, n]],
@@ -184,9 +248,43 @@ def mamba2_phases() -> None:
                           if k != "full"}}), flush=True)
 
 
+def rwkv6_phases() -> None:
+    libs = build_variants("rwkv6_scan", RWKV6_CUTS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, d, chunk = 8, 512, 40, 64, 32
+    r, k, v = (torch.randn(b, s, h, d, device="cuda",
+                           generator=gen).bfloat16() for _ in range(3))
+    w = torch.sigmoid(torch.randn(b, s, h, d, device="cuda", generator=gen))
+    bonus = torch.randn(h, d, device="cuda", generator=gen) * 0.1
+    st0 = torch.randn(b, h, d, d, device="cuda", generator=gen)
+    out = torch.empty(b, s, h, d, device="cuda")
+    fin = torch.empty(b, h, d, d, device="cuda")
+
+    def call(lib):
+        rc = lib.fate_rwkv6_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            bonus.data_ptr(), st0.data_ptr(), out.data_ptr(), fin.data_ptr(),
+            b, s, h, d, chunk, *r.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *w.stride()[:3], *out.stride()[:3], 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            sys.exit(f"kernel_probe: launch failed with code {rc}")
+
+    times = in_turns(call, libs)
+    full = sum(times["full"]) / 2
+    print(json.dumps({
+        "probe": "rwkv6-phases", "shape": [b, s, h, d], "chunk": chunk,
+        "ms": times,
+        "phase_cost_ms": {k: full - sum(v) / 2 for k, v in times.items()
+                          if k not in ("full", "split_columns")},
+        "split_columns_ms": sum(times["split_columns"]) / 2,
+        "one_block_ms": full}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("probe", choices=["decode-splits", "mamba2-phases"])
+    ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
+                                      "rwkv6-phases"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -198,8 +296,10 @@ def main() -> None:
           flush=True)
     if args.probe == "decode-splits":
         decode_splits()
-    else:
+    elif args.probe == "mamba2-phases":
         mamba2_phases()
+    else:
+        rwkv6_phases()
 
 
 if __name__ == "__main__":
