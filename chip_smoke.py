@@ -22,7 +22,10 @@ ends the run with a non-zero exit code and no result line:
    scan_tols, float32 and bf16 outputs), mamba2_scan over its sweep (5e-4 on
    the output and the final state) plus an initial state and bf16 inputs;
    and each at the serving paths' own shapes (zamba2's attention at head
-   dim 80), where it is also timed beside its plain version, one PyTorch
+   dim 80; decode_attention also with its length as a device int32, which
+   must give the int length's bits; mamba2_scan and rwkv6_scan with the
+   float32 output the models ask for), where it is also timed, as the
+   serving path calls it, beside its plain version, one PyTorch
    call computing the same function where there is one (yardstick only;
    the port never calls it) and the least time the card could take:
    ``ms`` per back-to-back wrapper call (CUDA events, host gaps
@@ -34,9 +37,16 @@ ends the run with a non-zero exit code and no result line:
    width and depth, prompt 512, 32 generated tokens, random weights
    from a seeded generator.  The kernels' launch counts are zeroed just
    before and must equal what the recorded placements predict after.
-4. ``parity``  – the first shard of the first stage again with the plain
-   versions swapped in for the kernels, on the card: max logit
-   difference and greedy-token agreement.
+   Each bundle's decode step is a captured CUDA graph (one per shard
+   batch and max_len, captured in the warm-up pass); every decode step
+   of the measured pass must be a replay, but the first of a shard run
+   whose key that pass captured, and a replay adds to the counts what
+   its capture launched.
+4. ``parity``  – the first shard of the first stage again, teacher-forced
+   with the eager decode loop at int positions, with the kernels and with
+   the plain versions swapped in for them, on the card: max logit
+   difference and greedy-token agreement, and the eager kernel path must
+   reproduce the tokens the graphs served.
 5. ``serve_moe_rwkv`` – the same workflow with granite-moe-3b-a800m as
    "qwen-7b" and rwkv6-3b as "llama-8b", both at full width and depth
    with their published vocabularies, after the first phase's weights
@@ -412,25 +422,29 @@ def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False):
     kc = randn(rng, (b, s, kv, d), dtype)
     vc = randn(rng, (b, s, kv, d), dtype)
     out = ops.decode_attention(q, kc, vc, cache_len)
+    # the serving path's form: the length as a device int32, read by the
+    # kernel when it runs; the grid does not depend on it, nor the bits
+    length = torch.full((), cache_len, dtype=torch.int32, device="cuda")
+    out_dev = ops.decode_attention(q, kc, vc, length)
     torch.cuda.synchronize()
     want = ref.decode_attention_ref(q, kc, vc, cache_len)
     err = max_abs_err(out, want)
+    same = bool(torch.equal(out, out_dev))
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "cache_len": cache_len, "max_abs_err": err, "tol": TOL[dtype],
-           "ok": bool(err < TOL[dtype])
+           "device_length_bitwise_equal": same,
+           "ok": bool(err < TOL[dtype]) and same
            and bool(torch.isfinite(out.float()).all())}
     if timed:
         valid = 2 * b * cache_len * kv * d * q.element_size()
         b_ms, by = bound(nbytes(q, out) + valid,
                          4.0 * b * h * d * cache_len, dtype)
-        dev, per_call = device_ms(lambda: ops.decode_attention(
-            q, kc, vc, cache_len), "decode_", count=True)
+        call = lambda: ops.decode_attention(q, kc, vc, length)
+        dev, per_call = device_ms(call, "decode_", count=True)
         rec.update(
-            ms=time_ms(lambda: ops.decode_attention(q, kc, vc, cache_len),
-                       iters=50),
+            cache_len_on_device=True, ms=time_ms(call, iters=50),
             device_ms=dev, device_kernels_per_call=per_call,
-            host_us=host_us(lambda: ops.decode_attention(
-                q, kc, vc, cache_len)),
+            host_us=host_us(call),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(
                 q, kc, vc, cache_len), iters=20),
             library_ms=time_ms(sdpa(q, kc[:, :cache_len], vc[:, :cache_len],
@@ -579,9 +593,11 @@ def mamba_flops(b, s, h, p, n, chunk) -> float:
 
 
 def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
-               sliced=False, timed=False):
+               sliced=False, out_dtype=None, timed=False):
     """``sliced``: xh, b and c are column slices of one [B, S, H*P + 2N]
-    tensor, as ``mamba2_forward`` hands them to the kernel."""
+    tensor, as ``mamba2_forward`` hands them to the kernel.
+    ``out_dtype`` None: y in ``dtype``, the Pallas contract; the model asks
+    for float32."""
     b, s, h, p, n = shape
     if sliced:
         xbc = randn(rng, (b, s, h * p + 2 * n), dtype)
@@ -594,13 +610,17 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
     dt = torch.nn.functional.softplus(randn(rng, (b, s, h), torch.float32))
     a_log = randn(rng, (h,), torch.float32) * 0.5
     st0 = randn(rng, (b, h, p, n), torch.float32) if state else None
-    y, fin = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=chunk, state0=st0)
+    call = lambda: ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=chunk,
+                                   state0=st0, out_dtype=out_dtype)
+    y, fin = call()
     torch.cuda.synchronize()
-    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0)
+    want, wfin = ref.mamba2_scan_ref(xh, bm, cm, dt, a_log, state0=st0,
+                                     out_dtype=out_dtype)
     err, fin_err = max_abs_err(y, want), max_abs_err(fin, wfin)
     tol, fin_tol = scan_tols(dtype, want, wfin)
     rec = {"shape": [list(xh.shape), list(bm.shape)], "chunk": chunk,
-           "dtype": str(dtype).split(".")[-1], "initial_state": state,
+           "dtype": str(dtype).split(".")[-1],
+           "out_dtype": str(y.dtype).split(".")[-1], "initial_state": state,
            "column_slices": sliced,
            "max_abs_err": err, "state_max_abs_err": fin_err, "tol": tol,
            "state_tol": fin_tol,
@@ -611,13 +631,10 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
         b_ms, by = bound(nbytes(xh, bm, cm, dt, a_log, y, fin, *given),
                          mamba_flops(b, s, h, p, n, chunk), dtype)
         rec.update(
-            ms=time_ms(lambda: ops.mamba2_scan(xh, bm, cm, dt, a_log,
-                                               chunk=chunk, state0=st0)),
-            device_ms=device_ms(lambda: ops.mamba2_scan(
-                xh, bm, cm, dt, a_log, chunk=chunk, state0=st0),
-                "mamba2_"),
+            ms=time_ms(call), device_ms=device_ms(call, "mamba2_"),
             plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
-                xh, bm, cm, dt, a_log, state0=st0), iters=2, warmup=1),
+                xh, bm, cm, dt, a_log, state0=st0, out_dtype=out_dtype),
+                iters=2, warmup=1),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
     return rec
@@ -711,8 +728,9 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
         getattr(torch, rwkv_cfg.dtype), out_dtype=torch.float32,
         timed=True)}
     # K4: the sweep, an initial state, bf16 inputs, the serving shape (in
-    # the model's dtype, timed, and in float32 against the 5e-4 bar) on
-    # column-slice operands and a carried state, as the model passes them
+    # the model's dtype with a float32 y, as the model calls it, timed; and
+    # in float32 against the 5e-4 bar) on column-slice operands and a
+    # carried state, as the model passes them
     mamba_sweep = [mamba_case(ops, ref, rng, (2, s_len, 3, 16, 8), chunk,
                               torch.float32)
                    for s_len, chunk in MAMBA_SWEEP]
@@ -726,7 +744,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
     mamba_main = {
         f"prefill/nq{NUM_QUERIES}": mamba_case(
             ops, ref, rng, mshape, sc.chunk, getattr(torch, mamba_cfg.dtype),
-            state=True, sliced=True, timed=True),
+            state=True, sliced=True, out_dtype=torch.float32, timed=True),
         f"prefill_float32/nq{NUM_QUERIES}": mamba_case(
             ops, ref, rng, mshape, sc.chunk, torch.float32, state=True,
             sliced=True)}
@@ -872,13 +890,16 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
         torch.cuda.synchronize()
         return engine, policy, results, time.perf_counter() - t
 
-    run_once()                             # warm-up: cuBLAS, allocator
+    # warm-up: cuBLAS, the allocator, and the decode graphs of the keys
+    # this pass meets (captured at their first stage)
+    run_once()
+    decoders = {name: b.decoder for name, b in bundles.items()}
+    before = {name: (d.replays, d.eager_steps, d.captures)
+              for name, d in decoders.items()}
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     engine, policy, results, wall = run_once()
-    counts = ops.launch_counts()
-    counts["moe_gemm_decode_tile"] = ops.KERNELS["moe_gemm"].\
-        decode_tile_launches
+    counts = ops.counts()
 
     expect = expected_launches(bundles, wf, policy.placements)
     stages, problems = [], []
@@ -903,6 +924,23 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
     for name, n in counts.items():
         if n != expect[name] or (expect[name] > 0 and n <= 0):
             problems.append(f"{name}: {n} launches, expected {expect[name]}")
+    # every decode step ran as a graph replay, but the first of a shard
+    # run whose (shard batch, max_len) key this run captured
+    graphs = {}
+    for name, d in decoders.items():
+        replayed, eager, captured = (
+            now - then for now, then in zip(
+                (d.replays, d.eager_steps, d.captures), before[name]))
+        steps = (GEN_LEN - 1) * sum(
+            1 for p in policy.placements if wf.stages[p.sid].model == name
+            for n in p.shard_sizes if n)
+        graphs[name] = {"keys": sorted(d.slots), "captured": captured,
+                        "decode_steps_replayed": replayed,
+                        "decode_steps_eager": eager, "decode_steps": steps}
+        if replayed + eager != steps or eager != captured or not replayed:
+            problems.append(f"{name}: {replayed} decode steps replayed and "
+                            f"{eager} eager for {captured} captures, of "
+                            f"{steps}")
     gen_tokens = len(wf.stages) * NUM_QUERIES * GEN_LEN
     out = {
         "phase": phase, "ok": not problems, "policy": "FATE",
@@ -917,6 +955,7 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
         "workflow_wall_s": wall,
         "generated_tokens_per_s": gen_tokens / wall,
         "launches": counts, "launches_expected": expect,
+        "decode_graphs": graphs,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "problems": problems,
     }
@@ -1279,75 +1318,128 @@ def phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
 # ---------------------------------------------------------------------------
 
 
-@torch.inference_mode()
-def phase_profile(bundles, prompts, name: str) -> dict:
-    """One stage of model ``name`` (8 queries, one shard) split into
-    prefill and decode on the host clock, then traced with torch.profiler:
-    the share of the wall time in which the card was busy, the launches
-    per layer and decode step, and the kernels that took most of the
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    bundle = bundles[name]
-    model = bundle._model
-    shard = prompts.to("cuda")
-
-    def run_stage():
-        cache = model.init_cache(NUM_QUERIES, PROMPT_LEN + GEN_LEN)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = model.prefill(bundle.params, shard, cache)
-        tok = torch.argmax(logits[:, -1:], dim=-1)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for step in range(GEN_LEN - 1):
-            logits, cache = model.decode_step(bundle.params, tok, cache,
-                                              PROMPT_LEN + step)
-            tok = torch.argmax(logits, dim=-1)
-        torch.cuda.synchronize()
-        return t1 - t0, time.perf_counter() - t1
-
-    run_stage()
-    prefill_s, decode_s = run_stage()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        traced_prefill_s, traced_decode_s = run_stage()
+def kernel_rows(prof) -> list:
+    """(device us, calls, name) of every kernel (and copy) in a trace, the
+    largest first: kernel rows only, since an operator's row repeats its
+    kernels' time."""
     rows = []
     for e in prof.key_averages():
-        # kernel rows only: an operator's row repeats its kernels' time
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
         if dev_us > 0:
             rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof_step:
-        cache = model.init_cache(NUM_QUERIES, PROMPT_LEN + GEN_LEN)
+    return sorted(rows, reverse=True)
+
+
+@torch.inference_mode()
+def phase_profile(bundles, prompts, name: str) -> dict:
+    """One stage of model ``name`` (8 queries, one shard) run three ways in
+    this process, each split into prefill and decode on the host clock:
+    ``eager``, the decode loop of the model at Python int positions (the
+    parity phases' path, and the engine's before its decode graphs);
+    ``eager_device_position``, the bundle's decode step at its device
+    position without the graph; ``graph``, the bundle's captured step
+    replayed, as the serve phases run it.  Then the decode steps of
+    ``eager`` and ``graph`` traced with torch.profiler: the share of the
+    decode wall time in which the card was busy, the kernels that took
+    most of the device time, and the launches per layer and step; and the
+    prefill's device time against its untraced wall (it runs eagerly in
+    every mode)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bundle = bundles[name]
+    model = bundle._model
+    shard = prompts.to("cuda")
+    max_len = PROMPT_LEN + GEN_LEN
+    slot = bundle.decoder.slot(NUM_QUERIES, max_len)
+    if slot.graph is None:
+        bundle.decoder.generate(shard, GEN_LEN, max_len)     # captures
+
+    def eager(ctx):
+        cache = model.init_cache(NUM_QUERIES, max_len)
         torch.cuda.synchronize()
-        model.decode_step(bundle.params, shard[:, :1], cache, PROMPT_LEN)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(bundle.params, shard, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
-    step_launches = sum(e.count for e in prof_step.key_averages()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
-    device_s = sum(r[0] for r in rows) / 1e6
-    traced_s = traced_prefill_s + traced_decode_s
+        t1 = time.perf_counter()
+        with ctx:
+            for step in range(GEN_LEN - 1):
+                logits, cache = model.decode_step(bundle.params, tok, cache,
+                                                  PROMPT_LEN + step)
+                tok = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    def static(ctx, graph: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slot.prefill(shard)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with ctx:
+            for _ in range(GEN_LEN - 1):
+                if graph:
+                    slot.replay()
+                else:
+                    slot.step()
+            torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    modes = {"eager": eager,
+             "eager_device_position": lambda ctx: static(ctx, False),
+             "graph": lambda ctx: static(ctx, True)}
+    walls = {}
+    for mode, fn in modes.items():
+        fn(contextlib.nullcontext())                          # warm-up
+    for mode, fn in modes.items():
+        walls[mode] = fn(contextlib.nullcontext())
+    step_ms = {mode: w[1] / (GEN_LEN - 1) * 1e3 for mode, w in walls.items()}
+    traced = {}
+    for mode in ("eager", "graph"):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, decode_s = modes[mode](prof)
+        rows = kernel_rows(prof)
+        device_s = sum(r[0] for r in rows) / 1e6
+        traced[mode] = {
+            "decode_ms_per_step_traced": decode_s / (GEN_LEN - 1) * 1e3,
+            "device_ms_per_step": device_s / (GEN_LEN - 1) * 1e3,
+            "device_launches_per_step": sum(r[1] for r in rows)
+            / (GEN_LEN - 1),
+            # the traced wall carries the tracer's own cost; the share is
+            # taken against the untraced one
+            "device_busy_share": device_s / walls[mode][1],
+            "top_device_time": [
+                {"name": k[:80], "calls": n, "ms": us / 1e3,
+                 "share": us / 1e6 / max(device_s, 1e-12)}
+                for us, n, k in rows[:10]],
+        }
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        model.prefill(bundle.params, shard,
+                      model.init_cache(NUM_QUERIES, max_len))
+        torch.cuda.synchronize()
+    prefill_dev_s = sum(r[0] for r in kernel_rows(prof)) / 1e6
+    step_launches = traced["eager"]["device_launches_per_step"]
     out = {
         "phase": "profile",
         "stage": f"{bundle.cfg.name}, 8 queries, one shard",
         "decode_step_launches": step_launches,
         "decode_step_launches_per_layer":
             step_launches / bundle.cfg.num_layers,
-        "prefill_s": prefill_s, "decode_s": decode_s,
-        "decode_ms_per_step": decode_s / (GEN_LEN - 1) * 1e3,
-        "traced_wall_s": traced_s, "device_busy_s": device_s,
-        "device_busy_share_traced": device_s / traced_s,
-        "device_busy_share_untraced": device_s / (prefill_s + decode_s),
-        "device_kernels": len(rows),
-        "device_launches": sum(r[1] for r in rows),
-        "top_device_time": [
-            {"name": name[:80], "calls": n, "ms": us / 1e3,
-             "share": us / 1e6 / max(device_s, 1e-12)}
-            for us, n, name in rows[:14]],
+        "prefill_s": {mode: w[0] for mode, w in walls.items()},
+        "prefill_device_s": prefill_dev_s,
+        "prefill_device_busy_share": prefill_dev_s / walls["eager"][0],
+        "decode_ms_per_step": step_ms,
+        "graph_speedup": step_ms["eager"] / step_ms["graph"],
+        # the profiler sees the kernels inside a replay (else the graph's
+        # busy share would not be its own)
+        "graph_trace_sees_kernels":
+            traced["graph"]["device_launches_per_step"] >= step_launches,
+        **{f"traced_{mode}": t for mode, t in traced.items()},
     }
     emit(out)
     return out
@@ -1365,7 +1457,8 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     launches of the 64-row tile that the serve phases counted, and the
     wrapper's host microseconds per call beside its plan's; for K2 the
     wrapper's host microseconds and the device kernels per call at each
-    timed shape."""
+    timed shape, timed with its length on the device as the serving path
+    calls it; for K4 and K5 the output type they were timed with."""
     main_key = {"flash_attention": "qwen3-1.7b",
                 "decode_attention": "qwen3-1.7b",
                 "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
@@ -1409,6 +1502,9 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                               for k in (key, dkey)}
         if name == "decode_attention":
             row["host_us"] = {k: x["host_us"] for k, x in timed.items()}
+            row["cache_len_on_device"] = c["cache_len_on_device"]
+        if name in ("mamba2_scan", "rwkv6_scan"):
+            row["out_dtype"] = c["out_dtype"]
         if name in ("decode_attention", "rwkv6_scan"):
             row["device_kernels_per_call"] = {
                 k: x["device_kernels_per_call"] for k, x in timed.items()}
@@ -1420,9 +1516,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="after each serve phase, also split one stage "
-                         "of each model into prefill and decode and "
-                         "trace it with torch.profiler")
+                    help="after each serve phase, also run one stage of "
+                         "each model with its decode steps eager and as "
+                         "graph replays, split into prefill and decode, "
+                         "and trace the decode steps with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

@@ -155,8 +155,9 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ARGTYPES = {
     "fate_flash_attention": [_P] * 4 + [_I32] * 6 + [_I64] * 12 + [_I32] * 3
     + [_P],
-    "fate_decode_attention": [_P] * 8 + [_I32] * 7 + [_I64] * 10 + [_I32]
-    + [_P],
+    # ..., B, H, KV, D, S, cache_len_dev, cache_len, chunk, nsplit, ...
+    "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3
+    + [_I64] * 10 + [_I32] + [_P],
     "fate_moe_gemm": [_P] * 3 + [_I32] * 5 + [_I64] * 10 + [_I32] * 2 + [_P],
     # ..., dtype, out_dtype, stream
     "fate_rwkv6_scan": [_P] * 8 + [_I32] * 5 + [_I64] * 15 + [_I32] * 2

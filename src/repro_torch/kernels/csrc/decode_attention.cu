@@ -1,5 +1,5 @@
 // Decode attention for Hopper: one query token per sequence against a
-// static KV cache of which the first cache_len rows are valid.  Replaces
+// static KV cache of S rows, of which the first cache_len are valid.  Replaces
 // the TPU kernel src/repro/kernels/decode_attention.py ::
 // decode_attention / _decode_kernel.
 //
@@ -16,10 +16,19 @@
 // wrapper's split_plan chooses): each block runs the online softmax over
 // its own rows and, where nsplit > 1, leaves an unnormalised partial
 // (m, l, acc) in float32 scratch.  Rows at or beyond cache_len are never
-// read: every split starts below cache_len and the tile loads are bounded
-// by it.  The [B, S, KV, D] caches are read through their strides, so no
-// transposed copy of the cache is made.  cache_len comes from the host as
-// an integer; nothing is read back.
+// read: the tile loads are bounded by it.  The [B, S, KV, D] caches are
+// read through their strides, so no transposed copy of the cache is made.
+//
+// The length.  As the Pallas kernel's `lens` operand, cache_len may be a
+// device int32 that the kernel reads when it runs (a captured CUDA graph
+// replays one launch while the length grows); else it is a launch
+// argument.  Either way the grid is planned from S, not from the length,
+// so both forms launch the same blocks and give the same bits.  A block
+// whose rows start at or past cache_len reads no row and leaves an empty
+// partial (m = -1e30, l = 0, acc = 0), whose weight in the combine is 0; it
+// still draws its ticket, so the last block always combines all nsplit
+// partials in split order.  A device length is trusted, clamped to S;
+// nothing is read back to the host.
 //
 // What bounds it: bytes.  Each cache row is read once and used for
 // 4*G*D flops, far below the card's 295 flops per byte; at qwen3's decode
@@ -76,7 +85,8 @@ __global__ void __launch_bounds__(NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc, float* __restrict__ part_acc,
                       float* __restrict__ part_m, float* __restrict__ part_l,
-                      int G, int cache_len, int chunk,
+                      int G, const int* __restrict__ len_dev, int len_host,
+                      int S, int chunk,
                       int64_t q_sb, int64_t q_sh,
                       int64_t k_sb, int64_t k_ss, int64_t k_sh,
                       int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
@@ -99,8 +109,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int KV = gridDim.y;
   const int b = blockIdx.z;
 
+  const int cache_len = min(len_dev != nullptr ? *len_dev : len_host, S);
   const int s_begin = split * chunk;
-  const int s_end = min(cache_len, s_begin + chunk);
+  const int s_end = min(cache_len, s_begin + chunk);   // < s_begin: empty
 
   const T* qb = q + (int64_t)b * q_sb + (int64_t)(kvh * G) * q_sh;
   const T* kb = kc + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
@@ -152,8 +163,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     __syncthreads();
 
     // online-softmax update: one warp per head, one lane per row.  Every
-    // tile holds at least one valid row, so m_new is a real score and the
-    // masked rows get p = 0.
+    // tile visited holds at least one valid row, so m_new is a real score
+    // and the masked rows get p = 0.
     for (int g = warp; g < G; g += NT / 32) {
       const float sv = Ss[g * BS + lane];
       const float m_old = m_s[g];
@@ -250,7 +261,8 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   const bf16* __restrict__ vc, bf16* __restrict__ out,
                   float* __restrict__ part_acc, float* __restrict__ part_m,
                   float* __restrict__ part_l, int* __restrict__ tickets,
-                  int G, int cache_len, int chunk,
+                  int G, const int* __restrict__ len_dev, int len_host,
+                  int S, int chunk,
                   int64_t q_sb, int64_t q_sh,
                   int64_t k_sb, int64_t k_ss, int64_t k_sh,
                   int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -272,8 +284,9 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   const int kvh = blockIdx.y;
   const int KV = gridDim.y;
   const int b = blockIdx.z;
+  const int cache_len = min(len_dev != nullptr ? *len_dev : len_host, S);
   const int s_begin = split * chunk;
-  const int s_end = min(cache_len, s_begin + chunk);
+  const int s_end = min(cache_len, s_begin + chunk);   // < s_begin: empty
   const bf16* qb = q + (int64_t)b * q_sb + (int64_t)(kvh * G) * q_sh;
   const bf16* kb = kc + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const bf16* vb = vc + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
@@ -289,8 +302,9 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   cp_async_commit();
 
   // this warp's tiles: warp, warp + 4, ... of the block's run of rows;
-  // rows at or past s_end are zero-filled and never read
-  const int n_tiles = (s_end - s_begin + TR - 1) / TR;
+  // rows at or past s_end are zero-filled and never read (an empty block
+  // has no tile: its warps keep m = -1e30, l = 0, o = 0)
+  const int n_tiles = max(0, s_end - s_begin + TR - 1) / TR;
   const int n_mine = n_tiles > warp ? (n_tiles - warp + MMA_WARPS - 1) / MMA_WARPS
                                     : 0;
   auto load_tile = [&](int i) {
@@ -522,7 +536,8 @@ struct DecodeArgs {
   float* part_m;
   float* part_l;
   int* tickets;
-  int B, H, KV, cache_len, chunk, nsplit;
+  const int* len_dev;
+  int B, H, KV, S, cache_len, chunk, nsplit;
   int64_t q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   cudaStream_t stream;
 };
@@ -535,8 +550,8 @@ int launch_decode(const DecodeArgs& a) {
   decode_partial_kernel<T, D><<<grid, NT, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
       static_cast<const T*>(a.vc), a.part_acc, a.part_m, a.part_l, G,
-      a.cache_len, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
-      a.v_ss, a.v_sh, scale);
+      a.len_dev, a.cache_len, a.S, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss,
+      a.k_sh, a.v_sb, a.v_ss, a.v_sh, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T><<<dim3(a.KV, a.B), NT, 0, a.stream>>>(
@@ -556,7 +571,8 @@ int launch_decode_mma(const DecodeArgs& a) {
          a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kc),
       static_cast<const bf16*>(a.vc), static_cast<bf16*>(a.out), a.part_acc,
-      a.part_m, a.part_l, a.tickets, a.H / a.KV, a.cache_len, a.chunk,
+      a.part_m, a.part_l, a.tickets, a.H / a.KV, a.len_dev, a.cache_len,
+      a.S, a.chunk,
       a.q_sb, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb, a.v_ss, a.v_sh,
       a.o_sb, a.o_sh, scale_log2);
   return (int)cudaGetLastError();
@@ -589,9 +605,9 @@ int dispatch_mma(const DecodeArgs& a, int D) {
 bool aligned_for_mma(const DecodeArgs& a) {
   return base16(a.q) && base16(a.kc) && base16(a.vc) &&
          stride16(a.B, a.q_sb) && stride16(a.H, a.q_sh) &&
-         stride16(a.B, a.k_sb) && stride16(a.cache_len, a.k_ss) &&
+         stride16(a.B, a.k_sb) && stride16(a.S, a.k_ss) &&
          stride16(a.KV, a.k_sh) && stride16(a.B, a.v_sb) &&
-         stride16(a.cache_len, a.v_ss) && stride16(a.KV, a.v_sh) &&
+         stride16(a.S, a.v_ss) && stride16(a.KV, a.v_sh) &&
          (a.nsplit == 1 || a.tickets != nullptr);
 }
 
@@ -603,8 +619,10 @@ bool aligned_for_mma(const DecodeArgs& a) {
 // part_acc [B, KV, nsplit, G, D], part_m and part_l [B, KV, nsplit, G] are
 // float32 scratch, tickets [B, KV] int32 scratch (bf16 only), that the
 // caller allocates; the tickets must be 0 before the launch and are 0
-// after it.  Requires 1 <= cache_len, nsplit * chunk >= cache_len,
-// (nsplit - 1) * chunk < cache_len, H / KV <= 16 and, in bf16,
+// after it.  The length: the device int32 at cache_len_dev where that is
+// not null (read when the kernel runs, clamped to S), else cache_len, which
+// must lie in [1, S].  The split plan covers the S rows: nsplit * chunk >=
+// S and (nsplit - 1) * chunk < S.  Requires H / KV <= 16 and, in bf16,
 // nsplit <= 132.  Returns
 // cudaGetLastError() after the launches (0 on success), -1 for an
 // unsupported head dim, dtype, group size or alignment.  Launches on
@@ -612,20 +630,23 @@ bool aligned_for_mma(const DecodeArgs& a) {
 extern "C" int fate_decode_attention(
     const void* q, const void* kc, const void* vc, void* out,
     void* part_acc, void* part_m, void* part_l, void* tickets,
-    int B, int H, int KV, int D, int cache_len, int chunk, int nsplit,
+    int B, int H, int KV, int D, int S, const void* cache_len_dev,
+    int cache_len, int chunk, int nsplit,
     long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh, int dtype, void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > MAXG) return -1;
-  if (cache_len < 1 || (long long)nsplit * chunk < cache_len ||
-      (long long)(nsplit - 1) * chunk >= cache_len)
+  if (S < 1 || (long long)nsplit * chunk < S ||
+      (long long)(nsplit - 1) * chunk >= S)
     return -1;
+  if (cache_len_dev == nullptr && (cache_len < 1 || cache_len > S)) return -1;
   if (dtype == 1 && nsplit > MAX_SPLIT) return -1;
   DecodeArgs a{q, kc, vc, out,
                static_cast<float*>(part_acc), static_cast<float*>(part_m),
                static_cast<float*>(part_l), static_cast<int*>(tickets),
-               B, H, KV, cache_len, chunk, nsplit,
+               static_cast<const int*>(cache_len_dev),
+               B, H, KV, S, cache_len, chunk, nsplit,
                q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_fma(a, D);

@@ -6,7 +6,11 @@ the hand-written kernel (built at first use by ``_build``) or raises; a
 CPU tensor takes the plain PyTorch version.  There is no switch that
 forces the plain version on the card.  ``<wrapper>.launches`` counts
 kernel launches; :func:`launch_counts` and :func:`reset_launch_counts`
-read and zero them all.
+read and zero them all.  A wrapper counts where it launches, so a call
+made while a CUDA graph is captured counts a launch that did not run, and
+a replay of the graph calls no wrapper: the graph's owner
+(``serving/graphs.py``) takes a capture's counts back with
+:func:`add_counts` and adds them again at every replay.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ KERNELS = {
 }
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention", "mamba2_scan",
-           "moe_gemm", "rwkv6_scan", "launch_counts", "reset_launch_counts"]
+           "moe_gemm", "rwkv6_scan", "add_counts", "counts",
+           "launch_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> dict[str, int]:
@@ -39,3 +44,19 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     moe_gemm.decode_tile_launches = 0
+
+
+def counts() -> dict[str, int]:
+    """:func:`launch_counts` and K3's 64-row tile launches, as
+    ``moe_gemm_decode_tile``."""
+    return {**launch_counts(),
+            "moe_gemm_decode_tile": moe_gemm.decode_tile_launches}
+
+
+def add_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keyed as :func:`counts`) to the counts."""
+    for name, n in delta.items():
+        if name == "moe_gemm_decode_tile":
+            moe_gemm.decode_tile_launches += n
+        else:
+            KERNELS[name].launches += n

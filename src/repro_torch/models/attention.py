@@ -81,7 +81,10 @@ def gqa_attend(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     [B, S_max, KV, D]; prefill writes positions [0, Sq); decode writes at
     ``cache_len`` and attends over ``cache_len + 1`` rows.  The cache is
     updated IN PLACE and the same tensors are returned.  ``cache_len`` is
-    a Python int.
+    a Python int or, for a decode step, a 0-d int64 tensor on the device
+    (the reference's traced ``pos``): the row is then written by
+    ``index_copy_`` and K2 reads its length on the device, so that a
+    captured CUDA graph replays the step at every position.
     """
     if window:
         raise NotImplementedError(
@@ -90,6 +93,18 @@ def gqa_attend(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
     b, sq, _ = x.shape
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     new_cache = None
+    if cache is not None and isinstance(cache_len, torch.Tensor):
+        if sq != 1:
+            raise ValueError(
+                f"a device cache_len is for a decode step of one position, "
+                f"got {sq}")
+        k_cache, v_cache = cache
+        row = cache_len.view(1)
+        k_cache.index_copy_(1, row, k)
+        v_cache.index_copy_(1, row, v)
+        out = ops.decode_attention(q, k_cache, v_cache,
+                                   (cache_len + 1).to(torch.int32))
+        return _proj_out(p, out), cache
     if cache is not None:
         k_cache, v_cache = cache
         if sq > k_cache.shape[1] - cache_len:

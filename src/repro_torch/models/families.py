@@ -18,7 +18,8 @@ from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
                                        embed_defs, ffn_defs, init_params,
                                        norm_defs, rms_norm, stack_defs,
                                        torch_dtype, unembed_logits)
-from repro_torch.models.transformer import DecoderLM, _unstack
+from repro_torch.models.transformer import (DecoderLM, _unstack,
+                                            decode_position)
 
 
 def _head_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -109,8 +110,7 @@ class RWKVLM:
         x = self._run(params, self._embed(params, tokens), cache)
         return _head_logits(params, x[:, -1:], self.cfg.norm_eps), cache
 
-    def decode_step(self, params: dict, token: torch.Tensor, cache,
-                    pos: int):
+    def decode_step(self, params: dict, token: torch.Tensor, cache, pos):
         """token: [B, 1]; ``pos`` is not used (the state carries the
         position).  Returns logits [B, 1, vocab] and the cache."""
         x = self._run(params, self._embed(params, token), cache)
@@ -123,7 +123,8 @@ class Mamba2Hybrid:
     a KV cache per site).  The facade of :class:`RWKVLM`; the cache
     ``{"ssm": {"ssm", "conv"}, "kv": {"k", "v"}}`` (leaves [layers or
     sites, batch, ...]) is updated IN PLACE, and ``cache_len`` / ``pos``
-    are Python ints."""
+    are Python ints or, at a decode step, ``pos`` a 0-d int64 tensor on the
+    device."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if cfg.ssm is None:
@@ -239,13 +240,12 @@ class Mamba2Hybrid:
                       cache_len=0)
         return _head_logits(params, x[:, -1:], self.cfg.norm_eps), cache
 
-    def decode_step(self, params: dict, token: torch.Tensor, cache,
-                    pos: int):
-        """token: [B, 1]; pos: Python int, the current cache length.
-        Returns logits [B, 1, vocab] and the cache (updated in place)."""
-        pos = int(pos)
-        positions = torch.full((1, 1), pos, dtype=torch.int64,
-                               device=token.device)
+    def decode_step(self, params: dict, token: torch.Tensor, cache, pos):
+        """token: [B, 1]; pos: the current cache length, a Python int or a
+        0-d int64 tensor on the model's device (see
+        :func:`~repro_torch.models.transformer.decode_position`).  Returns
+        logits [B, 1, vocab] and the cache (updated in place)."""
+        positions, pos = decode_position(pos, token.device)
         x = self._run(params, params["embed"][token], positions, cache,
                       cache_len=pos, decode=True)
         return _head_logits(params, x, self.cfg.norm_eps), cache

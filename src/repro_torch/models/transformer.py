@@ -46,6 +46,18 @@ def _unstack(tree):
     return tree.unbind(0)
 
 
+def decode_position(pos, device):
+    """The rope positions [1, 1] of a decode step at ``pos`` and the cache
+    length its attention takes.  A 0-d int64 tensor on the device (the
+    reference's traced ``pos``) is used as it is, through a view, so that a
+    captured CUDA graph replays the step at every position; a Python int
+    gives a position tensor and stays an int."""
+    if isinstance(pos, torch.Tensor):
+        return pos.view(1, 1), pos
+    pos = int(pos)
+    return torch.full((1, 1), pos, dtype=torch.int64, device=device), pos
+
+
 class DecoderLM:
     """GQA decoder-only LM; optional MoE FFN; optional VLM patch
     embeddings (llava) via ``extra_embeds``.  MLA and the local:global
@@ -196,16 +208,14 @@ class DecoderLM:
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._logits(params, x[:, -1:]), cache
 
-    def decode_step(self, params: dict, token: torch.Tensor, cache,
-                    pos: int):
-        """token: [B, 1]; pos: Python int, the current cache length.
+    def decode_step(self, params: dict, token: torch.Tensor, cache, pos):
+        """token: [B, 1]; pos: the current cache length, a Python int or a
+        0-d int64 tensor on the model's device (see :func:`decode_position`).
         Returns logits [B, 1, vocab] and the cache (row ``pos`` written in
         place)."""
         cfg = self.cfg
-        pos = int(pos)
         x = self._embed_tokens(params, token)
-        positions = torch.full((1, 1), pos, dtype=torch.int64,
-                               device=token.device)
+        positions, pos = decode_position(pos, token.device)
         x, cache = self._apply_layers(params, x, positions, caches=cache,
                                       cache_len=pos)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)

@@ -5,19 +5,25 @@ FATE's placements drive actual model execution on virtual devices, each
 holding at most one resident model plus per-group prefix state.  Stage
 execution runs real prefill + decode steps through the hand-written
 attention kernels; measured wall times feed back into the execution
-state, so the scheduler sees real (not proxy) stage durations.
+state, so the scheduler sees real (not proxy) stage durations.  As the
+reference's bundle holds its jitted step functions, each bundle holds
+its decode steps as captured CUDA graphs (``serving/graphs.py``): on the
+card every decode step but the first of a new (shard batch, max_len) key
+is a graph replay, with the position on the device.  The CPU runs the
+same device-integer step eagerly.
 
 All virtual devices share the one card and every bundle's weights stay on
 it: residency is bookkeeping plus an emulated ``switch_sleep``, as in the
 reference.  Wall-clock reads are preceded by ``torch.cuda.synchronize()``
 when the device is a card, since the work they bracket is asynchronous;
-inside the decode loop nothing synchronises with the host.
+inside the decode loop nothing synchronises with the host.  There is no
+switch to an eager decode loop on the card: a capture that fails raises.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import torch
 
@@ -30,6 +36,7 @@ from repro_torch.core.state import ExecutionState
 from repro_torch.core.workflow import (DEFAULT_PROFILES, ModelProfile, Stage,
                                        Workflow)
 from repro_torch.models.families import build_model
+from repro_torch.serving.graphs import DecodeGraphs
 
 
 def calibrated_switch_sleep(profile: ModelProfile,
@@ -54,12 +61,13 @@ def calibrated_switch_sleep(profile: ModelProfile,
 
 @dataclasses.dataclass
 class ModelBundle:
-    """A servable model: config + weights + step functions."""
+    """A servable model: config + weights + its decode steps
+    (:class:`~repro_torch.serving.graphs.DecodeGraphs`, the counterpart of
+    the reference's jitted ``decode_fn``; the prefill runs eagerly)."""
     name: str
     cfg: Any
     params: Any
-    prefill: Callable
-    decode: Callable
+    decoder: DecodeGraphs
 
     @classmethod
     def create(cls, name: str, cfg, seed: int = 0, device="cuda",
@@ -71,7 +79,7 @@ class ModelBundle:
         if params is None:
             gen = torch.Generator(device=model.device).manual_seed(seed)
             params = model.init(gen)
-        bundle = cls(name, cfg, params, model.prefill, model.decode_step)
+        bundle = cls(name, cfg, params, DecodeGraphs(model, params))
         bundle._model = model
         return bundle
 
@@ -276,23 +284,15 @@ class ServingEngine:
             if (stage.cache_reuse and stage.prefix_group is not None
                     and cache_key in dev.prefix_caches):
                 hit_queries += nq
-            max_len = self.prompt_len + self.gen_len
-            model = bundle._model
-            fresh = model.init_cache(nq, max_len)
-            logits, kv = bundle.prefill(bundle.params, shard, fresh)
+            tokens, kv = bundle.decoder.generate(
+                shard, self.gen_len, self.prompt_len + self.gen_len)
             if stage.keep_cache and stage.prefix_group is not None:
-                # the decode steps below go on writing into this cache
-                # in place; as a hit marker that is all the same
+                # the bundle's static cache of this (shard batch,
+                # max_len): every later stage of the key zeroes it and
+                # decodes in it again; as a hit marker that is all the
+                # same (ROADMAP H5)
                 dev.prefix_caches[cache_key] = kv
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            gen = [tok]
-            pos = shard.shape[1]
-            for step in range(self.gen_len - 1):
-                logits, kv = bundle.decode(bundle.params, tok, kv,
-                                           pos + step)
-                tok = torch.argmax(logits, dim=-1)
-                gen.append(tok)
-            outs.append(torch.cat(gen, dim=1))
+            outs.append(tokens)
         tokens = torch.cat(outs, dim=0) if outs else \
             torch.zeros((0, self.gen_len), dtype=torch.int64,
                         device=self.device)

@@ -11,6 +11,8 @@ GEMM 1e-5 / 3e-2 relative to the largest output, the Mamba2 and RWKV6
 scans 5e-4 absolute in float32 (1e-2 relative for bfloat16 outputs, one
 rounding).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -642,3 +644,138 @@ def test_scan_kernels_float32_out_of_bf16_inputs(card):
     y16, g16 = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=64)
     assert y32.dtype == torch.float32 and y16.dtype == torch.bfloat16
     assert torch.equal(y32.bfloat16(), y16) and torch.equal(g32, g16)
+
+
+# ---------------------------------------------------------------------------
+# The decode step as a captured CUDA graph, K2 reading its length on the
+# device
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,h,kv,d", DECODE_SERVED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_device_length_in_a_graph(card, name, h, kv,
+                                                          d, dtype):
+    """One captured call with a device length, replayed at every length
+    from 1 to S = 544 at the served shapes (B = 8; glm4's G = 16 in 7
+    splits): the bits of the call with the same int length, and within
+    the plain version's bar."""
+    rng = np.random.default_rng(24)
+    s = 544
+    q = _randn(rng, (8, 1, h, d), dtype, card)
+    kc = _randn(rng, (8, s, kv, d), dtype, card)
+    vc = _randn(rng, (8, s, kv, d), dtype, card)
+    length = torch.ones((), dtype=torch.int32, device=card)
+    ops.decode_attention(q, kc, vc, length)      # the scratch, before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, kc, vc, length)
+    worst = torch.zeros((), device=card)
+    for clen in range(1, s + 1):
+        length.fill_(clen)
+        graph.replay()
+        want = ops.decode_attention(q, kc, vc, clen)
+        assert torch.equal(out, want), clen
+        plain = ref.decode_attention_ref(q, kc, vc, clen)
+        worst = torch.maximum(worst, (out.float() - plain.float()).abs().max())
+    assert float(worst) < TOL[dtype]
+
+
+def _graph_model(arch, size, dtype, card):
+    """``arch``'s SMOKE config, or its published width cut to one layer
+    stack (two layers; zamba2's first attention site and a tail layer),
+    in ``dtype``, with weights from a seeded generator on the card."""
+    from repro_torch.configs.archs import ARCHS, SMOKE
+    from repro_torch.models.families import build_model
+    if size == "smoke":
+        cfg = SMOKE[arch]
+    else:
+        cfg = ARCHS[arch]
+        layers = cfg.attn_every + 1 if cfg.attn_every else 2
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    return cfg, model, params
+
+
+GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-3b",
+               "zamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+@pytest.mark.parametrize("size", ["smoke", "full_width"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_replays_equal_eager_steps(card, arch, size, dtype):
+    """A bundle's captured decode step against the same step run eagerly
+    (and against the model's decode step at int positions): the same
+    greedy tokens, and logits bitwise equal at every step, where the
+    second stage of the key runs on replays alone from a reset cache."""
+    from repro_torch.serving.graphs import DecodeGraphs, StaticDecode
+    cfg, model, params = _graph_model(arch, size, dtype, card)
+    b, plen, steps = 4, 16, 6
+    max_len = plen + steps + 1
+    rng = np.random.default_rng(25)
+    prompts = torch.from_numpy(rng.integers(
+        0, min(cfg.vocab_size, 4096), (b, plen))).to(card)
+    with torch.inference_mode():
+        eager = StaticDecode(model, params, b, max_len)
+        eager.prefill(prompts)
+        want = [eager.step().clone() for _ in range(steps)]
+        cache = model.init_cache(b, max_len)
+        model.prefill(params, prompts, cache)
+        for i in range(steps):
+            logits, _ = model.decode_step(
+                params, eager.tokens[:, plen + i: plen + i + 1], cache,
+                plen + i)
+            assert torch.equal(logits, want[i]), i
+        graphs = DecodeGraphs(model, params)
+        tokens, _ = graphs.generate(prompts, steps + 1, max_len)
+        assert torch.equal(tokens, eager.tokens[:, plen:])
+        assert (graphs.captures, graphs.eager_steps, graphs.replays) == \
+            (1, 1, steps - 1)
+        slot = graphs.slots[(b, max_len)]
+        slot.prefill(prompts)
+        for i in range(steps):
+            slot.replay()
+            assert torch.equal(slot.graph_logits, want[i]), i
+        assert torch.equal(slot.tokens[:, plen:], eager.tokens[:, plen:])
+        tokens, _ = graphs.generate(prompts, steps + 1, max_len)
+        assert torch.equal(tokens, eager.tokens[:, plen:])
+        assert graphs.captures == 1
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_stage_launch_counts_equal_an_eager_run(card, arch):
+    """The launch counts of a stage served from a captured graph equal
+    those of the same stage run eagerly: the capture counts nothing, and
+    each replay adds what it launched (K3's decode-tile count too)."""
+    from repro_torch.serving.graphs import DecodeGraphs
+    cfg, model, params = _graph_model(arch, "smoke", "bfloat16", card)
+    b, plen, gen_len = 4, 12, 5
+    max_len = plen + gen_len
+    prompts = torch.from_numpy(np.random.default_rng(26).integers(
+        0, cfg.vocab_size, (b, plen))).to(card)
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        cache = model.init_cache(b, max_len)
+        logits, _ = model.prefill(params, prompts, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        want_tokens = [tok]
+        for i in range(gen_len - 1):
+            logits, _ = model.decode_step(params, tok, cache, plen + i)
+            tok = torch.argmax(logits, dim=-1)
+            want_tokens.append(tok)
+        torch.cuda.synchronize()
+        eager = ops.counts()
+        assert eager["decode_attention" if arch != "rwkv6-3b"
+                     else "rwkv6_scan"] > 0
+        graphs = DecodeGraphs(model, params)
+        for _ in range(2):      # the stage that captures, then replays only
+            ops.reset_launch_counts()
+            tokens, _ = graphs.generate(prompts, gen_len, max_len)
+            torch.cuda.synchronize()
+            assert ops.counts() == eager
+            assert torch.equal(tokens, torch.cat(want_tokens, dim=1))
+        assert graphs.captures == 1 and graphs.replays == 2 * gen_len - 3

@@ -93,6 +93,28 @@ def test_decode_attention_plain_vs_jax(clen, dtype):
     assert ops.decode_attention.launches == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_device_length_equals_int_length(dtype):
+    """``cache_len`` as a one-element int32 tensor (the model's decode
+    step, read on the device by the kernel) gives the bits of the same
+    int, at every length in [1, S], in the plain version and through the
+    wrapper, which takes the plain version for CPU tensors."""
+    b, s, h, kv, d = 2, 40, 8, 2, 16
+    rng = np.random.default_rng(17)
+    _, qt = _pair(rng, (b, 1, h, d), dtype)
+    _, kt = _pair(rng, (b, s, kv, d), dtype)
+    _, vt = _pair(rng, (b, s, kv, d), dtype)
+    for clen in range(1, s + 1):
+        want = ref.decode_attention_ref(qt, kt, vt, clen)
+        length = torch.tensor(clen, dtype=torch.int32)
+        assert torch.equal(ref.decode_attention_ref(qt, kt, vt, length),
+                           want), clen
+        assert torch.equal(ops.decode_attention(qt, kt, vt, length),
+                           want), clen
+        assert torch.equal(ops.decode_attention(qt, kt, vt,
+                                                length.view(1)), want)
+
+
 @pytest.mark.parametrize("g", [1, 2, 16])
 def test_decode_attention_group_sizes(g):
     """The group sizes of the served configs: 1 (qwen1.5), 2 (qwen3) and
@@ -166,7 +188,7 @@ def test_decode_attention_served_layouts_plain_vs_jax(h, kv, d, dtype):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "heads", "head_dim", "len0",
-                                 "len_big"])
+                                 "len_big", "len_int64", "len_two"])
 def test_wrappers_reject_bad_arguments(bad):
     q = torch.zeros(1, 1, 4, 16)
     kc = torch.zeros(1, 8, 2, 16)
@@ -182,6 +204,13 @@ def test_wrappers_reject_bad_arguments(bad):
     elif bad == "len0":
         with pytest.raises(ValueError):
             ops.decode_attention(q, kc, kc, 0)
+    elif bad == "len_int64":      # the kernel reads an int32
+        with pytest.raises(ValueError):
+            ops.decode_attention(q, kc, kc, torch.tensor(3))
+    elif bad == "len_two":
+        with pytest.raises(ValueError):
+            ops.decode_attention(q, kc, kc,
+                                 torch.tensor([3, 4], dtype=torch.int32))
     else:
         with pytest.raises(ValueError):
             ops.decode_attention(q, kc, kc, 9)

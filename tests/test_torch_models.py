@@ -334,6 +334,32 @@ def test_decode_steps_write_cache_in_place(pair):
         assert bool((k[:, :, S] != 0).any()) and bool((k[:, :, S + 1] == 0).all())
 
 
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m",
+                                  "rwkv6-3b", "zamba2-2.7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_device_position_equals_int_position(arch, dtype,
+                                                         pair):
+    """Dense, MoE, RWKV6 and Mamba2 hybrid: decode steps at a 0-d int64
+    position tensor (the captured graph's, advanced in place) give the
+    logits and caches of the same steps at Python ints, bitwise."""
+    p = pair(arch, dtype)
+    toks = torch.from_numpy(p.tokens)
+    with torch.inference_mode():
+        caches = [p.model.init_cache(B, S + 1), p.model.init_cache(B, S + 1)]
+        for c in caches:
+            p.model.prefill(p.params, toks[:, :S - 2], c)
+        pos = torch.tensor(S - 2)
+        for i in range(S - 2, S + 1):
+            want, _ = p.model.decode_step(p.params, toks[:, i: i + 1],
+                                          caches[0], i)
+            got, _ = p.model.decode_step(p.params, toks[:, i: i + 1],
+                                         caches[1], pos)
+            assert torch.equal(got, want), i
+            pos.add_(1)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(caches[1]), tree_leaves(caches[0])))
+
+
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_families_not_ported_yet_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -296,12 +296,21 @@ def moe_rwkv_engines():
 
 
 @pytest.fixture(scope="module")
+def rwkv_moe_engines():
+    """The same pair with rwkv6 as "qwen-7b", so that it serves three
+    stages of one key."""
+    return _float32_bundles("rwkv6-3b", "granite-moe-3b-a800m")
+
+
+@pytest.fixture(scope="module")
 def hybrid_engines():
     """zamba2 and qwen3 SMOKE bundles in float32, JAX and port."""
     return _float32_bundles("zamba2-2.7b", "qwen3-1.7b")
 
 
 def _same_tokens_at_prompt_7(engines, policy, n_devices):
+    """Serve the workflow at prompt 7 in both engines, hold every stage's
+    tokens equal, and return the port's engine."""
     jax_bundles, port_bundles = engines
     prompts = _prompts(8, plen=7)
     gen_len = 4
@@ -325,6 +334,39 @@ def _same_tokens_at_prompt_7(engines, policy, n_devices):
         got = pres[sid].tokens_out.numpy()
         assert got.shape == want.shape == (4, gen_len)
         assert np.array_equal(got, want), sid
+    return peng
+
+
+@pytest.mark.parametrize("engines", ["float32_engines", "moe_rwkv_engines",
+                                     "rwkv_moe_engines", "hybrid_engines"])
+def test_stages_of_one_key_reuse_one_static_cache(engines, request,
+                                                  monkeypatch):
+    """On one device every stage is one shard of 4 queries, so all stages
+    of a model share one (shard batch, max_len) key: they decode in one
+    static cache, zeroed between them (RWKV6's and Mamba2's states as
+    well as the KV rows), and still give the JAX engine's greedy tokens;
+    the prefix cache the engine keeps is that same static cache."""
+    pair = request.getfixturevalue(engines)
+    returned = {}
+    for name, bundle in pair[1].items():
+        def recording(*args, _generate=bundle.decoder.generate, _name=name,
+                      **kw):
+            tokens, cache = _generate(*args, **kw)
+            returned.setdefault(_name, []).append(cache)
+            return tokens, cache
+        monkeypatch.setattr(bundle.decoder, "generate", recording)
+    peng = _same_tokens_at_prompt_7(pair, "RoundRobin", 1)
+    max_len = 7 + 4
+    for name, bundle in pair[1].items():
+        static = bundle.decoder.slots[(4, max_len)].cache
+        stages = [r for r in peng.log if r.model == name]
+        assert len(returned[name]) == len(stages) >= 1
+        assert all(c is static for c in returned[name])
+    assert len(returned["qwen-7b"]) == 3      # retrieve, work_b, merge
+    kept = peng.devices[0].prefix_caches
+    assert kept and all(
+        c is pair[1][model].decoder.slots[(4, max_len)].cache
+        for (_, model, _), c in kept.items())
 
 
 @pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
