@@ -70,6 +70,24 @@ ends the run with a non-zero exit code and no result line:
    width with 7 layers, one attention site and one tail layer (logits
    within 1e-3 of their largest magnitude, every greedy token equal);
    every block's own difference reported beside both.
+9. ``serve_gemma3`` – the same workflow with gemma3-4b (34 layers, 29
+   local with a sliding window of 1024 and 5 global, head dim 256, vocab
+   262144) as "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and
+   depth, at a prompt of 2048 (twice the window), after the third pair's
+   weights are freed: K1 binds the window on the local layers' prefill,
+   which keep the last 1024 positions in a ring, and K2 decodes over the
+   rings (1024 rows) and the global caches (2080); every cache must hold
+   the rows its size calls for.
+10. ``parity_gemma3`` – gemma3's first served shard teacher-forced with
+   the kernels and with the plain versions: in bf16 at full depth (the
+   kernel path must reproduce the served tokens) and in float32 at full
+   width with its first six layers (five local, one global; logits
+   within 1e-3 of their largest magnitude, every greedy token equal).
+
+The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
+prompt 2048 against their plain versions, timed: K1 on a local layer
+(window 1024; the library call with a sliding mask) and a global one, K2
+on a global cache of 2080 rows and a local ring of 1024.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
@@ -102,6 +120,12 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # About twice the 0.047 measured on an H100 at these shapes.
 PARITY_LOGIT_TOL = 0.1
 PROMPT_LEN, GEN_LEN, NUM_QUERIES, N_DEVICES = 512, 32, 8, 2
+# gemma3's phase serves a prompt of twice its sliding window (1024), so
+# that the window binds in K1 and the local layers' rings wrap
+GEMMA_PROMPT_LEN = 2048
+# gemma3 at full width, cut to its first global layer (5 local, 1 global)
+# for the float32 parity
+GEMMA_F32_LAYERS = 6
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -126,6 +150,8 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
+# gemma3's head dim: these instantiations must be among them
+REQUIRED_SASS = ("flash_mma_kernel<256>", "decode_mma_kernel<256>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations
 TENSOR_CORE_LAUNCHERS = {
@@ -342,6 +368,7 @@ def tensor_core_check(build_mod) -> dict:
             found[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     missing = [k for k, v in found.items() if not v["count"]]
+    missing += [k for k in REQUIRED_SASS if k not in found]
     if len(found) != expected_instantiations(build_mod) or missing:
         fail(f"tensor-core instructions missing: found {sorted(found)}, "
              f"none in {missing}")
@@ -353,12 +380,31 @@ def tensor_core_check(build_mod) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def sdpa(q, k, v, causal):
+def sdpa(q, k, v, causal, window=0):
     """One library call computing the same function on the same inputs
-    (yardstick only): heads-first views, grouped-query mode."""
+    (yardstick only): heads-first views, grouped-query mode; a sliding
+    window as a boolean mask (causal and within ``window``)."""
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if not window:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=True)
+    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (qi - ki < window) & ((qi >= ki) if causal else True)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=causal, enable_gqa=True)
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def attended_pairs(sq, sk, causal, window) -> int:
+    """(query, key) pairs the mask keeps: the work of one (batch, head)."""
+    qi = np.arange(sq)[:, None]
+    ki = np.arange(sk)[None, :]
+    keep = np.ones((sq, sk), dtype=bool)
+    if causal:
+        keep &= qi >= ki
+    if window:
+        keep &= qi - ki < window
+    return int(keep.sum())
 
 
 # |output| bands for K1's error report: one bf16 step is 0.0156 in
@@ -401,7 +447,7 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
     if bands:
         rec.update(err_by_band(out, want))
     if timed:
-        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        pairs = attended_pairs(sq, sk, causal, window)
         b_ms, by = bound(nbytes(q, k, v, out), 4.0 * b * h * d * pairs, dtype)
         rec.update(
             ms=time_ms(lambda: ops.flash_attention(
@@ -410,8 +456,8 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
                 q, k, v, causal=causal, window=window), "flash_"),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window), iters=5, warmup=1),
-            library_ms=time_ms(sdpa(q, k, v, causal)),
-            library_device_ms=device_ms(sdpa(q, k, v, causal)),
+            library_ms=time_ms(sdpa(q, k, v, causal, window)),
+            library_device_ms=device_ms(sdpa(q, k, v, causal, window)),
             bound_ms=b_ms, bound_by=by)
     return rec
 
@@ -645,7 +691,7 @@ def sweep_err(cases, field="max_abs_err"):
             for dt in sorted({c["dtype"] for c in cases})}
 
 
-def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
+def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                   seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
@@ -674,6 +720,27 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg,
                 decode_main[f"{name}/nq{nq}/len{clen}"] = decode_case(
                     ops, ref, rng, (nq, s_max, h, kv, d), dt, clen,
                     timed=timed and clen == s_max)
+    # gemma3 at head dim 256, at its served prompt: K1 on a local layer
+    # (its sliding window binds) and on a global one; K2 on a global cache
+    # of prompt + GEN_LEN rows and on a local layer's ring, full; timed in
+    # the model's dtype, held to the plain version in float32 as well
+    h, kv = gemma_cfg.num_heads, gemma_cfg.num_kv_heads
+    d, w = gemma_cfg.resolved_head_dim, gemma_cfg.sliding_window
+    g_len, g_max = GEMMA_PROMPT_LEN, GEMMA_PROMPT_LEN + GEN_LEN
+    for dt in (getattr(torch, gemma_cfg.dtype), torch.float32):
+        timed = dt == getattr(torch, gemma_cfg.dtype)
+        tag = f"{gemma_cfg.name}/{{}}/nq{NUM_QUERIES}" + (
+            "" if timed else "/float32")
+        for kind, window in (("local", w), ("global", 0)):
+            flash_main[tag.format(kind)] = flash_case(
+                ops, ref, rng, (NUM_QUERIES, g_len, g_len, h, kv, d), dt,
+                True, window, timed=timed, bands=timed)
+        for kind, rows, clens in (("global", g_max, (g_len + 1, g_max)),
+                                  ("local", w, (w,))):
+            for clen in clens:
+                decode_main[tag.format(kind) + f"/len{clen}"] = decode_case(
+                    ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, clen,
+                    timed=timed and clen == rows)
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
     for e, c, d, f in MOE_SWEEP:
@@ -820,7 +887,8 @@ def load_example():
     return mod
 
 
-def expected_launches(bundles, wf, placements) -> dict:
+def expected_launches(bundles, wf, placements,
+                      prompt_len: int = PROMPT_LEN) -> dict:
     """Kernel launches the recorded placements call for: per shard run, a
     model that attends launches K1 once per layer at prefill and K2 once
     per layer at each of the GEN_LEN - 1 decode steps; an MoE model K3
@@ -856,16 +924,44 @@ def expected_launches(bundles, wf, placements) -> dict:
             for n in p.shard_sizes:
                 if n:
                     exp["moe_gemm_decode_tile"] += gemms * (
-                        int(n * _capacity(PROMPT_LEN, cfg) < PREFILL_MIN_ROWS)
+                        int(n * _capacity(prompt_len, cfg) < PREFILL_MIN_ROWS)
                         + (GEN_LEN - 1) * int(
                             n * _capacity(1, cfg) < PREFILL_MIN_ROWS))
     return exp
 
 
-def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
+def ring_and_global_rows(bundle, prompt_len: int) -> tuple[dict, list]:
+    """Rows of the local (ring) and global caches of every decode key of a
+    local/global bundle, how many of them were written, and what is wrong
+    with them: after a stage every row of a local ring must hold data
+    (the prompt is longer than the window), and a global cache every row
+    up to the last decode step's position."""
+    rows, problems = {}, []
+    for (batch, max_len), slot in sorted(bundle.decoder.slots.items()):
+        key = f"{batch}x{max_len}"
+        rows[key] = {}
+        for kind, want in (("local", min(bundle.cfg.sliding_window,
+                                         max_len)),
+                           ("global", max_len)):
+            k = slot.cache[kind]["k"]
+            live = k.abs().amax(dim=(0, 1, 3, 4)) > 0     # per row
+            written = min(want, prompt_len + GEN_LEN - 1)
+            rows[key][kind] = {"rows": int(k.shape[2]),
+                               "rows_written": int(live.sum())}
+            if k.shape[2] != want or int(live[:written].sum()) != written:
+                problems.append(f"{key} {kind} cache: {k.shape[2]} rows "
+                                f"({int(live.sum())} written), expected "
+                                f"{want} ({written} written)")
+    return rows, problems
+
+
+def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
+                prompt_len: int = PROMPT_LEN):
     """Serve the example's workflow with ``models`` = {served name:
-    (config, weight seed)}; the launch counts must be what the placements
-    call for, every kernel the models use launched at least once."""
+    (config, weight seed)} at ``prompt_len``; the launch counts must be
+    what the placements call for, every kernel the models use launched at
+    least once; a local/global model's ring and global caches must hold
+    the rows their sizes call for."""
     ops = mods["ops"]
     t0 = time.perf_counter()
     bundles = {name: mods["ModelBundle"].create(name, cfg, seed=wseed)
@@ -876,13 +972,13 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
     # them; each model's tokens are checked against its own vocabulary
     vocab = min(b.cfg.vocab_size for b in bundles.values())
     prompts = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, vocab, (NUM_QUERIES, PROMPT_LEN)))
+        0, vocab, (NUM_QUERIES, prompt_len)))
     wf = mods["make_workflow"](NUM_QUERIES)
 
     def run_once():
         engine = mods["ServingEngine"](bundles, n_devices=N_DEVICES,
                                        gen_len=GEN_LEN,
-                                       prompt_len=PROMPT_LEN)
+                                       prompt_len=prompt_len)
         state = mods["fresh_state"](mods["homogeneous_cluster"](N_DEVICES))
         policy = RecordingPolicy(mods["make_policy"]("FATE"))
         t = time.perf_counter()
@@ -901,7 +997,7 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
     engine, policy, results, wall = run_once()
     counts = ops.counts()
 
-    expect = expected_launches(bundles, wf, policy.placements)
+    expect = expected_launches(bundles, wf, policy.placements, prompt_len)
     stages, problems = [], []
     for sid in wf.topo_order:
         r = results[sid]
@@ -941,6 +1037,11 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
             problems.append(f"{name}: {replayed} decode steps replayed and "
                             f"{eager} eager for {captured} captures, of "
                             f"{steps}")
+    cache_rows = {}
+    for name, b in bundles.items():
+        if b.cfg.local_global_pattern:
+            cache_rows[name], bad = ring_and_global_rows(b, prompt_len)
+            problems += [f"{name}: {x}" for x in bad]
     gen_tokens = len(wf.stages) * NUM_QUERIES * GEN_LEN
     out = {
         "phase": phase, "ok": not problems, "policy": "FATE",
@@ -950,12 +1051,13 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve"):
                           "params": b.cfg.param_count()}
                    for name, b in bundles.items()},
         "queries": NUM_QUERIES, "virtual_devices": N_DEVICES,
-        "prompt_len": PROMPT_LEN, "gen_len": GEN_LEN,
+        "prompt_len": prompt_len, "gen_len": GEN_LEN,
         "init_seconds": init_s, "stages": stages,
         "workflow_wall_s": wall,
         "generated_tokens_per_s": gen_tokens / wall,
         "launches": counts, "launches_expected": expect,
         "decode_graphs": graphs,
+        **({"cache_rows": cache_rows} if cache_rows else {}),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "problems": problems,
     }
@@ -988,14 +1090,14 @@ def teacher_forced(bundle, shard, served) -> torch.Tensor:
     """Logits of prefill and GEN_LEN - 1 decode steps fed the served
     tokens, so that two runs see the same inputs at every step."""
     model = bundle._model
-    nq = shard.shape[0]
-    cache = model.init_cache(nq, PROMPT_LEN + GEN_LEN)
+    nq, plen = shard.shape
+    cache = model.init_cache(nq, plen + GEN_LEN)
     logits, cache = model.prefill(bundle.params, shard, cache)
     all_logits = [logits]
     for step in range(GEN_LEN - 1):
         logits, cache = model.decode_step(
             bundle.params, served[:, step: step + 1], cache,
-            PROMPT_LEN + step)
+            plen + step)
         all_logits.append(logits)
     return torch.cat(all_logits, dim=1).float()
 
@@ -1101,15 +1203,13 @@ def layerwise(ops, ref, moe_mod, bundle, shard, served) -> dict:
     block = model._block
     worst = {"max_rel_update_diff": 0.0, "layer_calls": 0}
 
-    def checked(p, x, positions, *, cache=None, cache_len=0):
+    def checked(p, x, positions, **kw):
         log = []
         with held_routing(moe_mod, log):
-            out, new_cache = block(p, x, positions, cache=cache,
-                                   cache_len=cache_len)
+            out, new_cache = block(p, x, positions, **kw)
         stats = {"decisions": 0, "flipped": 0}
         with plain_versions(ops, ref), held_routing(moe_mod, log, stats):
-            plain, _ = block(p, x, positions, cache=cache,
-                             cache_len=cache_len)
+            plain, _ = block(p, x, positions, **kw)
         upd = (out - x).float()
         rel = float((plain.float() - out.float()).abs().max()) / max(
             1e-30, float(upd.abs().max()))
@@ -1313,6 +1413,49 @@ def phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
     return out
 
 
+@torch.inference_mode()
+def phase_parity_gemma3(mods, bundles, prompts, policy, results, wf,
+                        seed: int) -> dict:
+    """gemma3, served as "qwen-7b", its first served shard teacher-forced
+    at int positions with the kernels and with the plain versions: in
+    bf16 at full depth (gates: finite logits, the served tokens
+    reproduced by the kernel path; the logit difference and greedy
+    agreement are reported), then in float32 at full width and
+    GEMMA_F32_LAYERS layers, five local and one global (gates: logits
+    within PARITY_F32_REL of their largest magnitude and every greedy
+    token equal)."""
+    ops, ref = mods["ops"], mods["ref"]
+    name = "qwen-7b"
+    bundle = bundles[name]
+    sid, shard, served = first_shard(policy.placements, wf, prompts,
+                                     results, name)
+    problems = []
+    bf16 = kernel_vs_plain(ops, ref, bundle, shard, served)
+    if not (bf16["finite"] and bf16["kernel_path_reproduces_served_tokens"]):
+        problems.append(f"{bundle.cfg.name} bf16: logits not finite or "
+                        f"served tokens not reproduced")
+    cfg32 = dataclasses.replace(bundle.cfg, dtype="float32",
+                                num_layers=GEMMA_F32_LAYERS)
+    b32 = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+    f32 = kernel_vs_plain(ops, ref, b32, shard, served)
+    f32["layer_kinds"] = "".join(b32._model.layer_kinds())
+    f32["tol"] = PARITY_F32_REL * f32["logit_abs_max"]
+    del b32
+    if not (f32["finite"] and f32["max_logit_diff"] <= f32["tol"]
+            and f32["greedy_tokens_agree"]):
+        problems.append(f"{cfg32.name} float32: kernels and plain versions "
+                        f"differ beyond {f32['tol']} or greedy tokens "
+                        f"differ")
+    out = {"phase": "parity_gemma3", "ok": not problems,
+           name: {"stage": sid, "prompt_len": int(shard.shape[1]),
+                  "bf16_full_depth": bf16, "float32_cut_depth": f32},
+           "problems": problems}
+    emit(out)
+    if problems:
+        fail("parity_gemma3 phase failed: " + "; ".join(problems))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # optional: where one stage's time goes (--profile)
 # ---------------------------------------------------------------------------
@@ -1352,7 +1495,8 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     bundle = bundles[name]
     model = bundle._model
     shard = prompts.to("cuda")
-    max_len = PROMPT_LEN + GEN_LEN
+    plen = shard.shape[1]
+    max_len = plen + GEN_LEN
     slot = bundle.decoder.slot(NUM_QUERIES, max_len)
     if slot.graph is None:
         bundle.decoder.generate(shard, GEN_LEN, max_len)     # captures
@@ -1368,7 +1512,7 @@ def phase_profile(bundles, prompts, name: str) -> dict:
         with ctx:
             for step in range(GEN_LEN - 1):
                 logits, cache = model.decode_step(bundle.params, tok, cache,
-                                                  PROMPT_LEN + step)
+                                                  plen + step)
                 tok = torch.argmax(logits, dim=-1)
             torch.cuda.synchronize()
         return t1 - t0, time.perf_counter() - t1
@@ -1426,7 +1570,7 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     step_launches = traced["eager"]["device_launches_per_step"]
     out = {
         "phase": "profile",
-        "stage": f"{bundle.cfg.name}, 8 queries, one shard",
+        "stage": f"{bundle.cfg.name}, 8 queries, one shard, prompt {plen}",
         "decode_step_launches": step_launches,
         "decode_step_launches_per_layer":
             step_launches / bundle.cfg.num_layers,
@@ -1545,7 +1689,7 @@ def main() -> None:
     qwen = ARCHS["qwen3-1.7b"]
     glm = dataclasses.replace(ARCHS["glm4-9b"], vocab_size=qwen.vocab_size)
     granite, rwkv = ARCHS["granite-moe-3b-a800m"], ARCHS["rwkv6-3b"]
-    zamba = ARCHS["zamba2-2.7b"]
+    zamba, gemma = ARCHS["zamba2-2.7b"], ARCHS["gemma3-4b"]
     attn_cfgs = {"qwen3-1.7b": qwen, "glm4-9b": glm,
                  "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
@@ -1553,7 +1697,7 @@ def main() -> None:
     t_all = time.perf_counter()
     _, smi_line = phase_device(_build)
     kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
-                                args.seed)
+                                gemma, args.seed)
     serve_out, bundles, prompts, policy, results = phase_serve(
         mods, {"qwen-7b": (qwen, args.seed), "llama-8b": (glm, args.seed + 1)},
         args.seed)
@@ -1584,7 +1728,19 @@ def main() -> None:
         phase_profile(bundles, prompts, "qwen-7b")
     phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
                         args.seed)
-    emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out]))
+    del bundles, policy, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve4_out, bundles, prompts, policy, results = phase_serve(
+        mods, {"qwen-7b": (gemma, args.seed),
+               "llama-8b": (qwen, args.seed + 1)},
+        args.seed, phase="serve_gemma3", prompt_len=GEMMA_PROMPT_LEN)
+    if args.profile:
+        phase_profile(bundles, prompts, "qwen-7b")
+    phase_parity_gemma3(mods, bundles, prompts, policy, results, wf,
+                        args.seed)
+    emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
+                                      serve4_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {

@@ -31,8 +31,8 @@ LIB_NAME = "libfate_kernels.so"
 # conventions of the C interface, shared by the wrappers
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims both attention kernels are instantiated for (their dispatch
-# switches in csrc/)
-ATTN_HEAD_DIMS = (16, 32, 64, 80, 128)
+# switches in csrc/): 80 for zamba2, 256 for gemma3
+ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0      # wall time of the build this process made

@@ -49,6 +49,10 @@
 // fragments of the two 8-row tiles, rounded to bf16 in registers (as
 // repro.models.attention rounds p; the Pallas kernel keeps it float32:
 // ROADMAP H20), are the A fragment of P V, with V through ldmatrix.trans.
+// At D = 256 (gemma3) a warp's output accumulator is 128 floats per
+// thread, and Q's fragments would be 64 registers more: there they are
+// read from shared memory by ldmatrix at each k16 step, and each warp's
+// ring has 2 stages (143,616 bytes in all, against 211,200 with 3).
 // At the end the warps' (m, l, o) merge in shared memory in warp order.
 // With nsplit > 1 each block writes its partial, takes a ticket (an
 // atomic per (b, KV head), the only atomic), and the last block to
@@ -62,9 +66,10 @@
 //
 // float32: the FMA kernels of the first port, kept for the 2e-5 bar,
 // which needs true float32 products and p: a block stages 32-row tiles
-// widened to float32 in shared memory, one (head, row) pair per thread
-// for the scores and one (head, column) for P V, and a second small
-// kernel combines the partials.  No bf16 input reaches them.
+// widened to float32 in dynamic shared memory (84,096 bytes at D = 256),
+// one (head, row) pair per thread for the scores and one (head, column)
+// for P V, and a second small kernel combines the partials.  No bf16
+// input reaches them.
 #include "common.cuh"
 
 namespace {
@@ -80,6 +85,12 @@ constexpr int MAXG = 16;   // query heads per KV head the kernel takes
 constexpr int BS = 32;     // cache rows per tile (= warp width)
 constexpr int NT = 128;    // threads per block
 
+template <int D>
+struct FmaTile {   // q, K (rows padded by one float), V, scores
+  static constexpr int SMEM =
+      (MAXG * D + BS * (D + 1) + BS * D + MAXG * BS) * 4;
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
@@ -94,10 +105,11 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   constexpr int D4 = D / 4;
   constexpr int NJ = MAXG * D / NT;     // (head, column) pairs per thread
 
-  __shared__ float qs[MAXG * D];
-  __shared__ float Ks[BS * KS];
-  __shared__ __align__(16) float Vs[BS * D];
-  __shared__ float Ss[MAXG * BS];
+  extern __shared__ __align__(16) float fma_smem[];   // FmaTile<D>::SMEM
+  float* qs = fma_smem;                 // [MAXG][D]
+  float* Ks = qs + MAXG * D;            // [BS][KS]
+  float* Vs = Ks + BS * KS;             // [BS][D], 16-byte aligned
+  float* Ss = Vs + BS * D;              // [MAXG][BS]
   __shared__ float m_s[MAXG], l_s[MAXG], a_s[MAXG];
 
   const int tid = threadIdx.x;
@@ -242,17 +254,21 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 constexpr int MMA_WARPS = 4;            // warps per block
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
 constexpr int TR = 16;                  // cache rows per tile: one k16 step of P V
-constexpr int NST = 3;                  // stages of each warp's ring
 constexpr int MAX_SPLIT = 132;          // splits the last block combines
 
 template <int D>
 struct DecodeTile {
+  static constexpr int NST = D > 128 ? 2 : 3;       // stages of each warp's ring
+  static constexpr bool Q_IN_REGS = D <= 128;       // else ldmatrix per step
   static constexpr int RS = D + 8;                  // row stride (elements)
   static constexpr int STAGE = 2 * TR * RS;         // K then V (elements)
   static constexpr int RING = NST * STAGE;          // one warp's ring
   static constexpr int TILES = (MAXG * RS + MMA_WARPS * RING) * 2;
+  static constexpr int MERGE =                      // (m, l, o) per warp
+      (2 * MMA_WARPS * MAXG + MMA_WARPS * MAXG * D) * 4;
   static constexpr int COMBINE = (2 * MAXG * MAX_SPLIT + MAXG) * 4;
-  static constexpr int SMEM = TILES > COMBINE ? TILES : COMBINE;
+  static constexpr int SMEM_TM = TILES > MERGE ? TILES : MERGE;
+  static constexpr int SMEM = SMEM_TM > COMBINE ? SMEM_TM : COMBINE;
 };
 
 template <int D>
@@ -268,6 +284,7 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
                   int64_t v_sb, int64_t v_ss, int64_t v_sh,
                   int64_t o_sb, int64_t o_sh, float scale_log2) {
   constexpr int RS = DecodeTile<D>::RS;
+  constexpr int NST = DecodeTile<D>::NST;
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int KS = D / 16;    // k16 steps of Q K^T
   constexpr int NO = D / 8;     // 8-column tiles of the output
@@ -329,10 +346,12 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   }
   cp_async_wait<NST - 1>();   // the Q group
   __syncthreads();
-  uint32_t qf[KS][4];
+  const uint32_t q_frag = smem_addr(Qs + (lane & 15) * RS + 8 * (lane >> 4));
+  uint32_t qf[DecodeTile<D>::Q_IN_REGS ? KS : 1][4];
+  if constexpr (DecodeTile<D>::Q_IN_REGS) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldsm_x4(qf[kk], smem_addr(Qs + (lane & 15) * RS + 16 * kk + 8 * (lane >> 4)));
+    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], q_frag + 32 * kk);
+  }
 
   // m16n8 fragments: this thread holds query rows (heads) g0 and g0 + 8,
   // cache rows col0, col0 + 1 of each 8-row tile, output columns col0,
@@ -362,11 +381,18 @@ decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (DecodeTile<D>::Q_IN_REGS) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[r] = qf[kk][r];
+      } else {
+        ldsm_x4(qa, q_frag + 32 * kk);
+      }
       uint32_t bf[4];
       ldsm_x4(bf, smem_addr(ks + ((lane & 7) + 8 * (lane >> 4)) * RS +
                             16 * kk + 8 * ((lane >> 3) & 1)));
-      mma_bf16(s[0], qf[kk], bf[0], bf[1]);
-      mma_bf16(s[1], qf[kk], bf[2], bf[3]);
+      mma_bf16(s[0], qa, bf[0], bf[1]);
+      mma_bf16(s[1], qa, bf[2], bf[3]);
     }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -544,15 +570,19 @@ struct DecodeArgs {
 
 template <typename T, int D>
 int launch_decode(const DecodeArgs& a) {
+  static unsigned smem_set = 0;
+  auto kern = decode_partial_kernel<T, D>;
+  cudaError_t err = allow_smem(kern, FmaTile<D>::SMEM, smem_set);
+  if (err != cudaSuccess) return (int)err;
   const int G = a.H / a.KV;
   const float scale = (float)(1.0 / sqrt((double)D));
   const dim3 grid(a.nsplit, a.KV, a.B);
-  decode_partial_kernel<T, D><<<grid, NT, 0, a.stream>>>(
+  kern<<<grid, NT, FmaTile<D>::SMEM, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kc),
       static_cast<const T*>(a.vc), a.part_acc, a.part_m, a.part_l, G,
       a.len_dev, a.cache_len, a.S, a.chunk, a.q_sb, a.q_sh, a.k_sb, a.k_ss,
       a.k_sh, a.v_sb, a.v_ss, a.v_sh, scale);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   decode_combine_kernel<T><<<dim3(a.KV, a.B), NT, 0, a.stream>>>(
       a.part_acc, a.part_m, a.part_l, static_cast<T*>(a.out), G, D, a.nsplit,
@@ -585,6 +615,7 @@ int dispatch_fma(const DecodeArgs& a, int D) {
     case 64: return launch_decode<float, 64>(a);
     case 80: return launch_decode<float, 80>(a);
     case 128: return launch_decode<float, 128>(a);
+    case 256: return launch_decode<float, 256>(a);
     default: return -1;
   }
 }
@@ -596,6 +627,7 @@ int dispatch_mma(const DecodeArgs& a, int D) {
     case 64: return launch_decode_mma<64>(a);
     case 80: return launch_decode_mma<80>(a);
     case 128: return launch_decode_mma<128>(a);
+    case 256: return launch_decode_mma<256>(a);
     default: return -1;
   }
 }

@@ -19,14 +19,24 @@
 // What bounds it.  On an H100 (3.35 TB/s, 989 TFLOP/s bf16: 295 flops per
 // byte) the least time for the function is set by bytes: causal bf16
 // prefill at B = 8, S = 512, H = 16, KV = 8, D = 128 does about 171 flops
-// per byte of q/k/v/out moved once, 0.015 ms of traffic.
+// per byte of q/k/v/out moved once, 0.015 ms of traffic.  gemma3's
+// prefill (B = 8, S = 2048, H = 8, KV = 4, D = 256) is bound by operations
+// instead: 137 GFLOP causal, 0.139 ms at 989 TFLOP/s, and 0.104 ms with its
+// local layers' window of 1024, whose tiles wholly below the window are
+// never visited.
 //
 // bf16: tensor cores through mma.sync.  4 warps per block, each owning 16
-// query rows.  The Q tile is copied once into shared memory and held in
-// registers as mma A fragments (ldmatrix).  K and V tiles of 64 rows come
-// through a 2-stage ring of 16-byte cp.async copies, kept in bf16 (rows
-// padded by 16 bytes: conflict-free ldmatrix for every head dim, 80
-// included), the next tile loading while this one is used.  S = Q K^T is
+// query rows.  The Q tile is copied once into shared memory; up to D = 128
+// it is held in registers as mma A fragments (ldmatrix).  K and V tiles of
+// 64 rows come through a 2-stage ring of 16-byte cp.async copies, kept in
+// bf16 (rows padded by 16 bytes: conflict-free ldmatrix for every head
+// dim, 80 included), the next tile loading while this one is used.
+// At D = 256 (gemma3) a warp's output accumulator alone is 128 floats per
+// thread, and Q's fragments would be 64 registers more: there Q's
+// fragments are read from shared memory by ldmatrix at each k16 step, and
+// the KV tiles are 32 rows (the score tile 16 floats per thread), which
+// also brings the block's shared memory to 101,376 bytes, so that two
+// blocks fit an SM.  S = Q K^T is
 // mma.sync m16n8k16 (bf16 operands, float32 accumulation: the products of
 // the Pallas kernel, which casts bf16 to float32 before its dot).  The
 // accumulator fragments are masked and online-softmaxed in registers;
@@ -245,13 +255,14 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_BM = 64;         // query rows per block, 16 per warp
-constexpr int MMA_BN = 64;         // keys per KV tile
 constexpr int MMA_THREADS = 128;   // 4 warps
 
 template <int D>
 struct MmaTile {
+  static constexpr int BN = D > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr bool Q_IN_REGS = D <= 128;    // else ldmatrix per step
   static constexpr int RS = D + 8;   // row stride (elements): 16-byte pad
-  static constexpr int SMEM = (MMA_BM + 4 * MMA_BN) * RS * 2;  // Q, 2 K, 2 V
+  static constexpr int SMEM = (MMA_BM + 4 * BN) * RS * 2;  // Q, 2 K, 2 V
 };
 
 template <int D>
@@ -265,6 +276,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
                  int causal, int window, float scale_log2) {
   constexpr int RS = MmaTile<D>::RS;
+  constexpr int MMA_BN = MmaTile<D>::BN;
+  constexpr int SJ = MMA_BN / 8;   // 8-key tiles of the scores
   constexpr int CH = D / 8;    // 16-byte chunks per row
   constexpr int KS = D / 16;   // k16 steps of Q K^T
   constexpr int NT = D / 8;    // 8-column tiles of the output
@@ -328,7 +341,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};      // this thread's share of the row sums
-  uint32_t qf[KS][4];
+  uint32_t qf[MmaTile<D>::Q_IN_REGS ? KS : 1][4];
+  const uint32_t q_frag = smem_addr(Qs + (warp * 16 + (lane & 15)) * RS +
+                                    8 * (lane >> 4));
 
   int st = 0;
   for (int k0 = k_begin; k0 < k_end; k0 += MMA_BN, st ^= 1) {
@@ -340,31 +355,38 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (k0 == k_begin) {
+    if constexpr (MmaTile<D>::Q_IN_REGS) {
+      if (k0 == k_begin) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldsm_x4(qf[kk], smem_addr(Qs + (warp * 16 + (lane & 15)) * RS +
-                                  16 * kk + 8 * (lane >> 4)));
+        for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], q_frag + 32 * kk);
+      }
     }
     const bf16* ks = Ks + st * MMA_BN * RS;
     const bf16* vs = Vs + st * MMA_BN * RS;
 
-    // s = q . k: 8 tiles of 8 keys; one ldmatrix.x4 gives the B fragments
-    // of two key tiles at one k16 step
-    float s[8][4];
+    // s = q . k: SJ tiles of 8 keys; one ldmatrix.x4 gives the B
+    // fragments of two key tiles at one k16 step
+    float s[SJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < SJ; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (MmaTile<D>::Q_IN_REGS) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+        for (int r = 0; r < 4; ++r) qa[r] = qf[kk][r];
+      } else {
+        ldsm_x4(qa, q_frag + 32 * kk);
+      }
+#pragma unroll
+      for (int jj = 0; jj < SJ / 2; ++jj) {
         uint32_t bf[4];
         ldsm_x4(bf, smem_addr(ks + (16 * jj + (lane & 7) + 8 * (lane >> 4)) * RS +
                               16 * kk + 8 * ((lane >> 3) & 1)));
-        mma_bf16(s[2 * jj], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * jj + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(s[2 * jj], qa, bf[0], bf[1]);
+        mma_bf16(s[2 * jj + 1], qa, bf[2], bf[3]);
       }
     }
 
@@ -373,7 +395,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       (!causal || k0 + MMA_BN - 1 <= q0) &&
                       (window <= 0 || q0 + MMA_BM - 1 - k0 < window);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < SJ; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int kp = k0 + 8 * j + col0 + (r & 1);
@@ -388,7 +410,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 2; ++i) {
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < SJ; ++j)
         mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -397,7 +419,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_r[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < SJ; ++j) {
         s[j][2 * i] = exp2f(s[j][2 * i] - m_new);
         s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_new);
         sum += s[j][2 * i] + s[j][2 * i + 1];
@@ -414,7 +436,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // fragment of k16 step t; V's B fragments through ldmatrix.trans, two
     // 8-column tiles per load
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
+    for (int t = 0; t < SJ / 2; ++t) {
       const uint32_t a[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
                              pack_bf16(s[2 * t][2], s[2 * t][3]),
                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
@@ -504,6 +526,7 @@ int dispatch_fma(const FlashArgs& a, int D) {
     case 64: return launch_flash<64>(a);
     case 80: return launch_flash<80>(a);
     case 128: return launch_flash<128>(a);
+    case 256: return launch_flash<256>(a);
     default: return -1;
   }
 }
@@ -515,6 +538,7 @@ int dispatch_mma(const FlashArgs& a, int D) {
     case 64: return launch_flash_mma<64>(a);
     case 80: return launch_flash_mma<80>(a);
     case 128: return launch_flash_mma<128>(a);
+    case 256: return launch_flash_mma<256>(a);
     default: return -1;
   }
 }

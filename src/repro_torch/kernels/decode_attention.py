@@ -28,6 +28,11 @@ or past the length reads none and leaves an empty partial.  An int is
 checked against ``[1, S]``; a device length is trusted (the kernel clamps
 it to S), and nothing is read back to the host.
 
+There is no ``window`` argument, as the Pallas kernel has none: a sliding
+window's cache is a ring whose valid rows are its first
+``min(pos + 1, S)`` (``models.attention.decode_index``), in another
+order than the positions, which the softmax does not see.
+
 The scratch (partials and tickets) is one pair of buffers per device,
 allocated before any capture and grown only outside one: calls on a
 device run in order on one stream (the serving engine's eager calls and

@@ -7,14 +7,19 @@ branch ``kernels.ops.decode_attention``.  The projections around them are
 plain matrix products, as they are einsums outside any kernel in the
 reference.
 
-Waiting for later slices (each raises ``NotImplementedError``): sliding
-windows and the rolling window cache (ROADMAP queue 1, "gemma3
-local/global"), sequence-parallel prefill (``flash_attention_sp``; ROADMAP
-queue 1, "Launch / analysis") and MLA (ROADMAP queue 1, "MLA").
+Sliding windows (gemma3's local layers) keep their cache as a ring of
+``L = min(window, max_len)`` rows, position ``p`` in slot ``p mod L``
+(:func:`decode_index`); see :func:`gqa_attend` for how that differs from
+the reference's rolling cache.
+
+Waiting for later slices (each raises ``NotImplementedError``):
+sequence-parallel prefill (``flash_attention_sp``; ROADMAP queue 1,
+"Launch / analysis") and MLA (ROADMAP queue 1, "MLA").
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 
@@ -72,53 +77,109 @@ def gqa_project_qkv(p: dict, cfg, x: torch.Tensor,
     return q, k, v
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeIndex:
+    """Where a decode step at position ``pos`` writes its row in a cache of
+    ``rows`` rows, and how many rows K2 then attends: Python ints, or (for
+    a 0-d int64 ``pos`` on the device) a one-element int64 ``row`` and a
+    0-d int32 ``length`` on the device."""
+    row: Union[int, torch.Tensor]
+    length: Union[int, torch.Tensor]
+
+
+def decode_index(pos, rows: int, ring: bool = False) -> DecodeIndex:
+    """The :class:`DecodeIndex` of position ``pos`` in a cache of ``rows``
+    rows: row ``pos`` and length ``pos + 1`` in a linear cache, which
+    must hold the position; slot ``pos mod rows`` and length
+    ``min(pos + 1, rows)`` in a ring (a sliding window's cache).  A model
+    computes it once per step and cache shape, so that the layers add no
+    kernels for it to a captured step."""
+    if isinstance(pos, torch.Tensor):
+        if ring:
+            return DecodeIndex(torch.remainder(pos, rows).view(1),
+                               torch.clamp(pos + 1, max=rows)
+                               .to(torch.int32))
+        return DecodeIndex(pos.view(1), (pos + 1).to(torch.int32))
+    pos = int(pos)
+    if ring:
+        return DecodeIndex(pos % rows, min(pos + 1, rows))
+    if pos >= rows:
+        raise NotImplementedError(
+            f"position {pos} does not fit a cache of {rows} rows; only a "
+            f"sliding window's cache keeps a tail")
+    return DecodeIndex(pos, pos + 1)
+
+
 def gqa_attend(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                causal: bool = True, window: int = 0,
-               cache: Optional[tuple] = None, cache_len: int = 0):
+               cache: Optional[tuple] = None, cache_len=0):
     """Full-sequence (prefill) or decode attention.
 
     Returns (out, new_cache).  cache = (k_cache, v_cache) of static shape
-    [B, S_max, KV, D]; prefill writes positions [0, Sq); decode writes at
-    ``cache_len`` and attends over ``cache_len + 1`` rows.  The cache is
-    updated IN PLACE and the same tensors are returned.  ``cache_len`` is
-    a Python int or, for a decode step, a 0-d int64 tensor on the device
-    (the reference's traced ``pos``): the row is then written by
-    ``index_copy_`` and K2 reads its length on the device, so that a
-    captured CUDA graph replays the step at every position.
+    [B, S_cache, KV, D]; prefill writes positions [cache_len, cache_len +
+    Sq); a decode step (Sq == 1) writes position ``cache_len`` and attends
+    over every position written so far.  The cache is updated IN PLACE and
+    the same tensors are returned.  ``cache_len`` is a Python int or, for a
+    decode step, a 0-d int64 tensor on the device (the reference's traced
+    ``pos``) or a :class:`DecodeIndex` computed from one: the row is then
+    written by ``index_copy_`` and K2 reads its length on the device, so
+    that a captured CUDA graph replays the step at every position.
+
+    With ``window > 0`` (a local layer) the cache is a ring of S_cache rows
+    (``min(window, max_len)``, as the reference sizes it): position ``p``
+    lives in slot ``p mod S_cache``, a prefill longer than the ring keeps
+    its last S_cache positions, and a decode step attends the ring's
+    ``min(pos + 1, S_cache)`` valid rows.  The reference instead shifts its
+    rolling cache left and appends at the end (a copy of the whole cache
+    per step); both hold the same set of rows, in another order, so the
+    attention is the same.  Where S_cache = max_len < window the ring never
+    wraps and is the reference's layout.  Where the prompt is shorter than
+    a window that fits max_len, the reference attends zero rows at the end
+    of its rolling cache and the port the rows the prompt wrote (ROADMAP
+    H23).  A linear (global) cache must hold every position: a longer
+    prefill or a later decode step raises ``NotImplementedError``.
     """
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention and the rolling window cache are "
-            "not ported yet (ROADMAP queue 1: gemma3 local/global)")
     b, sq, _ = x.shape
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     new_cache = None
-    if cache is not None and isinstance(cache_len, torch.Tensor):
-        if sq != 1:
-            raise ValueError(
-                f"a device cache_len is for a decode step of one position, "
-                f"got {sq}")
-        k_cache, v_cache = cache
-        row = cache_len.view(1)
-        k_cache.index_copy_(1, row, k)
-        v_cache.index_copy_(1, row, v)
-        out = ops.decode_attention(q, k_cache, v_cache,
-                                   (cache_len + 1).to(torch.int32))
-        return _proj_out(p, out), cache
     if cache is not None:
         k_cache, v_cache = cache
-        if sq > k_cache.shape[1] - cache_len:
+        rows = k_cache.shape[1]
+        if window and rows > window:
+            raise ValueError(
+                f"a sliding window of {window} keeps a cache of at most "
+                f"{window} rows, got {rows}")
+        if sq == 1:             # a decode step
+            idx = cache_len if isinstance(cache_len, DecodeIndex) else \
+                decode_index(cache_len, rows, ring=window > 0)
+            if isinstance(idx.row, torch.Tensor):
+                k_cache.index_copy_(1, idx.row, k)
+                v_cache.index_copy_(1, idx.row, v)
+            else:
+                k_cache[:, idx.row: idx.row + 1] = k
+                v_cache[:, idx.row: idx.row + 1] = v
+            out = ops.decode_attention(q, k_cache, v_cache, idx.length)
+            return _proj_out(p, out), cache
+        if not isinstance(cache_len, int):
+            raise ValueError(
+                f"a prefill of {sq} positions takes an int cache_len, got "
+                f"{type(cache_len).__name__}")
+        if window and cache_len + sq > rows:
+            # the ring keeps the last `rows` positions, each in its slot
+            n = min(sq, rows)
+            slots = torch.arange(cache_len + sq - n, cache_len + sq,
+                                 device=k.device) % rows
+            k_cache.index_copy_(1, slots, k[:, sq - n:])
+            v_cache.index_copy_(1, slots, v[:, sq - n:])
+        elif cache_len + sq > rows:
             raise NotImplementedError(
-                f"{sq} new positions do not fit a cache of "
-                f"{k_cache.shape[1]} rows filled to {cache_len}; keeping "
-                f"only the tail belongs to the windowed cache (ROADMAP "
-                f"queue 1: gemma3 local/global)")
-        k_cache[:, cache_len: cache_len + sq] = k
-        v_cache[:, cache_len: cache_len + sq] = v
+                f"{sq} new positions do not fit a cache of {rows} rows "
+                f"filled to {cache_len}; only a sliding window's cache "
+                f"keeps a tail")
+        else:
+            k_cache[:, cache_len: cache_len + sq] = k
+            v_cache[:, cache_len: cache_len + sq] = v
         new_cache = (k_cache, v_cache)
-        if sq == 1:   # decode against the full-length cache
-            out = ops.decode_attention(q, k_cache, v_cache, cache_len + 1)
-            return _proj_out(p, out), new_cache
         # prefill attends over freshly computed k/v (cache == prefix here)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     return _proj_out(p, out), new_cache

@@ -1,8 +1,8 @@
 """Model registry of the port (the counterpart of
 ``repro.models.families``).
 
-Ported: the GQA decoder family (``DecoderLM``, dense and MoE),
-:class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
+Ported: the GQA decoder family (``DecoderLM``, dense and MoE, and
+gemma3's local/global layers), :class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
 ``NotImplementedError`` naming the ROADMAP item it waits for.
 """
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Model assembly: stacked-parameter blocks and a loop over layers.
 
 :class:`DecoderLM` mirrors ``repro.models.transformer.DecoderLM`` for the
-non-interleaved GQA configurations, dense or MoE (``models/moe.py``; with
+GQA configurations, dense or MoE (``models/moe.py``; with
 ``moe_layer_start > 0`` the first layers are dense, stacked apart as
-``dense_blocks``):
+``dense_blocks``), and gemma3's interleave of sliding-window (local) and
+global layers (``local_blocks`` and ``global_blocks``):
 
   * ``param_defs()``                      — ParamDef tree
   * ``init(generator)``                   — concrete params on the device
@@ -14,8 +15,11 @@ non-interleaved GQA configurations, dense or MoE (``models/moe.py``; with
 
 Per-layer params stay stacked on a leading axis, so a tree converted from
 the JAX package lines up key for key; a Python loop over the unbound
-layers takes the place of ``lax.scan``.  The KV cache is updated IN PLACE:
-``prefill`` and ``decode_step`` return the cache tree they were given.
+layers, in execution order, takes the place of ``lax.scan`` (and of the
+reference's grouped ``_apply_interleaved``).  The KV cache is updated IN
+PLACE: ``prefill`` and ``decode_step`` return the cache tree they were
+given.  A decode step computes each cache's row and length once
+(``attention.decode_index``) and hands them to every layer of that cache.
 """
 from __future__ import annotations
 
@@ -59,9 +63,9 @@ def decode_position(pos, device):
 
 
 class DecoderLM:
-    """GQA decoder-only LM; optional MoE FFN; optional VLM patch
-    embeddings (llava) via ``extra_embeds``.  MLA and the local:global
-    sliding-window interleave (gemma3) are not ported yet and raise
+    """GQA decoder-only LM; optional MoE FFN; optional local:global
+    sliding-window interleave (gemma3); optional VLM patch embeddings
+    (llava) via ``extra_embeds``.  MLA is not ported yet and raises
     ``NotImplementedError`` at construction."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
@@ -69,12 +73,28 @@ class DecoderLM:
             raise NotImplementedError(
                 f"{cfg.name}: attention={cfg.attention!r} is not ported "
                 f"yet (ROADMAP queue 1: MLA)")
-        if cfg.local_global_pattern or cfg.sliding_window:
-            raise NotImplementedError(
-                f"{cfg.name}: local/global sliding-window layers are not "
-                f"ported yet (ROADMAP queue 1: gemma3 local/global)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.n_global, self.n_local = self._layer_split()
+
+    # --- layer pattern -----------------------------------------------------
+    def _layer_split(self) -> tuple[int, int]:
+        """(global, local) layer counts: every ``local_global_pattern``-th
+        layer is global."""
+        cfg = self.cfg
+        if not cfg.local_global_pattern:
+            return cfg.num_layers, 0
+        n_global = cfg.num_layers // cfg.local_global_pattern
+        return n_global, cfg.num_layers - n_global
+
+    def layer_kinds(self) -> list[str]:
+        """Execution order of layer kinds ('L' local / 'G' global)."""
+        cfg = self.cfg
+        pat = cfg.local_global_pattern
+        if not pat:
+            return ["G"] * cfg.num_layers
+        return ["G" if (i + 1) % pat == 0 else "L"
+                for i in range(cfg.num_layers)]
 
     # --- params ------------------------------------------------------------
     def _block_defs(self, is_moe_layer: bool) -> dict:
@@ -90,15 +110,33 @@ class DecoderLM:
             d["ffn"] = ffn_defs(cfg.d_model, cfg.d_ff, cfg.dtype)
         return d
 
-    def _stacks(self) -> list[tuple[str, str, int]]:
-        """(param key, cache key, layers) of each stack, in execution
-        order: ``dense_blocks`` then ``blocks`` when an MoE config starts
-        with dense layers, else ``blocks`` alone."""
+    def _stacks(self) -> list[tuple[str, str, int, int]]:
+        """(param key, cache key, layers, window) of each stack:
+        ``dense_blocks`` then ``blocks`` when an MoE config starts with
+        dense layers, ``local_blocks`` (the sliding window) and
+        ``global_blocks`` for gemma3's interleave, else ``blocks`` alone."""
         cfg = self.cfg
         if cfg.moe is not None and cfg.moe_layer_start > 0:
-            return [("dense_blocks", "dense", cfg.moe_layer_start),
-                    ("blocks", "moe", cfg.num_layers - cfg.moe_layer_start)]
-        return [("blocks", "blocks", cfg.num_layers)]
+            return [("dense_blocks", "dense", cfg.moe_layer_start, 0),
+                    ("blocks", "moe", cfg.num_layers - cfg.moe_layer_start,
+                     0)]
+        if cfg.local_global_pattern:
+            return [("local_blocks", "local", self.n_local,
+                     cfg.sliding_window),
+                    ("global_blocks", "global", self.n_global, 0)]
+        return [("blocks", "blocks", cfg.num_layers, 0)]
+
+    def _schedule(self) -> list[tuple[str, str, int]]:
+        """(param key, cache key, window) of every layer, in execution
+        order: the stacks one after the other, or gemma3's kinds
+        interleaved as :meth:`layer_kinds` says."""
+        stacks = self._stacks()
+        if not self.cfg.local_global_pattern:
+            return [(key, ckey, w) for key, ckey, n, w in stacks
+                    for _ in range(n)]
+        (lkey, lckey, _, lw), (gkey, gckey, _, _) = stacks
+        return [(lkey, lckey, lw) if kind == "L" else (gkey, gckey, 0)
+                for kind in self.layer_kinds()]
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -109,9 +147,9 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             defs["head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                     (FSDP, TP), cfg.dtype)
-        for key, _, n in self._stacks():
-            defs[key] = stack_defs(
-                self._block_defs(cfg.moe is not None and key == "blocks"), n)
+        for key, _, n, _ in self._stacks():
+            defs[key] = stack_defs(self._block_defs(
+                cfg.moe is not None and key != "dense_blocks"), n)
         return defs
 
     def init(self, generator: torch.Generator) -> dict:
@@ -120,11 +158,13 @@ class DecoderLM:
         return init_params(self.param_defs(), generator, self.device)
 
     # --- forward -----------------------------------------------------------
-    def _block(self, p: dict, x, positions, *, cache=None, cache_len=0):
+    def _block(self, p: dict, x, positions, *, window=0, cache=None,
+               cache_len=0):
         cfg = self.cfg
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
         a, new_cache = attn.gqa_attend(p["attn"], cfg, h, positions,
-                                       cache=cache, cache_len=cache_len)
+                                       window=window, cache=cache,
+                                       cache_len=cache_len)
         x = x + a
         h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
         if "moe" in p:
@@ -135,17 +175,27 @@ class DecoderLM:
 
     def _apply_layers(self, params, x, positions, *, caches=None,
                       cache_len=0):
-        for key, ckey, _ in self._stacks():
-            layers = _unstack(params[key])
-            if caches is None:
-                for p in layers:
-                    x, _ = self._block(p, x, positions)
-                continue
-            for p, c in zip(layers, _unstack(caches[ckey])):
-                x, _ = self._block(p, x, positions, cache=(c["k"], c["v"]),
-                                   cache_len=cache_len)
+        stacks = self._stacks()
+        layers = {key: iter(_unstack(params[key])) for key, *_ in stacks}
         if caches is None:
+            for key, _, window in self._schedule():
+                x, _ = self._block(next(layers[key]), x, positions,
+                                   window=window)
             return x
+        views = {ckey: iter(_unstack(caches[ckey])) for _, ckey, *_ in stacks}
+        at = dict.fromkeys(views, cache_len)
+        if x.shape[1] == 1:
+            # a decode step: each cache's row and length, once for all of
+            # its layers (a ring's slot for the sliding window)
+            at = {ckey: attn.decode_index(cache_len,
+                                          caches[ckey]["k"].shape[2],
+                                          ring=window > 0)
+                  for _, ckey, _, window in stacks}
+        for key, ckey, window in self._schedule():
+            c = next(views[ckey])
+            x, _ = self._block(next(layers[key]), x, positions,
+                               window=window, cache=(c["k"], c["v"]),
+                               cache_len=at[ckey])
         return x, caches      # the per-layer views wrote into ``caches``
 
     def _embed_tokens(self, params, tokens, extra_embeds=None):
@@ -180,14 +230,17 @@ class DecoderLM:
     # --- caches ------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeroed static cache ``{"blocks": {"k", "v"}}`` (``{"dense":
-        ..., "moe": ...}`` when an MoE config starts with dense layers),
-        each leaf [layers, batch, max_len, KV, head_dim] in the config's
-        dtype."""
+        ..., "moe": ...}`` when an MoE config starts with dense layers,
+        ``{"local": ..., "global": ...}`` for gemma3's interleave), each
+        leaf [layers, batch, rows, KV, head_dim] in the config's dtype:
+        ``max_len`` rows, and ``min(sliding_window, max_len)`` for the
+        local layers' rings, as the reference sizes them."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         out = {}
-        for _, ckey, n in self._stacks():
-            shape = (n, batch, max_len, cfg.num_kv_heads,
+        for _, ckey, n, window in self._stacks():
+            rows = min(window, max_len) if window else max_len
+            shape = (n, batch, rows, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
             out[ckey] = {
                 "k": torch.zeros(shape, dtype=dt, device=self.device),

@@ -647,6 +647,66 @@ def test_scan_kernels_float32_out_of_bf16_inputs(card):
 
 
 # ---------------------------------------------------------------------------
+# Head dim 256 (gemma3): K1 with and without its sliding window, K2 at
+# every split plan up to the global cache of prompt 2048 + 32 rows
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk, window): the served prompt, a ragged one, Sq != Sk; windows of
+# none, gemma3's 1024 and one below a KV tile, leaving out those under
+# which a row has no valid key at all (ROADMAP H10)
+D256_FLASH = [(sq, sk, window)
+              for sq, sk in ((2048, 2048), (300, 300), (150, 90))
+              for window in (0, 1024, 20)
+              if not window or sq - sk < window]
+
+
+@pytest.mark.parametrize("sq,sk,window", D256_FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_head_dim_256(card, sq, sk, window, dtype):
+    """gemma3's heads (8 over 4 KV heads of 256), causal, against the
+    plain version (2e-5 / 2e-2)."""
+    rng = np.random.default_rng(27)
+    q = _randn(rng, (2, sq, 8, 256), dtype, card)
+    k = _randn(rng, (2, sk, 4, 256), dtype, card)
+    v = _randn(rng, (2, sk, 4, 256), dtype, card)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    assert bool(torch.isfinite(out.float()).all())
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("s", [16, 64, 100, 544, 1024, 2080])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_head_dim_256(card, s, b, dtype):
+    """gemma3's decode (8 heads over 4 KV heads of 256) at caches of up to
+    2080 rows (prompt 2048 + 32) and 1024 (the local ring), B = 1, 2, 8:
+    every split plan those give, at lengths 1, S / 2 + 1 and S, rows past
+    the length poisoned; the device length gives the int length's bits."""
+    from repro_torch.kernels import decode_attention as dec_mod
+    rng = np.random.default_rng(28)
+    q = _randn(rng, (b, 1, 8, 256), dtype, card)
+    kc = _randn(rng, (b, s, 4, 256), dtype, card)
+    vc = _randn(rng, (b, s, 4, 256), dtype, card)
+    assert dec_mod.split_plan(s, b * 4)[1] >= 1
+    for clen in sorted({1, s // 2 + 1, s}):
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, clen:] = float("nan")
+        vp[:, clen:] = float("nan")
+        out = ops.decode_attention(q, kp, vp, clen)
+        length = torch.full((), clen, dtype=torch.int32, device=card)
+        dev = ops.decode_attention(q, kp, vp, length)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dev), clen
+        want = ref.decode_attention_ref(q, kc[:, :clen], vc[:, :clen], clen)
+        assert float((out.float() - want.float()).abs().max()) < \
+            TOL[dtype], clen
+
+
+# ---------------------------------------------------------------------------
 # The decode step as a captured CUDA graph, K2 reading its length on the
 # device
 # ---------------------------------------------------------------------------
@@ -684,12 +744,19 @@ def test_decode_attention_kernel_device_length_in_a_graph(card, name, h, kv,
 
 def _graph_model(arch, size, dtype, card):
     """``arch``'s SMOKE config, or its published width cut to one layer
-    stack (two layers; zamba2's first attention site and a tail layer),
-    in ``dtype``, with weights from a seeded generator on the card."""
+    stack (two layers; zamba2's first attention site and a tail layer;
+    gemma3's first five local layers and its first global one, with a
+    window of 16 rows, so that a decode after a 16-token prompt wraps the
+    local layers' ring), in ``dtype``, with weights from a seeded
+    generator on the card."""
     from repro_torch.configs.archs import ARCHS, SMOKE
     from repro_torch.models.families import build_model
     if size == "smoke":
         cfg = SMOKE[arch]
+    elif ARCHS[arch].local_global_pattern:
+        cfg = dataclasses.replace(
+            ARCHS[arch], num_layers=ARCHS[arch].local_global_pattern,
+            sliding_window=16)
     else:
         cfg = ARCHS[arch]
         layers = cfg.attn_every + 1 if cfg.attn_every else 2
@@ -701,7 +768,7 @@ def _graph_model(arch, size, dtype, card):
 
 
 GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-3b",
-               "zamba2-2.7b"]
+               "zamba2-2.7b", "gemma3-4b"]
 
 
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)

@@ -318,6 +318,53 @@ def test_decode_attention_head_dim_80_plain_vs_jax():
         assert _err(out, jax_ref.decode_attention_ref(qj, kj, vj, 33)) < 2e-5
 
 
+@pytest.mark.parametrize("window", [0, 100, 20])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_plain_vs_jax(window, dtype):
+    """gemma3's heads (4 over 2 KV heads of 256; SMOKE halves the served 8
+    over 4), causal, with no window, a window that binds (100 of a
+    256-token prompt, as gemma3's 1024 of 2048) and one below a KV tile,
+    against the JAX oracle and the Pallas kernel in interpret mode (in
+    whole blocks of 128 rows: the interpreter pads a ragged block with
+    NaN)."""
+    rng = np.random.default_rng(256 + window)
+    qj, qt = _pair(rng, (1, 256, 4, 256), dtype)
+    kj, kt = _pair(rng, (1, 256, 2, 256), dtype)
+    vj, vt = _pair(rng, (1, 256, 2, 256), dtype)
+    out = ops.flash_attention(qt, kt, vt, causal=True, window=window)
+    assert out.shape == (1, 256, 4, 256) and out.dtype == TORCH[dtype]
+    oracle = jax_ref.flash_attention_ref(qj, kj, vj, causal=True,
+                                         window=window)
+    pallas = jax_ops.flash_attention(qj, kj, vj, causal=True, window=window,
+                                     interpret=True)
+    assert _err(out, oracle) < TOL[dtype]
+    assert _err(out, pallas) < TOL[dtype]
+
+
+@pytest.mark.parametrize("s,clen", [(512, 512), (512, 259), (128, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_head_dim_256_plain_vs_jax(s, clen, dtype):
+    """gemma3's decode at head dim 256 (G = 2), a global cache of 512 rows
+    at full length and just past half, and a ring of 128 rows at length 1,
+    against the JAX oracle and the Pallas kernel in interpret mode (whole
+    blocks of 256 rows); the int and device lengths give the same
+    bits."""
+    rng = np.random.default_rng(s + clen)
+    qj, qt = _pair(rng, (2, 1, 8, 256), dtype)
+    kj, kt = _pair(rng, (2, s, 4, 256), dtype)
+    vj, vt = _pair(rng, (2, s, 4, 256), dtype)
+    out = ops.decode_attention(qt, kt, vt, clen)
+    assert out.shape == (2, 1, 8, 256) and out.dtype == TORCH[dtype]
+    assert _err(out, jax_ref.decode_attention_ref(qj, kj, vj, clen)) < \
+        TOL[dtype]
+    pallas = jax_ops.decode_attention(qj, kj, vj, jnp.int32(clen),
+                                      interpret=True)
+    assert _err(out, pallas) < TOL[dtype]
+    dev = ops.decode_attention(qt, kt, vt,
+                               torch.tensor(clen, dtype=torch.int32))
+    assert torch.equal(dev, out)
+
+
 # ---------------------------------------------------------------------------
 # K3: grouped per-expert GEMM
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's layers, GQA block, MoE layer, Mamba2 block, DecoderLM,
 RWKVLM and Mamba2Hybrid against the JAX package, from converted
-parameters, on the SMOKE configs of the GQA family (dense and MoE), of
-rwkv6 and of zamba2.
+parameters, on the SMOKE configs of the GQA family (dense, MoE and
+gemma3's local/global interleave), of rwkv6 and of zamba2.
 
 The same inputs (numpy, seeded) go through both.  On the CPU the port's
 attention goes through the plain versions of its kernels, which keep
@@ -36,8 +36,8 @@ from repro_torch.models.families import build_model
 ARCHS = ["qwen3-1.7b", "glm4-9b", "qwen1.5-4b", "llava-next-mistral-7b",
          "granite-moe-3b-a800m"]
 # every ported model, GQA or not: the model-level cases run on these
-MODELS = ARCHS + ["rwkv6-3b", "zamba2-2.7b"]
-NOT_PORTED = ["gemma3-4b", "deepseek-v2-236b", "whisper-small"]
+MODELS = ARCHS + ["gemma3-4b", "rwkv6-3b", "zamba2-2.7b"]
+NOT_PORTED = ["deepseek-v2-236b", "whisper-small"]
 B, S = 2, 16
 
 
@@ -245,11 +245,28 @@ def test_gqa_attend_prefill_and_decode_match_jax(arch, pair):
     assert none is None and max_err(tfree, jout) < 1e-5
 
 
-def test_gqa_attend_window_and_mla_wait():
-    cfg = SMOKE["qwen3-1.7b"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.gqa_attend({}, cfg, torch.zeros(1, 2, cfg.d_model),
-                        torch.arange(2)[None, :], window=8)
+def test_gqa_attend_window_and_mla_wait(pair):
+    """A sliding window takes a ring of at most ``window`` rows; a linear
+    cache must hold every position (only a window's cache keeps a tail);
+    MLA and sequence-parallel prefill wait for their ROADMAP items."""
+    p = pair("qwen3-1.7b", "float32")
+    cfg = p.cfg
+    tp = {k: v[0] for k, v in p.params["blocks"]["attn"].items()}
+    x = torch.zeros(1, 6, cfg.d_model)
+    pos = torch.arange(6)[None, :]
+
+    def cache(rows):
+        shape = (1, rows, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return torch.zeros(shape), torch.zeros(shape)
+    with pytest.raises(ValueError, match="at most 4 rows"):
+        attn.gqa_attend(tp, cfg, x, pos, window=4, cache=cache(5))
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        attn.gqa_attend(tp, cfg, x, pos, cache=cache(5))
+    with pytest.raises(NotImplementedError, match="sliding window"):
+        attn.gqa_attend(tp, cfg, x[:, :1], pos[:, :1], cache=cache(5),
+                        cache_len=5)
+    out, ring = attn.gqa_attend(tp, cfg, x, pos, window=4, cache=cache(4))
+    assert out.shape == x.shape and ring[0].shape[1] == 4
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attn.mla_attend()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -335,11 +352,12 @@ def test_decode_steps_write_cache_in_place(pair):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m",
-                                  "rwkv6-3b", "zamba2-2.7b"])
+                                  "rwkv6-3b", "zamba2-2.7b", "gemma3-4b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_step_device_position_equals_int_position(arch, dtype,
                                                          pair):
-    """Dense, MoE, RWKV6 and Mamba2 hybrid: decode steps at a 0-d int64
+    """Dense, MoE, RWKV6, Mamba2 hybrid and gemma3 (its local layers' ring
+    wrapping: a prompt of 14 over a window of 8): decode steps at a 0-d int64
     position tensor (the captured graph's, advanced in place) give the
     logits and caches of the same steps at Python ints, bitwise."""
     p = pair(arch, dtype)

@@ -3,8 +3,9 @@
 re-run on ``repro_torch``, and — in float32, from converted parameters —
 the same greedy tokens as the JAX engine for every stage of the workflow,
 served by the dense pair (qwen3 + glm4), by the MoE + RWKV6 pair
-(granite-moe as ``"qwen-7b"``, rwkv6 as ``"llama-8b"``) and by the hybrid
-pair (zamba2 as ``"qwen-7b"``, qwen3 as ``"llama-8b"``).
+(granite-moe as ``"qwen-7b"``, rwkv6 as ``"llama-8b"``), by the hybrid
+pair (zamba2 as ``"qwen-7b"``, qwen3 as ``"llama-8b"``) and by gemma3's
+local/global layers beside qwen3.
 """
 import dataclasses
 
@@ -308,21 +309,28 @@ def hybrid_engines():
     return _float32_bundles("zamba2-2.7b", "qwen3-1.7b")
 
 
-def _same_tokens_at_prompt_7(engines, policy, n_devices):
-    """Serve the workflow at prompt 7 in both engines, hold every stage's
-    tokens equal, and return the port's engine."""
+@pytest.fixture(scope="module")
+def gemma_engines():
+    """gemma3 and qwen3 SMOKE bundles in float32, JAX and port."""
+    return _float32_bundles("gemma3-4b", "qwen3-1.7b")
+
+
+def _same_tokens_at_prompt_7(engines, policy, n_devices, plen=7):
+    """Serve the workflow at prompt ``plen`` (7 unless given) in both
+    engines, hold every stage's tokens equal, and return the port's
+    engine."""
     jax_bundles, port_bundles = engines
-    prompts = _prompts(8, plen=7)
+    prompts = _prompts(8, plen=plen)
     gen_len = 4
 
     jeng = jax_engine.ServingEngine(jax_bundles, n_devices=n_devices,
-                                    gen_len=gen_len, prompt_len=7)
+                                    gen_len=gen_len, prompt_len=plen)
     jres = jeng.run_workflow(
         _workflow(JaxStage, JaxWorkflow), jax_make_policy(policy),
         jax_fresh_state(jax_cluster(n_devices)), jnp.asarray(prompts))
 
     peng = ServingEngine(port_bundles, n_devices=n_devices, device="cpu",
-                         gen_len=gen_len, prompt_len=7)
+                         gen_len=gen_len, prompt_len=plen)
     pres = peng.run_workflow(
         _workflow(), make_policy(policy),
         fresh_state(homogeneous_cluster(n_devices)),
@@ -389,3 +397,26 @@ def test_hybrid_workflow_same_greedy_tokens_as_jax_engine(
     assert 7 % hybrid_engines[1]["qwen-7b"].cfg.ssm.chunk
     _same_tokens_at_prompt_7(hybrid_engines, policy, n_devices)
 
+
+
+@pytest.mark.parametrize("policy,n_devices", [("FATE", 2),
+                                              ("RoundRobin", 1)])
+def test_gemma3_workflow_same_greedy_tokens_as_jax_engine(
+        gemma_engines, policy, n_devices):
+    """gemma3 serves retrieve, work_b and merge, qwen3 work_a, at prompt
+    12 over SMOKE's window of 8 (``max_len`` 16): each prefill keeps the
+    last 8 positions in the local layers' rings, and the decode steps
+    wrap them, where the reference rolls its cache.  Both kinds of layer
+    cache of every key are live: local rings of 8 rows, global caches of
+    16."""
+    peng = _same_tokens_at_prompt_7(gemma_engines, policy, n_devices,
+                                    plen=12)
+    slots = gemma_engines[1]["qwen-7b"].decoder.slots
+    assert slots
+    for (batch, max_len), slot in slots.items():
+        assert max_len == 16
+        assert slot.cache["local"]["k"].shape[2] == 8
+        assert slot.cache["global"]["k"].shape[2] == 16
+        for kind in ("local", "global"):
+            assert bool((slot.cache[kind]["k"] != 0).any())
+    assert any(r.model == "qwen-7b" for r in peng.log)
