@@ -83,11 +83,32 @@ ends the run with a non-zero exit code and no result line:
    kernel path must reproduce the served tokens) and in float32 at full
    width with its first six layers (five local, one global; logits
    within 1e-3 of their largest magnitude, every greedy token equal).
+11. ``serve_deepseek`` – the same workflow with deepseek-v2-236b
+   (multi-head latent attention: 128 heads, query/key head dim 128 + 64,
+   value head dim 128, latent rank 512; 160 experts, top 6, and 2 shared
+   experts; vocab 102400) as "qwen-7b" at full width, its depth cut from
+   60 to 6 layers (the dense first layer and 5 MoE layers: 236 B
+   parameters do not fit the card; the line's ``reduced`` says so), and
+   qwen3-1.7b as "llama-8b", after the fourth pair's weights are freed:
+   K1 launches once per layer at deepseek's prefill with D = 192 over
+   Dv = 128, K3 three times per MoE layer at its prefill and every decode
+   step, K2 never (the absorbed decode step is plain matrix products, as
+   in the reference, inside the captured graph).
+12. ``parity_deepseek`` – deepseek's first served shard teacher-forced
+   with the kernels and with the plain versions: in bf16 at the served
+   depth with the routing held as for granite (the kernel path must
+   reproduce the served tokens), then, with the served weights freed, in
+   float32 at full width with the dense layer and one MoE layer (every
+   layer's update within 1e-3 of its magnitude, every greedy token equal
+   under held routing).
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
 (window 1024; the library call with a sliding mask) and a global one, K2
-on a global cache of 2080 rows and a local ring of 1024.
+on a global cache of 2080 rows and a local ring of 1024; and K1 at
+deepseek's prefill (q, k [8, 512, 128, 192], v [8, 512, 128, 128]; SDPA
+beside it, whose flash backend takes the value head dim unlike the
+query's; each K1 row names the backend SDPA took) and K3 at deepseek's 160 experts, prefill and decode.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
@@ -126,6 +147,11 @@ GEMMA_PROMPT_LEN = 2048
 # gemma3 at full width, cut to its first global layer (5 local, 1 global)
 # for the float32 parity
 GEMMA_F32_LAYERS = 6
+# deepseek-v2-236b at full width: 236 B parameters do not fit the card, so
+# its depth is cut to the dense first layer, as published, and 5 MoE
+# layers (21.25 B parameters, 42.5 GB in bf16); its float32 parity to the
+# dense layer and one MoE layer (about 21 GB)
+DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -150,8 +176,10 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
-# gemma3's head dim: these instantiations must be among them
-REQUIRED_SASS = ("flash_mma_kernel<256>", "decode_mma_kernel<256>")
+# gemma3's head dim and deepseek-v2's (query/key, value) pair: these
+# instantiations must be among them
+REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
+                 "flash_mma_kernel<192,128>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations
 TENSOR_CORE_LAUNCHERS = {
@@ -193,6 +221,10 @@ def fail(msg: str, code: int = 1) -> None:
 
 
 def randn(rng, shape, dtype):
+    """Standard normal values on the card from a numpy generator, or, for
+    operands of gigabytes, from a ``torch.Generator`` on the card."""
+    if isinstance(rng, torch.Generator):
+        return torch.randn(shape, generator=rng, device="cuda").to(dtype)
     x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
     return x.to("cuda", dtype)
 
@@ -430,12 +462,31 @@ def err_by_band(out: torch.Tensor, want: torch.Tensor) -> dict:
     return {"out_abs_max": float(mag.max()), "err_by_band": bands}
 
 
+def sdpa_backend(fn) -> str:
+    """Which of SDPA's backends a call took, read from the names of the
+    kernels it ran (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+                           ("efficient", ("fmha", "cutlass", "efficient"))):
+        if any(m in names for m in marks):
+            return backend
+    return "math"
+
+
 def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
-               bands=False):
+               bands=False, dv=None):
+    """K1 on q [b, sq, h, d], k [b, sk, kv, d] and v [b, sk, kv, dv] (``dv``
+    None: d) against its plain version; ``timed``: also its times, the
+    library call's and the bound."""
     b, sq, sk, h, kv, d = shape
+    dv = dv or d
     q = randn(rng, (b, sq, h, d), dtype)
     k = randn(rng, (b, sk, kv, d), dtype)
-    v = randn(rng, (b, sk, kv, d), dtype)
+    v = randn(rng, (b, sk, kv, dv), dtype)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -444,11 +495,14 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
            "causal": causal, "window": window, "max_abs_err": err,
            "tol": TOL[dtype], "ok": bool(err < TOL[dtype])
            and bool(torch.isfinite(out.float()).all())}
+    if dv != d:
+        rec["value_head_dim"] = dv
     if bands:
         rec.update(err_by_band(out, want))
     if timed:
         pairs = attended_pairs(sq, sk, causal, window)
-        b_ms, by = bound(nbytes(q, k, v, out), 4.0 * b * h * d * pairs, dtype)
+        b_ms, by = bound(nbytes(q, k, v, out),
+                         2.0 * b * h * (d + dv) * pairs, dtype)
         rec.update(
             ms=time_ms(lambda: ops.flash_attention(
                 q, k, v, causal=causal, window=window)),
@@ -458,6 +512,7 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
                 q, k, v, causal=causal, window=window), iters=5, warmup=1),
             library_ms=time_ms(sdpa(q, k, v, causal, window)),
             library_device_ms=device_ms(sdpa(q, k, v, causal, window)),
+            library_backend=sdpa_backend(sdpa(q, k, v, causal, window)),
             bound_ms=b_ms, bound_by=by)
     return rec
 
@@ -692,7 +747,7 @@ def sweep_err(cases, field="max_abs_err"):
 
 
 def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
-                  seed: int) -> dict:
+                  deepseek_cfg, seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
     flash_sweep, decode_sweep = [], []
@@ -741,6 +796,20 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                 decode_main[tag.format(kind) + f"/len{clen}"] = decode_case(
                     ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, clen,
                     timed=timed and clen == rows)
+    # deepseek-v2's prefill: K1 with query/key dim 128 + 64 over value dim
+    # 128, 128 heads of one group each, at the served prompt; timed in the
+    # model's dtype (and at a 2-way shard), held in float32 as well
+    ml = deepseek_cfg.mla
+    dqk, h = ml.qk_nope_head_dim + ml.qk_rope_head_dim, deepseek_cfg.num_heads
+    ds_dt = getattr(torch, deepseek_cfg.dtype)
+    for nq, dt in ((NUM_QUERIES, ds_dt), (NUM_QUERIES // N_DEVICES, ds_dt),
+                   (NUM_QUERIES, torch.float32)):
+        timed = nq == NUM_QUERIES and dt == ds_dt
+        key = f"{deepseek_cfg.name}/nq{nq}" + (
+            "/float32" if dt == torch.float32 else "")
+        flash_main[key] = flash_case(
+            ops, ref, rng, (nq, PROMPT_LEN, PROMPT_LEN, h, h, dqk), dt, True,
+            0, timed=timed, bands=timed, dv=ml.v_head_dim)
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
     for e, c, d, f in MOE_SWEEP:
@@ -772,6 +841,26 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             ops, ref, randn(rng, (nq, m.num_experts, 8, m.d_expert), dt),
             w_down, timed=timed)
         del w_up, w_down
+    # deepseek-v2's 160 experts of d 5120 <-> 1536 at its prefill capacity
+    # (24) and its decode capacity (8); the weights (2.5 GB each) drawn on
+    # the card
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m, dm = deepseek_cfg.moe, deepseek_cfg.d_model
+    w_up = randn(gen, (m.num_experts, dm, m.d_expert), ds_dt)
+    w_down = randn(gen, (m.num_experts, m.d_expert, dm), ds_dt)
+    for nq in (NUM_QUERIES, NUM_QUERIES // N_DEVICES):
+        timed = nq == NUM_QUERIES
+        for stage, cap in (("prefill", _capacity(PROMPT_LEN, deepseek_cfg)),
+                           ("decode", _capacity(1, deepseek_cfg))):
+            tag = f"{deepseek_cfg.name}/{stage}"
+            moe_main[f"{tag}_up/nq{nq}"] = moe_case(
+                ops, ref, dispatch_view(gen, nq, m.num_experts, cap, dm,
+                                        ds_dt), w_up, timed=timed)
+            moe_main[f"{tag}_down/nq{nq}"] = moe_case(
+                ops, ref, randn(gen, (nq, m.num_experts, cap, m.d_expert),
+                                ds_dt), w_down, timed=timed)
+    del w_up, w_down
+    torch.cuda.empty_cache()
     # K5: the sweep, an initial state, bf16 inputs, the serving shape
     rwkv_sweep = []
     for s_len, chunk in RWKV_SWEEP:
@@ -891,7 +980,8 @@ def expected_launches(bundles, wf, placements,
                       prompt_len: int = PROMPT_LEN) -> dict:
     """Kernel launches the recorded placements call for: per shard run, a
     model that attends launches K1 once per layer at prefill and K2 once
-    per layer at each of the GEN_LEN - 1 decode steps; an MoE model K3
+    per layer at each of the GEN_LEN - 1 decode steps (none for MLA, whose
+    absorbed decode step is plain matrix products); an MoE model K3
     three times per MoE layer at prefill and at every decode step; an
     RWKV6 model K5 once per layer at prefill (its decode step is plain);
     a Mamba2 hybrid K4 once per layer at prefill (its decode step is
@@ -917,7 +1007,8 @@ def expected_launches(bundles, wf, placements,
             exp["decode_attention"] += sites * runs * (GEN_LEN - 1)
             continue
         exp["flash_attention"] += cfg.num_layers * runs
-        exp["decode_attention"] += cfg.num_layers * runs * (GEN_LEN - 1)
+        if cfg.attention != "mla":
+            exp["decode_attention"] += cfg.num_layers * runs * (GEN_LEN - 1)
         if cfg.moe is not None:
             gemms = 3 * (cfg.num_layers - cfg.moe_layer_start)
             exp["moe_gemm"] += gemms * runs * GEN_LEN
@@ -956,12 +1047,13 @@ def ring_and_global_rows(bundle, prompt_len: int) -> tuple[dict, list]:
 
 
 def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
-                prompt_len: int = PROMPT_LEN):
+                prompt_len: int = PROMPT_LEN, reduced: dict | None = None):
     """Serve the example's workflow with ``models`` = {served name:
     (config, weight seed)} at ``prompt_len``; the launch counts must be
     what the placements call for, every kernel the models use launched at
     least once; a local/global model's ring and global caches must hold
-    the rows their sizes call for."""
+    the rows their sizes call for.  ``reduced`` names what was cut from a
+    published config, printed on the phase's line."""
     ops = mods["ops"]
     t0 = time.perf_counter()
     bundles = {name: mods["ModelBundle"].create(name, cfg, seed=wseed)
@@ -1050,6 +1142,7 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
                           "vocab": b.cfg.vocab_size,
                           "params": b.cfg.param_count()}
                    for name, b in bundles.items()},
+        **({"reduced": reduced} if reduced else {}),
         "queries": NUM_QUERIES, "virtual_devices": N_DEVICES,
         "prompt_len": prompt_len, "gen_len": GEN_LEN,
         "init_seconds": init_s, "stages": stages,
@@ -1456,9 +1549,72 @@ def phase_parity_gemma3(mods, bundles, prompts, policy, results, wf,
     return out
 
 
+@torch.inference_mode()
+def phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
+                          seed: int) -> dict:
+    """deepseek-v2, served as "qwen-7b", its first served shard
+    teacher-forced at int positions with the kernels and with the plain
+    versions: in bf16 at the served depth, with a plain run held to the
+    kernel run's routing as for granite (gates: finite logits, the served
+    tokens reproduced by the kernel path; the logit differences and greedy
+    agreement, routing free and held, are reported); then, with the served
+    bundles freed, in float32 at full width and DEEPSEEK_F32_LAYERS layers,
+    the dense one and one MoE layer (gates, as granite's: every layer's
+    update within PARITY_F32_REL of its magnitude on the same input, and
+    every greedy token equal under the kernel run's routing; the whole
+    model's numbers are reported beside them)."""
+    ops, ref, moe_mod = mods["ops"], mods["ref"], mods["moe"]
+    name = "qwen-7b"
+    bundle = bundles[name]
+    sid, shard, served = first_shard(policy.placements, wf, prompts,
+                                     results, name)
+    problems = []
+    bf16 = kernel_vs_plain(ops, ref, bundle, shard, served, moe_mod)
+    if not (bf16["finite"] and bf16["kernel_path_reproduces_served_tokens"]):
+        problems.append(f"{bundle.cfg.name} bf16: logits not finite or "
+                        f"served tokens not reproduced")
+    cfg32 = dataclasses.replace(bundle.cfg, dtype="float32",
+                                num_layers=DEEPSEEK_F32_LAYERS)
+    del bundle
+    bundles.clear()             # the served weights (42.5 GB) go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    b32 = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+    f32 = kernel_vs_plain(ops, ref, b32, shard, served, moe_mod)
+    f32["layerwise"] = layerwise(ops, ref, moe_mod, b32, shard, served)
+    f32["tol"] = PARITY_F32_REL
+    del b32
+    if not (f32["finite"]
+            and f32["layerwise"]["max_rel_update_diff"] <= f32["tol"]
+            and f32["routing_held"]["greedy_tokens_agree"]):
+        problems.append(f"{cfg32.name} float32: a layer's kernel and plain "
+                        f"updates differ beyond {f32['tol']} or greedy "
+                        f"tokens differ under held routing")
+    out = {"phase": "parity_deepseek", "ok": not problems,
+           name: {"stage": sid, "bf16_served_depth": bf16,
+                  "float32_cut_depth": f32},
+           "problems": problems}
+    emit(out)
+    if problems:
+        fail("parity_deepseek phase failed: " + "; ".join(problems))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # optional: where one stage's time goes (--profile)
 # ---------------------------------------------------------------------------
+
+
+def weight_bytes(bundle) -> int:
+    """Bytes of the weights one decode step reads: every parameter, but
+    the embedding table where the head is a matrix of its own (a step
+    gathers B of its rows)."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+    skip = None if bundle.cfg.tie_embeddings else bundle.params.get("embed")
+    return sum(nbytes(x) for x in leaves(bundle.params) if x is not skip)
 
 
 def kernel_rows(prof) -> list:
@@ -1578,6 +1734,7 @@ def phase_profile(bundles, prompts, name: str) -> dict:
         "prefill_device_s": prefill_dev_s,
         "prefill_device_busy_share": prefill_dev_s / walls["eager"][0],
         "decode_ms_per_step": step_ms,
+        "weights_bound_ms": weight_bytes(bundle) / HBM_BYTES_PER_S * 1e3,
         "graph_speedup": step_ms["eager"] / step_ms["graph"],
         # the profiler sees the kernels inside a replay (else the graph's
         # busy share would not be its own)
@@ -1613,8 +1770,8 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
         timed = {k: c for k, c in main.items() if "ms" in c}
         key = next(k for k in timed if k.startswith(main_key[name]))
         c = timed[key]
-        fields = ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                  "bound_by", "library_ms", "library_device_ms")
+        fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                  "bound_ms", "bound_by", "library_ms", "library_device_ms")
         launches = sum(o["launches"][name] for o in serve_outs)
         row = {
             "name": name, "route": "cuda",
@@ -1632,8 +1789,9 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             "library_ms": c["library_ms"],
             "library_device_ms": c["library_device_ms"],
             "shape": c["shape"], "dtype": c["dtype"],
-            "other_shapes": {k: {f: x[f] for f in fields}
-                             for k, x in timed.items() if k != key},
+            "other_shapes": {k: {f: x[f] for f in fields + (
+                "value_head_dim", "library_backend") if f in x}
+                for k, x in timed.items() if k != key},
         }
         if name == "moe_gemm":
             dkey = next(k for k in timed if k.startswith("decode_up"))
@@ -1690,6 +1848,8 @@ def main() -> None:
     glm = dataclasses.replace(ARCHS["glm4-9b"], vocab_size=qwen.vocab_size)
     granite, rwkv = ARCHS["granite-moe-3b-a800m"], ARCHS["rwkv6-3b"]
     zamba, gemma = ARCHS["zamba2-2.7b"], ARCHS["gemma3-4b"]
+    deepseek = dataclasses.replace(ARCHS["deepseek-v2-236b"],
+                                   num_layers=DEEPSEEK_LAYERS)
     attn_cfgs = {"qwen3-1.7b": qwen, "glm4-9b": glm,
                  "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
@@ -1697,7 +1857,7 @@ def main() -> None:
     t_all = time.perf_counter()
     _, smi_line = phase_device(_build)
     kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
-                                gemma, args.seed)
+                                gemma, deepseek, args.seed)
     serve_out, bundles, prompts, policy, results = phase_serve(
         mods, {"qwen-7b": (qwen, args.seed), "llama-8b": (glm, args.seed + 1)},
         args.seed)
@@ -1739,8 +1899,21 @@ def main() -> None:
         phase_profile(bundles, prompts, "qwen-7b")
     phase_parity_gemma3(mods, bundles, prompts, policy, results, wf,
                         args.seed)
+    del bundles, policy, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve5_out, bundles, prompts, policy, results = phase_serve(
+        mods, {"qwen-7b": (deepseek, args.seed),
+               "llama-8b": (qwen, args.seed + 1)},
+        args.seed, phase="serve_deepseek",
+        reduced={"num_layers": f"{ARCHS['deepseek-v2-236b'].num_layers} -> "
+                               f"{DEEPSEEK_LAYERS}"})
+    if args.profile:
+        phase_profile(bundles, prompts, "qwen-7b")
+    phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
+                          args.seed)
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
-                                      serve4_out]))
+                                      serve4_out, serve5_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {

@@ -30,9 +30,13 @@ LIB_NAME = "libfate_kernels.so"
 
 # conventions of the C interface, shared by the wrappers
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dims both attention kernels are instantiated for (their dispatch
-# switches in csrc/): 80 for zamba2, 256 for gemma3
-ATTN_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# (query/key head dim, value head dim) pairs that K1's dispatches in
+# csrc/flash_attention.cu instantiate: 80 for zamba2, 256 for gemma3,
+# (192, 128) for deepseek-v2's multi-head latent attention
+FLASH_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+                   (256, 256), (192, 128))
+# head dims of K2's dispatch switches in csrc/decode_attention.cu
+DECODE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0      # wall time of the build this process made
@@ -153,7 +157,8 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point: without them ctypes would pass
 # pointers as 32-bit ints
 ARGTYPES = {
-    "fate_flash_attention": [_P] * 4 + [_I32] * 6 + [_I64] * 12 + [_I32] * 3
+    # ..., B, Sq, Sk, H, KV, D, Dv, strides, causal, window, dtype, stream
+    "fate_flash_attention": [_P] * 4 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
     + [_P],
     # ..., B, H, KV, D, S, cache_len_dev, cache_len, chunk, nsplit, ...
     "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3

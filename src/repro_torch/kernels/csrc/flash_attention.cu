@@ -7,6 +7,10 @@
 //   (causal) q_pos < k_pos, or (window) q_pos - k_pos >= window;
 //   out = softmax(s) @ v, with float32 scores and a float32 accumulator;
 //   out = acc / max(l, 1e-30) cast to the input type.
+// q and k have head dim D, v and out a value head dim Dv, which is D for
+// every model but deepseek-v2's multi-head latent attention, whose prefill
+// attends with D = 128 + 64 (no-rope and rope parts) over Dv = 128.  The
+// scale stays D^-0.5, as in the XLA twin of the JAX models.
 //
 // Shape of both kernels.  The TPU grid (B*KV*G, nQ, nK) carried (m, l,
 // acc) in VMEM across sequential nK steps.  Here one block owns one
@@ -36,7 +40,9 @@
 // fragments are read from shared memory by ldmatrix at each k16 step, and
 // the KV tiles are 32 rows (the score tile 16 floats per thread), which
 // also brings the block's shared memory to 101,376 bytes, so that two
-// blocks fit an SM.  S = Q K^T is
+// blocks fit an SM.  At (D, Dv) = (192, 128) Q's fragments (48 registers)
+// stay in registers beside the 128-column accumulator and the KV tiles
+// stay 64 rows: 111,616 bytes, two blocks per SM.  S = Q K^T is
 // mma.sync m16n8k16 (bf16 operands, float32 accumulation: the products of
 // the Pallas kernel, which casts bf16 to float32 before its dot).  The
 // accumulator fragments are masked and online-softmaxed in registers;
@@ -78,7 +84,7 @@ using bf16 = __nv_bfloat16;
 constexpr int BM = 64;          // query rows per block
 constexpr int NTHREADS = 256;   // 16 x 16
 
-template <typename T, int D, int BN>
+template <typename T, int D, int DV, int BN>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -91,14 +97,15 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int QS = D + 4;     // row stride of Qs and Ks (floats)
   constexpr int PS = BN + 4;    // row stride of Ps
   constexpr int CN = BN / 16;   // score columns per thread
-  constexpr int DN = D / 16;    // output columns per thread
+  constexpr int DN = DV / 16;   // output columns per thread
   constexpr int D4 = D / 4;
+  constexpr int DV4 = DV / 4;
 
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;               // [BM][QS]
   float* Ks = Qs + BM * QS;       // [BN][QS]
-  float* Vs = Ks + BN * QS;       // [BN][D]
-  float* Ps = Vs + BN * D;        // [BM][PS]
+  float* Vs = Ks + BN * QS;       // [BN][DV]
+  float* Ps = Vs + BN * DV;       // [BM][PS]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -138,17 +145,34 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += BN) {
     __syncthreads();   // the previous tile's PV product has read Ks/Vs/Ps
-    for (int idx = tid; idx < BN * D4; idx += NTHREADS) {
-      const int r = idx / D4;
-      const int c = (idx % D4) * 4;
-      float4 kval = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vval = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < Sk) {
-        kval = load4<T>(kb + (int64_t)(k0 + r) * k_ss + c);
-        vval = load4<T>(vb + (int64_t)(k0 + r) * v_ss + c);
+    if constexpr (D == DV) {   // K and V rows side by side
+      for (int idx = tid; idx < BN * D4; idx += NTHREADS) {
+        const int r = idx / D4;
+        const int c = (idx % D4) * 4;
+        float4 kval = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 vval = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < Sk) {
+          kval = load4<T>(kb + (int64_t)(k0 + r) * k_ss + c);
+          vval = load4<T>(vb + (int64_t)(k0 + r) * v_ss + c);
+        }
+        *reinterpret_cast<float4*>(&Ks[r * QS + c]) = kval;
+        *reinterpret_cast<float4*>(&Vs[r * DV + c]) = vval;
       }
-      *reinterpret_cast<float4*>(&Ks[r * QS + c]) = kval;
-      *reinterpret_cast<float4*>(&Vs[r * D + c]) = vval;
+    } else {
+      for (int idx = tid; idx < BN * D4; idx += NTHREADS) {
+        const int r = idx / D4;
+        const int c = (idx % D4) * 4;
+        float4 kval = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < Sk) kval = load4<T>(kb + (int64_t)(k0 + r) * k_ss + c);
+        *reinterpret_cast<float4*>(&Ks[r * QS + c]) = kval;
+      }
+      for (int idx = tid; idx < BN * DV4; idx += NTHREADS) {
+        const int r = idx / DV4;
+        const int c = (idx % DV4) * 4;
+        float4 vval = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < Sk) vval = load4<T>(vb + (int64_t)(k0 + r) * v_ss + c);
+        *reinterpret_cast<float4*>(&Vs[r * DV + c]) = vval;
+      }
     }
     __syncthreads();
 
@@ -222,10 +246,10 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
         const int dc = tx + 16 * j;
-        const float v0 = Vs[(n + 0) * D + dc];
-        const float v1 = Vs[(n + 1) * D + dc];
-        const float v2 = Vs[(n + 2) * D + dc];
-        const float v3 = Vs[(n + 3) * D + dc];
+        const float v0 = Vs[(n + 0) * DV + dc];
+        const float v1 = Vs[(n + 1) * DV + dc];
+        const float v2 = Vs[(n + 2) * DV + dc];
+        const float v3 = Vs[(n + 3) * DV + dc];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[i][j] = fmaf(pv[i].x, v0, acc[i][j]);
@@ -257,15 +281,20 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int MMA_BM = 64;         // query rows per block, 16 per warp
 constexpr int MMA_THREADS = 128;   // 4 warps
 
-template <int D>
+// The output accumulator is DV / 2 floats per thread and Q's fragments
+// D / 4 registers: with DV <= 128 both fit beside a 64-key score tile up
+// to D = 192 (deepseek's 128 + 64 query/key dims over a value dim of 128).
+template <int D, int DV>
 struct MmaTile {
-  static constexpr int BN = D > 128 ? 32 : 64;   // keys per KV tile
-  static constexpr bool Q_IN_REGS = D <= 128;    // else ldmatrix per step
-  static constexpr int RS = D + 8;   // row stride (elements): 16-byte pad
-  static constexpr int SMEM = (MMA_BM + 4 * BN) * RS * 2;  // Q, 2 K, 2 V
+  static constexpr int BN = DV > 128 ? 32 : 64;   // keys per KV tile
+  static constexpr bool Q_IN_REGS = D <= 192 && DV <= 128;  // else ldmatrix
+  static constexpr int RS = D + 8;    // row stride of Q and K: 16-byte pad
+  static constexpr int RSV = DV + 8;  // row stride of V
+  static constexpr int SMEM =         // Q, 2 K stages, 2 V stages
+      ((MMA_BM + 2 * BN) * RS + 2 * BN * RSV) * 2;
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -275,17 +304,20 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
                  int causal, int window, float scale_log2) {
-  constexpr int RS = MmaTile<D>::RS;
-  constexpr int MMA_BN = MmaTile<D>::BN;
+  using Tile = MmaTile<D, DV>;
+  constexpr int RS = Tile::RS;
+  constexpr int RSV = Tile::RSV;
+  constexpr int MMA_BN = Tile::BN;
   constexpr int SJ = MMA_BN / 8;   // 8-key tiles of the scores
-  constexpr int CH = D / 8;    // 16-byte chunks per row
+  constexpr int CH = D / 8;    // 16-byte chunks per Q / K row
+  constexpr int CHV = DV / 8;  // 16-byte chunks per V row
   constexpr int KS = D / 16;   // k16 steps of Q K^T
-  constexpr int NT = D / 8;    // 8-column tiles of the output
+  constexpr int NT = DV / 8;   // 8-column tiles of the output
 
   extern __shared__ __align__(16) uint8_t mma_smem[];
   bf16* Qs = reinterpret_cast<bf16*>(mma_smem);   // [BM][RS]
   bf16* Ks = Qs + MMA_BM * RS;                    // [2][BN][RS]
-  bf16* Vs = Ks + 2 * MMA_BN * RS;                // [2][BN][RS]
+  bf16* Vs = Ks + 2 * MMA_BN * RS;                // [2][BN][RSV]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -315,16 +347,35 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   auto load_kv = [&](int stage, int k0) {
     bf16* ks = Ks + stage * MMA_BN * RS;
-    bf16* vs = Vs + stage * MMA_BN * RS;
-    for (int idx = tid; idx < MMA_BN * CH; idx += MMA_THREADS) {
-      const int r = idx / CH;
-      const int c = idx % CH;
-      const bool ok = k0 + r < Sk;
-      const int64_t row = k0 + r;
-      cp_async16(smem_addr(ks + r * RS + 8 * c),
-                 ok ? kb + row * k_ss + 8 * c : k, ok ? 16 : 0);
-      cp_async16(smem_addr(vs + r * RS + 8 * c),
-                 ok ? vb + row * v_ss + 8 * c : v, ok ? 16 : 0);
+    bf16* vs = Vs + stage * MMA_BN * RSV;
+    if constexpr (D == DV) {   // K and V rows side by side
+      for (int idx = tid; idx < MMA_BN * CH; idx += MMA_THREADS) {
+        const int r = idx / CH;
+        const int c = idx % CH;
+        const bool ok = k0 + r < Sk;
+        const int64_t row = k0 + r;
+        cp_async16(smem_addr(ks + r * RS + 8 * c),
+                   ok ? kb + row * k_ss + 8 * c : k, ok ? 16 : 0);
+        cp_async16(smem_addr(vs + r * RSV + 8 * c),
+                   ok ? vb + row * v_ss + 8 * c : v, ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < MMA_BN * CH; idx += MMA_THREADS) {
+        const int r = idx / CH;
+        const int c = idx % CH;
+        const bool ok = k0 + r < Sk;
+        cp_async16(smem_addr(ks + r * RS + 8 * c),
+                   ok ? kb + (int64_t)(k0 + r) * k_ss + 8 * c : k,
+                   ok ? 16 : 0);
+      }
+      for (int idx = tid; idx < MMA_BN * CHV; idx += MMA_THREADS) {
+        const int r = idx / CHV;
+        const int c = idx % CHV;
+        const bool ok = k0 + r < Sk;
+        cp_async16(smem_addr(vs + r * RSV + 8 * c),
+                   ok ? vb + (int64_t)(k0 + r) * v_ss + 8 * c : v,
+                   ok ? 16 : 0);
+      }
     }
   };
   if (k_begin < k_end) load_kv(0, k_begin);
@@ -341,7 +392,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 4; ++r) o[j][r] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF};
   float l_r[2] = {0.f, 0.f};      // this thread's share of the row sums
-  uint32_t qf[MmaTile<D>::Q_IN_REGS ? KS : 1][4];
+  uint32_t qf[Tile::Q_IN_REGS ? KS : 1][4];
   const uint32_t q_frag = smem_addr(Qs + (warp * 16 + (lane & 15)) * RS +
                                     8 * (lane >> 4));
 
@@ -355,14 +406,14 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (MmaTile<D>::Q_IN_REGS) {
+    if constexpr (Tile::Q_IN_REGS) {
       if (k0 == k_begin) {
 #pragma unroll
         for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], q_frag + 32 * kk);
       }
     }
     const bf16* ks = Ks + st * MMA_BN * RS;
-    const bf16* vs = Vs + st * MMA_BN * RS;
+    const bf16* vs = Vs + st * MMA_BN * RSV;
 
     // s = q . k: SJ tiles of 8 keys; one ldmatrix.x4 gives the B
     // fragments of two key tiles at one k16 step
@@ -374,7 +425,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       uint32_t qa[4];
-      if constexpr (MmaTile<D>::Q_IN_REGS) {
+      if constexpr (Tile::Q_IN_REGS) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) qa[r] = qf[kk][r];
       } else {
@@ -445,7 +496,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int jd = 0; jd < NT / 2; ++jd) {
         uint32_t bf[4];
         ldsm_x4_trans(bf, smem_addr(vs + (16 * t + (lane & 7) +
-                                          8 * ((lane >> 3) & 1)) * RS +
+                                          8 * ((lane >> 3) & 1)) * RSV +
                                     8 * (2 * jd + (lane >> 4))));
         mma_bf16(o[2 * jd], a, bf[0], bf[1]);
         mma_bf16(o[2 * jd + 1], a, bf[2], bf[3]);
@@ -483,13 +534,13 @@ struct FlashArgs {
   cudaStream_t stream;
 };
 
-template <int D>
+template <int D, int DV>
 int launch_flash(const FlashArgs& a) {
   constexpr int BN = (D > 64) ? 32 : 64;
   constexpr size_t smem_bytes =
-      sizeof(float) * (BM * (D + 4) + BN * (D + 4) + BN * D + BM * (BN + 4));
+      sizeof(float) * (BM * (D + 4) + BN * (D + 4) + BN * DV + BM * (BN + 4));
   static unsigned smem_set = 0;
-  auto kern = flash_fma_kernel<float, D, BN>;
+  auto kern = flash_fma_kernel<float, D, DV, BN>;
   cudaError_t err = allow_smem(kern, (int)smem_bytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + BM - 1) / BM, a.H, a.B);
@@ -502,15 +553,16 @@ int launch_flash(const FlashArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_flash_mma(const FlashArgs& a) {
+  constexpr int smem_bytes = MmaTile<D, DV>::SMEM;
   static unsigned smem_set = 0;
-  auto kern = flash_mma_kernel<D>;
-  cudaError_t err = allow_smem(kern, MmaTile<D>::SMEM, smem_set);
+  auto kern = flash_mma_kernel<D, DV>;
+  cudaError_t err = allow_smem(kern, smem_bytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.Sq + MMA_BM - 1) / MMA_BM, a.H, a.B);
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  kern<<<grid, MMA_THREADS, MmaTile<D>::SMEM, a.stream>>>(
+  kern<<<grid, MMA_THREADS, smem_bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.Sq, a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
@@ -519,28 +571,28 @@ int launch_flash_mma(const FlashArgs& a) {
   return (int)cudaGetLastError();
 }
 
-int dispatch_fma(const FlashArgs& a, int D) {
-  switch (D) {
-    case 16: return launch_flash<16>(a);
-    case 32: return launch_flash<32>(a);
-    case 64: return launch_flash<64>(a);
-    case 80: return launch_flash<80>(a);
-    case 128: return launch_flash<128>(a);
-    case 256: return launch_flash<256>(a);
-    default: return -1;
-  }
+// (query/key head dim D, value head dim Dv) pairs: kernels/_build.py ::
+// FLASH_HEAD_DIMS lists the same
+int dispatch_fma(const FlashArgs& a, int D, int Dv) {
+  if (D == 16 && Dv == 16) return launch_flash<16, 16>(a);
+  if (D == 32 && Dv == 32) return launch_flash<32, 32>(a);
+  if (D == 64 && Dv == 64) return launch_flash<64, 64>(a);
+  if (D == 80 && Dv == 80) return launch_flash<80, 80>(a);
+  if (D == 128 && Dv == 128) return launch_flash<128, 128>(a);
+  if (D == 256 && Dv == 256) return launch_flash<256, 256>(a);
+  if (D == 192 && Dv == 128) return launch_flash<192, 128>(a);
+  return -1;
 }
 
-int dispatch_mma(const FlashArgs& a, int D) {
-  switch (D) {
-    case 16: return launch_flash_mma<16>(a);
-    case 32: return launch_flash_mma<32>(a);
-    case 64: return launch_flash_mma<64>(a);
-    case 80: return launch_flash_mma<80>(a);
-    case 128: return launch_flash_mma<128>(a);
-    case 256: return launch_flash_mma<256>(a);
-    default: return -1;
-  }
+int dispatch_mma(const FlashArgs& a, int D, int Dv) {
+  if (D == 16 && Dv == 16) return launch_flash_mma<16, 16>(a);
+  if (D == 32 && Dv == 32) return launch_flash_mma<32, 32>(a);
+  if (D == 64 && Dv == 64) return launch_flash_mma<64, 64>(a);
+  if (D == 80 && Dv == 80) return launch_flash_mma<80, 80>(a);
+  if (D == 128 && Dv == 128) return launch_flash_mma<128, 128>(a);
+  if (D == 256 && Dv == 256) return launch_flash_mma<256, 256>(a);
+  if (D == 192 && Dv == 128) return launch_flash_mma<192, 128>(a);
+  return -1;
 }
 
 // The bf16 kernel's 16-byte copies: the 16-byte rule (common.cuh) on q,
@@ -558,14 +610,14 @@ bool aligned_for_mma(const FlashArgs& a) {
 }  // namespace
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the mma.sync kernel,
-// which needs aligned_for_mma).  Strides are in elements; the last
-// dimension of every tensor has stride 1.  Returns cudaGetLastError()
-// after the launch (0 on success), -1 for an unsupported head dim, dtype
-// or alignment.  Launches on `stream`, does not synchronise, allocates
-// nothing.
+// which needs aligned_for_mma).  q and k have head dim D, v and out Dv.
+// Strides are in elements; the last dimension of every tensor has stride
+// 1.  Returns cudaGetLastError() after the launch (0 on success), -1 for
+// an unsupported (D, Dv) pair, dtype or alignment.  Launches on `stream`,
+// does not synchronise, allocates nothing.
 extern "C" int fate_flash_attention(
     const void* q, const void* k, const void* v, void* out,
-    int B, int Sq, int Sk, int H, int KV, int D,
+    int B, int Sq, int Sk, int H, int KV, int D, int Dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -575,7 +627,7 @@ extern "C" int fate_flash_attention(
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window,
               static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_fma(a, D);
-  if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D) : -1;
+  if (dtype == 0) return dispatch_fma(a, D, Dv);
+  if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D, Dv) : -1;
   return -1;
 }

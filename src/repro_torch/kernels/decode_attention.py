@@ -166,8 +166,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode_attention kernel for {q.device}")
     g = h // kv
-    if d not in _build.ATTN_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_build.ATTN_HEAD_DIMS}")
+    if d not in _build.DECODE_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_build.DECODE_HEAD_DIMS}")
     if g > MAX_GROUP:
         raise ValueError(f"{g} query heads per KV head; the kernel takes "
                          f"at most {MAX_GROUP}")

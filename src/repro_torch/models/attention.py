@@ -1,20 +1,23 @@
-"""GQA attention block of the port.
+"""Attention blocks of the port: GQA, and deepseek-v2's multi-head latent
+attention (MLA).
 
-Unlike the JAX models, which run XLA twins of the TPU kernels, this block
-goes through the hand-written kernels: the prefill branch of
-:func:`gqa_attend` calls ``kernels.ops.flash_attention`` and its decode
-branch ``kernels.ops.decode_attention``.  The projections around them are
-plain matrix products, as they are einsums outside any kernel in the
-reference.
+Unlike the JAX models, which run XLA twins of the TPU kernels, these
+blocks go through the hand-written kernels: the prefill branches of
+:func:`gqa_attend` and :func:`mla_attend` call
+``kernels.ops.flash_attention`` (MLA's with a value head dim unlike its
+query/key dim), and the decode branch of :func:`gqa_attend`
+``kernels.ops.decode_attention``.  The projections around them, and MLA's
+absorbed decode step, are plain matrix products, as they are einsums
+outside any kernel in the reference.
 
 Sliding windows (gemma3's local layers) keep their cache as a ring of
 ``L = min(window, max_len)`` rows, position ``p`` in slot ``p mod L``
 (:func:`decode_index`); see :func:`gqa_attend` for how that differs from
 the reference's rolling cache.
 
-Waiting for later slices (each raises ``NotImplementedError``):
+Waiting for a later slice (raises ``NotImplementedError``):
 sequence-parallel prefill (``flash_attention_sp``; ROADMAP queue 1,
-"Launch / analysis") and MLA (ROADMAP queue 1, "MLA").
+"Launch / analysis").
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_rope)
+from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_rope,
+                                       rms_norm)
 
 
 def gqa_defs(cfg) -> dict:
@@ -197,13 +202,133 @@ def flash_attention_sp(*args, **kwargs):
         "yet (ROADMAP queue 1: Launch / analysis)")
 
 
-def mla_defs(cfg):
-    raise NotImplementedError(
-        "multi-head latent attention is not ported yet (ROADMAP queue 1: "
-        "MLA)")
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
 
 
-def mla_attend(*args, **kwargs):
-    raise NotImplementedError(
-        "multi-head latent attention is not ported yet (ROADMAP queue 1: "
-        "MLA)")
+def mla_defs(cfg) -> dict:
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    dt = cfg.dtype
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    defs = {
+        "w_dkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          (FSDP, None), dt),
+        "w_uk": ParamDef((m.kv_lora_rank, h, m.qk_nope_head_dim),
+                         (None, TP, None), dt, fan_in_axes=(0,)),
+        "w_uv": ParamDef((m.kv_lora_rank, h, m.v_head_dim),
+                         (None, TP, None), dt, fan_in_axes=(0,)),
+        "wo": ParamDef((h, m.v_head_dim, d), (TP, None, FSDP), dt,
+                       fan_in_axes=(0, 1)),
+        "kv_norm": ParamDef((m.kv_lora_rank,), (None,), "float32",
+                            init="zeros"),
+    }
+    if m.q_lora_rank:
+        defs["w_dq"] = ParamDef((d, m.q_lora_rank), (FSDP, None), dt)
+        defs["w_uq"] = ParamDef((m.q_lora_rank, h, qd), (None, TP, None), dt,
+                                fan_in_axes=(0,))
+        defs["q_norm"] = ParamDef((m.q_lora_rank,), (None,), "float32",
+                                  init="zeros")
+    else:
+        defs["wq"] = ParamDef((d, h, qd), (FSDP, TP, None), dt)
+    return defs
+
+
+def _mla_queries(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+        q = _project(cq, p["w_uq"])
+    else:
+        q = _project(x, p["wq"])
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_attend(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+               cache: Optional[torch.Tensor] = None, cache_len=0):
+    """MLA with a compressed cache [B, S_cache, kv_lora + rope_dim].
+
+    Returns (out, new_cache).  A prefill (Sq > 1) writes its latent rows
+    [0, Sq) into the cache IN PLACE, reads them back (in the cache's
+    dtype, as the reference does), expands per head keys of dim
+    ``qk_nope + qk_rope`` and values of ``v_head_dim`` through ``w_uk`` /
+    ``w_uv``, and attends through K1 with ``Dv != D``; it starts at an
+    empty cache (``cache_len`` 0, as the reference's prefill, which reads
+    rows [0, Sq) back, assumes) and must fit it.  A decode step (Sq == 1)
+    writes row ``cache_len`` and runs the reference's absorbed form: the
+    query projected into the latent space, the scores against every cached
+    row summed in the cache dtype, masked to the rows below the step's
+    length, and the output projected out through ``w_uv``; plain matrix
+    products, as in the reference.  ``cache_len`` takes the forms
+    :func:`gqa_attend` takes: an int, a 0-d int64 position on the device,
+    or a :class:`DecodeIndex`.  Without a cache it is the training /
+    forward path: the prefill's attention over the fresh latents.
+    """
+    m = cfg.mla
+    r = m.kv_lora_rank
+    b, sq, _ = x.shape
+    ckv = x @ p["w_dkv"]
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+
+    new_cache = None
+    if cache is not None:
+        rows = cache.shape[1]
+        packed = torch.cat([c, k_rope], dim=-1).to(cache.dtype)
+        if sq == 1:             # a decode step: the absorbed form
+            idx = cache_len if isinstance(cache_len, DecodeIndex) else \
+                decode_index(cache_len, rows)
+            if isinstance(idx.row, torch.Tensor):
+                cache.index_copy_(1, idx.row, packed)
+            else:
+                cache[:, idx.row: idx.row + 1] = packed
+            return _mla_absorbed(p, cfg, q_nope, q_rope, cache,
+                                 idx.length), cache
+        if not isinstance(cache_len, int) or cache_len:
+            raise ValueError(
+                f"an MLA prefill starts at an empty cache (cache_len 0), "
+                f"got {cache_len!r}")
+        if sq > rows:
+            raise NotImplementedError(
+                f"{sq} new positions do not fit a cache of {rows} rows")
+        cache[:, :sq] = packed
+        new_cache = cache
+        c, k_rope = cache[:, :sq, :r], cache[:, :sq, r:]
+
+    # train / prefill: keys and values expanded per position and head
+    h = cfg.num_heads
+    k_nope = _project(c, p["w_uk"])
+    v = _project(c, p["w_uv"])
+    k_rope_b = k_rope[:, :, None, :].expand(b, sq, h, m.qk_rope_head_dim)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    out = ops.flash_attention(q_full, k_full, v, causal=True)
+    return _proj_out(p, out), new_cache
+
+
+def _mla_absorbed(p: dict, cfg, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  cache: torch.Tensor, length) -> torch.Tensor:
+    """One decode step of MLA against every row of ``cache``, the rows at
+    and beyond ``length`` (an int, or a 0-d int32 on the device) masked:
+    the reference's dtypes and order, the two score terms summed in the
+    cache dtype and cast to float32 only then."""
+    m = cfg.mla
+    c_all = cache[..., : m.kv_lora_rank]
+    kr_all = cache[..., m.kv_lora_rank:]
+    qa = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"])     # latent q
+    s_lat = torch.einsum("bshr,btr->bhst", qa, c_all)
+    s_rope = torch.einsum("bshe,bte->bhst", q_rope, kr_all)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = (s_lat + s_rope).float() * scale
+    valid = torch.arange(c_all.shape[1], device=cache.device) < length
+    scores = torch.where(valid, scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    lat = torch.einsum("bhst,btr->bshr", pr.to(c_all.dtype), c_all)
+    out = torch.einsum("bshr,rhe->bshe", lat, p["w_uv"])
+    return _proj_out(p, out)

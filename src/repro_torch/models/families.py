@@ -1,8 +1,9 @@
 """Model registry of the port (the counterpart of
 ``repro.models.families``).
 
-Ported: the GQA decoder family (``DecoderLM``, dense and MoE, and
-gemma3's local/global layers), :class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
+Ported: the decoder family (``DecoderLM``: GQA or deepseek-v2's latent
+attention, dense and MoE, and gemma3's local/global layers),
+:class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
 ``NotImplementedError`` naming the ROADMAP item it waits for.
 """
 from __future__ import annotations
@@ -255,7 +256,7 @@ class EncDecLM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP queue 1: EncDecLM)")
+            f"(ROADMAP queue 1, item 11: EncDecLM)")
 
 
 def build_model(cfg: ArchConfig, device="cuda"):

@@ -1,10 +1,11 @@
 """Model assembly: stacked-parameter blocks and a loop over layers.
 
-:class:`DecoderLM` mirrors ``repro.models.transformer.DecoderLM`` for the
-GQA configurations, dense or MoE (``models/moe.py``; with
-``moe_layer_start > 0`` the first layers are dense, stacked apart as
-``dense_blocks``), and gemma3's interleave of sliding-window (local) and
-global layers (``local_blocks`` and ``global_blocks``):
+:class:`DecoderLM` mirrors ``repro.models.transformer.DecoderLM``: GQA or
+deepseek-v2's multi-head latent attention (MLA, a compressed cache), dense
+or MoE (``models/moe.py``; with ``moe_layer_start > 0`` the first layers
+are dense, stacked apart as ``dense_blocks``), and gemma3's interleave of
+sliding-window (local) and global layers (``local_blocks`` and
+``global_blocks``):
 
   * ``param_defs()``                      — ParamDef tree
   * ``init(generator)``                   — concrete params on the device
@@ -63,17 +64,17 @@ def decode_position(pos, device):
 
 
 class DecoderLM:
-    """GQA decoder-only LM; optional MoE FFN; optional local:global
+    """GQA or MLA decoder-only LM; optional MoE FFN; optional local:global
     sliding-window interleave (gemma3); optional VLM patch embeddings
-    (llava) via ``extra_embeds``.  MLA is not ported yet and raises
-    ``NotImplementedError`` at construction."""
+    (llava) via ``extra_embeds``."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.attention != "gqa":
-            raise NotImplementedError(
-                f"{cfg.name}: attention={cfg.attention!r} is not ported "
-                f"yet (ROADMAP queue 1: MLA)")
+        if cfg.attention not in ("gqa", "mla"):
+            raise ValueError(
+                f"{cfg.name}: a DecoderLM attends by GQA or MLA, not "
+                f"{cfg.attention!r}")
         self.cfg = cfg
+        self.mla = cfg.attention == "mla"
         self.device = resolve_device(device)
         self.n_global, self.n_local = self._layer_split()
 
@@ -102,7 +103,7 @@ class DecoderLM:
         d = {
             "ln_attn": norm_defs(cfg.d_model),
             "ln_ffn": norm_defs(cfg.d_model),
-            "attn": attn.gqa_defs(cfg),
+            "attn": attn.mla_defs(cfg) if self.mla else attn.gqa_defs(cfg),
         }
         if is_moe_layer:
             d["moe"] = moe_mod.moe_defs(cfg)
@@ -162,9 +163,13 @@ class DecoderLM:
                cache_len=0):
         cfg = self.cfg
         h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-        a, new_cache = attn.gqa_attend(p["attn"], cfg, h, positions,
-                                       window=window, cache=cache,
-                                       cache_len=cache_len)
+        if self.mla:
+            a, new_cache = attn.mla_attend(p["attn"], cfg, h, positions,
+                                           cache=cache, cache_len=cache_len)
+        else:
+            a, new_cache = attn.gqa_attend(p["attn"], cfg, h, positions,
+                                           window=window, cache=cache,
+                                           cache_len=cache_len)
         x = x + a
         h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
         if "moe" in p:
@@ -184,17 +189,19 @@ class DecoderLM:
             return x
         views = {ckey: iter(_unstack(caches[ckey])) for _, ckey, *_ in stacks}
         at = dict.fromkeys(views, cache_len)
+        rows_leaf = "c" if self.mla else "k"
         if x.shape[1] == 1:
             # a decode step: each cache's row and length, once for all of
             # its layers (a ring's slot for the sliding window)
             at = {ckey: attn.decode_index(cache_len,
-                                          caches[ckey]["k"].shape[2],
+                                          caches[ckey][rows_leaf].shape[2],
                                           ring=window > 0)
                   for _, ckey, _, window in stacks}
         for key, ckey, window in self._schedule():
             c = next(views[ckey])
             x, _ = self._block(next(layers[key]), x, positions,
-                               window=window, cache=(c["k"], c["v"]),
+                               window=window,
+                               cache=c["c"] if self.mla else (c["k"], c["v"]),
                                cache_len=at[ckey])
         return x, caches      # the per-layer views wrote into ``caches``
 
@@ -234,12 +241,20 @@ class DecoderLM:
         ``{"local": ..., "global": ...}`` for gemma3's interleave), each
         leaf [layers, batch, rows, KV, head_dim] in the config's dtype:
         ``max_len`` rows, and ``min(sliding_window, max_len)`` for the
-        local layers' rings, as the reference sizes them."""
+        local layers' rings, as the reference sizes them.  MLA keeps one
+        compressed leaf per stack instead, ``{"c": [layers, batch,
+        max_len, kv_lora_rank + qk_rope_head_dim]}``."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         out = {}
         for _, ckey, n, window in self._stacks():
             rows = min(window, max_len) if window else max_len
+            if self.mla:
+                m = cfg.mla
+                out[ckey] = {"c": torch.zeros(
+                    (n, batch, rows, m.kv_lora_rank + m.qk_rope_head_dim),
+                    dtype=dt, device=self.device)}
+                continue
             shape = (n, batch, rows, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
             out[ckey] = {

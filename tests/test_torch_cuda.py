@@ -678,6 +678,27 @@ def test_flash_attention_kernel_head_dim_256(card, sq, sk, window, dtype):
     assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
 
 
+@pytest.mark.parametrize("sq", [1, 17, 64, 512])
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_value_dim(card, sq, h, kv, dtype):
+    """deepseek-v2's prefill pair (D, Dv) = (192, 128), causal, Sk = Sq:
+    the kernel against its plain version, and a second call bitwise
+    equal."""
+    rng = np.random.default_rng(192)
+    q = _randn(rng, (2, sq, h, 192), dtype, card)
+    k = _randn(rng, (2, sq, kv, 192), dtype, card)
+    v = _randn(rng, (2, sq, kv, 128), dtype, card)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.shape == (2, sq, h, 128) and out.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+    assert torch.equal(ops.flash_attention(q, k, v, causal=True), out)
+
+
 @pytest.mark.parametrize("s", [16, 64, 100, 544, 1024, 2080])
 @pytest.mark.parametrize("b", [1, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -771,6 +792,26 @@ GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-3b",
                "zamba2-2.7b", "gemma3-4b"]
 
 
+def _mla_narrow_model(dtype, card):
+    """deepseek-v2 with its published head dims (query/key 128 + 64, value
+    128, latent rank 512, query rank 1536) in a narrow stack: d_model 512,
+    4 heads, a dense layer and two MoE layers of 8 experts (top 2) and a
+    shared expert, vocabulary 4096; weights from a seeded generator on the
+    card.  SMOKE deepseek's 24 / 16 head dims are not instantiated in K1."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.models.families import build_model
+    full = ARCHS["deepseek-v2-236b"]
+    cfg = dataclasses.replace(
+        full, num_layers=3, d_model=512, num_heads=4, num_kv_heads=4,
+        d_ff=1024, vocab_size=4096, dtype=dtype,
+        moe=dataclasses.replace(full.moe, num_experts=8, top_k=2,
+                                d_expert=256, num_shared_experts=1,
+                                d_shared=256))
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    return cfg, model, params
+
+
 @pytest.mark.parametrize("arch", GRAPH_ARCHS)
 @pytest.mark.parametrize("size", ["smoke", "full_width"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -779,8 +820,19 @@ def test_decode_graph_replays_equal_eager_steps(card, arch, size, dtype):
     (and against the model's decode step at int positions): the same
     greedy tokens, and logits bitwise equal at every step, where the
     second stage of the key runs on replays alone from a reset cache."""
+    _graph_equals_eager(*_graph_model(arch, size, dtype, card), card)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_decode_graph_replays_equal_eager_steps(card, dtype):
+    """The same for deepseek-v2's latent attention: the absorbed decode
+    step inside the graph, its compressed cache row written at the device
+    position."""
+    _graph_equals_eager(*_mla_narrow_model(dtype, card), card)
+
+
+def _graph_equals_eager(cfg, model, params, card):
     from repro_torch.serving.graphs import DecodeGraphs, StaticDecode
-    cfg, model, params = _graph_model(arch, size, dtype, card)
     b, plen, steps = 4, 16, 6
     max_len = plen + steps + 1
     rng = np.random.default_rng(25)
@@ -813,13 +865,17 @@ def test_decode_graph_replays_equal_eager_steps(card, arch, size, dtype):
         assert graphs.captures == 1
 
 
-@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+@pytest.mark.parametrize("arch", GRAPH_ARCHS + ["deepseek-v2-236b"])
 def test_stage_launch_counts_equal_an_eager_run(card, arch):
     """The launch counts of a stage served from a captured graph equal
     those of the same stage run eagerly: the capture counts nothing, and
-    each replay adds what it launched (K3's decode-tile count too)."""
+    each replay adds what it launched (K3's decode-tile count too).
+    deepseek (its narrow stack) launches K1 and K3 and no K2."""
     from repro_torch.serving.graphs import DecodeGraphs
-    cfg, model, params = _graph_model(arch, "smoke", "bfloat16", card)
+    if arch == "deepseek-v2-236b":
+        cfg, model, params = _mla_narrow_model("bfloat16", card)
+    else:
+        cfg, model, params = _graph_model(arch, "smoke", "bfloat16", card)
     b, plen, gen_len = 4, 12, 5
     max_len = plen + gen_len
     prompts = torch.from_numpy(np.random.default_rng(26).integers(
@@ -836,8 +892,13 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
             want_tokens.append(tok)
         torch.cuda.synchronize()
         eager = ops.counts()
-        assert eager["decode_attention" if arch != "rwkv6-3b"
-                     else "rwkv6_scan"] > 0
+        if arch == "deepseek-v2-236b":
+            assert eager["decode_attention"] == 0
+            assert eager["flash_attention"] == cfg.num_layers
+            assert eager["moe_gemm"] == 3 * 2 * gen_len
+        else:
+            assert eager["decode_attention" if arch != "rwkv6-3b"
+                         else "rwkv6_scan"] > 0
         graphs = DecodeGraphs(model, params)
         for _ in range(2):      # the stage that captures, then replays only
             ops.reset_launch_counts()

@@ -280,7 +280,8 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     """Each wrapper accepts exactly the dims its source's dispatch
     instantiates (a dim outside them would reach the kernel and come
     back as -1): 80 for both attention kernels (zamba2), not for the
-    RWKV6 scan; K4's (P, N) pairs."""
+    RWKV6 scan; K1's (D, Dv) pairs, (192, 128) among them (deepseek-v2's
+    latent attention), in both of its dispatches; K4's (P, N) pairs."""
     import re
     from pathlib import Path
     from repro_torch.kernels import _build
@@ -294,8 +295,23 @@ def test_wrapper_dims_match_kernel_instantiations(name):
         assert got == set(ms_mod.DIMS)
         assert (64, 64) in got and (16, 8) in got
         return
+    if name == "flash_attention":
+        # one `if (D == . && Dv == .) return launch_...<., .>(a);` per pair
+        # in each dispatch (the float32 FMA kernel's, the bf16 mma.sync's)
+        pairs = re.findall(r"if \(D == (\d+) && Dv == (\d+)\) return "
+                           r"(launch_flash\w*)<(\d+), (\d+)>\(a\);", src)
+        assert all((d, dv) == (d2, dv2) for d, dv, _, d2, dv2 in pairs)
+        for launcher in ("launch_flash", "launch_flash_mma"):
+            got = [(int(d), int(dv)) for d, dv, fn, _, _ in pairs
+                   if fn == launcher]
+            assert sorted(got) == sorted(set(got)) == \
+                sorted(_build.FLASH_HEAD_DIMS), launcher
+        assert (80, 80) in _build.FLASH_HEAD_DIMS
+        assert (192, 128) in _build.FLASH_HEAD_DIMS
+        return
     got = {int(d) for d in re.findall(r"case (\d+): return ", src)}
-    dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else _build.ATTN_HEAD_DIMS
+    dims = rs_mod.HEAD_DIMS if name == "rwkv6_scan" else \
+        _build.DECODE_HEAD_DIMS
     assert got == set(dims)
     assert (80 in got) == (name != "rwkv6_scan")
     # every dispatch of the source (the float32 FMA kernel's and the bf16
@@ -593,7 +609,11 @@ def test_bf16_never_reaches_an_fma_kernel(name):
     if name == "flash_attention":
         assert re.findall(r"flash_fma_kernel<(\w+)", src) == ["float"]
         assert "if (dtype == 1) return aligned_for_mma(a) ? " \
-            "dispatch_mma(a, D)" in src
+            "dispatch_mma(a, D, Dv)" in src
+        mma = re.search(r"int dispatch_mma\(.*?\n\}", src, re.S).group(0)
+        assert {(int(d), int(dv)) for d, dv in re.findall(
+            r"return launch_flash_mma<(\d+), (\d+)>", mma)} == \
+            set(_build.FLASH_HEAD_DIMS)
     elif name == "moe_gemm":
         assert re.search(r"moe_gemm_fma_kernel\(const float\* __restrict__ "
                          r"x, const float\* __restrict__ w,\s+float\*", src)
@@ -609,7 +629,7 @@ def test_bf16_never_reaches_an_fma_kernel(name):
         mma = re.search(r"int dispatch_mma\(.*?\n\}", src, re.S).group(0)
         assert {int(d) for d in re.findall(
             r"return launch_decode_mma<(\d+)>", mma)} == \
-            set(_build.ATTN_HEAD_DIMS)
+            set(_build.DECODE_HEAD_DIMS)
         assert src.count("dispatch_fma(") == 2
         assert src.count("decode_partial_kernel<") == 1   # in launch_decode
     elif name == "mamba2_scan":

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Probe three of the port's bf16 kernels on one NVIDIA GPU.
+"""Probe the port's kernels on one NVIDIA GPU.
 
     python3 tools/kernel_probe.py decode-splits   # K2 over split_plan's block target
     python3 tools/kernel_probe.py mamba2-phases   # K4 with one phase removed at a time
     python3 tools/kernel_probe.py rwkv6-phases    # K5 the same, and split over columns
+    python3 tools/kernel_probe.py flash-bits --against DIR   # K1 against another tree's
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -29,6 +30,17 @@ inter-chunk product and the state update.  Its ``split_columns`` variant
 is the other layout: two blocks per (batch, head), each with half of the
 output units and half of the state's tiles (the scores computed by both),
 640 blocks where the one-block layout has 320.
+
+``flash-bits`` builds ``csrc/flash_attention.cu`` of another checkout of the
+repository (``--against DIR``, for example a ``git archive`` of the parent
+commit) into its own library and runs it beside this tree's K1 on the same
+inputs: every head dim both instantiate with ``Dv == D``, float32 and bf16,
+causal, windowed and bidirectional, a ragged length and G = 4.  It exits 1
+unless every output is bitwise equal, which shows that a change to K1 left
+the existing instantiations' results alone.  It then times both in bf16 in
+turns (this tree, the other, the other, this tree; CUDA events) at qwen3's
+prefill (``q [8,512,16,128]``, ``k, v [8,512,8,128]``) and gemma3's global
+layer (``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), causal.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -281,11 +293,88 @@ def rwkv6_phases() -> None:
         "one_block_ms": full}), flush=True)
 
 
+def flash_bits(against: Path) -> None:
+    from repro_torch.kernels import _build, ops
+    csrc = against / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / "flash_attention.cu").read_text()
+    out = _build.build_root().parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "flash_attention_against.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                    str(csrc), "-o", str(lib), str(csrc / "flash_attention.cu")],
+                   check=True, capture_output=True, text=True)
+    other = ctypes.CDLL(str(lib)).fate_flash_attention
+    other.restype = ctypes.c_int
+    # the other tree's entry takes a value head dim after D only if its
+    # source says so
+    with_dv = "int D, int Dv," in src
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    other.argtypes = [p] * 4 + [i32] * (7 if with_dv else 6) + [i64] * 12 \
+        + [i32] * 3 + [p]
+    dims = [d for d, dv in _build.FLASH_HEAD_DIMS if d == dv
+            and (f"launch_flash_mma<{d}>(a)" in src
+                 or f"launch_flash_mma<{d}, {d}>(a)" in src)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    differ = 0
+    for d in dims:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            for causal, window in ((True, 0), (False, 0), (True, 64)):
+                b, s, h, kv = 2, 200, 8, 2
+                q, k, v = (torch.randn(b, s, n, d, device="cuda",
+                                       generator=gen).to(dtype)
+                           for n in (h, kv, kv))
+                mine = ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+                theirs = torch.empty_like(mine)
+                rc = other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           theirs.data_ptr(), b, s, s, h, kv, d,
+                           *((d,) if with_dv else ()),
+                           *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                           *theirs.stride()[:3], int(causal), window, code,
+                           torch.cuda.current_stream().cuda_stream)
+                same = rc == 0 and torch.equal(mine, theirs)
+                differ += not same
+                print(json.dumps({"probe": "flash-bits", "d": d, "dv": d,
+                                  "dtype": str(dtype).split(".")[-1],
+                                  "causal": causal, "window": window,
+                                  "rc": rc, "bitwise_equal": same}),
+                      flush=True)
+    print(json.dumps({"probe": "flash-bits", "against": str(against),
+                      "dims": dims, "cases": 6 * len(dims),
+                      "differ": differ}), flush=True)
+    if differ or not dims:
+        sys.exit(1)
+    for name, (s, h, kv, d) in {"qwen3": (512, 16, 8, 128),
+                                "gemma3_global": (2048, 8, 4, 256)}.items():
+        q, k, v = (torch.randn(8, s, n, d, device="cuda",
+                               generator=gen).bfloat16() for n in (h, kv, kv))
+        theirs = torch.empty_like(q)
+
+        def call(lib):
+            if lib == "this":
+                return ops.flash_attention(q, k, v)
+            return other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         theirs.data_ptr(), 8, s, s, h, kv, d,
+                         *((d,) if with_dv else ()), *q.stride()[:3],
+                         *k.stride()[:3], *v.stride()[:3],
+                         *theirs.stride()[:3], 1, 0, 1,
+                         torch.cuda.current_stream().cuda_stream)
+        times = in_turns(call, {"this": "this", "against": "against"})
+        print(json.dumps({"probe": "flash-bits", "timed": name,
+                          "q": [8, s, h, d], "kv": [8, s, kv, d],
+                          "this_ms": times["this"],
+                          "against_ms": times["against"]}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
-                                      "rwkv6-phases"])
+                                      "rwkv6-phases", "flash-bits"])
+    ap.add_argument("--against", type=Path,
+                    help="flash-bits: the root of the other checkout")
     args = ap.parse_args()
+    if args.probe == "flash-bits" and args.against is None:
+        ap.error("flash-bits needs --against DIR")
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -298,8 +387,10 @@ def main() -> None:
         decode_splits()
     elif args.probe == "mamba2-phases":
         mamba2_phases()
-    else:
+    elif args.probe == "rwkv6-phases":
         rwkv6_phases()
+    else:
+        flash_bits(args.against.resolve())
 
 
 if __name__ == "__main__":
