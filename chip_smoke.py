@@ -101,6 +101,27 @@ ends the run with a non-zero exit code and no result line:
    float32 at full width with the dense layer and one MoE layer (every
    layer's update within 1e-3 of its magnitude, every greedy token equal
    under held routing).
+13. ``whisper`` – whisper-small (12 encoder and 12 decoder layers, d 768,
+   12 heads of 64, vocab 51865, 1500 frames) at full width and depth,
+   after deepseek's weights are freed, through the model's own API (the
+   serving engine passes no frames, as in the reference: ROADMAP H24):
+   8 decoder prompts of 224 tokens and seeded random frames [8, 1500,
+   768], 32 generated tokens through the bundle's decode graphs (one
+   warm-up pass captures); K1 must launch 12 + 12 + 12 times at the
+   prefill (the encoder's bidirectional self-attention, the decoder's
+   causal self-attention and its cross-attention over the frames), K2
+   24 times per decode step (the self cache, the cross K/V recomputed
+   from the encoder's output as the reference does), every decode step
+   a replay, bitwise the eager step; encode and prefill seconds, decode
+   ms per replayed step beside the step's bound, tok/s, peak memory.
+14. ``parity_whisper`` – the served batch teacher-forced with the kernels
+   and with the plain versions: in bf16 at full depth (the kernel path
+   must reproduce the served tokens), in float32 at full width with 2
+   encoder and 2 decoder layers (every block's update within 1e-3 of its
+   magnitude: the random init's attention scores saturate the softmax,
+   see the phase), and the same float32 model with its attention
+   projections drawn at 1 / sqrt(d) (logits within 1e-3 of their largest
+   magnitude, every greedy token equal).
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -108,13 +129,20 @@ prompt 2048 against their plain versions, timed: K1 on a local layer
 on a global cache of 2080 rows and a local ring of 1024; and K1 at
 deepseek's prefill (q, k [8, 512, 128, 192], v [8, 512, 128, 128]; SDPA
 beside it, whose flash backend takes the value head dim unlike the
-query's; each K1 row names the backend SDPA took) and K3 at deepseek's 160 experts, prefill and decode.
+query's; each K1 row names the backend SDPA took), K3 at deepseek's 160
+experts, prefill and decode, and K1 and K2 at whisper's shapes: K1 on
+the encoder (q, k, v [8, 1500, 12, 64], non-causal), the cross-attention
+prefill (q [8, 224, 12, 64] over k, v [8, 1500, 12, 64]) and the
+decoder's causal prefill ([8, 224, 12, 64]); K2 on the self cache
+([8, 256, 12, 64], a device length) and the cross K/V ([8, 1500, 12, 64],
+the int length 1500 a decode step passes).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
 K5's bf16 paths, which the main path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
-call), the nvidia-smi line, and
+call), a ``total`` line (with the seconds of the two whisper phases),
+the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -152,6 +180,10 @@ GEMMA_F32_LAYERS = 6
 # layers (21.25 B parameters, 42.5 GB in bf16); its float32 parity to the
 # dense layer and one MoE layer (about 21 GB)
 DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
+# whisper-small's decoder prompt: its previous-text prompt holds at most
+# 223 tokens and the start token (n_text_ctx 448); its float32 parity at
+# full width with 2 encoder and 2 decoder layers
+WHISPER_PROMPT_LEN, WHISPER_F32_LAYERS = 224, 2
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -260,8 +292,9 @@ def device_ms(fn, marker: str | None = None, iters: int = 10,
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device activity: take
-    # the first of three that has it
+    # a trace now and then comes back without its device activity, or
+    # with a kernel of a marked call missing (a count that is not a whole
+    # number per call): take the first of three that has it all
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -275,9 +308,16 @@ def device_ms(fn, marker: str | None = None, iters: int = 10,
                 us += getattr(e, "self_device_time_total",
                               getattr(e, "self_cuda_time_total", 0.0))
                 n += e.count
-        if n:
+        if n and (marker is None or n % iters == 0):
             break
-    ms = us / 1e3 / iters if n else None
+    if not n:
+        ms = None
+    elif marker is None:
+        ms = us / 1e3 / iters
+    else:
+        # a call's whole number of marked kernels at the mean time of
+        # those traced, should all three traces have missed one
+        ms = us / 1e3 / n * max(1, round(n / iters))
     return (ms, n / iters) if count else ms
 
 
@@ -517,7 +557,14 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
     return rec
 
 
-def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False):
+def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False,
+                device_length=True):
+    """K2 at ``shape`` (b, s, h, kv, d) against its plain version, with
+    the length as an int and as a device int32 (the same bits); ``timed``:
+    also its times, with the length in the form the serving path passes
+    (``device_length``: a self-attention cache's; an int for whisper's
+    cross-attention, whose rows are all valid), the library call's and
+    the bound."""
     b, s, h, kv, d = shape
     q = randn(rng, (b, 1, h, d), dtype)
     kc = randn(rng, (b, s, kv, d), dtype)
@@ -540,10 +587,11 @@ def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False):
         valid = 2 * b * cache_len * kv * d * q.element_size()
         b_ms, by = bound(nbytes(q, out) + valid,
                          4.0 * b * h * d * cache_len, dtype)
-        call = lambda: ops.decode_attention(q, kc, vc, length)
+        call = lambda: ops.decode_attention(
+            q, kc, vc, length if device_length else cache_len)
         dev, per_call = device_ms(call, "decode_", count=True)
         rec.update(
-            cache_len_on_device=True, ms=time_ms(call, iters=50),
+            cache_len_on_device=device_length, ms=time_ms(call, iters=50),
             device_ms=dev, device_kernels_per_call=per_call,
             host_us=host_us(call),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(
@@ -747,7 +795,7 @@ def sweep_err(cases, field="max_abs_err"):
 
 
 def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
-                  deepseek_cfg, seed: int) -> dict:
+                  deepseek_cfg, whisper_cfg, seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
     flash_sweep, decode_sweep = [], []
@@ -810,6 +858,31 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         flash_main[key] = flash_case(
             ops, ref, rng, (nq, PROMPT_LEN, PROMPT_LEN, h, h, dqk), dt, True,
             0, timed=timed, bands=timed, dv=ml.v_head_dim)
+    # whisper-small (12 heads of 64, G = 1): K1 on the encoder's
+    # bidirectional self-attention over its 1500 frames, on the decoder
+    # prefill's cross-attention (224 queries over the frames) and its
+    # causal self-attention; K2 on the decoder's self cache (prompt +
+    # GEN_LEN rows, a device length) and on the cross K/V (1500 rows, the
+    # int length a decode step passes); timed in the model's dtype, held
+    # to the plain version in float32 as well
+    h, kv = whisper_cfg.num_heads, whisper_cfg.num_kv_heads
+    d, frames = whisper_cfg.resolved_head_dim, whisper_cfg.encoder_frames
+    w_len, w_max = WHISPER_PROMPT_LEN, WHISPER_PROMPT_LEN + GEN_LEN
+    for dt in (getattr(torch, whisper_cfg.dtype), torch.float32):
+        timed = dt == getattr(torch, whisper_cfg.dtype)
+        tag = f"{whisper_cfg.name}/{{}}/nq{NUM_QUERIES}" + (
+            "" if timed else "/float32")
+        for kind, sq, sk, causal in (("encoder", frames, frames, False),
+                                     ("cross", w_len, frames, False),
+                                     ("decoder", w_len, w_len, True)):
+            flash_main[tag.format(kind)] = flash_case(
+                ops, ref, rng, (NUM_QUERIES, sq, sk, h, kv, d), dt, causal,
+                0, timed=timed, bands=timed)
+        for kind, rows, on_device in (("self", w_max, True),
+                                      ("cross", frames, False)):
+            decode_main[tag.format(kind) + f"/len{rows}"] = decode_case(
+                ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
+                timed=timed, device_length=on_device)
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
     for e, c, d, f in MOE_SWEEP:
@@ -1179,13 +1252,14 @@ def plain_versions(ops, ref, names=None):
             setattr(ops, name, fn)
 
 
-def teacher_forced(bundle, shard, served) -> torch.Tensor:
-    """Logits of prefill and GEN_LEN - 1 decode steps fed the served
-    tokens, so that two runs see the same inputs at every step."""
+def teacher_forced(bundle, shard, served, frames=None) -> torch.Tensor:
+    """Logits of prefill (with an encoder-decoder model's ``frames``) and
+    GEN_LEN - 1 decode steps fed the served tokens, so that two runs see
+    the same inputs at every step."""
     model = bundle._model
     nq, plen = shard.shape
     cache = model.init_cache(nq, plen + GEN_LEN)
-    logits, cache = model.prefill(bundle.params, shard, cache)
+    logits, cache = model.prefill(bundle.params, shard, cache, frames)
     all_logits = [logits]
     for step in range(GEN_LEN - 1):
         logits, cache = model.decode_step(
@@ -1233,7 +1307,8 @@ def agreement(kernel_logits, plain_logits) -> dict:
     }
 
 
-def kernel_vs_plain(ops, ref, bundle, shard, served, moe_mod=None) -> dict:
+def kernel_vs_plain(ops, ref, bundle, shard, served, moe_mod=None,
+                    frames=None) -> dict:
     """Teacher-forced logits with the kernels, then with the plain
     versions.  For an MoE model (``moe_mod`` given) also a second plain
     run held to the kernel run's routing: a top-k choice flips under
@@ -1243,9 +1318,9 @@ def kernel_vs_plain(ops, ref, bundle, shard, served, moe_mod=None) -> dict:
     log = []
     with (held_routing(moe_mod, log) if moe_mod is not None
           else contextlib.nullcontext()):
-        kernel_logits = teacher_forced(bundle, shard, served)
+        kernel_logits = teacher_forced(bundle, shard, served, frames)
     with plain_versions(ops, ref):
-        plain_logits = teacher_forced(bundle, shard, served)
+        plain_logits = teacher_forced(bundle, shard, served, frames)
         if moe_mod is not None:
             stats = {"decisions": 0, "flipped": 0}
             with held_routing(moe_mod, log, stats):
@@ -1364,6 +1439,44 @@ def hybrid_layerwise(ops, ref, bundle, shard, served) -> dict:
         teacher_forced(bundle, shard, served)
     finally:
         del model._ssm_block, model._attn_block
+    return worst
+
+
+def encdec_layerwise(ops, ref, bundle, shard, served, frames) -> dict:
+    """Every encoder and decoder block of an EncDecLM run twice on the
+    same input: with the kernels, and with the plain versions.  Per kind
+    of block, the largest difference of the two outputs relative to the
+    largest magnitude of the block's update (output less input), over
+    the prefill and every decode step.  The plain call of a decoder
+    block writes the same cache rows again: the projections that fill
+    them use no kernel."""
+    model = bundle._model
+    enc_block, dec_block = model._enc_block, model._dec_block
+    worst = {"encoder": 0.0, "decoder": 0.0, "block_calls": 0}
+
+    def note(kind, x, out, plain):
+        worst[kind] = max(worst[kind], float(
+            (plain.float() - out.float()).abs().max()) / max(
+            1e-30, float((out - x).float().abs().max())))
+        worst["block_calls"] += 1
+
+    def checked_enc(p, x, positions):
+        out = enc_block(p, x, positions)
+        with plain_versions(ops, ref):
+            note("encoder", x, out, enc_block(p, x, positions))
+        return out
+
+    def checked_dec(p, x, *args):
+        out = dec_block(p, x, *args)
+        with plain_versions(ops, ref):
+            note("decoder", x, out, dec_block(p, x, *args))
+        return out
+
+    model._enc_block, model._dec_block = checked_enc, checked_dec
+    try:
+        teacher_forced(bundle, shard, served, frames)
+    finally:
+        del model._enc_block, model._dec_block
     return worst
 
 
@@ -1601,20 +1714,291 @@ def phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
 
 
 # ---------------------------------------------------------------------------
+# phases 13-14: whisper-small's encoder-decoder
+# ---------------------------------------------------------------------------
+
+
+def whisper_inputs(cfg, seed: int):
+    """The decoder prompts [8, WHISPER_PROMPT_LEN] and the frames [8,
+    encoder_frames, d] (the reference's stub conv frontend: seeded random
+    embeddings), on the card."""
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (NUM_QUERIES, WHISPER_PROMPT_LEN))).to("cuda")
+    frames = randn(rng, (NUM_QUERIES, cfg.encoder_frames, cfg.d_model),
+                   getattr(torch, cfg.dtype))
+    return prompts, frames
+
+
+def whisper_launches(cfg) -> dict:
+    """Kernel launches of one generate call: K1 at the prefill once per
+    encoder layer (bidirectional) and twice per decoder layer (causal
+    self-attention, cross-attention over the frames); K2 at each of the
+    GEN_LEN - 1 decode steps twice per decoder layer (the self cache, the
+    cross K/V)."""
+    exp = dict.fromkeys(REPLACES, 0)
+    exp["moe_gemm_decode_tile"] = 0
+    exp["flash_attention"] = cfg.encoder_layers + 2 * cfg.num_layers
+    exp["decode_attention"] = 2 * cfg.num_layers * (GEN_LEN - 1)
+    return exp
+
+
+def whisper_step_bound(bundle, max_len: int) -> dict:
+    """The least time of one decode step at B = NUM_QUERIES, from the
+    code: operations, the cross K/V projected from ``enc_out`` in every
+    layer (as the reference recomputes them) beside two flops per
+    decoder and head weight per query and the two attentions; bytes, the
+    weights the step reads, ``enc_out`` once and the self cache's valid
+    rows at the last step, each read once."""
+    cfg = bundle.cfg
+    b, f, d, layers = NUM_QUERIES, cfg.encoder_frames, cfg.d_model, \
+        cfg.num_layers
+    hd, h = cfg.resolved_head_dim, cfg.num_heads
+    kvd = cfg.num_kv_heads * hd
+    elt = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    w_bytes = weight_bytes(bundle)
+    w_count = sum(x.numel() for k in ("decoder", "head")
+                  for x in _tree_leaves(bundle.params[k]))
+    cross_kv = 2 * 2 * b * f * d * kvd * layers
+    flops = (cross_kv + 2 * b * w_count
+             + 4 * b * h * hd * (f + max_len) * layers)
+    byte_count = (w_bytes + b * f * d * elt
+                  + 2 * layers * b * max_len * kvd * elt)
+    ms, by = bound(byte_count, flops, getattr(torch, cfg.dtype))
+    return {"ms": ms, "bound_by": by, "flops": flops,
+            "cross_kv_flops": cross_kv, "bytes": byte_count,
+            "weight_bytes": w_bytes}
+
+
+@torch.inference_mode()
+def phase_whisper(mods, cfg, seed: int):
+    """whisper-small at full width and depth through the model's own API,
+    as the reference serves it (its engine passes no frames, ROADMAP
+    H24): NUM_QUERIES prompts of WHISPER_PROMPT_LEN tokens and their
+    frames, GEN_LEN generated tokens through the bundle's
+    ``DecodeGraphs.generate`` (the prefill eagerly, the decode steps as
+    replays of the graph captured in a warm-up pass).  The launch counts
+    of the measured pass must be ``whisper_launches``', every decode step
+    a replay, and the replayed steps bitwise the eager ones; then the
+    encode and the prefill (means of three calls) and the replayed steps
+    are timed apart."""
+    ops = mods["ops"]
+    t0 = time.perf_counter()
+    bundle = mods["ModelBundle"].create("whisper", cfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, dec = bundle._model, bundle.decoder
+    prompts, frames = whisper_inputs(cfg, seed)
+    plen, max_len = WHISPER_PROMPT_LEN, WHISPER_PROMPT_LEN + GEN_LEN
+    dec.generate(prompts, GEN_LEN, max_len, frames)       # captures
+    before = (dec.replays, dec.eager_steps, dec.captures)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    tokens, _ = dec.generate(prompts, GEN_LEN, max_len, frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    replayed, eager, captured = (now - then for now, then in zip(
+        (dec.replays, dec.eager_steps, dec.captures), before))
+    expect = whisper_launches(cfg)
+    problems = []
+    if tuple(tokens.shape) != (NUM_QUERIES, GEN_LEN) or \
+            int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        problems.append(f"tokens {tuple(tokens.shape)} outside [0, "
+                        f"{cfg.vocab_size})")
+    for name, n in counts.items():
+        if n != expect[name] or (expect[name] > 0 and n <= 0):
+            problems.append(f"{name}: {n} launches, expected {expect[name]}")
+    if (replayed, eager, captured) != (GEN_LEN - 1, 0, 0):
+        problems.append(f"{replayed} decode steps replayed and {eager} "
+                        f"eager, {captured} captures, in the measured pass")
+
+    def seconds(fn, repeats: int = 3):
+        """Mean wall seconds of ``fn`` over ``repeats`` synchronised
+        calls."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(repeats):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) / repeats
+
+    slot = dec.slot(NUM_QUERIES, max_len)
+    encode_s = seconds(lambda: model.encode(bundle.params, frames))
+    prefill_s = seconds(lambda: slot.prefill(prompts, frames))
+    decode_s = seconds(lambda: [slot.replay() for _ in range(GEN_LEN - 1)],
+                       repeats=1)
+    slot.prefill(prompts, frames)
+    replays = []
+    for _ in range(GEN_LEN - 1):
+        slot.replay()
+        replays.append(slot.graph_logits.clone())
+    graph_tokens = slot.tokens[:, plen:].clone()
+    slot.prefill(prompts, frames)
+    eager_logits = [slot.step().clone() for _ in range(GEN_LEN - 1)]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(replays, eager_logits))
+               and torch.equal(slot.tokens[:, plen:], graph_tokens)
+               and torch.equal(graph_tokens, tokens))
+    if not bitwise:
+        problems.append("replayed decode steps differ from the eager steps "
+                        "or from the served tokens")
+    logits_ok = all(bool(torch.isfinite(x.float()).all())
+                    for x in eager_logits)
+    if not logits_ok:
+        problems.append("decode logits not finite")
+    out = {
+        "phase": "whisper", "ok": not problems,
+        "model": {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
+                  "decoder_layers": cfg.num_layers, "d_model": cfg.d_model,
+                  "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                  "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                  "vocab": cfg.vocab_size, "frames": cfg.encoder_frames,
+                  "dtype": cfg.dtype,
+                  "params": sum(x.numel() for x in _tree_leaves(
+                      bundle.params))},
+        "queries": NUM_QUERIES, "prompt_len": plen, "gen_len": GEN_LEN,
+        "max_len": max_len, "init_seconds": init_s,
+        "generate_wall_s": wall,
+        "generated_tokens_per_s": NUM_QUERIES * GEN_LEN / wall,
+        "encode_s": encode_s, "prefill_s": prefill_s,
+        "decode_ms_per_replayed_step": decode_s / (GEN_LEN - 1) * 1e3,
+        "decode_step_bound": whisper_step_bound(bundle, max_len),
+        "launches": counts, "launches_expected": expect,
+        "decode_graphs": {"captured": captured,
+                          "decode_steps_replayed": replayed,
+                          "decode_steps_eager": eager,
+                          "decode_steps": GEN_LEN - 1},
+        "graph_equals_eager_bitwise": bitwise,
+        "peak_memory_bytes": peak, "problems": problems,
+    }
+    emit(out)
+    if problems:
+        fail("whisper phase failed: " + "; ".join(problems))
+    return out, bundle, prompts, frames, tokens
+
+
+def encoder_score_std(bundle, frames) -> float:
+    """The standard deviation of the first encoder layer's attention
+    scores on the first query's frames: how far the random init
+    saturates the softmax."""
+    from repro_torch.models.attention import gqa_project_qkv
+    from repro_torch.models.layers import rms_norm
+    cfg, params = bundle.cfg, bundle.params
+    p = {k: v[0] for k, v in params["encoder"]["attn"].items()}
+    x = frames[:1].to(getattr(torch, cfg.dtype)) + params["pos_enc"][None]
+    h = rms_norm(x, params["encoder"]["ln_attn"][0], cfg.norm_eps)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, _ = gqa_project_qkv(p, cfg, h, pos)
+    k = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return float(s.std()) * q.shape[-1] ** -0.5
+
+
+def attention_at_input_width(params) -> None:
+    """Rescale every GQA projection ``[layers, d, heads, hd]`` of an
+    EncDecLM, drawn at 1 / sqrt(heads) by the init (the reference's
+    fan-in axis), to 1 / sqrt(d), in place."""
+    for stack, blocks in (("encoder", ("attn",)),
+                          ("decoder", ("attn", "cross"))):
+        for blk in blocks:
+            for name in ("wq", "wk", "wv"):
+                w = params[stack][blk][name]
+                w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+
+
+@torch.inference_mode()
+def phase_parity_whisper(mods, bundle, prompts, frames, served,
+                         seed: int) -> dict:
+    """whisper's served batch teacher-forced at int positions with the
+    kernels and with the plain versions.  The random init draws the GQA
+    projections at 1 / sqrt(heads), so the encoder's attention scores
+    have a standard deviation near 64 (``score_std``) and the softmax is
+    one-hot: a difference of one rounding can pick another key, and the
+    whole model amplifies it (measured: greedy agreement 0 in bf16 at
+    full depth).  So, as for granite and deepseek, the kernels' own
+    arithmetic is gated block by block.  In bf16 at full depth (gates:
+    finite logits, the served tokens reproduced by the kernel path; the
+    whole model's and each kind of block's differences are reported);
+    in float32 at full width with WHISPER_F32_LAYERS encoder and decoder
+    layers (gate: every block's update within PARITY_F32_REL, the whole
+    model's numbers reported); and in float32 at the same depth with the
+    projections drawn at 1 / sqrt(d), where the scores have a standard
+    deviation near 1 (gates, as gemma3's: logits within PARITY_F32_REL of
+    their largest magnitude, every greedy token equal)."""
+    ops, ref = mods["ops"], mods["ref"]
+    problems = []
+    bf16 = kernel_vs_plain(ops, ref, bundle, prompts, served, frames=frames)
+    bf16["score_std"] = encoder_score_std(bundle, frames)
+    bf16["layerwise"] = encdec_layerwise(ops, ref, bundle, prompts, served,
+                                         frames)
+    if not (bf16["finite"] and bf16["kernel_path_reproduces_served_tokens"]):
+        problems.append(f"{bundle.cfg.name} bf16: logits not finite or "
+                        f"served tokens not reproduced")
+    cfg32 = dataclasses.replace(bundle.cfg, dtype="float32",
+                                num_layers=WHISPER_F32_LAYERS,
+                                encoder_layers=WHISPER_F32_LAYERS)
+    f32, frames32 = {}, frames.float()
+    for init in ("random_init", "attention_at_input_width"):
+        b32 = mods["ModelBundle"].create("whisper", cfg32, seed=seed + 7)
+        if init != "random_init":
+            attention_at_input_width(b32.params)
+        r = kernel_vs_plain(ops, ref, b32, prompts, served, frames=frames32)
+        r["encoder_layers"] = cfg32.encoder_layers
+        r["score_std"] = encoder_score_std(b32, frames32)
+        if init == "random_init":
+            r["layerwise"] = encdec_layerwise(ops, ref, b32, prompts, served,
+                                              frames32)
+            r["tol"] = PARITY_F32_REL
+            if not (r["finite"] and max(r["layerwise"]["encoder"],
+                                        r["layerwise"]["decoder"])
+                    <= r["tol"]):
+                problems.append(f"{cfg32.name} float32: a block's kernel "
+                                f"and plain updates differ beyond "
+                                f"{r['tol']}")
+        else:
+            r["tol"] = PARITY_F32_REL * r["logit_abs_max"]
+            if not (r["finite"] and r["max_logit_diff"] <= r["tol"]
+                    and r["greedy_tokens_agree"]):
+                problems.append(f"{cfg32.name} float32 ({init}): kernels "
+                                f"and plain versions differ beyond "
+                                f"{r['tol']} or greedy tokens differ")
+        f32[init] = r
+        del b32
+    out = {"phase": "parity_whisper", "ok": not problems,
+           "whisper": {"prompt_len": int(prompts.shape[1]),
+                       "frames": int(frames.shape[1]),
+                       "bf16_full_depth": bf16, "float32_cut_depth": f32},
+           "problems": problems}
+    emit(out)
+    if problems:
+        fail("parity_whisper phase failed: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # optional: where one stage's time goes (--profile)
 # ---------------------------------------------------------------------------
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    return [tree]
 
 
 def weight_bytes(bundle) -> int:
     """Bytes of the weights one decode step reads: every parameter, but
     the embedding table where the head is a matrix of its own (a step
-    gathers B of its rows)."""
-    def leaves(tree):
-        if isinstance(tree, dict):
-            return [x for v in tree.values() for x in leaves(v)]
-        return [tree]
-    skip = None if bundle.cfg.tie_embeddings else bundle.params.get("embed")
-    return sum(nbytes(x) for x in leaves(bundle.params) if x is not skip)
+    gathers B of its rows) and an encoder-decoder model's encoder (it runs
+    at the prefill)."""
+    params = bundle.params
+    if bundle.cfg.family == "audio":
+        params = {k: params[k] for k in ("decoder", "ln_f", "head")}
+    skip = None if bundle.cfg.tie_embeddings else params.get("embed")
+    return sum(nbytes(x) for x in _tree_leaves(params) if x is not skip)
 
 
 def kernel_rows(prof) -> list:
@@ -1633,7 +2017,7 @@ def kernel_rows(prof) -> list:
 
 
 @torch.inference_mode()
-def phase_profile(bundles, prompts, name: str) -> dict:
+def phase_profile(bundles, prompts, name: str, frames=None) -> dict:
     """One stage of model ``name`` (8 queries, one shard) run three ways in
     this process, each split into prefill and decode on the host clock:
     ``eager``, the decode loop of the model at Python int positions (the
@@ -1645,7 +2029,8 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     decode wall time in which the card was busy, the kernels that took
     most of the device time, and the launches per layer and step; and the
     prefill's device time against its untraced wall (it runs eagerly in
-    every mode)."""
+    every mode).  ``frames``: an encoder-decoder model's, for each
+    prefill."""
     from torch.profiler import ProfilerActivity, profile
 
     bundle = bundles[name]
@@ -1655,13 +2040,13 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     max_len = plen + GEN_LEN
     slot = bundle.decoder.slot(NUM_QUERIES, max_len)
     if slot.graph is None:
-        bundle.decoder.generate(shard, GEN_LEN, max_len)     # captures
+        bundle.decoder.generate(shard, GEN_LEN, max_len, frames)  # captures
 
     def eager(ctx):
         cache = model.init_cache(NUM_QUERIES, max_len)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(bundle.params, shard, cache)
+        logits, cache = model.prefill(bundle.params, shard, cache, frames)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1676,7 +2061,7 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     def static(ctx, graph: bool):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        slot.prefill(shard)
+        slot.prefill(shard, frames)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with ctx:
@@ -1720,7 +2105,7 @@ def phase_profile(bundles, prompts, name: str) -> dict:
     prof = profile(activities=[ProfilerActivity.CUDA])
     with prof:
         model.prefill(bundle.params, shard,
-                      model.init_cache(NUM_QUERIES, max_len))
+                      model.init_cache(NUM_QUERIES, max_len), frames)
         torch.cuda.synchronize()
     prefill_dev_s = sum(r[0] for r in kernel_rows(prof)) / 1e6
     step_launches = traced["eager"]["device_launches_per_step"]
@@ -1850,6 +2235,7 @@ def main() -> None:
     zamba, gemma = ARCHS["zamba2-2.7b"], ARCHS["gemma3-4b"]
     deepseek = dataclasses.replace(ARCHS["deepseek-v2-236b"],
                                    num_layers=DEEPSEEK_LAYERS)
+    whisper = ARCHS["whisper-small"]
     attn_cfgs = {"qwen3-1.7b": qwen, "glm4-9b": glm,
                  "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
@@ -1857,7 +2243,7 @@ def main() -> None:
     t_all = time.perf_counter()
     _, smi_line = phase_device(_build)
     kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
-                                gemma, deepseek, args.seed)
+                                gemma, deepseek, whisper, args.seed)
     serve_out, bundles, prompts, policy, results = phase_serve(
         mods, {"qwen-7b": (qwen, args.seed), "llama-8b": (glm, args.seed + 1)},
         args.seed)
@@ -1912,9 +2298,20 @@ def main() -> None:
         phase_profile(bundles, prompts, "qwen-7b")
     phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
                           args.seed)
+    del bundles, policy, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_whisper = time.perf_counter()
+    whisper_out, bundle, prompts, frames, served = phase_whisper(
+        mods, whisper, args.seed)
+    if args.profile:
+        phase_profile({"whisper": bundle}, prompts, "whisper", frames)
+    phase_parity_whisper(mods, bundle, prompts, frames, served, args.seed)
+    whisper_s = time.perf_counter() - t_whisper
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
-                                      serve4_out, serve5_out]))
-    emit({"phase": "total", "seconds": time.perf_counter() - t_all})
+                                      serve4_out, serve5_out, whisper_out]))
+    emit({"phase": "total", "seconds": time.perf_counter() - t_all,
+          "whisper_phases_seconds": whisper_s})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

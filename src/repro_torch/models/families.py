@@ -1,10 +1,11 @@
 """Model registry of the port (the counterpart of
 ``repro.models.families``).
 
-Ported: the decoder family (``DecoderLM``: GQA or deepseek-v2's latent
-attention, dense and MoE, and gemma3's local/global layers),
-:class:`RWKVLM` and :class:`Mamba2Hybrid`.  ``EncDecLM`` raises
-``NotImplementedError`` naming the ROADMAP item it waits for.
+Every family of the reference: the decoder family (``DecoderLM``: GQA
+or deepseek-v2's latent attention, dense and MoE, gemma3's local/global
+layers, llava's image embeddings), :class:`RWKVLM`,
+:class:`Mamba2Hybrid` and the encoder-decoder :class:`EncDecLM`
+(whisper).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
@@ -253,10 +255,185 @@ class Mamba2Hybrid:
 
 
 class EncDecLM:
+    """whisper-small: a bidirectional encoder over (stub) frame embeddings
+    and a decoder of causal self-attention, cross-attention to the
+    encoder's output and a SwiGLU FFN.  The facade of :class:`RWKVLM`,
+    with the frames as ``extra_embeds``; the cache ``{"self": {"k", "v"},
+    "enc_out"}`` (self K/V [layers, batch, max_len, KV, head_dim], the
+    encoder's output [batch, encoder_frames, d]) is updated IN PLACE, and
+    ``pos`` is a Python int or a 0-d int64 tensor on the device.
+
+    As in the reference, a decode step projects the cross-attention's keys
+    and values from ``enc_out`` again in every layer
+    (``repro.models.families.EncDecLM._cross_attend``)."""
+
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP queue 1, item 11: EncDecLM)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def _enc_block_defs(self) -> dict:
+        cfg = self.cfg
+        return {"ln_attn": norm_defs(cfg.d_model),
+                "ln_ffn": norm_defs(cfg.d_model),
+                "attn": attn.gqa_defs(cfg),
+                "ffn": ffn_defs(cfg.d_model, cfg.d_ff, cfg.dtype)}
+
+    def _dec_block_defs(self) -> dict:
+        d = self._enc_block_defs()
+        d["ln_cross"] = norm_defs(self.cfg.d_model)
+        d["cross"] = attn.gqa_defs(self.cfg)
+        return d
+
+    def param_defs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embed_defs(cfg.vocab_size, cfg.d_model, cfg.dtype),
+            "pos_enc": ParamDef((cfg.encoder_frames, cfg.d_model),
+                                (None, FSDP), cfg.dtype, init="small"),
+            "ln_f": norm_defs(cfg.d_model),
+            "ln_enc": norm_defs(cfg.d_model),
+            "head": ParamDef((cfg.d_model, cfg.vocab_size), (FSDP, TP),
+                             cfg.dtype),
+            "encoder": stack_defs(self._enc_block_defs(),
+                                  cfg.encoder_layers),
+            "decoder": stack_defs(self._dec_block_defs(), cfg.num_layers),
+        }
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Random parameters drawn from ``generator``, which must live on
+        the model's device."""
+        return init_params(self.param_defs(), generator, self.device)
+
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames: [B, T, d] precomputed conv-frontend embeddings (stub);
+        self-attention through K1 with ``causal=False`` and rope at
+        ``arange(T)``, as the reference does."""
+        cfg = self.cfg
+        if frames is None:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder model needs its encoder "
+                f"frames, extra_embeds [B, {cfg.encoder_frames}, "
+                f"{cfg.d_model}]")
+        x = frames.to(torch_dtype(cfg.dtype))
+        x = x + params["pos_enc"][None, : x.shape[1]]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for p in _unstack(params["encoder"]):
+            x = self._enc_block(p, x, positions)
+        return rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+    def _enc_block(self, p, x, positions):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        a, _ = attn.gqa_attend(p["attn"], cfg, h, positions, causal=False)
+        x = x + a
+        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+        return x + apply_ffn(p["ffn"], h)
+
+    def _cross_attend(self, p, x, enc_out):
+        """Queries from the decoder state, keys and values from
+        ``enc_out`` (no rope), all rows valid.  Several queries go through
+        K1 with ``causal=False``; one query (a decode step) through K2 at
+        the int length Sk, which is the same function as the reference's
+        ``flash_attention(q, k, v, causal=False)`` with one query row and
+        does not launch a 64-row K1 tile that holds one valid row."""
+        q = attn._project(x, p["wq"])
+        k = attn._project(enc_out, p["wk"])
+        v = attn._project(enc_out, p["wv"])
+        if x.shape[1] == 1:
+            out = ops.decode_attention(q, k, v, k.shape[1])
+        else:
+            out = ops.flash_attention(q, k, v, causal=False)
+        return attn._proj_out(p, out)
+
+    def _dec_block(self, p, x, positions, enc_out, cache, cache_len):
+        cfg = self.cfg
+        h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
+        a, _ = attn.gqa_attend(p["attn"], cfg, h, positions, cache=cache,
+                               cache_len=cache_len)
+        x = x + a
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + self._cross_attend(p["cross"], h, enc_out)
+        h = rms_norm(x, p["ln_ffn"], cfg.norm_eps)
+        return x + apply_ffn(p["ffn"], h)
+
+    def decode(self, params: dict, tokens: torch.Tensor,
+               enc_out: torch.Tensor, caches=None, cache_len=0):
+        """The decoder over ``tokens`` [B, S] attending ``enc_out``: the
+        logits [B, S, vocab].  With ``caches`` (the ``"self"`` part of the
+        cache) a prefill (S > 1, ``cache_len`` an int) writes rows
+        [cache_len, cache_len + S) and a decode step (S == 1) row
+        ``cache_len``, an int or a 0-d int64 tensor on the device."""
+        cfg = self.cfg
+        x = params["embed"][tokens]
+        layers = _unstack(params["decoder"])
+        if tokens.shape[1] > 1:
+            positions = torch.arange(tokens.shape[1],
+                                     device=tokens.device)[None, :] \
+                + cache_len
+        else:
+            positions, cache_len = decode_position(cache_len, tokens.device)
+        if caches is None:
+            for p in layers:
+                x = self._dec_block(p, x, positions, enc_out, None, 0)
+        else:
+            if tokens.shape[1] == 1:
+                # the row and length once, for every layer of the step
+                cache_len = attn.decode_index(cache_len,
+                                              caches["k"].shape[2])
+            for p, c in zip(layers, _unstack(caches)):
+                x = self._dec_block(p, x, positions, enc_out,
+                                    (c["k"], c["v"]), cache_len)
+        return _head_logits(params, x, cfg.norm_eps)
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                extra_embeds=None) -> torch.Tensor:
+        """extra_embeds = encoder frames [B, T, d]."""
+        return self.decode(params, tokens, self.encode(params, extra_embeds))
+
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        """(shape, dtype) of each cache leaf, as the reference's
+        ``cache_defs``."""
+        cfg = self.cfg
+        kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+               cfg.resolved_head_dim), cfg.dtype)
+        return {"self": {"k": kv, "v": kv},
+                "enc_out": ((batch, cfg.encoder_frames, cfg.d_model),
+                            cfg.dtype)}
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        """Zeroed leaves of :meth:`cache_defs` on the model's device."""
+        def make(node):
+            if isinstance(node, dict):
+                return {k: make(v) for k, v in node.items()}
+            shape, dt = node
+            return torch.zeros(shape, dtype=torch_dtype(dt),
+                               device=self.device)
+        return make(self.cache_defs(batch, max_len))
+
+    def prefill(self, params: dict, tokens: torch.Tensor, cache,
+                extra_embeds=None):
+        """Encode the frames ``extra_embeds`` [B, encoder_frames, d] into
+        the cache's ``enc_out`` (copied in place, so that a captured decode
+        step reads them) and prefill the decoder over ``tokens``: logits
+        of the last position, [B, 1, vocab], and the cache."""
+        enc = self.encode(params, extra_embeds)
+        if enc.shape != cache["enc_out"].shape:
+            raise ValueError(
+                f"{self.cfg.name}: frames {tuple(extra_embeds.shape)} do "
+                f"not fill the cache's enc_out "
+                f"{tuple(cache['enc_out'].shape)}")
+        cache["enc_out"].copy_(enc)
+        logits = self.decode(params, tokens, cache["enc_out"],
+                             caches=cache["self"], cache_len=0)
+        return logits[:, -1:], cache
+
+    def decode_step(self, params: dict, token: torch.Tensor, cache, pos):
+        """token: [B, 1]; pos: the current cache length, a Python int or a
+        0-d int64 tensor on the model's device.  Returns logits [B, 1,
+        vocab] and the cache (row ``pos`` written in place)."""
+        logits = self.decode(params, token, cache["enc_out"],
+                             caches=cache["self"], cache_len=pos)
+        return logits, cache
 
 
 def build_model(cfg: ArchConfig, device="cuda"):

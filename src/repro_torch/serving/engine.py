@@ -261,6 +261,13 @@ class ServingEngine:
                     f"devices {placement.devices} failed at "
                     f"{frac:.0%} of its run (attempt {attempt})")
         bundle = self.models[stage.model]
+        if bundle.cfg.family == "audio":
+            # the reference's run_stage fails here too, inside the
+            # prefill's encode (ROADMAP H24)
+            raise ValueError(
+                f"{stage.model} ({bundle.cfg.name}) is an encoder-decoder "
+                f"model, and the serving engine passes no encoder frames "
+                f"to a prefill; call its prefill with extra_embeds")
         t0 = self._clock()
         n_switches = 0
         hit_queries = 0

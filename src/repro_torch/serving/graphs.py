@@ -60,13 +60,16 @@ class StaticDecode:
         self.graph_logits = None     # the graph's logits, after a replay
         self.graph_counts: dict = {}  # kernel launches of one replay
 
-    def prefill(self, prompts: torch.Tensor) -> None:
-        """Zero the cache, prefill ``prompts`` [B, P] into it eagerly, and
-        set the first generated token (at position P) and the position."""
+    def prefill(self, prompts: torch.Tensor, extra_embeds=None) -> None:
+        """Zero the cache, prefill ``prompts`` [B, P] (and an
+        encoder-decoder model's frames, ``extra_embeds``) into it eagerly,
+        and set the first generated token (at position P) and the
+        position."""
         plen = prompts.shape[1]
         for leaf in _leaves(self.cache):
             leaf.zero_()
-        logits, _ = self.model.prefill(self.params, prompts, self.cache)
+        logits, _ = self.model.prefill(self.params, prompts, self.cache,
+                                       extra_embeds)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         self.token.copy_(tok)
         self.tokens[:, plen: plen + 1] = tok
@@ -122,9 +125,11 @@ class DecodeGraphs:
         return self.slots[key]
 
     @torch.inference_mode()
-    def generate(self, prompts: torch.Tensor, gen_len: int, max_len: int):
+    def generate(self, prompts: torch.Tensor, gen_len: int, max_len: int,
+                 extra_embeds=None):
         """Greedy tokens [B, gen_len] of ``prompts`` [B, P] (``P +
-        gen_len <= max_len``): the prefill's token, then ``gen_len - 1``
+        gen_len <= max_len``; an encoder-decoder model's frames as
+        ``extra_embeds``): the prefill's token, then ``gen_len - 1``
         decode steps.  Returns them (a copy) and the static cache they
         were decoded in, which the next stage of the same key reuses."""
         b, plen = prompts.shape
@@ -132,7 +137,7 @@ class DecodeGraphs:
             raise ValueError(f"{plen} prompt and {gen_len} generated "
                              f"tokens exceed max_len {max_len}")
         slot = self.slot(b, max_len)
-        slot.prefill(prompts)
+        slot.prefill(prompts, extra_embeds)
         steps = gen_len - 1
         if steps > 0 and self.model.device.type == "cuda":
             if slot.graph is None:

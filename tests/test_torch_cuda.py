@@ -727,6 +727,62 @@ def test_decode_attention_kernel_head_dim_256(card, s, b, dtype):
             TOL[dtype], clen
 
 
+# whisper-small: 12 heads of 64 over 12 KV heads (G = 1), the encoder's
+# 1500 frames (23 full 64-row tiles and a tail of 28), the decoder's
+# 224-token prompt and its self cache of 256 rows
+WHISPER_H, WHISPER_D, WHISPER_FRAMES, WHISPER_PROMPT = 12, 64, 1500, 224
+
+
+@pytest.mark.parametrize("sq,causal", [(WHISPER_FRAMES, False),
+                                       (WHISPER_PROMPT, False),
+                                       (WHISPER_PROMPT, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_whisper_shapes(card, sq, causal, dtype):
+    """K1 at whisper's three forms: the encoder's bidirectional
+    self-attention (Sq = Sk = 1500, non-causal), the decoder prefill's
+    cross-attention (224 queries over the 1500 frames, non-causal) and its
+    causal self-attention (224 x 224), B = 2."""
+    rng = np.random.default_rng(30)
+    sk = sq if causal else WHISPER_FRAMES
+    h, d = WHISPER_H, WHISPER_D
+    q = _randn(rng, (2, sq, h, d), dtype, card)
+    k = _randn(rng, (2, sk, h, d), dtype, card)
+    v = _randn(rng, (2, sk, h, d), dtype, card)
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert bool(torch.isfinite(out.float()).all())
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("b", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_whisper_cross_cache(card, b, dtype):
+    """K2 over whisper's cross K/V, 1500 rows (B = 2 in 5 splits, B = 8
+    in one), at the int length 1500 a decode step gives it, and at
+    lengths 1 and 751 with the rows past them poisoned; the device length
+    gives the int length's bits."""
+    from repro_torch.kernels import decode_attention as dec_mod
+    rng = np.random.default_rng(31)
+    h, d, s = WHISPER_H, WHISPER_D, WHISPER_FRAMES
+    q = _randn(rng, (b, 1, h, d), dtype, card)
+    kc = _randn(rng, (b, s, h, d), dtype, card)
+    vc = _randn(rng, (b, s, h, d), dtype, card)
+    assert dec_mod.split_plan(s, b * h)[1] == (5 if b == 2 else 1)
+    for clen in (1, s // 2 + 1, s):
+        kp, vp = kc.clone(), vc.clone()
+        kp[:, clen:] = float("nan")
+        vp[:, clen:] = float("nan")
+        out = ops.decode_attention(q, kp, vp, clen)
+        length = torch.full((), clen, dtype=torch.int32, device=card)
+        dev = ops.decode_attention(q, kp, vp, length)
+        torch.cuda.synchronize()
+        assert torch.equal(out, dev), clen
+        want = ref.decode_attention_ref(q, kc[:, :clen], vc[:, :clen], clen)
+        assert float((out.float() - want.float()).abs().max()) < \
+            TOL[dtype], clen
+
+
 # ---------------------------------------------------------------------------
 # The decode step as a captured CUDA graph, K2 reading its length on the
 # device
@@ -765,7 +821,8 @@ def test_decode_attention_kernel_device_length_in_a_graph(card, name, h, kv,
 
 def _graph_model(arch, size, dtype, card):
     """``arch``'s SMOKE config, or its published width cut to one layer
-    stack (two layers; zamba2's first attention site and a tail layer;
+    stack (two layers, whisper's two encoder and two decoder layers over
+    its 1500 frames; zamba2's first attention site and a tail layer;
     gemma3's first five local layers and its first global one, with a
     window of 16 rows, so that a decode after a 16-token prompt wraps the
     local layers' ring), in ``dtype``, with weights from a seeded
@@ -774,6 +831,9 @@ def _graph_model(arch, size, dtype, card):
     from repro_torch.models.families import build_model
     if size == "smoke":
         cfg = SMOKE[arch]
+    elif ARCHS[arch].encoder_layers:
+        cfg = dataclasses.replace(ARCHS[arch], num_layers=2,
+                                  encoder_layers=2)
     elif ARCHS[arch].local_global_pattern:
         cfg = dataclasses.replace(
             ARCHS[arch], num_layers=ARCHS[arch].local_global_pattern,
@@ -789,7 +849,17 @@ def _graph_model(arch, size, dtype, card):
 
 
 GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-3b",
-               "zamba2-2.7b", "gemma3-4b"]
+               "zamba2-2.7b", "gemma3-4b", "whisper-small"]
+
+
+def _frames(cfg, b, card):
+    """An encoder-decoder model's frames [b, encoder_frames, d] from a
+    seed, else None."""
+    if cfg.family != "audio":
+        return None
+    rng = np.random.default_rng(27)
+    return _randn(rng, (b, cfg.encoder_frames, cfg.d_model),
+                  getattr(torch, cfg.dtype), card)
 
 
 def _mla_narrow_model(dtype, card):
@@ -819,7 +889,8 @@ def test_decode_graph_replays_equal_eager_steps(card, arch, size, dtype):
     """A bundle's captured decode step against the same step run eagerly
     (and against the model's decode step at int positions): the same
     greedy tokens, and logits bitwise equal at every step, where the
-    second stage of the key runs on replays alone from a reset cache."""
+    second stage of the key runs on replays alone from a reset cache
+    (whisper's from new frames written into the same cache leaf)."""
     _graph_equals_eager(*_graph_model(arch, size, dtype, card), card)
 
 
@@ -838,29 +909,37 @@ def _graph_equals_eager(cfg, model, params, card):
     rng = np.random.default_rng(25)
     prompts = torch.from_numpy(rng.integers(
         0, min(cfg.vocab_size, 4096), (b, plen))).to(card)
+    frames = _frames(cfg, b, card)
     with torch.inference_mode():
         eager = StaticDecode(model, params, b, max_len)
-        eager.prefill(prompts)
+        eager.prefill(prompts, frames)
         want = [eager.step().clone() for _ in range(steps)]
         cache = model.init_cache(b, max_len)
-        model.prefill(params, prompts, cache)
+        model.prefill(params, prompts, cache, frames)
         for i in range(steps):
             logits, _ = model.decode_step(
                 params, eager.tokens[:, plen + i: plen + i + 1], cache,
                 plen + i)
             assert torch.equal(logits, want[i]), i
         graphs = DecodeGraphs(model, params)
-        tokens, _ = graphs.generate(prompts, steps + 1, max_len)
+        tokens, _ = graphs.generate(prompts, steps + 1, max_len, frames)
         assert torch.equal(tokens, eager.tokens[:, plen:])
         assert (graphs.captures, graphs.eager_steps, graphs.replays) == \
             (1, 1, steps - 1)
         slot = graphs.slots[(b, max_len)]
-        slot.prefill(prompts)
+        if frames is not None:
+            # a stage of other frames first: the replays below must read
+            # the frames of their own prefill, from the leaf the graph holds
+            other = torch.flip(frames, dims=[0])
+            graphs.generate(prompts, steps + 1, max_len, other)
+            assert not torch.equal(slot.cache["enc_out"],
+                                   model.encode(params, frames))
+        slot.prefill(prompts, frames)
         for i in range(steps):
             slot.replay()
             assert torch.equal(slot.graph_logits, want[i]), i
         assert torch.equal(slot.tokens[:, plen:], eager.tokens[:, plen:])
-        tokens, _ = graphs.generate(prompts, steps + 1, max_len)
+        tokens, _ = graphs.generate(prompts, steps + 1, max_len, frames)
         assert torch.equal(tokens, eager.tokens[:, plen:])
         assert graphs.captures == 1
 
@@ -870,7 +949,9 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
     """The launch counts of a stage served from a captured graph equal
     those of the same stage run eagerly: the capture counts nothing, and
     each replay adds what it launched (K3's decode-tile count too).
-    deepseek (its narrow stack) launches K1 and K3 and no K2."""
+    deepseek (its narrow stack) launches K1 and K3 and no K2; whisper K1
+    three times per layer pair at its prefill (encoder self, decoder self
+    and cross) and K2 twice per decoder layer at each step."""
     from repro_torch.serving.graphs import DecodeGraphs
     if arch == "deepseek-v2-236b":
         cfg, model, params = _mla_narrow_model("bfloat16", card)
@@ -880,10 +961,11 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
     max_len = plen + gen_len
     prompts = torch.from_numpy(np.random.default_rng(26).integers(
         0, cfg.vocab_size, (b, plen))).to(card)
+    frames = _frames(cfg, b, card)
     with torch.inference_mode():
         ops.reset_launch_counts()
         cache = model.init_cache(b, max_len)
-        logits, _ = model.prefill(params, prompts, cache)
+        logits, _ = model.prefill(params, prompts, cache, frames)
         tok = torch.argmax(logits[:, -1:], dim=-1)
         want_tokens = [tok]
         for i in range(gen_len - 1):
@@ -896,13 +978,20 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
             assert eager["decode_attention"] == 0
             assert eager["flash_attention"] == cfg.num_layers
             assert eager["moe_gemm"] == 3 * 2 * gen_len
+        elif arch == "whisper-small":
+            # per prefill: encoder self, decoder self and cross; per
+            # decode step: the self cache and the cross K/V
+            assert eager["flash_attention"] == cfg.encoder_layers \
+                + 2 * cfg.num_layers
+            assert eager["decode_attention"] == \
+                2 * cfg.num_layers * (gen_len - 1)
         else:
             assert eager["decode_attention" if arch != "rwkv6-3b"
                          else "rwkv6_scan"] > 0
         graphs = DecodeGraphs(model, params)
         for _ in range(2):      # the stage that captures, then replays only
             ops.reset_launch_counts()
-            tokens, _ = graphs.generate(prompts, gen_len, max_len)
+            tokens, _ = graphs.generate(prompts, gen_len, max_len, frames)
             torch.cuda.synchronize()
             assert ops.counts() == eager
             assert torch.equal(tokens, torch.cat(want_tokens, dim=1))

@@ -35,9 +35,9 @@ from repro_torch.models.families import build_model
 
 ARCHS = ["qwen3-1.7b", "glm4-9b", "qwen1.5-4b", "llava-next-mistral-7b",
          "granite-moe-3b-a800m"]
-# every ported model, GQA or not: the model-level cases run on these
+# the model-level cases run on these (whisper's encoder-decoder:
+# tests/test_torch_whisper.py; deepseek-v2: tests/test_torch_mla.py)
 MODELS = ARCHS + ["gemma3-4b", "rwkv6-3b", "zamba2-2.7b"]
-NOT_PORTED = ["whisper-small"]
 B, S = 2, 16
 
 
@@ -375,12 +375,6 @@ def test_decode_step_device_position_equals_int_position(arch, dtype,
             pos.add_(1)
         assert all(torch.equal(a, b) for a, b in
                    zip(tree_leaves(caches[1]), tree_leaves(caches[0])))
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_yet_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        build_model(SMOKE[arch], device="cpu")
 
 
 def test_default_device_raises_without_a_gpu():
