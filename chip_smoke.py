@@ -122,6 +122,26 @@ ends the run with a non-zero exit code and no result line:
    see the phase), and the same float32 model with its attention
    projections drawn at 1 / sqrt(d) (logits within 1e-3 of their largest
    magnitude, every greedy token equal).
+15. ``train`` – qwen3-1.7b (28 layers, d 2048, 16 / 8 heads of 128, vocab
+   151936, tied embeddings, 1.72 B parameters) at full width and depth,
+   after whisper's weights are freed, trained through the port's
+   ``make_train_step`` with the reference's ``AdamWConfig()``: bf16
+   compute over float32 masters, bf16 moments, remat, sequences of 4096
+   (train_4k), 8 per step (cut from 256) in microbatches of 2 (cut from
+   16; the line's ``reduced`` says so).  One warm-up step, then 4 steps:
+   finite losses, the last below the first; K1's forward launches 28 x 4
+   x 2 and its backward 28 x 4 times per step (remat runs each block's
+   forward again in the backward), nothing else launches; step seconds,
+   tokens/s, model FLOPs per second against 989 TFLOP/s, peak memory.
+16. ``parity_train`` – one microbatch's loss and gradients with K1 and
+   its backward against autograd through the plain version: in float32
+   at full width with 2 layers (the loss within 1e-5, every gradient
+   leaf within 1e-3 of its largest magnitude) and in bf16 over float32
+   masters at full depth (the loss and the global gradient norm within
+   stated bars); then the ``Trainer`` on the card at SMOKE size: a run
+   that fails at step 3, a restart whose restored parameters and moments
+   equal the saved ones bit for bit and whose losses equal an
+   uninterrupted run's.
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -135,15 +155,21 @@ the encoder (q, k, v [8, 1500, 12, 64], non-causal), the cross-attention
 prefill (q [8, 224, 12, 64] over k, v [8, 1500, 12, 64]) and the
 decoder's causal prefill ([8, 224, 12, 64]); K2 on the self cache
 ([8, 256, 12, 64], a device length) and the cross K/V ([8, 1500, 12, 64],
-the int length 1500 a decode step passes).
+the int length 1500 a decode step passes).  And K1's backward
+(``csrc/flash_attention_bwd.cu``) against its plain version, relative to
+each gradient's largest magnitude (2e-5 float32, 2e-2 bf16): a sweep over
+every head dim it takes, both types, the masks and ragged lengths, and,
+timed beside the backward of SDPA, qwen3's training shape (q [2, 4096,
+16, 128], k, v [2, 4096, 8, 128], causal) and its served prefill
+([8, 512, 16, 128]).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
 K5's bf16 paths, which the main path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
-call), a ``total`` line (with the seconds of the two whisper phases),
-the nvidia-smi line, and
-last ``{"ok": true, "device": {...}}``.  There is no
+call), a ``total`` line (with the seconds of the two whisper phases and
+of the two train phases), the nvidia-smi line, and last ``{"ok": true,
+"device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
 from __future__ import annotations
@@ -184,6 +210,29 @@ DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
 # 223 tokens and the start token (n_text_ctx 448); its float32 parity at
 # full width with 2 encoder and 2 decoder layers
 WHISPER_PROMPT_LEN, WHISPER_F32_LAYERS = 224, 2
+# K1's backward, relative to each gradient's largest magnitude: float32 FMA
+# sums in another order; bf16 p and ds rounded as product operands (the
+# plain version keeps them float32) and rounded outputs
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# K1's backward sweep: (Sq, Sk, H, KV) at B = 1, every head dim of
+# _build.FLASH_BWD_HEAD_DIMS, the FLASH_MODES masks: a ragged tile,
+# whisper's 1500 frames (23 x 64 + 28), Sq != Sk at G = 16
+BWD_SWEEP = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1)]
+# the train phase: qwen3-1.7b at full width and depth at train_4k's
+# sequence, its global batch cut from 256 to 8 and its microbatch from 16
+# to 2 (resolve_microbatch has none at global batch 8 under 16: ROADMAP
+# H26), so 4 accumulation steps; one warm-up step, then TRAIN_STEPS
+TRAIN_GLOBAL_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 2, 4
+# parity_train: float32 at full width with 2 layers, one microbatch (the
+# loss to 1e-5 relative, each gradient leaf to 1e-3 of its largest
+# magnitude); bf16 at full depth (the loss and the global gradient norm,
+# relative, and each gradient leaf relative to its largest magnitude: the
+# bf16 forward rounds p for P V and the backward recomputes p in float32,
+# H19, over 28 layers).  The bf16 bars are about 4x the largest readings
+# on an H100 over seeds 0-2: 2.0e-5, 1.28e-4 and 8.4e-3 (wq, k_norm)
+TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
+TRAIN_BF16_LOSS_REL, TRAIN_BF16_NORM_REL, TRAIN_BF16_GRAD_REL = \
+    1e-4, 5e-4, 3e-2
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -205,25 +254,30 @@ MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 # the bf16 redesigns and the tensor-core instruction each must compile to
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
+                    "flash_bwd_mma_kernel": "HMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
 # gemma3's head dim and deepseek-v2's (query/key, value) pair: these
 # instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
-                 "flash_mma_kernel<192,128>")
+                 "flash_mma_kernel<192,128>", "flash_bwd_mma_kernel<128,1>",
+                 "flash_bwd_mma_kernel<128,0>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
-# its instantiations
+# its instantiations, and how many instantiations one such call makes
+# (K1's backward: the key side and the query side)
 TENSOR_CORE_LAUNCHERS = {
-    "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma"),
-    "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma"),
-    "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma"),
-    "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma"),
-    "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma"),
+    "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma", 1),
+    "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma", 1),
+    "flash_bwd_mma_kernel": ("flash_attention_bwd.cu", "launch_bwd", 2),
+    "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma", 1),
+    "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
+    "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
 }
 # the kernel design each wrapper takes in bf16, the main path's type (the
 # float32 paths of K1-K5 are FMA code)
-BF16_DESIGN = {"flash_attention": "mma.sync", "moe_gemm": "wgmma",
+BF16_DESIGN = {"flash_attention": "mma.sync",
+               "flash_attention_bwd": "mma.sync", "moe_gemm": "wgmma",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
                "rwkv6_scan": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
@@ -236,6 +290,8 @@ RWKV_BF16_SWEEP = [(d, chunk, strong, state, out)
                        (64, False, True, torch.float32))]
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:70",
+    # no TPU kernel: the reference differentiates K1's XLA twin
+    "flash_attention_bwd": "src/repro/models/attention.py:68",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
     "moe_gemm": "src/repro/kernels/moe_gemm.py:39",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:66",
@@ -398,9 +454,10 @@ def expected_instantiations(build_mod) -> int:
     launch: the distinct template arguments of each launcher's calls."""
     import re
     n = 0
-    for src, launcher in TENSOR_CORE_LAUNCHERS.values():
+    for src, launcher, per_call in TENSOR_CORE_LAUNCHERS.values():
         text = (Path(build_mod.CSRC) / src).read_text()
-        n += len(set(re.findall(launcher + r"<([^>]+)>\(a\)", text)))
+        n += per_call * len(set(re.findall(launcher + r"<([^>]+)>\(a\)",
+                                           text)))
     return n
 
 
@@ -554,6 +611,73 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
             library_device_ms=device_ms(sdpa(q, k, v, causal, window)),
             library_backend=sdpa_backend(sdpa(q, k, v, causal, window)),
             bound_ms=b_ms, bound_by=by)
+    return rec
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def sdpa_bwd(q, k, v, dout, causal):
+    """The backward of one library call computing the same function
+    (yardstick only): grouped-query SDPA on heads-first views."""
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal, enable_gqa=True)
+    dh = dout.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), dh,
+                                       retain_graph=True)
+
+
+def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
+                   timed=False):
+    """K1's backward on q [b, sq, h, d], k, v [b, sk, kv, d], a seeded dO
+    and K1's own output and log-sum-exp, against its plain version
+    (BWD_TOL, relative to each gradient's largest magnitude); ``timed``:
+    also its times, the library's backward and the bound (five products
+    over the attended pairs; q, k, v, o, dO, lse read and dq, dk, dv
+    written once)."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    b, sq, sk, h, kv, d = shape
+    q = randn(rng, (b, sq, h, d), dtype)
+    k = randn(rng, (b, sk, kv, d), dtype)
+    v = randn(rng, (b, sk, kv, d), dtype)
+    do = randn(rng, (b, sq, h, d), dtype)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+
+    def call():
+        return ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                           causal=causal, window=window)
+
+    got = call()
+    torch.cuda.synchronize()
+    want = plain()
+    rels = [rel_err(g, w) for g, w in zip(got, want)]
+    finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+    rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "causal": causal, "window": window,
+           "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
+           "rel_err_dq_dk_dv": rels, "tol": BWD_TOL[dtype],
+           "ok": max(rels) < BWD_TOL[dtype] and finite}
+    del want
+    if timed:
+        pairs = attended_pairs(sq, sk, causal, window)
+        b_ms, by = bound(nbytes(q, k, v, o, do, lse, *got),
+                         5 * 2.0 * b * h * d * pairs, dtype)
+        lib = sdpa_bwd(q, k, v, do, causal)
+        rec.update(
+            ms=time_ms(call), device_ms=device_ms(call, "bwd_"),
+            plain_ms=time_ms(plain, iters=3, warmup=1),
+            library_ms=time_ms(lib), library_device_ms=device_ms(lib),
+            library_backend=sdpa_backend(lib), bound_ms=b_ms, bound_by=by)
     return rec
 
 
@@ -883,6 +1007,26 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             decode_main[tag.format(kind) + f"/len{rows}"] = decode_case(
                 ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
                 timed=timed, device_length=on_device)
+    # K1's backward: a sweep over every head dim, both types, the masks and
+    # ragged lengths; qwen3-1.7b's training shape (the train phase's
+    # microbatch) and its served prefill, timed in bf16
+    from repro_torch.kernels import _build
+    bwd_sweep = [flash_bwd_case(ops, ref, rng, (1, sq, sk, h, kv, d), dtype,
+                                causal, window)
+                 for d in _build.FLASH_BWD_HEAD_DIMS
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for causal, window in FLASH_MODES
+                 for sq, sk, h, kv in BWD_SWEEP]
+    qcfg = cfgs["qwen3-1.7b"]
+    h, kv, d = qcfg.num_heads, qcfg.num_kv_heads, qcfg.resolved_head_dim
+    bwd_main = {
+        f"{qcfg.name}/train": flash_bwd_case(
+            ops, ref, rng, (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(),
+                            h, kv, d), torch.bfloat16, True, 0, timed=True),
+        f"{qcfg.name}/nq{NUM_QUERIES}": flash_bwd_case(
+            ops, ref, rng, (NUM_QUERIES, PROMPT_LEN, PROMPT_LEN, h, kv, d),
+            torch.bfloat16, True, 0, timed=True)}
+    torch.cuda.empty_cache()
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
     for e, c, d, f in MOE_SWEEP:
@@ -979,7 +1123,8 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             sliced=True)}
 
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
-             + list(decode_main.values()) + moe_sweep
+             + list(decode_main.values()) + bwd_sweep
+             + list(bwd_main.values()) + moe_sweep
              + list(moe_main.values()) + rwkv_sweep
              + list(rwkv_main.values()) + mamba_sweep
              + list(mamba_main.values()))
@@ -994,6 +1139,14 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             "sweep_cases": len(decode_sweep),
             "sweep_max_abs_err": sweep_err(decode_sweep),
             "main_path": decode_main},
+        "flash_attention_bwd": {
+            "sweep_cases": len(bwd_sweep),
+            "sweep_max_abs_err": sweep_err(bwd_sweep),
+            "sweep_max_rel_err": {
+                dt: max(max(c["rel_err_dq_dk_dv"]) for c in bwd_sweep
+                        if c["dtype"] == dt)
+                for dt in ("float32", "bfloat16")},
+            "main_path": bwd_main},
         "moe_gemm": {
             "sweep_cases": len(moe_sweep),
             "sweep_rel_err": sweep_err(moe_sweep, "rel_err"),
@@ -1979,6 +2132,336 @@ def phase_parity_whisper(mods, bundle, prompts, frames, served,
 
 
 # ---------------------------------------------------------------------------
+# train, parity_train
+# ---------------------------------------------------------------------------
+
+
+def train_seq_len() -> int:
+    """The sequence length of the reference's ``train_4k`` shape."""
+    from repro_torch.configs.base import SHAPES
+    return SHAPES["train_4k"].seq_len
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens for the
+    matrix products, and attention's products (QK^T and PV: 4 D flops a
+    head and attended pair forward, twice that backward) over the causal
+    pairs.  The forward that remat repeats is not counted."""
+    pairs = attended_pairs(seq, seq, True, 0)
+    attn = 12.0 * cfg.num_layers * batch * cfg.num_heads \
+        * cfg.resolved_head_dim * pairs
+    return 6.0 * n_params * batch * seq + attn
+
+
+def train_launches(cfg, n_accum: int, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps of a dense decoder with
+    ``cfg.remat``: K1's forward once per layer and microbatch, and again in
+    the backward's recompute; its backward once per layer and
+    microbatch."""
+    exp = dict.fromkeys(REPLACES, 0)
+    exp["moe_gemm_decode_tile"] = 0
+    exp["flash_attention"] = cfg.num_layers * n_accum * steps * (
+        2 if cfg.remat else 1)
+    exp["flash_attention_bwd"] = cfg.num_layers * n_accum * steps
+    return exp
+
+
+def master_params(model, seed: int) -> dict:
+    """The model's random init (a seeded generator on the card) as float32
+    master parameters."""
+    from repro_torch.training.tree import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tree_map(lambda p: p.float(), model.init(gen))
+
+
+def profile_train_step(step_fn, params, state, batch) -> dict:
+    """One more train step traced with torch.profiler: the card's busy
+    share of its wall, the device time by kind of kernel (K1's forward,
+    its backward, the matrix products, elementwise kernels and copies,
+    the rest) and K1's shares of the step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    dev = sum(r[0] for r in rows) / 1e6
+    kinds = {"k1_forward": ("flash_mma_kernel",),
+             "k1_backward": ("bwd_",),
+             "gemm": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
+             "elementwise_and_copies": ("elementwise", "copy", "reduce")}
+    share = dict.fromkeys(kinds, 0.0)
+    share["other"] = 0.0
+    for us, _, name in rows:
+        kind = next((k for k, marks in kinds.items()
+                     if any(m in name for m in marks)), "other")
+        share[kind] += us / 1e6
+    return {"step_wall_s": wall, "device_s": dev,
+            "device_busy_share": dev / wall,
+            "device_s_by_kind": share,
+            "k1_forward_share": share["k1_forward"] / dev,
+            "k1_backward_share": share["k1_backward"] / dev,
+            "top_device_time": [
+                {"name": k[:80], "calls": n, "ms": us / 1e3}
+                for us, n, k in rows[:10]]}
+
+
+def phase_train(mods, cfg, seed: int, profile: bool = False) -> dict:
+    """qwen3-1.7b at full width and depth trained through the port's
+    ``make_train_step`` with the reference's ``AdamWConfig()``: bf16
+    compute over float32 masters, bf16 moments, remat, TRAIN_GLOBAL_BATCH
+    sequences of train_4k's length per step in microbatches of
+    TRAIN_MICROBATCH.  One warm-up step (it builds and allocates), then
+    TRAIN_STEPS steps of ``SyntheticTokens.batch_at(step)`` with the
+    launch counts zeroed just before: the losses must be finite and the
+    last below the first, and K1's forward and backward must launch as
+    ``train_launches`` predicts, nothing else.  Step seconds, tokens/s,
+    model FLOPs per second against 989 TFLOP/s, peak memory;
+    ``profile``: one more step traced."""
+    ops, steps, opt = mods["ops"], mods["steps"], mods["opt"]
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import tree_leaves
+    full = cfg
+    cfg = dataclasses.replace(cfg, microbatch=TRAIN_MICROBATCH)
+    seq = train_seq_len()
+    step_fn, model = steps.make_train_step(
+        cfg, dp_size=1, global_batch=TRAIN_GLOBAL_BATCH,
+        opt_cfg=opt.AdamWConfig(), device="cuda")
+    n_accum = TRAIN_GLOBAL_BATCH // steps.resolve_microbatch(
+        cfg, TRAIN_GLOBAL_BATCH, 1)
+    params = master_params(model, seed)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = opt.init_state(params)
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
+                                      TRAIN_GLOBAL_BATCH, seed=seed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, params, state = step_fn(params, state, data.batch_at(0))
+    warm_loss = float(loss)
+    warmup_s = time.perf_counter() - t
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for step in range(1, TRAIN_STEPS + 1):
+        batch = data.batch_at(step)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, params, state = step_fn(params, state, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect = train_launches(cfg, n_accum, TRAIN_STEPS)
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}: not finite or not falling")
+    if counts != expect:
+        problems.append(f"launches {counts}, expected {expect}")
+    step_s = sum(times) / len(times)
+    flops = train_flops(cfg, n_params, TRAIN_GLOBAL_BATCH, seq)
+    out = {
+        "phase": "train", "model": cfg.name,
+        "shape": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                  "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                  "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+                  "vocab": cfg.vocab_size, "seq_len": seq},
+        "params": n_params,
+        "dtype": f"{cfg.dtype} compute over float32 masters, bf16 moments",
+        "remat": cfg.remat, "global_batch": TRAIN_GLOBAL_BATCH,
+        "microbatch": TRAIN_MICROBATCH, "accum_steps": n_accum,
+        "reduced": {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
+                    "microbatch": f"{full.microbatch} -> "
+                                  f"{TRAIN_MICROBATCH}"},
+        "warmup_loss": warm_loss, "warmup_s": warmup_s,
+        "losses": losses, "step_s": times, "step_s_mean": step_s,
+        "tokens_per_s": TRAIN_GLOBAL_BATCH * seq / step_s,
+        "model_flops_per_step": flops,
+        "model_tflops_per_s": flops / step_s / 1e12,
+        "mfu_of_989_tflops": flops / step_s / PEAK_FLOPS[torch.bfloat16],
+        "peak_gb": peak / 1e9,
+        "launches": counts, "launches_expected": expect,
+        "ok": not problems, "problems": problems,
+    }
+    if profile:
+        out["profile"] = profile_train_step(step_fn, params, state,
+                                            data.batch_at(TRAIN_STEPS + 1))
+    emit(out)
+    if problems:
+        fail("train phase failed: " + "; ".join(problems))
+    return out
+
+
+def loss_and_grads(model, masters, batch, dtype):
+    """The loss of ``batch`` and its gradients with respect to the float32
+    ``masters``, every leaf of more than one dimension cast to ``dtype``
+    inside the loss, as make_train_step takes them."""
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(masters)]
+    cast = lambda p: p.to(dtype) if p.dim() > 1 else p
+    loss = model.train_loss(tree_map(cast, tree_unflatten(masters, leaves)),
+                            batch)
+    return loss.detach().float(), torch.autograd.grad(loss, leaves)
+
+
+def trainer_drill(mods, seed: int) -> dict:
+    """The Trainer on the card at SMOKE qwen3 (bf16 over float32 masters,
+    K1 and its backward at head dim 16): an uninterrupted run of 6 steps;
+    a run that fails at step 3 after its emergency checkpoint; a restart
+    whose restored parameters and moments must equal the saved ones bit
+    for bit, and whose losses must equal the uninterrupted run's bit for
+    bit (K1's backward sums without atomics, and no operation of the step
+    is known to vary from run to run on the card)."""
+    import tempfile
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.trainer import TrainConfig, Trainer
+    from repro_torch.training.tree import tree_paths
+    steps, opt = mods["steps"], mods["opt"]
+    cfg = SMOKE["qwen3-1.7b"]
+    step_fn, model = steps.make_train_step(
+        cfg, dp_size=1, global_batch=4,
+        opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
+        device="cuda")
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=seed))
+
+    def trainer(root):
+        params = master_params(model, seed)
+        return Trainer(cfg, step_fn, params, opt.init_state(params), data,
+                       TrainConfig(steps=6, ckpt_every=2, ckpt_dir=root))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = trainer(f"{tmp}/whole").run()
+        tr = trainer(f"{tmp}/cut")
+        try:
+            tr.run(fail_at=3)
+            failed = False
+        except RuntimeError:
+            failed = True
+        saved = tree_paths({"params": tr.params, "opt": tr.opt_state})
+        tr2 = trainer(f"{tmp}/cut")
+        restored_from = tr2.try_restore()
+        restored = tree_paths({"params": tr2.params, "opt": tr2.opt_state})
+        restore_bitwise = len(saved) == len(restored) and all(
+            p == q and torch.equal(a, b)
+            for (p, a), (q, b) in zip(saved, restored))
+        report = trainer(f"{tmp}/cut").run()
+    want = whole.losses[3:]
+    diff = max(abs(a - b) / abs(b) for a, b in zip(report.losses, want))
+    return {"arch": cfg.name, "steps": 6, "fail_at": 3, "failed": failed,
+            "restored_from": restored_from,
+            "restored_state_bitwise": restore_bitwise,
+            "uninterrupted_losses": whole.losses,
+            "resumed_losses": report.losses,
+            "resumed_losses_bitwise": report.losses == want,
+            "resumed_losses_max_rel_diff": diff,
+            "ok": failed and restored_from == 2 and restore_bitwise
+            and report.losses == want}
+
+
+def phase_parity_train(mods, cfg, seed: int) -> dict:
+    """One microbatch's loss and gradients with the kernels (K1 with its
+    log-sum-exp and its backward) against the plain versions
+    (``plain_versions(ops, ref, ["flash_attention"])``: autograd through
+    ``flash_attention_ref``), on the train phase's first microbatch: in
+    float32 at full width with TRAIN_F32_LAYERS layers (the loss within
+    TRAIN_F32_LOSS_REL, each gradient leaf within TRAIN_F32_GRAD_REL of
+    its largest magnitude), and in bf16 over float32 masters at full
+    depth (the loss within TRAIN_BF16_LOSS_REL and the global gradient
+    norm within TRAIN_BF16_NORM_REL, relative, and each gradient leaf
+    within TRAIN_BF16_GRAD_REL of its largest magnitude); then the Trainer
+    drill."""
+    ops, ref, steps, opt = mods["ops"], mods["ref"], mods["steps"], \
+        mods["opt"]
+    from repro_torch.models.families import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import tree_paths
+    seq = train_seq_len()
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
+                                       TRAIN_GLOBAL_BATCH, seed=seed)) \
+        .batch_at(1)
+    micro = {k: v[:TRAIN_MICROBATCH] for k, v in batch.items()}
+    problems = []
+    out = {"phase": "parity_train", "microbatch": [TRAIN_MICROBATCH, seq]}
+
+    def both(model, masters, dtype):
+        ops.reset_launch_counts()
+        kern = loss_and_grads(model, masters, micro, dtype)
+        counts = ops.counts()
+        with plain_versions(ops, ref, ["flash_attention"]):
+            plain = loss_and_grads(model, masters, micro, dtype)
+        return kern, plain, counts
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                num_layers=TRAIN_F32_LAYERS)
+    model = build_model(cfg32, "cuda")
+    masters = master_params(model, seed)
+    (lk, gk), (lp, gp), counts = both(model, masters, torch.float32)
+    paths = [p for p, _ in tree_paths(masters)]
+    leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
+    f32 = {"layers": TRAIN_F32_LAYERS, "loss_kernels": float(lk),
+           "loss_plain": float(lp),
+           "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
+           "grad_rel_diff_max": max(leaf_rel.values()),
+           "grad_rel_diff_worst_leaf": max(leaf_rel, key=leaf_rel.get),
+           "launches": {k: n for k, n in counts.items() if n},
+           "tol": {"loss": TRAIN_F32_LOSS_REL, "grad": TRAIN_F32_GRAD_REL}}
+    if not (f32["loss_rel_diff"] <= TRAIN_F32_LOSS_REL
+            and f32["grad_rel_diff_max"] <= TRAIN_F32_GRAD_REL):
+        problems.append(f"float32: loss or a gradient leaf beyond its bar "
+                        f"({f32['loss_rel_diff']}, "
+                        f"{f32['grad_rel_diff_max']})")
+    out["float32_cut_depth"] = f32
+    del model, masters, gk, gp
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, "cuda")
+    masters = master_params(model, seed)
+    paths = [p for p, _ in tree_paths(masters)]
+    (lk, gk), (lp, gp), counts = both(model, masters, torch.bfloat16)
+    norm = lambda gs: float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                           for g in gs)))
+    nk, np_ = norm(gk), norm(gp)
+    leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
+    bf16 = {"layers": cfg.num_layers, "loss_kernels": float(lk),
+            "loss_plain": float(lp),
+            "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
+            "grad_norm_kernels": nk, "grad_norm_plain": np_,
+            "grad_norm_rel_diff": abs(nk - np_) / np_,
+            "grad_rel_diff_max": max(leaf_rel.values()),
+            "grad_rel_diff_worst_leaf": max(leaf_rel, key=leaf_rel.get),
+            "finite": bool(torch.isfinite(lk)) and bool(np.isfinite(nk)),
+            "launches": {k: n for k, n in counts.items() if n},
+            "tol": {"loss": TRAIN_BF16_LOSS_REL,
+                    "grad_norm": TRAIN_BF16_NORM_REL,
+                    "grad": TRAIN_BF16_GRAD_REL}}
+    if not (bf16["finite"] and bf16["loss_rel_diff"] <= TRAIN_BF16_LOSS_REL
+            and bf16["grad_norm_rel_diff"] <= TRAIN_BF16_NORM_REL
+            and bf16["grad_rel_diff_max"] <= TRAIN_BF16_GRAD_REL):
+        problems.append(f"bf16: loss, gradient norm or a gradient leaf "
+                        f"beyond its bar ({bf16['loss_rel_diff']}, "
+                        f"{bf16['grad_norm_rel_diff']}, "
+                        f"{bf16['grad_rel_diff_max']})")
+    out["bf16_full_depth"] = bf16
+    del model, masters, gk, gp
+    torch.cuda.empty_cache()
+
+    out["trainer_drill"] = trainer_drill(mods, seed)
+    if not out["trainer_drill"]["ok"]:
+        problems.append("Trainer drill: restore or resumed losses differ")
+    out["ok"], out["problems"] = not problems, problems
+    emit(out)
+    if problems:
+        fail("parity_train phase failed: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # optional: where one stage's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -2136,16 +2619,18 @@ def phase_profile(bundles, prompts, name: str, frames=None) -> dict:
 
 def kernel_summary(kernels_out, serve_outs) -> dict:
     """One row per kernel: its time at the main shape (the first timed
-    one: qwen3's for K1 and K2, the gate/up projection at prefill for K3,
-    zamba2's prefill for K4, rwkv6's prefill for K5) and its launches
-    summed over the serve phases, with the other timed shapes and the
-    launches per phase; for K3 also its decode gate/up shape with the
+    one: qwen3's for K1 and K2, qwen3's training shape for K1's backward,
+    the gate/up projection at prefill for K3, zamba2's prefill for K4,
+    rwkv6's prefill for K5) and its launches summed over the serve phases
+    and the train phase (``serve_outs``), with the other timed shapes and
+    the launches per phase; for K3 also its decode gate/up shape with the
     launches of the 64-row tile that the serve phases counted, and the
     wrapper's host microseconds per call beside its plan's; for K2 the
     wrapper's host microseconds and the device kernels per call at each
     timed shape, timed with its length on the device as the serving path
     calls it; for K4 and K5 the output type they were timed with."""
     main_key = {"flash_attention": "qwen3-1.7b",
+                "flash_attention_bwd": "qwen3-1.7b/train",
                 "decode_attention": "qwen3-1.7b",
                 "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
                 "rwkv6_scan": "prefill"}
@@ -2178,6 +2663,11 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                 "value_head_dim", "library_backend") if f in x}
                 for k, x in timed.items() if k != key},
         }
+        if name == "flash_attention_bwd":
+            row["note"] = ("no TPU kernel: the reference differentiates "
+                           "K1's XLA twin")
+            row["max_rel_err"] = max(max(x["rel_err_dq_dk_dv"])
+                                     for x in main.values())
         if name == "moe_gemm":
             dkey = next(k for k in timed if k.startswith("decode_up"))
             row["decode"] = {
@@ -2206,7 +2696,8 @@ def main() -> None:
                     help="after each serve phase, also run one stage of "
                          "each model with its decode steps eager and as "
                          "graph replays, split into prefill and decode, "
-                         "and trace the decode steps with torch.profiler")
+                         "and trace the decode steps with torch.profiler; "
+                         "in the train phase, trace one more step")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2219,7 +2710,9 @@ def main() -> None:
         from repro_torch.core.executor import fresh_state
         from repro_torch.core.policies import make_policy
         from repro_torch.kernels import _build, ops, ref
+        from repro_torch.launch import steps
         from repro_torch.models import moe
+        from repro_torch.training import optimizer as opt
         from repro_torch.serving.engine import ModelBundle, ServingEngine
         make_workflow = load_example().make_workflow
     except (ImportError, OSError) as e:
@@ -2227,7 +2720,8 @@ def main() -> None:
     mods = dict(ops=ops, ref=ref, ModelBundle=ModelBundle,
                 ServingEngine=ServingEngine, make_workflow=make_workflow,
                 fresh_state=fresh_state, make_policy=make_policy,
-                homogeneous_cluster=homogeneous_cluster, moe=moe)
+                homogeneous_cluster=homogeneous_cluster, moe=moe,
+                steps=steps, opt=opt)
 
     qwen = ARCHS["qwen3-1.7b"]
     glm = dataclasses.replace(ARCHS["glm4-9b"], vocab_size=qwen.vocab_size)
@@ -2308,10 +2802,21 @@ def main() -> None:
         phase_profile({"whisper": bundle}, prompts, "whisper", frames)
     phase_parity_whisper(mods, bundle, prompts, frames, served, args.seed)
     whisper_s = time.perf_counter() - t_whisper
+    del bundle, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train_out = phase_train(mods, qwen, args.seed, profile=args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_train(mods, qwen, args.seed)
+    train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
-                                      serve4_out, serve5_out, whisper_out]))
+                                      serve4_out, serve5_out, whisper_out,
+                                      train_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
-          "whisper_phases_seconds": whisper_s})
+          "whisper_phases_seconds": whisper_s,
+          "train_phases_seconds": train_s})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (192, 128) for deepseek-v2's multi-head latent attention
 FLASH_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
                    (256, 256), (192, 128))
+# head dims (D == Dv) that K1's backward (csrc/flash_attention_bwd.cu)
+# instantiates
+FLASH_BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 # head dims of K2's dispatch switches in csrc/decode_attention.cu
 DECODE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
@@ -153,13 +156,28 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` (naming ``what``: the kernel and the
+    ROADMAP item that brings its backward) where autograd would need a
+    backward kernel that the port does not have: grad enabled and an input
+    that requires it.  The wrappers call it for CUDA tensors only; on the
+    CPU autograd runs through their plain versions."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"no backward kernel on the card: {what}")
+
+
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point: without them ctypes would pass
 # pointers as 32-bit ints
 ARGTYPES = {
-    # ..., B, Sq, Sk, H, KV, D, Dv, strides, causal, window, dtype, stream
-    "fate_flash_attention": [_P] * 4 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
+    # q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv, strides, causal, window,
+    # dtype, stream
+    "fate_flash_attention": [_P] * 5 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
     + [_P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D, causal,
+    # window, dtype, stream
+    "fate_flash_attention_bwd": [_P] * 10 + [_I32] * 9 + [_P],
     # ..., B, H, KV, D, S, cache_len_dev, cache_len, chunk, nsplit, ...
     "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3
     + [_I64] * 10 + [_I32] + [_P],

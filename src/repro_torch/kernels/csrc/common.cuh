@@ -18,6 +18,16 @@ namespace fate {
 // tile wipes through alpha = exp(-1e30 - m) = 0.
 constexpr float NEG_INF = -1e30f;
 
+constexpr float LN2 = 0.69314718055994531f;
+constexpr float LOG2E = 1.44269504088896341f;
+
+// A row's natural log-sum-exp from its running max m and its sum
+// l = sum exp(s - m); +inf for a row that visited no key, so that a
+// backward's exp(s - lse) gives it no weight.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // Load 4 consecutive elements (pointer aligned to 4 elements) as float4.
 template <typename T>
 __device__ __forceinline__ float4 load4(const T* p);

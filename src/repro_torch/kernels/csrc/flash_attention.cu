@@ -66,10 +66,18 @@
 // columns tx + 16*c and output columns tx + 16*j; Q, K, V tiles in shared
 // memory, p through shared memory as float32.  No bf16 input reaches it.
 //
+// lse: when the caller passes a float32 [B, H, Sq] buffer (training: the
+// backward, csrc/flash_attention_bwd.cu, recomputes p from it), each row's
+// natural log-sum-exp of its scaled, masked scores is written beside the
+// output, m + log(l) from the running max and sum (+inf for a row that
+// attended no key).  The output's arithmetic is the same with or without
+// it; serving passes none.
+//
 // Rows that have no valid key at all (possible only with a window and
 // Sq > Sk + window) are degenerate in the reference (a uniform average
-// over masked keys); here they average over the visited tiles, or give 0
-// when no tile is visited.
+// over masked keys); here they give 0 and a log-sum-exp of +inf (their
+// running max never leaves NEG_INF), so that the backward's zero gradient
+// for them is exact.
 #include "common.cuh"
 
 namespace {
@@ -88,7 +96,7 @@ template <typename T, int D, int DV, int BN>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 int Sq, int Sk, int G,
+                 float* __restrict__ lse, int Sq, int Sk, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -267,9 +275,14 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r < Sq) {
       const float denom = fmaxf(l_i[i], 1e-30f);
+      const bool none = m_i[i] == NEG_INF;   // no valid key: 0, lse +inf
 #pragma unroll
       for (int j = 0; j < DN; ++j)
-        ob[(int64_t)r * o_ss + tx + 16 * j] = from_float<T>(acc[i][j] / denom);
+        ob[(int64_t)r * o_ss + tx + 16 * j] =
+            from_float<T>(none ? 0.f : acc[i][j] / denom);
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)b * gridDim.y + h) * Sq + r] =
+            row_lse(m_i[i], none ? 0.f : l_i[i]);
     }
   }
 }
@@ -298,7 +311,7 @@ template <int D, int DV>
 __global__ void __launch_bounds__(MMA_THREADS)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 int Sq, int Sk, int G,
+                 float* __restrict__ lse, int Sq, int Sk, int G,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -513,13 +526,19 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float denom = fmaxf(l, 1e-30f);
+    const bool none = m_r[i] == NEG_INF;   // no valid key: 0, lse +inf
     const int r = row0 + 8 * i;
     if (r >= Sq) continue;
+    if (lse != nullptr && (lane & 3) == 0)   // m is in the log2 domain
+      lse[((int64_t)b * gridDim.y + h) * Sq + r] =
+          row_lse(m_r[i] * LN2, none ? 0.f : l);
     bf16* orow = ob + (int64_t)r * o_ss;
 #pragma unroll
     for (int j = 0; j < NT; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) =
-          __floats2bfloat162_rn(o[j][2 * i] / denom, o[j][2 * i + 1] / denom);
+          none ? __floats2bfloat162_rn(0.f, 0.f)
+               : __floats2bfloat162_rn(o[j][2 * i] / denom,
+                                       o[j][2 * i + 1] / denom);
   }
 }
 
@@ -528,6 +547,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, Sq, Sk, H, KV;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int causal, window;
@@ -547,7 +567,8 @@ int launch_flash(const FlashArgs& a) {
   const float scale = (float)(1.0 / sqrt((double)D));
   kern<<<grid, NTHREADS, smem_bytes, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.Sq, a.Sk,
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Sq,
+      a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
       a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window, scale);
   return (int)cudaGetLastError();
@@ -564,7 +585,8 @@ int launch_flash_mma(const FlashArgs& a) {
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   kern<<<grid, MMA_THREADS, smem_bytes, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.Sq, a.Sk,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Sq,
+      a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
       a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window,
       scale_log2);
@@ -616,14 +638,14 @@ bool aligned_for_mma(const FlashArgs& a) {
 // an unsupported (D, Dv) pair, dtype or alignment.  Launches on `stream`,
 // does not synchronise, allocates nothing.
 extern "C" int fate_flash_attention(
-    const void* q, const void* k, const void* v, void* out,
+    const void* q, const void* k, const void* v, void* out, float* lse,
     int B, int Sq, int Sk, int H, int KV, int D, int Dv,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int causal, int window, int dtype, void* stream) {
-  FlashArgs a{q, k, v, out, B, Sq, Sk, H, KV,
+  FlashArgs a{q, k, v, out, lse, B, Sq, Sk, H, KV,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
               o_sb, o_ss, o_sh, causal, window,
               static_cast<cudaStream_t>(stream)};

@@ -125,10 +125,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``cache_len``: a Python int in ``[1, S]`` or a one-element int32
     tensor on the device of ``q`` (see the module's note).
 
-    A CUDA tensor goes through the kernel (which is built at first use)
-    or raises; the plain version is taken only for tensors that lie on
-    the CPU.  ``decode_attention.launches`` counts calls that launched
-    the kernel (the float32 path's two passes count as one).
+    A CUDA tensor goes through the kernel (which is built at first use) or
+    raises; the plain version is taken only for tensors that lie on the
+    CPU.  With grad enabled and an input that requires it, a CUDA call
+    raises ``NotImplementedError``: there is no backward kernel (autograd
+    runs through the plain version on the CPU).
+    ``decode_attention.launches`` counts calls that launched the kernel
+    (the float32 path's two passes count as one).
     """
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape:
@@ -165,6 +168,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_ref(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode_attention kernel for {q.device}")
+    _build.refuse_grad("decode_attention; a decode step is never trained "
+                       "(ROADMAP item 14 trains through flash_attention, "
+                       "whose backward is K1's)", q, k_cache, v_cache)
     g = h // kv
     if d not in _build.DECODE_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {_build.DECODE_HEAD_DIMS}")

@@ -24,6 +24,20 @@ Scores and the accumulator are float32 for either input type.  In float32
 float32; ROADMAP H19).  The bf16 kernel reads rows in 16-byte pieces:
 an operand whose strides are not multiples of 8 elements is copied first
 (``_build.kernel_operand``).
+
+Training: where grad is enabled and an input requires it,
+:func:`flash_attention` goes through a ``torch.autograd.Function`` whose
+forward also writes each row's log-sum-exp (float32 [B, H, Sq], from the
+same kernel; the output's bits are those of a call without it) and whose
+backward is the hand-written kernel ``csrc/flash_attention_bwd.cu``
+(FlashAttention-2's: a ``rowsum(dO o)`` pre-pass, a dk / dv kernel per key
+tile that sums the G heads of its KV head, a dq kernel per query tile; no
+atomics, so two calls give the same bits).  The TPU kernel has no
+backward: the JAX models differentiate its XLA twin.  On the CPU both
+directions take their plain versions; on the card there is no fallback.
+The backward takes D in ``_build.FLASH_BWD_HEAD_DIMS`` with Dv == D: head
+dim 256 and (192, 128) raise ``NotImplementedError`` (ROADMAP items 14b,
+14c).
 """
 from __future__ import annotations
 
@@ -34,18 +48,12 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
-    """Plain version: full float32 score matrix, masked with -1e30,
-    softmax, product with ``v``.  q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v:
-    [B, Sk, KV, Dv]; ``H % KV == 0``; returns [B, Sq, H, Dv] in
-    ``q.dtype``."""
+def _scores(q, k, causal, window):
+    """Float32 masked scores [B, KV, G, Sq, Sk] of the plain versions, and
+    the mask [Sq, Sk] (True where a query attends a key)."""
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
-    dv = v.shape[-1]
-    g = h // kv
-    qr = q.reshape(b, sq, kv, g, d).float()
+    qr = q.reshape(b, sq, kv, h // kv, d).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.float()) * d ** -0.5
     qi = torch.arange(sq, device=q.device)[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
@@ -54,11 +62,60 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= qi >= ki
     if window:
         mask &= qi - ki < window
-    s = torch.where(mask[None, None, None], s,
-                    torch.full_like(s, NEG_INF))
+    return torch.where(mask[None, None, None], s,
+                       torch.full_like(s, NEG_INF)), mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """Plain version: full float32 score matrix, masked with -1e30,
+    softmax, product with ``v``.  q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v:
+    [B, Sk, KV, Dv]; ``H % KV == 0``; returns [B, Sq, H, Dv] in
+    ``q.dtype``, and with ``return_lse`` also each row's log-sum-exp of
+    its scaled, masked scores, float32 [B, H, Sq]."""
+    b, sq, h, _ = q.shape
+    s, _ = _scores(q, k, causal, window)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(b, sq, h, dv).to(q.dtype)
+    o = o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, dout, lse, *, causal: bool = True,
+                            window: int = 0):
+    """Plain version of the backward: the same formulas as the kernel with
+    a full float32 score matrix.  p = exp(s - lse), dv = sum over the G
+    heads of p^T dO, ds = p (dO v^T - rowsum(dO o)) where the mask keeps
+    the pair (a masked score is a constant), dq = ds k D^-0.5, dk = sum
+    over the G heads of ds^T q D^-0.5.  Shapes as
+    :func:`flash_attention_ref`, ``lse`` float32 [B, H, Sq]; returns (dq,
+    dk, dv) in the input dtype.  A row that attends no key at all (only
+    with a window and Sq > Sk + window) takes p = 1 / Sk, the gradient of
+    the plain forward's uniform average over its masked keys, which its
+    log-sum-exp cannot express in float32 (the kernel's forward gives such
+    a row 0 instead, and its backward no gradient)."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    s, mask = _scores(q, k, causal, window)
+    p = torch.where(mask.any(-1, keepdim=True),
+                    torch.exp(s - lse.reshape(b, kv, g, sq, 1)),
+                    torch.full((), 1.0 / k.shape[1], device=s.device))
+    do = dout.reshape(b, sq, kv, g, -1).float()
+    delta = (do * o.reshape(b, sq, kv, g, -1).float()).sum(-1)   # [B,Sq,KV,G]
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = torch.where(mask, p * (dp - delta.permute(0, 2, 3, 1)[..., None]),
+                     torch.zeros((), device=p.device))
+    scale = d ** -0.5
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.reshape(b, sq, kv, g, d).float()) * scale
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check(q, k, v):
@@ -80,18 +137,18 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v: [B, Sk, KV, Dv]; returns
-    [B, Sq, H, Dv].  (D, Dv) must be one of ``_build.FLASH_HEAD_DIMS``.
-
-    A CUDA tensor goes through the kernel (which is built at first use)
-    or raises; the plain version is taken only for tensors that lie on
-    the CPU.  ``flash_attention.launches`` counts kernel launches.
-    """
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        return_lse: bool = False):
+    """K1's forward without autograd: the output, and with ``return_lse``
+    also each row's log-sum-exp (float32 [B, H, Sq], written by the same
+    kernel; the output's bits do not change).  The kernel for CUDA
+    tensors, :func:`flash_attention_ref` for CPU ones; counts in
+    ``flash_attention.launches``."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   return_lse=return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention kernel for {q.device}")
     b, sq, h, d = q.shape
@@ -104,11 +161,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{sq}, {sk}, {window}")
     q, k, v = (_build.kernel_operand(x) for x in (q, k, v))
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fate_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             b, sq, sk, h, kv, d, dv,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -120,7 +180,120 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention kernel launch failed (code {rc}) for q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _dense16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous at a 16-byte aligned address (the backward's
+    layout), copied if it is not."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_bwd_dims(d: int, dv: int) -> None:
+    """Raise where the backward kernel has no instantiation for (D, Dv)."""
+    if d == 256:
+        raise NotImplementedError(
+            "flash_attention_bwd at head dim 256 (gemma3's training) is "
+            "ROADMAP item 14b")
+    if dv != d:
+        raise NotImplementedError(
+            f"flash_attention_bwd at (D, Dv) = {(d, dv)} (deepseek-v2's "
+            f"latent attention in training) is ROADMAP item 14c")
+    if d not in _build.FLASH_BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {_build.FLASH_BWD_HEAD_DIMS}")
+
+
+def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
+                        window: int = 0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``, from
+    the forward's inputs, output ``o`` and log-sum-exp ``lse`` (float32
+    [B, H, Sq]).  D must be one of ``_build.FLASH_BWD_HEAD_DIMS``, with
+    Dv == D.
+
+    A CUDA tensor goes through the kernel (``csrc/flash_attention_bwd.cu``,
+    built at first use) or raises; :func:`flash_attention_bwd_ref` is
+    taken only for tensors that lie on the CPU.
+    ``flash_attention_bwd.launches`` counts kernel calls (each launches
+    the pre-pass, the dk / dv kernel and the dq kernel).
+    """
+    _check(q, k, v)
+    b, sq, h, _ = q.shape
+    if o.shape != (b, sq, h, v.shape[3]) or dout.shape != o.shape or \
+            lse.shape != (b, h, sq):
+        raise ValueError(
+            f"expected o, dout {(b, sq, h, v.shape[3])} and lse "
+            f"{(b, h, sq)}, got {tuple(o.shape)}, {tuple(dout.shape)}, "
+            f"{tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=causal,
+                                       window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash_attention_bwd kernel for {q.device}")
+    d, sk, kv = q.shape[3], k.shape[1], k.shape[2]
+    _check_bwd_dims(d, v.shape[3])
+    q, k, v, o, dout = (_dense16(x.to(q.dtype)) for x in (q, k, v, o, dout))
+    lse = _dense16(lse.float())
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fate_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, kv, d,
+            int(bool(causal)), int(window), _build.DTYPE_CODE[q.dtype],
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed (code {rc}) for q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dvv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 with a gradient: the forward saves q, k, v, o and the rows'
+    log-sum-exp; the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cuda":     # refuse before the forward's work
+            _check_bwd_dims(q.shape[-1], v.shape[-1])
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v: [B, Sk, KV, Dv]; returns
+    [B, Sq, H, Dv].  (D, Dv) must be one of ``_build.FLASH_HEAD_DIMS``.
+
+    A CUDA tensor goes through the kernel (which is built at first use)
+    or raises; the plain version is taken only for tensors that lie on
+    the CPU.  ``flash_attention.launches`` counts kernel launches.  Where
+    grad is enabled and an input requires it, the call is differentiable:
+    the forward also writes the rows' log-sum-exp and the backward is
+    :func:`flash_attention_bwd` (its kernel on the card, its plain version
+    on the CPU).
+    """
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -109,9 +109,12 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ``xh.dtype``; the model asks for float32, as its reference keeps the
     scan's output.  ``S`` must be a multiple of ``min(chunk, S)``.
 
-    A CUDA tensor goes through the kernel (which is built at first use)
-    or raises; the plain version is taken only for tensors that lie on
-    the CPU.  ``mamba2_scan.launches`` counts kernel launches.
+    A CUDA tensor goes through the kernel (which is built at first use) or
+    raises; the plain version is taken only for tensors that lie on the
+    CPU.  With grad enabled and an input that requires it, a CUDA call
+    raises ``NotImplementedError``: there is no backward kernel (autograd
+    runs through the plain version on the CPU).  ``mamba2_scan.launches``
+    counts kernel launches.
     """
     _check(xh, b, c, dt, a_log, state0, out_dtype)
     out_dtype = out_dtype or xh.dtype
@@ -126,6 +129,8 @@ def mamba2_scan(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                                state0=state0, out_dtype=out_dtype)
     if xh.device.type != "cuda":
         raise RuntimeError(f"no mamba2_scan kernel for {xh.device}")
+    _build.refuse_grad("mamba2_scan; Mamba2 training (a K4 backward scan) "
+                       "is ROADMAP item 14e", xh, b, c, dt, a_log, state0)
     if (p, n) not in DIMS:
         raise ValueError(f"(head dim, state dim) {(p, n)} not in {DIMS}")
     if chunk > MAX_CHUNK:

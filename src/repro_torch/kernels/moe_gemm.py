@@ -94,17 +94,21 @@ def _check(x, w):
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [E, C, D] or [B, E, C, D]; w: [E, D, F] -> [..., E, C, F].
 
-    A CUDA tensor goes through the kernel (which is built at first use)
-    or raises; the plain version is taken only for tensors that lie on
-    the CPU.  ``moe_gemm.launches`` counts kernel launches, and
-    ``moe_gemm.decode_tile_launches`` those of them that took the 64-row
-    tile (the decode steps of the serving path).
+    A CUDA tensor goes through the kernel (which is built at first use) or
+    raises; the plain version is taken only for tensors that lie on the
+    CPU.  With grad enabled and an input that requires it, a CUDA call
+    raises ``NotImplementedError``: there is no backward kernel (autograd
+    runs through the plain version on the CPU).  ``moe_gemm.launches``
+    counts kernel launches, and ``moe_gemm.decode_tile_launches`` those of
+    them that took the 64-row tile (the decode steps of the serving path).
     """
     _check(x, w)
     if x.device.type == "cpu":
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
         raise RuntimeError(f"no moe_gemm kernel for {x.device}")
+    _build.refuse_grad("moe_gemm; MoE training (K3's dX / dW kernels) is "
+                       "ROADMAP item 14a", x, w)
     x4 = x if x.dim() == 4 else x.unsqueeze(0)
     b, e, c, d = x4.shape
     f = w.shape[2]

@@ -15,20 +15,23 @@ a replay of the graph calls no wrapper: the graph's owner
 from __future__ import annotations
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                  flash_attention_bwd)
 from repro_torch.kernels.mamba2_scan import mamba2_scan
 from repro_torch.kernels.moe_gemm import moe_gemm
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 KERNELS = {
     "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
     "decode_attention": decode_attention,
     "moe_gemm": moe_gemm,
     "mamba2_scan": mamba2_scan,
     "rwkv6_scan": rwkv6_scan,
 }
 
-__all__ = ["KERNELS", "decode_attention", "flash_attention", "mamba2_scan",
+__all__ = ["KERNELS", "decode_attention", "flash_attention",
+           "flash_attention_bwd", "mamba2_scan",
            "moe_gemm", "rwkv6_scan", "add_counts", "counts",
            "launch_counts", "reset_launch_counts"]
 

@@ -134,9 +134,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor goes through a kernel (which is built at first use) or
     raises; the plain version is taken only for tensors that lie on the
-    CPU.  bf16 r, k, v go to the mma.sync kernel, float32 ones to the FMA
-    kernel; a shape outside the kernel's reach raises ``ValueError``.
-    ``rwkv6_scan.launches`` counts kernel launches.
+    CPU.  With grad enabled and an input that requires it, a CUDA call
+    raises ``NotImplementedError``: there is no backward kernel (autograd
+    runs through the plain version on the CPU).  bf16 r, k, v go to the
+    mma.sync kernel, float32 ones to the FMA kernel; a shape outside the
+    kernel's reach raises ``ValueError``. ``rwkv6_scan.launches`` counts
+    kernel launches.
     """
     _check(r, k, v, w, bonus, state0, out_dtype)
     out_dtype = out_dtype or r.dtype
@@ -150,6 +153,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out_dtype=out_dtype)
     if r.device.type != "cuda":
         raise RuntimeError(f"no rwkv6_scan kernel for {r.device}")
+    _build.refuse_grad("rwkv6_scan; RWKV6 training (a K5 backward scan) is "
+                       "ROADMAP item 14d", r, k, v, w, bonus, state0)
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if chunk > MAX_CHUNK:

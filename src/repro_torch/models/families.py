@@ -6,6 +6,12 @@ or deepseek-v2's latent attention, dense and MoE, gemma3's local/global
 layers, llava's image embeddings), :class:`RWKVLM`,
 :class:`Mamba2Hybrid` and the encoder-decoder :class:`EncDecLM`
 (whisper).
+
+Each has ``train_loss(params, batch)``, the mean float32 cross-entropy of
+its ``forward``, whose ``remat`` recomputes each block in the backward
+where ``cfg.remat`` is set, as the reference's ``_remat`` does: every
+RWKV6 block, every Mamba2 block (not the hybrid's shared attention
+block), and every encoder and decoder block of whisper.
 """
 from __future__ import annotations
 
@@ -21,8 +27,8 @@ from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
                                        embed_defs, ffn_defs, init_params,
                                        norm_defs, rms_norm, stack_defs,
                                        torch_dtype, unembed_logits)
-from repro_torch.models.transformer import (DecoderLM, _unstack,
-                                            decode_position)
+from repro_torch.models.transformer import (DecoderLM, _remat, _unstack,
+                                            decode_position, softmax_xent)
 
 
 def _head_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,13 +79,15 @@ class RWKVLM:
         c_out, c_state = rwkv_mod.rwkv6_channel_mix(p, cfg, h, state)
         return x + c_out, {**t_state, **c_state}
 
-    def _run(self, params, x, cache=None):
+    def _run(self, params, x, cache=None, remat_blocks=False):
         """The layer loop; with a cache, each layer starts from its state
         there and writes its new state back into it."""
         layers = _unstack(params["blocks"])
         if cache is None:
+            block = _remat(lambda p, xx: self._block(p, xx, {})[0],
+                           remat_blocks)
             for p in layers:
-                x, _ = self._block(p, x, {})
+                x = block(p, x)
             return x
         for p, st in zip(layers, _unstack(cache)):
             x, new = self._block(p, x, st)
@@ -92,10 +100,14 @@ class RWKVLM:
                         self.cfg.norm_eps)
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                extra_embeds=None) -> torch.Tensor:
-        return _head_logits(params, self._run(params,
-                                              self._embed(params, tokens)),
-                            self.cfg.norm_eps)
+                extra_embeds=None, remat: bool = True) -> torch.Tensor:
+        x = self._run(params, self._embed(params, tokens),
+                      remat_blocks=remat and self.cfg.remat)
+        return _head_logits(params, x, self.cfg.norm_eps)
+
+    def train_loss(self, params: dict, batch: dict) -> torch.Tensor:
+        return softmax_xent(self.forward(params, batch["tokens"]),
+                            batch["labels"])
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeroed recurrent states, each leaf [layers, batch, ...]
@@ -184,7 +196,7 @@ class Mamba2Hybrid:
         return x + apply_ffn(p["ffn"], h)
 
     def _run(self, params, x, positions, cache=None, cache_len=0,
-             decode=False):
+             decode=False, remat_blocks=False):
         """Layer i is a Mamba2 block; after every ``attn_every``-th comes
         the shared attention block with its site's KV cache, and the last
         ``num_layers % attn_every`` layers form the tail.  With a cache,
@@ -196,9 +208,14 @@ class Mamba2Hybrid:
                   else [None] * len(layers))
         kvs = (_unstack(cache["kv"]) if cache is not None
                else [None] * self.n_attn)
+        fresh = _remat(
+            lambda p, xx: self._ssm_block(p, xx, None, False)[0],
+            remat_blocks)
         for i, (p, st) in enumerate(zip(layers, states)):
-            x, new = self._ssm_block(p, x, st, decode)
-            if st is not None:
+            if st is None:
+                x = fresh(p, x)
+            else:
+                x, new = self._ssm_block(p, x, st, decode)
                 for key, view in st.items():
                     view.copy_(new[key])
             if k and (i + 1) % k == 0:
@@ -210,11 +227,16 @@ class Mamba2Hybrid:
         return x
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                extra_embeds=None) -> torch.Tensor:
+                extra_embeds=None, remat: bool = True) -> torch.Tensor:
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
-        x = self._run(params, params["embed"][tokens], positions)
+        x = self._run(params, params["embed"][tokens], positions,
+                      remat_blocks=remat and self.cfg.remat)
         return _head_logits(params, x, self.cfg.norm_eps)
+
+    def train_loss(self, params: dict, batch: dict) -> torch.Tensor:
+        return softmax_xent(self.forward(params, batch["tokens"]),
+                            batch["labels"])
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zeroed states ``{"ssm": {"ssm", "conv"}}``, each leaf
@@ -304,7 +326,8 @@ class EncDecLM:
         the model's device."""
         return init_params(self.param_defs(), generator, self.device)
 
-    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params: dict, frames: torch.Tensor,
+               remat: bool = False) -> torch.Tensor:
         """frames: [B, T, d] precomputed conv-frontend embeddings (stub);
         self-attention through K1 with ``causal=False`` and rope at
         ``arange(T)``, as the reference does."""
@@ -317,8 +340,10 @@ class EncDecLM:
         x = frames.to(torch_dtype(cfg.dtype))
         x = x + params["pos_enc"][None, : x.shape[1]]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        block = _remat(lambda p, xx: self._enc_block(p, xx, positions),
+                       remat and cfg.remat)
         for p in _unstack(params["encoder"]):
-            x = self._enc_block(p, x, positions)
+            x = block(p, x)
         return rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
     def _enc_block(self, p, x, positions):
@@ -357,7 +382,8 @@ class EncDecLM:
         return x + apply_ffn(p["ffn"], h)
 
     def decode(self, params: dict, tokens: torch.Tensor,
-               enc_out: torch.Tensor, caches=None, cache_len=0):
+               enc_out: torch.Tensor, caches=None, cache_len=0,
+               remat: bool = False):
         """The decoder over ``tokens`` [B, S] attending ``enc_out``: the
         logits [B, S, vocab].  With ``caches`` (the ``"self"`` part of the
         cache) a prefill (S > 1, ``cache_len`` an int) writes rows
@@ -373,8 +399,11 @@ class EncDecLM:
         else:
             positions, cache_len = decode_position(cache_len, tokens.device)
         if caches is None:
+            block = _remat(lambda p, xx: self._dec_block(p, xx, positions,
+                                                         enc_out, None, 0),
+                           remat and cfg.remat)
             for p in layers:
-                x = self._dec_block(p, x, positions, enc_out, None, 0)
+                x = block(p, x)
         else:
             if tokens.shape[1] == 1:
                 # the row and length once, for every layer of the step
@@ -386,9 +415,17 @@ class EncDecLM:
         return _head_logits(params, x, cfg.norm_eps)
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                extra_embeds=None) -> torch.Tensor:
+                extra_embeds=None, remat: bool = True) -> torch.Tensor:
         """extra_embeds = encoder frames [B, T, d]."""
-        return self.decode(params, tokens, self.encode(params, extra_embeds))
+        return self.decode(params, tokens,
+                           self.encode(params, extra_embeds, remat=remat),
+                           remat=remat)
+
+    def train_loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """The decoder's cross-entropy over the frames
+        ``batch["extra_embeds"]``, as the reference's."""
+        logits = self.forward(params, batch["tokens"], batch["extra_embeds"])
+        return softmax_xent(logits, batch["labels"])
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
         """(shape, dtype) of each cache leaf, as the reference's

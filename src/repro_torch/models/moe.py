@@ -123,3 +123,17 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     if m.num_shared_experts:
         y = y + apply_ffn(p["shared"], x)
     return y
+
+
+def aux_load_balance_loss(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss of one MoE layer's router
+    on its input ``x`` [B, S, d]: ``E * sum(frac * prob)``, the share of
+    top-k picks each expert gets times its mean gate, in float32.  As in
+    the reference, no loss calls it."""
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1]).float()
+    gates = torch.softmax(xf @ p["router"].float(), dim=-1)
+    _, top_e = torch.topk(gates, m.top_k, dim=-1)
+    frac = torch.nn.functional.one_hot(top_e, m.num_experts).float().mean(
+        dim=(0, 1))
+    return m.num_experts * torch.sum(frac * gates.mean(dim=0))

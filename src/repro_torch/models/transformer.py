@@ -10,6 +10,7 @@ sliding-window (local) and global layers (``local_blocks`` and
   * ``param_defs()``                      — ParamDef tree
   * ``init(generator)``                   — concrete params on the device
   * ``forward(params, tokens)``           — logits (prefill math)
+  * ``train_loss(params, batch)``         — mean float32 cross-entropy
   * ``init_cache(batch, max_len)``        — zeroed KV cache
   * ``prefill(params, tokens, cache)``    — fills cache, returns logits
   * ``decode_step(params, token, cache, pos)`` — one-token step
@@ -21,12 +22,18 @@ reference's grouped ``_apply_interleaved``).  The KV cache is updated IN
 PLACE: ``prefill`` and ``decode_step`` return the cache tree they were
 given.  A decode step computes each cache's row and length once
 (``attention.decode_index``) and hands them to every layer of that cache.
+
+``forward(..., remat=True)`` with ``cfg.remat`` runs each block under
+:func:`_remat` where autograd records (the reference's ``jax.checkpoint``
+with ``nothing_saveable``): the backward recomputes the block from its
+input, so K1's forward launches twice per layer and training step.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -49,6 +56,25 @@ def _unstack(tree):
         n = len(next(iter(parts.values())))
         return [{k: parts[k][i] for k in parts} for i in range(n)]
     return tree.unbind(0)
+
+
+def _remat(fn, enabled: bool):
+    """``fn`` recomputed in the backward instead of keeping its
+    activations (``torch.utils.checkpoint``, non-reentrant) when
+    ``enabled`` and autograd records; else ``fn`` itself."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``logits`` [..., vocab] at integer ``labels``
+    [...], in float32 as the reference computes it."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked)
 
 
 def decode_position(pos, device):
@@ -179,13 +205,16 @@ class DecoderLM:
         return x + f, new_cache
 
     def _apply_layers(self, params, x, positions, *, caches=None,
-                      cache_len=0):
+                      cache_len=0, remat_blocks=False):
         stacks = self._stacks()
         layers = {key: iter(_unstack(params[key])) for key, *_ in stacks}
         if caches is None:
             for key, _, window in self._schedule():
-                x, _ = self._block(next(layers[key]), x, positions,
-                                   window=window)
+                block = _remat(
+                    lambda p, xx, w=window: self._block(p, xx, positions,
+                                                        window=w)[0],
+                    remat_blocks)
+                x = block(next(layers[key]), x)
             return x
         views = {ckey: iter(_unstack(caches[ckey])) for _, ckey, *_ in stacks}
         at = dict.fromkeys(views, cache_len)
@@ -220,14 +249,24 @@ class DecoderLM:
         return x
 
     def forward(self, params: dict, tokens: torch.Tensor,
-                extra_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                extra_embeds: Optional[torch.Tensor] = None,
+                remat: bool = True) -> torch.Tensor:
         cfg = self.cfg
         x = self._embed_tokens(params, tokens, extra_embeds)
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device)[None, :]
-        x = self._apply_layers(params, x, positions)
+        x = self._apply_layers(params, x, positions,
+                               remat_blocks=remat and cfg.remat)
         x = rms_norm(x, params["ln_f"], cfg.norm_eps)
         return self._logits(params, x)
+
+    def train_loss(self, params: dict, batch: dict) -> torch.Tensor:
+        """Mean cross-entropy of ``batch["tokens"]`` (and its
+        ``extra_embeds``) at ``batch["labels"]``.  An MoE config adds no
+        auxiliary term, as in the reference."""
+        logits = self.forward(params, batch["tokens"],
+                              batch.get("extra_embeds"))
+        return softmax_xent(logits, batch["labels"])
 
     def _logits(self, params, x):
         cfg = self.cfg

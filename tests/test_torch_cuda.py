@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 
 pytestmark = pytest.mark.cuda
 
@@ -996,3 +997,177 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
             assert ops.counts() == eager
             assert torch.equal(tokens, torch.cat(want_tokens, dim=1))
         assert graphs.captures == 1 and graphs.replays == 2 * gen_len - 3
+
+
+# --- K1's backward ----------------------------------------------------------
+
+# relative to each gradient's largest magnitude.  float32: FMA sums in
+# another order than the plain version's einsums.  bf16: the kernel rounds
+# p and ds to bf16 as the operands of its products (the plain version keeps
+# them float32) and rounds its outputs.  chip_smoke.py's sweep of these
+# shapes on an H100 stays below 3.2e-6 and 7.7e-3.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (Sq, Sk, H, KV): a ragged tile, whisper's 1500 frames (23 x 64 + 28),
+# Sq != Sk at G = 16
+BWD_SHAPES = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1)]
+BWD_MODES = [(True, 0), (False, 0), (True, 64)]
+
+
+def _bwd_case(rng, shape, d, dtype, causal, window, card):
+    """Inputs of a backward call: q, k, v, dO and K1's own o and lse."""
+    sq, sk, h, kv = shape
+    q = _randn(rng, (1, sq, h, d), dtype, card)
+    k = _randn(rng, (1, sk, kv, d), dtype, card)
+    v = _randn(rng, (1, sk, kv, d), dtype, card)
+    do = _randn(rng, (1, sq, h, d), dtype, card)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("causal,window", BWD_MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+def test_flash_attention_bwd_kernel(card, shape, causal, window, dtype, d):
+    rng = np.random.default_rng(41)
+    q, k, v, o, do, lse = _bwd_case(rng, shape, d, dtype, causal, window,
+                                    card)
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    errs = [_rel_err(g, w) for g, w in zip(got, want)]
+    assert all(g.dtype == dtype and g.shape == w.shape
+               for g, w in zip(got, want))
+    assert max(errs) < BWD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", BWD_MODES)
+def test_flash_attention_lse_leaves_output_bits(card, dtype, causal, window):
+    """K1 with the log-sum-exp gives the output of K1 without it, bit for
+    bit, and the plain version's log-sum-exp."""
+    rng = np.random.default_rng(42)
+    q = _randn(rng, (2, 300, 16, 128), dtype, card)
+    k = _randn(rng, (2, 300, 8, 128), dtype, card)
+    v = _randn(rng, (2, 300, 8, 128), dtype, card)
+    plain = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    assert torch.equal(out, plain)
+    _, want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    assert lse.shape == (2, 16, 300) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_rows_without_keys(card, dtype, d):
+    """Sq > Sk + window (ROADMAP H10): K1 gives the rows that attend no
+    key 0 and a log-sum-exp of +inf (a 64-row tile where every row has
+    none, and rows beside rows that have keys), the plain version's
+    output elsewhere, and its backward is the gradient of that forward:
+    the plain backward with those rows' dO set to 0, to BWD_TOL."""
+    rng = np.random.default_rng(46)
+    sq, sk, window = 200, 70, 64
+    q, k, v, o, do, lse = _bwd_case(rng, (sq, sk, 4, 2), d, dtype, True,
+                                    window, card)
+    has = torch.arange(sq, device=card) < sk + window - 1
+    assert bool((o[:, ~has] == 0).all())
+    assert bool(torch.isposinf(lse[..., ~has]).all())
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    assert float((o[:, has].float() - want[:, has].float()).abs().max()) \
+        < TOL[dtype]
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                  window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o,
+                                       do * has[None, :, None, None], lse,
+                                       causal=True, window=window)
+    assert bool((got[0][:, ~has] == 0).all())
+    errs = [_rel_err(g, w) for g, w in zip(got, want)]
+    assert max(errs) < BWD_TOL[dtype], errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype):
+    rng = np.random.default_rng(43)
+    args = _bwd_case(rng, (1500, 1500, 4, 2), 64, dtype, True, 0, card)
+    a = ops.flash_attention_bwd(*args)
+    b = ops.flash_attention_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_card(card, dtype):
+    """Gradients through ``flash_attention`` on the card (K1 with its
+    log-sum-exp, then the backward kernel) against autograd of the plain
+    version, on strided views as the models pass them."""
+    rng = np.random.default_rng(44)
+    fused = _randn(rng, (2, 130, 8, 64), dtype, card)
+    dout = _randn(rng, (2, 130, 4, 64), dtype, card)
+    grads = []
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        x = fused.clone().requires_grad_()
+        q, k, v = x[:, :, :4], x[:, :, 4:6], x[:, :, 6:8]
+        f0, b0 = ops.flash_attention.launches, \
+            ops.flash_attention_bwd.launches
+        out = fn(q, k, v, causal=True, window=0)
+        out.backward(dout)
+        if fn is ops.flash_attention:
+            assert ops.flash_attention.launches == f0 + 1
+            assert ops.flash_attention_bwd.launches == b0 + 1
+        grads.append(x.grad)
+    assert _rel_err(*grads) < BWD_TOL[dtype]
+
+
+def test_flash_attention_bwd_refuses_unported_head_dims(card):
+    """gemma3's head dim 256 and deepseek's (192, 128) have no backward
+    kernel yet: under grad the forward raises and names its ROADMAP item,
+    and so does a direct backward call; without grad K1 serves them."""
+    for d, dv, item in ((256, 256, "14b"), (192, 128, "14c")):
+        q = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
+        k = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
+        v = torch.randn(1, 64, 2, dv, device=card, dtype=torch.bfloat16)
+        out, lse = flash_attention_fwd(q, k, v, return_lse=True)
+        with pytest.raises(NotImplementedError, match=item):
+            ops.flash_attention(q.requires_grad_(), k, v)
+        with pytest.raises(NotImplementedError, match=item):
+            ops.flash_attention_bwd(q, k, v, out, out, lse)
+
+
+def test_wrappers_without_backward_refuse_grad_on_card(card):
+    """K2-K5 have no backward kernel: under grad on the card they raise
+    and name the ROADMAP item; without grad they launch as before."""
+    rng = np.random.default_rng(45)
+    bf = torch.bfloat16
+    calls = {
+        "decode_attention": lambda t: ops.decode_attention(
+            t(2, 1, 4, 64), t(2, 32, 2, 64), t(2, 32, 2, 64), 20),
+        "moe_gemm": lambda t: ops.moe_gemm(t(4, 16, 64), t(4, 64, 32)),
+        "mamba2_scan": lambda t: ops.mamba2_scan(
+            t(1, 64, 2, 64), t(1, 64, 64), t(1, 64, 64),
+            torch.rand(1, 64, 2, device=card, dtype=bf), t(2),
+            chunk=32),
+        "rwkv6_scan": lambda t: ops.rwkv6_scan(
+            t(1, 32, 2, 64), t(1, 32, 2, 64), t(1, 32, 2, 64),
+            torch.rand(1, 32, 2, 64, device=card, dtype=bf) * 0.5 + 0.4,
+            t(2, 64), chunk=16),
+    }
+    items = {"decode_attention": "item 14", "moe_gemm": "14a",
+             "mamba2_scan": "14e", "rwkv6_scan": "14d"}
+    for name, call in calls.items():
+        plain = lambda *s: _randn(rng, s, bf, card)
+        graded = lambda *s: _randn(rng, s, bf, card).requires_grad_()
+        call(plain)
+        with pytest.raises(NotImplementedError, match=items[name]):
+            call(graded)

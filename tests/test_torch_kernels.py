@@ -12,6 +12,7 @@ rounding); the grouped GEMM 1e-5 / 3e-2 relative to the largest output;
 the Mamba2 and RWKV6 scans 5e-4 absolute (a sequential recurrence
 against chunked forms), the RWKV6 scan finite.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -70,6 +71,72 @@ def test_flash_attention_plain_vs_jax(b, sq, sk, h, kv, d, dtype, causal,
     via_ops = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
     assert torch.equal(via_ops, out)
     assert ops.flash_attention.launches == before
+
+
+# K1's backward: (B, Sq, Sk, H, KV, D) over causal, windowed and
+# bidirectional masks; Sq != Sk both ways, G in {1, 2, 4}, ragged tiles
+BWD_CASES = [(1, 64, 64, 4, 2, 32), (2, 100, 100, 4, 1, 16),
+             (1, 70, 130, 2, 2, 16), (1, 130, 70, 4, 4, 32)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", BWD_CASES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 24)])
+def test_flash_attention_bwd_plain_vs_jax_vjp(b, sq, sk, h, kv, d, causal,
+                                              window):
+    """The plain backward against ``jax.vjp`` of the reference's oracle
+    and against torch autograd of the plain forward, in float32 (1e-5 of
+    each gradient's largest magnitude: sums in another order); the
+    plain forward's log-sum-exp against the oracle's masked scores, and
+    the public wrapper's gradient on CPU tensors (the Function's plain
+    directions) equal to the plain backward's."""
+    rng = np.random.default_rng(11)
+    qj, qt = _pair(rng, (b, sq, h, d), "float32")
+    kj, kt = _pair(rng, (b, sk, kv, d), "float32")
+    vj, vt = _pair(rng, (b, sk, kv, d), "float32")
+    doj, dot = _pair(rng, (b, sq, h, d), "float32")
+    out, lse = ref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                       window=window, return_lse=True)
+    got = ref.flash_attention_bwd_ref(qt, kt, vt, out, dot, lse,
+                                      causal=causal, window=window)
+    _, vjp = jax.vjp(lambda q, k, v: jax_ref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), qj, kj, vj)
+    for g, w in zip(got, vjp(doj)):
+        scale = float(jnp.max(jnp.abs(w)))
+        assert _err(g, w) <= 1e-5 * scale
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    ref.flash_attention_ref(*leaves, causal=causal,
+                            window=window).backward(dot)
+    for g, x in zip(got, leaves):
+        assert float((g - x.grad).abs().max()) <= \
+            1e-5 * float(x.grad.abs().max())
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    before = ops.flash_attention_bwd.launches
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(dot)
+    assert ops.flash_attention_bwd.launches == before
+    for g, x in zip(got, leaves):
+        assert torch.equal(g, x.grad)
+    # lse: the oracle's scores, masked as it masks them
+    s = jnp.einsum("bqkgd,bskd->bkgqs",
+                   qj.reshape(b, sq, kv, h // kv, d), kj) * d ** -0.5
+    qi, ki = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= qi >= ki
+    if window:
+        mask &= qi - ki < window
+    want = jax.nn.logsumexp(jnp.where(mask, s, jax_ref.NEG_INF), axis=-1)
+    assert _err(lse, want.reshape(b, h, sq)) < 1e-5
+
+
+def test_flash_attention_bwd_rejects_bad_arguments():
+    q = torch.zeros(1, 8, 4, 16)
+    kv = torch.zeros(1, 8, 2, 16)
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError):      # lse [B, Sq, H] instead
+        ops.flash_attention_bwd(q, kv, kv, q, q, torch.zeros(1, 8, 4))
+    with pytest.raises(ValueError):      # dO of another shape
+        ops.flash_attention_bwd(q, kv, kv, q, q[:, :4], lse)
 
 
 @pytest.mark.parametrize("clen", [512, 300, 17, 1])
@@ -218,16 +285,19 @@ def test_wrappers_reject_bad_arguments(bad):
 
 def test_launch_counts_reset():
     ops.flash_attention.launches = 5
+    ops.flash_attention_bwd.launches = 6
     ops.decode_attention.launches = 7
     ops.moe_gemm.launches = 3
     ops.mamba2_scan.launches = 4
     ops.rwkv6_scan.launches = 2
     ops.moe_gemm.decode_tile_launches = 1
     assert ops.launch_counts() == {"flash_attention": 5,
+                                   "flash_attention_bwd": 6,
                                    "decode_attention": 7, "moe_gemm": 3,
                                    "mamba2_scan": 4, "rwkv6_scan": 2}
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 0, "moe_gemm": 0,
                                    "mamba2_scan": 0, "rwkv6_scan": 0}
     assert ops.moe_gemm.decode_tile_launches == 0
@@ -250,6 +320,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(fa_mod, "flash_attention_ref", no_plain)
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd_ref", no_plain)
     monkeypatch.setattr(torch_decode_mod, "decode_attention_ref", no_plain)
     monkeypatch.setattr(mg_mod, "moe_gemm_ref", no_plain)
     monkeypatch.setattr(rs_mod, "rwkv6_scan_ref", no_plain)
@@ -259,6 +330,9 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     kc = torch.zeros(1, 4, 2, 16, device="meta")
     with pytest.raises(RuntimeError):
         ops.flash_attention(q, kc, kc)
+    with pytest.raises(RuntimeError):
+        ops.flash_attention_bwd(q, kc, kc, q, q, torch.zeros(
+            1, 4, 4, device="meta"))
     with pytest.raises(RuntimeError):
         ops.decode_attention(q[:, :1], kc, kc, 2)
     with pytest.raises(RuntimeError):
@@ -274,8 +348,9 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
                         torch.zeros(2, device="meta"), chunk=4)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
-                                  "rwkv6_scan", "mamba2_scan"])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",
+                                  "decode_attention", "rwkv6_scan",
+                                  "mamba2_scan"])
 def test_wrapper_dims_match_kernel_instantiations(name):
     """Each wrapper accepts exactly the dims its source's dispatch
     instantiates (a dim outside them would reach the kernel and come
@@ -289,6 +364,12 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     from repro_torch.kernels import rwkv6_scan as rs_mod
 
     src = (Path(_build.CSRC) / f"{name}.cu").read_text()
+    if name == "flash_attention_bwd":
+        got = re.findall(r"if \(D == (\d+)\) return launch_bwd<(\d+)>", src)
+        assert all(d == d2 for d, d2 in got)
+        assert sorted(int(d) for d, _ in got) == \
+            sorted(_build.FLASH_BWD_HEAD_DIMS)
+        return
     if name == "mamba2_scan":
         got = {(int(p), int(n)) for p, n in
                re.findall(r"if \(P == (\d+) && N == (\d+)\)", src)}

@@ -1,8 +1,13 @@
 """The port's twin of ``tests/test_smoke_archs.py``, over all ten SMOKE ids
 (the registry is complete since whisper's ``EncDecLM``): the forward
 against the JAX package's forward, the port's prefill and one decode step
-against its own forward, and the parameter totals of the ten full configs.
-The gradient check of the JAX file waits for training (ROADMAP item 14).
+against its own forward, the parameter totals of the ten full configs,
+and ``train_loss`` with its gradient against ``jax.value_and_grad`` of the
+JAX model's in float32 (the JAX file checks only that its gradient is
+finite): the loss to 1e-5 of its value and every gradient leaf to 1e-4
+of its largest magnitude (autograd through the plain kernels, sums in
+another order).  Also the MoE auxiliary load-balancing loss against the
+reference's.
 
 Parameters are numpy draws from a seed, handed to both packages (JAX
 arrays in each leaf's declared dtype, and the port's tree through
@@ -31,10 +36,13 @@ from repro.configs.archs import ARCHS as JAX_ARCHS
 from repro.configs.archs import SMOKE as JAX_SMOKE
 from repro.models.families import build_model as jax_build_model
 from repro.models.layers import ParamDef as JaxParamDef
+from repro.models.moe import aux_load_balance_loss as jax_aux_loss
 from repro_torch.configs.archs import ARCHS, SMOKE
 from repro_torch.convert import params_from_jax
 from repro_torch.models.families import build_model
 from repro_torch.models.layers import ParamDef
+from repro_torch.models.moe import aux_load_balance_loss
+from repro_torch.training.tree import tree_paths, tree_unflatten
 
 ARCH_IDS = list(SMOKE)
 B, S = 2, 16
@@ -180,3 +188,41 @@ def test_full_config_param_totals(arch):
     assert total == _total(jax_build_model(JAX_ARCHS[arch]).param_defs(),
                            JaxParamDef)
     assert abs(total / cfg.param_count() - 1) < 0.07
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_loss_and_grads_match_jax(arch, twin):
+    t = twin(arch, "float32")
+    batch = {"tokens": t.tokens[:, :S], "labels": t.tokens[:, 1:]}
+    if t.extra is not None:
+        batch["extra_embeds"] = t.extra
+    jloss, jgrads = jax.value_and_grad(t.jmodel.train_loss)(
+        t.jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    paths, leaves = zip(*tree_paths(t.params))
+    leaves = [x.detach().clone().requires_grad_() for x in leaves]
+    loss = t.model.train_loss(tree_unflatten(t.params, leaves),
+                              {k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, leaves)
+    assert abs(float(loss.detach()) - float(jloss)) <= \
+        1e-5 * abs(float(jloss))
+    want = dict(tree_paths(jgrads))
+    assert set(want) == set(paths)
+    for path, g in zip(paths, grads):
+        w = _npy(want[path])
+        scale = max(float(np.abs(w).max()), 1e-12)
+        assert float(np.abs(g.numpy() - w).max()) <= 1e-4 * scale, path
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-v2-236b"])
+def test_aux_load_balance_loss_matches_jax(arch, twin):
+    """The router of the first MoE layer on a random input, in float32."""
+    t = twin(arch, "float32")
+    x = np.random.default_rng(9).standard_normal((B, S, t.cfg.d_model),
+                                                 dtype=np.float32)
+    p = {"router": t.params["blocks"]["moe"]["router"][0]}
+    jp = {"router": t.jparams["blocks"]["moe"]["router"][0]}
+    got = aux_load_balance_loss(p, t.cfg, torch.from_numpy(x))
+    want = jax_aux_loss(jp, t.jcfg, jnp.asarray(x))
+    assert abs(float(got) - float(want)) <= 1e-6 * abs(float(want))
+    assert got.dtype == torch.float32

@@ -34,11 +34,13 @@ output units and half of the state's tiles (the scores computed by both),
 ``flash-bits`` builds ``csrc/flash_attention.cu`` of another checkout of the
 repository (``--against DIR``, for example a ``git archive`` of the parent
 commit) into its own library and runs it beside this tree's K1 on the same
-inputs: every head dim both instantiate with ``Dv == D``, float32 and bf16,
-causal, windowed and bidirectional, a ragged length and G = 4.  It exits 1
-unless every output is bitwise equal, which shows that a change to K1 left
-the existing instantiations' results alone.  It then times both in bf16 in
-turns (this tree, the other, the other, this tree; CUDA events) at qwen3's
+inputs: every (D, Dv) pair both instantiate, float32 and bf16, causal,
+windowed and bidirectional, a ragged length and G = 4; this tree's K1 runs
+twice, as served and writing the rows' log-sum-exp for a backward.  It
+exits 1 unless every output is bitwise equal, which shows that a change
+to K1 left the existing instantiations' results alone.  It then times
+both in bf16 in turns (this tree, the other, the other, this tree; CUDA
+events) at qwen3's
 prefill (``q [8,512,16,128]``, ``k, v [8,512,8,128]``) and gemma3's global
 layer (``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), causal.
 
@@ -295,6 +297,7 @@ def rwkv6_phases() -> None:
 
 def flash_bits(against: Path) -> None:
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     csrc = against / "src" / "repro_torch" / "kernels" / "csrc"
     src = (csrc / "flash_attention.cu").read_text()
     out = _build.build_root().parent / "probe"
@@ -305,39 +308,47 @@ def flash_bits(against: Path) -> None:
                    check=True, capture_output=True, text=True)
     other = ctypes.CDLL(str(lib)).fate_flash_attention
     other.restype = ctypes.c_int
-    # the other tree's entry takes a value head dim after D only if its
-    # source says so
+    # the other tree's entry takes a value head dim after D, and a
+    # log-sum-exp pointer after out, only if its source says so
     with_dv = "int D, int Dv," in src
+    with_lse = "void* out, float* lse," in src
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    other.argtypes = [p] * 4 + [i32] * (7 if with_dv else 6) + [i64] * 12 \
-        + [i32] * 3 + [p]
-    dims = [d for d, dv in _build.FLASH_HEAD_DIMS if d == dv
-            and (f"launch_flash_mma<{d}>(a)" in src
-                 or f"launch_flash_mma<{d}, {d}>(a)" in src)]
+    other.argtypes = [p] * (5 if with_lse else 4) \
+        + [i32] * (7 if with_dv else 6) + [i64] * 12 + [i32] * 3 + [p]
+    dims = [(d, dv) for d, dv in _build.FLASH_HEAD_DIMS
+            if f"launch_flash_mma<{d}, {dv}>(a)" in src
+            or (d == dv and f"launch_flash_mma<{d}>(a)" in src)]
     gen = torch.Generator(device="cuda").manual_seed(0)
     differ = 0
-    for d in dims:
+    for d, dv in dims:
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             for causal, window in ((True, 0), (False, 0), (True, 64)):
                 b, s, h, kv = 2, 200, 8, 2
-                q, k, v = (torch.randn(b, s, n, d, device="cuda",
-                                       generator=gen).to(dtype)
-                           for n in (h, kv, kv))
+                q, k = (torch.randn(b, s, n, d, device="cuda",
+                                    generator=gen).to(dtype)
+                        for n in (h, kv))
+                v = torch.randn(b, s, kv, dv, device="cuda",
+                                generator=gen).to(dtype)
                 mine = ops.flash_attention(q, k, v, causal=causal,
                                            window=window)
+                # this tree's K1 also writing the rows' log-sum-exp
+                mine_lse, _ = flash_attention_fwd(
+                    q, k, v, causal=causal, window=window, return_lse=True)
                 theirs = torch.empty_like(mine)
                 rc = other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           theirs.data_ptr(), b, s, s, h, kv, d,
-                           *((d,) if with_dv else ()),
+                           theirs.data_ptr(), *((None,) if with_lse else ()),
+                           b, s, s, h, kv, d, *((dv,) if with_dv else ()),
                            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                            *theirs.stride()[:3], int(causal), window, code,
                            torch.cuda.current_stream().cuda_stream)
                 same = rc == 0 and torch.equal(mine, theirs)
-                differ += not same
-                print(json.dumps({"probe": "flash-bits", "d": d, "dv": d,
+                same_lse = rc == 0 and torch.equal(mine_lse, theirs)
+                differ += not (same and same_lse)
+                print(json.dumps({"probe": "flash-bits", "d": d, "dv": dv,
                                   "dtype": str(dtype).split(".")[-1],
                                   "causal": causal, "window": window,
-                                  "rc": rc, "bitwise_equal": same}),
+                                  "rc": rc, "bitwise_equal": same,
+                                  "with_lse_bitwise_equal": same_lse}),
                       flush=True)
     print(json.dumps({"probe": "flash-bits", "against": str(against),
                       "dims": dims, "cases": 6 * len(dims),
@@ -354,7 +365,8 @@ def flash_bits(against: Path) -> None:
             if lib == "this":
                 return ops.flash_attention(q, k, v)
             return other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         theirs.data_ptr(), 8, s, s, h, kv, d,
+                         theirs.data_ptr(), *((None,) if with_lse else ()),
+                         8, s, s, h, kv, d,
                          *((d,) if with_dv else ()), *q.stride()[:3],
                          *k.stride()[:3], *v.stride()[:3],
                          *theirs.stride()[:3], 1, 0, 1,
