@@ -9,8 +9,9 @@ ends the run with a non-zero exit code and no result line:
 
 1. ``device``  – card name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions, seconds the kernels took to build; for every
-   instantiation of K3's wgmma kernel and of K1's, K2's, K4's and K5's
-   mma.sync kernels its tensor-core instructions in the SASS (cuobjdump; it fails
+   instantiation of K3's and K1's backward's wgmma kernels and of K1's,
+   K2's, K4's and K5's mma.sync kernels its tensor-core instructions in
+   the SASS (cuobjdump; it fails
    without them, or if an instantiation the sources launch is missing)
    and its registers and spills (ptxas -v).
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
@@ -161,11 +162,12 @@ each gradient's largest magnitude (2e-5 float32, 2e-2 bf16): a sweep over
 every head dim it takes, both types, the masks and ragged lengths, and,
 timed beside the backward of SDPA, qwen3's training shape (q [2, 4096,
 16, 128], k, v [2, 4096, 8, 128], causal) and its served prefill
-([8, 512, 16, 128]).
+([8, 512, 16, 128]), each called twice, which must give the same bits (the
+wgmma kernel sums dq in a fixed order).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-``design``: ``wgmma`` for K3's and ``mma.sync`` for K1's, K2's, K4's and
-K5's bf16 paths, which the main path takes; K3's decode shape beside its
+``design``: ``wgmma`` for K3's and K1's backward's and ``mma.sync`` for
+K1's, K2's, K4's and K5's bf16 paths, which the main path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
 call), a ``total`` line (with the seconds of the two whisper phases and
 of the two train phases), the nvidia-smi line, and last ``{"ok": true,
@@ -214,10 +216,12 @@ WHISPER_PROMPT_LEN, WHISPER_F32_LAYERS = 224, 2
 # sums in another order; bf16 p and ds rounded as product operands (the
 # plain version keeps them float32) and rounded outputs
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# K1's backward sweep: (Sq, Sk, H, KV) at B = 1, every head dim of
+# K1's backward sweep: (B, Sq, Sk, H, KV), every head dim of
 # _build.FLASH_BWD_HEAD_DIMS, the FLASH_MODES masks: a ragged tile,
-# whisper's 1500 frames (23 x 64 + 28), Sq != Sk at G = 16
-BWD_SWEEP = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1)]
+# whisper's 1500 frames (23 x 64 + 28), Sq != Sk at G = 16, and B = 2 with
+# Sq > Sk, both ragged, G = 2 (every query row keeps a key under the window)
+BWD_SWEEP = [(1, 200, 200, 4, 2), (1, 1500, 1500, 2, 1), (1, 70, 200, 16, 1),
+             (2, 250, 190, 8, 4)]
 # the train phase: qwen3-1.7b at full width and depth at train_4k's
 # sequence, its global batch cut from 256 to 8 and its microbatch from 16
 # to 2 (resolve_microbatch has none at global batch 8 under 16: ROADMAP
@@ -254,30 +258,30 @@ MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 # the bf16 redesigns and the tensor-core instruction each must compile to
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
-                    "flash_bwd_mma_kernel": "HMMA",
+                    "flash_bwd_wgmma_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
-# gemma3's head dim and deepseek-v2's (query/key, value) pair: these
-# instantiations must be among them
+# gemma3's head dim, deepseek-v2's (query/key, value) pair and K1's
+# backward at qwen3's head dim: these instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
-                 "flash_mma_kernel<192,128>", "flash_bwd_mma_kernel<128,1>",
-                 "flash_bwd_mma_kernel<128,0>")
+                 "flash_mma_kernel<192,128>", "flash_bwd_wgmma_kernel<128>",
+                 "flash_bwd_wgmma_kernel<64>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations, and how many instantiations one such call makes
-# (K1's backward: the key side and the query side)
 TENSOR_CORE_LAUNCHERS = {
     "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma", 1),
     "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma", 1),
-    "flash_bwd_mma_kernel": ("flash_attention_bwd.cu", "launch_bwd", 2),
+    "flash_bwd_wgmma_kernel": ("flash_attention_bwd.cu", "launch_bwd_wgmma",
+                               1),
     "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma", 1),
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
     "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
 }
-# the kernel design each wrapper takes in bf16, the main path's type (the
-# float32 paths of K1-K5 are FMA code)
+# the kernel design each wrapper takes in bf16 at the main path's shape
+# (the float32 paths of K1-K5 are FMA code)
 BF16_DESIGN = {"flash_attention": "mma.sync",
-               "flash_attention_bwd": "mma.sync", "moe_gemm": "wgmma",
+               "flash_attention_bwd": "wgmma", "moe_gemm": "wgmma",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
                "rwkv6_scan": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
@@ -464,7 +468,11 @@ def expected_instantiations(build_mod) -> int:
 def tensor_core_check(build_mod) -> dict:
     """Per instantiation of the bf16 redesigns: the count of its
     tensor-core instruction in the library's SASS and one such line, and
-    its registers and spill bytes from the build's ptxas -v log."""
+    its registers and spill bytes from the build's ptxas -v log.  Every
+    bulk reduce in the SASS must add float32 (K1's backward sums dq with
+    ``cp.reduce.async.bulk .add.f32``; ptxas 12.9 compiled it to a 64-bit
+    integer add in one instantiation where it sat in an out-of-line
+    function), and each instantiation of K1's backward must hold one."""
     import re
     lib = build_mod.build()
     cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
@@ -472,13 +480,20 @@ def tensor_core_check(build_mod) -> dict:
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
-    found, cur = {}, None
+    found, cur, bad_reduce = {}, None, []
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             cur = short_kernel_name(line)
             if cur:
                 found[cur] = {"instruction": TENSOR_CORE_SASS[
                     cur.split("<")[0]], "count": 0, "example": None}
+        elif "UBLKRED" in line:
+            if "UBLKRED.G.S.ADD.F32" not in line:
+                bad_reduce.append(
+                    line.split("*/", 1)[-1].split(";")[0].strip())
+            if cur:
+                found[cur]["bulk_reduce_f32"] = \
+                    found[cur].get("bulk_reduce_f32", 0) + 1
         elif cur and found[cur]["instruction"] in line:
             found[cur]["count"] += 1
             if found[cur]["example"] is None:
@@ -496,6 +511,13 @@ def tensor_core_check(build_mod) -> dict:
         elif cur in found and "registers" in line:
             found[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+    if bad_reduce:
+        fail(f"bulk reduce that does not add float32 in the SASS: "
+             f"{bad_reduce[:4]}")
+    no_sum = [k for k in found if k.startswith("flash_bwd_wgmma_kernel")
+              and not found[k].get("bulk_reduce_f32")]
+    if no_sum:
+        fail(f"no float32 bulk reduce (the dq sums) in {no_sum}")
     missing = [k for k, v in found.items() if not v["count"]]
     missing += [k for k in REQUIRED_SASS if k not in found]
     if len(found) != expected_instantiations(build_mod) or missing:
@@ -639,7 +661,7 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
     (BWD_TOL, relative to each gradient's largest magnitude); ``timed``:
     also its times, the library's backward and the bound (five products
     over the attended pairs; q, k, v, o, dO, lse read and dq, dk, dv
-    written once)."""
+    written once), and a second call that must give the same bits."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     b, sq, sk, h, kv, d = shape
     q = randn(rng, (b, sq, h, d), dtype)
@@ -669,6 +691,11 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
            "ok": max(rels) < BWD_TOL[dtype] and finite}
     del want
     if timed:
+        again = call()
+        rec["repeat_bitwise"] = all(torch.equal(x, y)
+                                    for x, y in zip(got, again))
+        rec["ok"] = rec["ok"] and rec["repeat_bitwise"]
+        del again
         pairs = attended_pairs(sq, sk, causal, window)
         b_ms, by = bound(nbytes(q, k, v, o, do, lse, *got),
                          5 * 2.0 * b * h * d * pairs, dtype)
@@ -1011,12 +1038,12 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
     # ragged lengths; qwen3-1.7b's training shape (the train phase's
     # microbatch) and its served prefill, timed in bf16
     from repro_torch.kernels import _build
-    bwd_sweep = [flash_bwd_case(ops, ref, rng, (1, sq, sk, h, kv, d), dtype,
+    bwd_sweep = [flash_bwd_case(ops, ref, rng, (b, sq, sk, h, kv, d), dtype,
                                 causal, window)
                  for d in _build.FLASH_BWD_HEAD_DIMS
                  for dtype in (torch.float32, torch.bfloat16)
                  for causal, window in FLASH_MODES
-                 for sq, sk, h, kv in BWD_SWEEP]
+                 for b, sq, sk, h, kv in BWD_SWEEP]
     qcfg = cfgs["qwen3-1.7b"]
     h, kv, d = qcfg.num_heads, qcfg.num_kv_heads, qcfg.resolved_head_dim
     bwd_main = {
@@ -2311,12 +2338,14 @@ def loss_and_grads(model, masters, batch, dtype):
 
 def trainer_drill(mods, seed: int) -> dict:
     """The Trainer on the card at SMOKE qwen3 (bf16 over float32 masters,
-    K1 and its backward at head dim 16): an uninterrupted run of 6 steps;
-    a run that fails at step 3 after its emergency checkpoint; a restart
-    whose restored parameters and moments must equal the saved ones bit
-    for bit, and whose losses must equal the uninterrupted run's bit for
-    bit (K1's backward sums without atomics, and no operation of the step
-    is known to vary from run to run on the card)."""
+    K1 and its backward at head dim 16, which the backward's wgmma kernel
+    takes padded to 64; sequences of 512 tokens, so that 4 key tiles add
+    into most query tiles' dq in its fixed order): an uninterrupted run of
+    6 steps; a run that fails at step 3 after its emergency checkpoint; a
+    restart whose restored parameters and moments must equal the saved ones
+    bit for bit, and whose losses must equal the uninterrupted run's bit
+    for bit (no operation of the step is known to vary from run to run on
+    the card)."""
     import tempfile
     from repro_torch.configs.archs import SMOKE
     from repro_torch.training.data import DataConfig, SyntheticTokens
@@ -2328,7 +2357,7 @@ def trainer_drill(mods, seed: int) -> dict:
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
         device="cuda")
-    data = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 4, seed=seed))
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, 512, 4, seed=seed))
 
     def trainer(root):
         params = master_params(model, seed)

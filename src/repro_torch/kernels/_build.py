@@ -36,7 +36,7 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
                    (256, 256), (192, 128))
 # head dims (D == Dv) that K1's backward (csrc/flash_attention_bwd.cu)
-# instantiates
+# dispatches
 FLASH_BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 # head dims of K2's dispatch switches in csrc/decode_attention.cu
 DECODE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -175,9 +175,9 @@ ARGTYPES = {
     # dtype, stream
     "fate_flash_attention": [_P] * 5 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
     + [_P],
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KV, D, causal,
-    # window, dtype, stream
-    "fate_flash_attention_bwd": [_P] * 10 + [_I32] * 9 + [_P],
+    # q, k, v, o, dout, lse, delta, dq_accum, counters, dq, dk, dv, B, Sq,
+    # Sk, H, KV, D, causal, window, dtype, stream
+    "fate_flash_attention_bwd": [_P] * 12 + [_I32] * 9 + [_P],
     # ..., B, H, KV, D, S, cache_len_dev, cache_len, chunk, nsplit, ...
     "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3
     + [_I64] * 10 + [_I32] + [_P],

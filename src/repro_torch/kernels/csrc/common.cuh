@@ -1,10 +1,12 @@
 // Helpers shared by the kernels: typed 4-element loads that
 // widen to float32, float32 -> storage-type rounding, half-warp and
-// full-warp reductions, asynchronous 16-byte copies.  Sums in the kernels
-// are float32; the storage type T (float or __nv_bfloat16) appears at the
-// loads from and the stores to device memory, and as the operand type of
-// the tensor-core products of the bf16 paths (K1, K2, K4 and K5 through
-// the mma.sync helpers below, K3 through wgmma).
+// full-warp reductions, asynchronous 16-byte copies, and Hopper's
+// warpgroup products (wgmma), barriers in shared memory (mbarrier) and bulk
+// copies (TMA).  Sums in the kernels are float32; the storage type T (float
+// or __nv_bfloat16) appears at the loads from and the stores to device
+// memory, and as the operand type of the tensor-core products of the bf16
+// paths (K1, K2, K4 and K5 through the mma.sync helpers below, K3 and K1's
+// backward at D = 64 and 128 through wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -201,6 +203,133 @@ inline cudaError_t allow_smem(Kernel kern, int bytes, unsigned& done) {
                              bytes);
   if (err == cudaSuccess && dev < 32) done |= 1u << dev;
   return err;
+}
+
+
+// --- warpgroup products (wgmma, sm_90a) -------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle.  Offsets in bytes.
+// K-major operand: lines of 64 bf16 along the depth, 8-line groups `sbo`
+// apart.  MN-major operand (the transpose bit set): lines of 64 rows or
+// columns, 64-wide blocks `lbo` apart, 8-line groups of the depth `sbo`
+// apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Make this thread's generic-proxy writes to shared memory (cp.async,
+// plain stores) visible to the async proxy that wgmma and TMA read through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pin the accumulators: no read or write of them moves across this point.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// --- barriers in shared memory and bulk copies (sm_90) ----------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// After the initialisations, before any other thread uses the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive and add `bytes` to the transactions the current phase awaits.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Clock cycles after which a wait that should end in microseconds traps
+// (about 20 s): a broken schedule fails the launch instead of hanging.
+constexpr long long WAIT_LIMIT = 1ll << 35;
+// Wait for the phase of parity `parity` to complete.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - t0 > WAIT_LIMIT) __trap();
+}
+
+// TMA: a box of a 4-d tensor map (coordinates innermost first) into
+// shared memory, completing `bytes` on the barrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// dst[i] += src[i] over `bytes` of float32 (both ends 16-byte aligned),
+// done by the memory system as one bulk group of this thread.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, uint32_t src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until every bulk group of this thread has been written.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Order this thread's async-proxy accesses to device memory with its
+// generic ones (the bulk sums around the counters that admit them).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Named barriers 1-15 (0 is __syncthreads): `n` threads, a multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 }  // namespace fate

@@ -184,34 +184,6 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
 };
 
-// Shared-memory matrix descriptor, 128-byte swizzle.  Offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Make this thread's generic-proxy writes to shared memory (cp.async,
-// plain stores) visible to the async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Pin the accumulators: no read or write of them moves across this point.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d[64 x 128] += A[64 x 16] (K-major) . B[16 x 128] (MN-major: the
 // transpose bit of B is set), float32 accumulators.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,

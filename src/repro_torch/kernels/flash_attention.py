@@ -29,10 +29,14 @@ Training: where grad is enabled and an input requires it,
 :func:`flash_attention` goes through a ``torch.autograd.Function`` whose
 forward also writes each row's log-sum-exp (float32 [B, H, Sq], from the
 same kernel; the output's bits are those of a call without it) and whose
-backward is the hand-written kernel ``csrc/flash_attention_bwd.cu``
-(FlashAttention-2's: a ``rowsum(dO o)`` pre-pass, a dk / dv kernel per key
-tile that sums the G heads of its KV head, a dq kernel per query tile; no
-atomics, so two calls give the same bits).  The TPU kernel has no
+backward is the hand-written kernel ``csrc/flash_attention_bwd.cu``.  In
+bf16 it is one wgmma pass after FlashAttention-3's, at the head dim rounded
+up to 64: a block per (batch, KV head, 128-key tile) streams the query
+tiles of the G heads that see its keys and computes dk and dv, and each
+tile's dq is summed into a float32 accumulator in ascending key-tile
+order, admitted by a counter per query tile, so two calls give the same
+bits.  float32 keeps FlashAttention-2's design (a dk / dv kernel per key
+tile, a dq kernel per query tile; no atomics).  The TPU kernel has no
 backward: the JAX models differentiate its XLA twin.  On the CPU both
 directions take their plain versions; on the card there is no fallback.
 The backward takes D in ``_build.FLASH_BWD_HEAD_DIMS`` with Dv == D: head
@@ -46,6 +50,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# the wgmma backward's tiles (csrc/flash_attention_bwd.cu :: WG_BC, WG_BR):
+# keys of a work tile, queries of a streamed tile
+BWD_KEY_TILE, BWD_QUERY_TILE = 128, 64
 
 
 def _scores(q, k, causal, window):
@@ -183,6 +190,23 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def bwd_scratch(b: int, h: int, sq: int, d: int, dtype, device):
+    """The backward kernel's scratch (``fate_flash_attention_bwd``'s
+    ``delta``, ``dq_accum`` and ``counters``): for the wgmma kernel (bf16),
+    with Sq and D rounded up to the query tile and to 64, float32
+    [2, B, H, Sq_pad] (delta, then lse log2 e), the float32 dq accumulator
+    [B, H, Sq_pad, D_pad] and int32 counters (one per query tile and head,
+    then the work counter); in float32 delta [B, H, Sq] alone."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if dtype != torch.bfloat16:
+        return torch.empty((b, h, sq), **f32), None, None
+    n_qt = -(-sq // BWD_QUERY_TILE)
+    sq_pad = n_qt * BWD_QUERY_TILE
+    return (torch.empty((2, b, h, sq_pad), **f32),
+            torch.empty((b, h, sq_pad, -(-d // 64) * 64), **f32),
+            torch.empty(b * h * n_qt + 1, dtype=torch.int32, device=device))
+
+
 def _dense16(x: torch.Tensor) -> torch.Tensor:
     """``x`` contiguous at a 16-byte aligned address (the backward's
     layout), copied if it is not."""
@@ -215,7 +239,9 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
     built at first use) or raises; :func:`flash_attention_bwd_ref` is
     taken only for tensors that lie on the CPU.
     ``flash_attention_bwd.launches`` counts kernel calls (each launches
-    the pre-pass, the dk / dv kernel and the dq kernel).
+    three kernels: the pre-pass, then the wgmma pass and the dq pass, or
+    the dk / dv kernel and the dq kernel).  The scratch
+    (:func:`bwd_scratch`) is allocated here.
     """
     _check(q, k, v)
     b, sq, h, _ = q.shape
@@ -234,16 +260,18 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
     _check_bwd_dims(d, v.shape[3])
     q, k, v, o, dout = (_dense16(x.to(q.dtype)) for x in (q, k, v, o, dout))
     lse = _dense16(lse.float())
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta, dq_accum, counters = bwd_scratch(b, h, sq, d, q.dtype, q.device)
     dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fate_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, kv, d,
-            int(bool(causal)), int(window), _build.DTYPE_CODE[q.dtype],
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            None if dq_accum is None else dq_accum.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, kv,
+            d, int(bool(causal)), int(window), _build.DTYPE_CODE[q.dtype],
             stream)
     if rc != 0:
         raise RuntimeError(

@@ -1007,19 +1007,22 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
 # them float32) and rounds its outputs.  chip_smoke.py's sweep of these
 # shapes on an H100 stays below 3.2e-6 and 7.7e-3.
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# (Sq, Sk, H, KV): a ragged tile, whisper's 1500 frames (23 x 64 + 28),
-# Sq != Sk at G = 16
-BWD_SHAPES = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1)]
+# (Sq, Sk, H, KV) at B = 1: a ragged tile, whisper's 1500 frames (23 x 64
+# + 28), Sq != Sk at G = 16; (B, Sq, Sk, H, KV): B = 2 with Sq > Sk, both
+# ragged, G = 2 (every query row keeps a key under the window of 64)
+BWD_SHAPES = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1),
+              (2, 250, 190, 8, 4)]
 BWD_MODES = [(True, 0), (False, 0), (True, 64)]
 
 
 def _bwd_case(rng, shape, d, dtype, causal, window, card):
-    """Inputs of a backward call: q, k, v, dO and K1's own o and lse."""
-    sq, sk, h, kv = shape
-    q = _randn(rng, (1, sq, h, d), dtype, card)
-    k = _randn(rng, (1, sk, kv, d), dtype, card)
-    v = _randn(rng, (1, sk, kv, d), dtype, card)
-    do = _randn(rng, (1, sq, h, d), dtype, card)
+    """Inputs of a backward call: q, k, v, dO and K1's own o and lse;
+    ``shape`` is (Sq, Sk, H, KV) at B = 1 or (B, Sq, Sk, H, KV)."""
+    b, sq, sk, h, kv = shape if len(shape) == 5 else (1, *shape)
+    q = _randn(rng, (b, sq, h, d), dtype, card)
+    k = _randn(rng, (b, sk, kv, d), dtype, card)
+    v = _randn(rng, (b, sk, kv, d), dtype, card)
+    do = _randn(rng, (b, sq, h, d), dtype, card)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                  return_lse=True)
     return q, k, v, o, do, lse
@@ -1071,7 +1074,7 @@ def test_flash_attention_lse_leaves_output_bits(card, dtype, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_flash_attention_rows_without_keys(card, dtype, d):
     """Sq > Sk + window (ROADMAP H10): K1 gives the rows that attend no
     key 0 and a log-sum-exp of +inf (a 64-row tile where every row has
@@ -1098,13 +1101,68 @@ def test_flash_attention_rows_without_keys(card, dtype, d):
     assert max(errs) < BWD_TOL[dtype], errs
 
 
+@pytest.mark.parametrize("causal,window", BWD_MODES)
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype):
+def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype, d, causal,
+                                                    window):
+    """Two calls give the same bits: in bf16 the wgmma kernel sums each
+    query tile's dq in ascending key-tile order (B = 2, G = 2, 24 query
+    tiles a head, every mask, every head dim: 16, 32 and 80 padded to 64
+    and 128), whatever order its blocks run in."""
     rng = np.random.default_rng(43)
-    args = _bwd_case(rng, (1500, 1500, 4, 2), 64, dtype, True, 0, card)
-    a = ops.flash_attention_bwd(*args)
-    b = ops.flash_attention_bwd(*args)
+    args = _bwd_case(rng, (2, 1500, 1500, 4, 2), d, dtype, causal, window,
+                     card)
+    a = ops.flash_attention_bwd(*args, causal=causal, window=window)
+    b = ops.flash_attention_bwd(*args, causal=causal, window=window)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (4096, 4096, True, 0), (300, 700, True, 0), (700, 300, False, 0),
+    (1500, 1500, True, 64), (600, 200, True, 100), (333, 1000, False, 200)])
+def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
+                                                       window):
+    """After a bf16 call at D = 128, each (b, head, query tile) counter of
+    the wgmma kernel holds the number of key tiles that added into that
+    tile's dq, which must be the number of 128-key tiles holding a pair
+    the mask keeps with one of the tile's queries (the kernel's
+    key_tile_queries; tests/test_torch_kernels.py holds its copy to the
+    same walk), and the work counter every work tile plus one last take
+    per block.  The call ends only if first_key_tile is right: a key tile
+    is admitted when its counter reaches the count of its predecessors,
+    and a wrong count would never be reached (the kernel traps)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(47)
+    b, h, kv, d = 2, 4, 2, 128
+    q, k, v, o, do, lse = _bwd_case(rng, (b, sq, sk, h, kv), d,
+                                    torch.bfloat16, causal, window, card)
+    delta, acc, counters = fa.bwd_scratch(b, h, sq, d, q.dtype, q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    rc = _build.load().fate_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+        counters.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        sq, sk, h, kv, d, int(causal), window, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    bq, bk = fa.BWD_QUERY_TILE, fa.BWD_KEY_TILE
+    n_qt, n_kt = -(-sq // bq), -(-sk // bk)
+    qi, ki = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= qi >= ki
+    if window:
+        mask &= qi - ki < window
+    visits = [sum(bool(mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk]
+                       .any()) for kt in range(n_kt)) for qt in range(n_qt)]
+    counters = counters.cpu()
+    assert counters[:-1].reshape(b * h, n_qt).tolist() == [visits] * (b * h)
+    items = n_kt * b * kv
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert int(counters[-1]) == items + min(sms, items)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -283,6 +283,127 @@ def test_wrappers_reject_bad_arguments(bad):
             ops.decode_attention(q, kc, kc, 9)
 
 
+# The wgmma backward's tile plan, copied from csrc/flash_attention_bwd.cu
+# (key_tile_queries, first_key_tile, the work counter's order) to hold it
+# against a walk over the mask here; the card test
+# test_flash_attention_bwd_counters_follow_tile_plan reads the kernel's
+# own counts.
+def bwd_key_tile_queries(kt, sq, sk, causal, window):
+    """The query tiles that key tile ``kt`` visits: those holding a query
+    that sees a key of the tile.  Both ends never decrease as ``kt``
+    grows."""
+    from repro_torch.kernels.flash_attention import (BWD_KEY_TILE,
+                                                     BWD_QUERY_TILE)
+    k0 = kt * BWD_KEY_TILE
+    k_last = min(k0 + BWD_KEY_TILE, sk) - 1
+    q_begin = k0 if causal else 0
+    q_end = min(sq, k_last + window) if window > 0 else sq
+    lo = q_begin // BWD_QUERY_TILE
+    hi = -(-q_end // BWD_QUERY_TILE) if q_end > q_begin else lo
+    return range(lo, hi)
+
+
+def bwd_work_tiles(b, kv, sk):
+    """The work tiles (key tile, batch, KV head) in the order the blocks
+    take them from the work counter: key tile major."""
+    from repro_torch.kernels.flash_attention import BWD_KEY_TILE
+    n = b * kv
+    return [(item // n, item % n // kv, item % kv)
+            for item in range(-(-sk // BWD_KEY_TILE) * n)]
+
+
+def bwd_first_key_tile(qt, sq, sk, causal, window):
+    """The first key tile that visits query tile ``qt``: a key tile ``kt``
+    that visits it has ``kt - bwd_first_key_tile(qt)`` predecessors in its
+    dq sum.  Without a window every key tile's range reaches the last
+    query tile; with one, the first key tile whose last key is within the
+    window of the tile's first query."""
+    from repro_torch.kernels.flash_attention import (BWD_KEY_TILE,
+                                                     BWD_QUERY_TILE)
+    if window <= 0:
+        return 0
+    return max(0, qt * BWD_QUERY_TILE - window + 1) // BWD_KEY_TILE
+
+
+def _bwd_plan_case(seed):
+    """A random (Sq, Sk, causal, window) for the backward's tile plan:
+    lengths around the tiles' multiples, windows from none to wide."""
+    rng = np.random.default_rng(seed)
+    sq, sk = (int(x) for x in rng.integers(1, 700, size=2))
+    causal = bool(rng.integers(2))
+    window = int(rng.choice([0, 1, 63, 64, 100, 300]))
+    return sq, sk, causal, window
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_flash_attention_bwd_tile_plan_matches_mask(seed):
+    """The wgmma backward's tile plan against a brute-force walk over the
+    mask: key tile kt visits exactly the query tiles that hold a pair the
+    mask keeps with one of its keys, the key tiles that visit a query tile
+    are a run that starts at bwd_first_key_tile, and every predecessor in
+    a query tile's dq sum is taken from the work counter (key tile major)
+    before its successor."""
+    from repro_torch.kernels import flash_attention as fa
+    for sq, sk, causal, window in [_bwd_plan_case(seed),
+                                   _bwd_plan_case(100 + seed)]:
+        qi = np.arange(sq)[:, None]
+        ki = np.arange(sk)[None, :]
+        mask = np.ones((sq, sk), bool)
+        if causal:
+            mask &= qi >= ki
+        if window:
+            mask &= qi - ki < window
+        bq, bk = fa.BWD_QUERY_TILE, fa.BWD_KEY_TILE
+        n_qt, n_kt = -(-sq // bq), -(-sk // bk)
+        visits = {}
+        for kt in range(n_kt):
+            want = [qt for qt in range(n_qt)
+                    if mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk].any()]
+            got = list(bwd_key_tile_queries(kt, sq, sk, causal, window))
+            assert got == want, (sq, sk, causal, window, kt)
+            for qt in got:
+                visits.setdefault(qt, []).append(kt)
+        taken = {t: i for i, t in enumerate(bwd_work_tiles(2, 3, sk))}
+        assert len(taken) == n_kt * 6
+        for qt, kts in visits.items():
+            first = bwd_first_key_tile(qt, sq, sk, causal, window)
+            assert kts == list(range(first, first + len(kts)))
+            for b in range(2):
+                for hk in range(3):
+                    order = [taken[(kt, b, hk)] for kt in kts]
+                    assert order == sorted(order)
+        # query tiles no key tile visits hold only rows without keys
+        for qt in set(range(n_qt)) - set(visits):
+            assert not mask[qt * bq:(qt + 1) * bq].any()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 80),
+                                     (torch.float32, 128)])
+def test_flash_attention_bwd_scratch_layout(dtype, d):
+    """The wrapper's scratch for the backward kernel: the wgmma kernel
+    (bf16) takes delta and lse log2 e over Sq rounded up to the query tile,
+    a float32 dq accumulator of whole query tiles and of the head dim
+    rounded up to 64 (128 at D = 80) and one counter per (batch, head,
+    query tile) plus the work counter; float32 takes delta [B, H, Sq]
+    alone."""
+    from repro_torch.kernels import flash_attention as fa
+    b, h, sq = 2, 4, 130
+    delta, acc, cnt = fa.bwd_scratch(b, h, sq, d, dtype, "cpu")
+    assert delta.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        n_qt = -(-sq // fa.BWD_QUERY_TILE)
+        pad = n_qt * fa.BWD_QUERY_TILE
+        assert pad >= sq > pad - fa.BWD_QUERY_TILE
+        assert delta.shape == (2, b, h, pad)
+        d_pad = {64: 64, 80: 128, 128: 128}[d]
+        assert acc.shape == (b, h, pad, d_pad) and acc.dtype == torch.float32
+        assert cnt.shape == (b * h * n_qt + 1,) and cnt.dtype == torch.int32
+    else:
+        assert delta.shape == (b, h, sq) and acc is None and cnt is None
+
+
 def test_launch_counts_reset():
     ops.flash_attention.launches = 5
     ops.flash_attention_bwd.launches = 6
@@ -365,10 +486,21 @@ def test_wrapper_dims_match_kernel_instantiations(name):
 
     src = (Path(_build.CSRC) / f"{name}.cu").read_text()
     if name == "flash_attention_bwd":
-        got = re.findall(r"if \(D == (\d+)\) return launch_bwd<(\d+)>", src)
-        assert all(d == d2 for d, d2 in got)
-        assert sorted(int(d) for d, _ in got) == \
+        # one `if (D == .) return launch_bwd_...<.>(a);` per dim in each
+        # dispatch: float32 (FMA at D) and bf16 (wgmma at D rounded up to
+        # 64, the columns past D zero)
+        got = re.findall(r"if \(D == (\d+)\) return (launch_bwd_\w+)<(\d+)>"
+                         r"\(a\);", src)
+        fma = [int(d) for d, fn, d2 in got if fn == "launch_bwd_fma"
+               and d == d2]
+        bf16 = {int(d): int(d2) for d, fn, d2 in got
+                if fn == "launch_bwd_wgmma"}
+        assert sorted(fma) == sorted(set(fma)) == \
             sorted(_build.FLASH_BWD_HEAD_DIMS)
+        assert sorted(bf16) == sorted(_build.FLASH_BWD_HEAD_DIMS)
+        assert len(fma) + len(bf16) == len(got)
+        assert all(dp == -(-d // 64) * 64 for d, dp in bf16.items())
+        assert {bf16[64], bf16[128]} == {64, 128}
         return
     if name == "mamba2_scan":
         got = {(int(p), int(n)) for p, n in

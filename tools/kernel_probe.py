@@ -5,6 +5,8 @@
     python3 tools/kernel_probe.py mamba2-phases   # K4 with one phase removed at a time
     python3 tools/kernel_probe.py rwkv6-phases    # K5 the same, and split over columns
     python3 tools/kernel_probe.py flash-bits --against DIR   # K1 against another tree's
+    python3 tools/kernel_probe.py flash-bwd --against DIR    # K1's backward, the same
+    python3 tools/kernel_probe.py flash-bwd-phases # K1's backward with one step removed
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -43,6 +45,26 @@ both in bf16 in turns (this tree, the other, the other, this tree; CUDA
 events) at qwen3's
 prefill (``q [8,512,16,128]``, ``k, v [8,512,8,128]``) and gemma3's global
 layer (``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), causal.
+
+``flash-bwd`` builds ``csrc/flash_attention_bwd.cu`` of another checkout
+(``--against DIR``) into its own library and times it against this tree's
+K1 backward in turns (this tree, the other, the other, this tree; CUDA
+events, back to back) in bf16 at qwen3-1.7b's training shape
+(``q [2,4096,16,128]``, ``k, v [2,4096,8,128]``, causal) and its served
+prefill (``q [8,512,16,128]``), on the same inputs and K1's own output and
+log-sum-exp; it prints both times and the largest difference of each
+gradient between the two, relative to its largest magnitude (the two
+designs need not give the same bits).  It reads the other tree's C entry
+point from its source: the one of the first backward (one scratch, delta
+[B, H, Sq]) or this one.
+
+``flash-bwd-phases`` builds variants of ``csrc/flash_attention_bwd.cu`` with
+one step of the bf16 wgmma kernel cut out (``FLASH_BWD_CUTS``: the counter
+waits that order each query tile's dq sums; the dq sums themselves; the
+mask test; the exponentials; the stores of ds; the dk / dv products; the
+dq products; the dq hand-off) and times each at the training shape in turns with the full
+kernel, as ``mamba2-phases`` does.  A variant computes wrong numbers; only
+its time is read.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -115,6 +137,31 @@ RWKV6_CUTS = {
          "  // scores above"),
         ("kern<<<a.B * a.H, 32 * MmaTile<D>::NW",
          "kern<<<2 * a.B * a.H, 32 * MmaTile<D>::NW")],
+}
+
+
+# step of the wgmma backward -> [(text in flash_attention_bwd.cu, its
+# replacement), ...]
+FLASH_BWD_CUTS = {
+    "admission": [
+        ("      wait_counter(a.counters + tile[next], want[next]);\n", ""),
+        ("ld_acquire(a.counters + tile[b]) == want[b])", "true)")],
+    "dq_sum": [("        sums.state[hb] = DqSums::PENDING;",
+                "        sums.state[hb] = DqSums::FREE;")],
+    "mask": [("      const bool edge =\n", "      const bool edge = false &&\n")],
+    "exp2": [("ok ? fast_exp2(s[i] * a.scale_log2 - ((r & 1) ? l2.y : l2.x))",
+              "ok ? s[i]")],
+    "ds_store": [("            *reinterpret_cast<uint32_t*>(\n                ds_s +",
+                  "            if (false) *reinterpret_cast<uint32_t*>(\n"
+                  "                ds_s +")],
+    "dkdv_mma": [("          wgmma_rs<DP, 1>(dv, pa[t],",
+                  "          if (false) wgmma_rs<DP, 1>(dv, pa[t],"),
+                 ("          wgmma_rs<DP, 1>(dk, da[t],",
+                  "          if (false) wgmma_rs<DP, 1>(dk, da[t],")],
+    "dq_mma": [("          wgmma_ss<64, 1, 1>(\n              dq,",
+                "          if (false) wgmma_ss<64, 1, 1>(\n              dq,")],
+    "handoff": [("          mine[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);",
+                 "          ;")],
 }
 
 
@@ -378,15 +425,114 @@ def flash_bits(against: Path) -> None:
                           "against_ms": times["against"]}), flush=True)
 
 
+def bwd_inputs(b: int, s: int, h: int, kv: int, d: int, gen):
+    """bf16 q, k, v, dO at ``[b, s, h | kv, d]`` and K1's causal output and
+    log-sum-exp on them."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, s, kv, d, device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    return q, k, v, o, do, lse
+
+
+def bwd_call(fn, new_entry: bool, q, k, v, o, do, lse, outs=None):
+    """One call of a library's ``fate_flash_attention_bwd`` (causal, bf16)
+    with the scratch its entry point takes; returns (dq, dk, dv)."""
+    from repro_torch.kernels.flash_attention import bwd_scratch
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    dq, dk, dv = outs or (torch.empty_like(x) for x in (q, k, v))
+    stream = torch.cuda.current_stream().cuda_stream
+    if new_entry:
+        delta, acc, cnt = bwd_scratch(b, h, sq, d, q.dtype, q.device)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                acc.data_ptr(), cnt.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, sq, sk, h, kv, d, 1, 0, 1, stream)
+    else:
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
+                kv, d, 1, 0, 1, stream)
+    if rc != 0:
+        sys.exit(f"kernel_probe: flash_attention_bwd returned {rc}")
+    return dq, dk, dv
+
+
+BWD_SHAPES = {"qwen3_train": (2, 4096, 16, 8, 128),
+              "qwen3_served": (8, 512, 16, 8, 128)}
+
+
+def flash_bwd(against: Path) -> None:
+    from repro_torch.kernels import _build, ops
+    csrc = against / "src" / "repro_torch" / "kernels" / "csrc"
+    src = (csrc / "flash_attention_bwd.cu").read_text()
+    out = _build.build_root().parent / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "flash_attention_bwd_against.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                    str(csrc), "-o", str(lib),
+                    str(csrc / "flash_attention_bwd.cu")],
+                   check=True, capture_output=True, text=True)
+    other = ctypes.CDLL(str(lib)).fate_flash_attention_bwd
+    new_entry = "float* dq_accum" in src
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    other.restype = i32
+    other.argtypes = [p] * (12 if new_entry else 10) + [i32] * 9 + [p]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, (b, s, h, kv, d) in BWD_SHAPES.items():
+        args = bwd_inputs(b, s, h, kv, d, gen)
+        mine = ops.flash_attention_bwd(*args)
+        theirs = bwd_call(other, new_entry, *args)
+        rel = [float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max()) for x, y in zip(mine, theirs)]
+        outs = [torch.empty_like(x) for x in mine]
+
+        def call(which):
+            if which == "this":
+                return ops.flash_attention_bwd(*args)
+            return bwd_call(other, new_entry, *args, outs=outs)
+        times = in_turns(call, {"this": "this", "against": "against"})
+        print(json.dumps({"probe": "flash-bwd", "against": str(against),
+                          "shape": name, "q": [b, s, h, d],
+                          "kv": [b, s, kv, d], "causal": True,
+                          "this_ms": times["this"],
+                          "against_ms": times["against"],
+                          "rel_diff_dq_dk_dv": rel}), flush=True)
+
+
+def flash_bwd_phases() -> None:
+    libs = build_variants("flash_attention_bwd", FLASH_BWD_CUTS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = bwd_inputs(*BWD_SHAPES["qwen3_train"], gen)
+    outs = [torch.empty_like(x) for x in args[:3]]
+
+    def call(lib):
+        return bwd_call(lib.fate_flash_attention_bwd, True, *args, outs=outs)
+    times = in_turns(call, libs)
+    full = sum(times["full"]) / 2
+    print(json.dumps({"probe": "flash-bwd-phases",
+                      "shape": list(BWD_SHAPES["qwen3_train"]),
+                      "ms": times, "full_ms": full,
+                      "saved_ms": {k: full - sum(t) / 2
+                                   for k, t in times.items()
+                                   if k != "full"}}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
-                                      "rwkv6-phases", "flash-bits"])
+                                      "rwkv6-phases", "flash-bits",
+                                      "flash-bwd", "flash-bwd-phases"])
     ap.add_argument("--against", type=Path,
-                    help="flash-bits: the root of the other checkout")
+                    help="flash-bits, flash-bwd: the root of the other "
+                         "checkout")
     args = ap.parse_args()
-    if args.probe == "flash-bits" and args.against is None:
-        ap.error("flash-bits needs --against DIR")
+    if args.probe in ("flash-bits", "flash-bwd") and args.against is None:
+        ap.error(f"{args.probe} needs --against DIR")
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -401,8 +547,12 @@ def main() -> None:
         mamba2_phases()
     elif args.probe == "rwkv6-phases":
         rwkv6_phases()
-    else:
+    elif args.probe == "flash-bits":
         flash_bits(args.against.resolve())
+    elif args.probe == "flash-bwd":
+        flash_bwd(args.against.resolve())
+    else:
+        flash_bwd_phases()
 
 
 if __name__ == "__main__":
