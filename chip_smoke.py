@@ -9,7 +9,8 @@ ends the run with a non-zero exit code and no result line:
 
 1. ``device``  – card name and power limit (nvidia-smi), torch / CUDA /
    nvcc versions, seconds the kernels took to build; for every
-   instantiation of K3's and K1's backward's wgmma kernels and of K1's,
+   instantiation of K3's (its input gradient's among them), K3's weight
+   gradient's and K1's backward's wgmma kernels and of K1's,
    K2's, K4's and K5's mma.sync kernels its tensor-core instructions in
    the SASS (cuobjdump; it fails
    without them, or if an instantiation the sources launch is missing)
@@ -139,10 +140,26 @@ ends the run with a non-zero exit code and no result line:
    at full width with 2 layers (the loss within 1e-5, every gradient
    leaf within 1e-3 of its largest magnitude) and in bf16 over float32
    masters at full depth (the loss and the global gradient norm within
-   stated bars); then the ``Trainer`` on the card at SMOKE size: a run
+   stated bars); a second kernel run whose gradients must be the first's
+   bit for bit; then the ``Trainer`` on the card at SMOKE size: a run
    that fails at step 3, a restart whose restored parameters and moments
    equal the saved ones bit for bit and whose losses equal an
    uninterrupted run's.
+17. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
+   experts top 8 of d_expert 512, vocab 49155, untied) at full width,
+   its depth cut from 32 to 24 layers (``reduced`` says so, with the
+   measured peak), after qwen3's are freed, trained as ``train`` (capacity
+   1024 a sample, so 2048 rows an expert in a microbatch: K3's 128-row
+   tile): per step K1 192, its backward 96, K3's forward 576 (three a
+   layer and microbatch, twice under remat), its dX and dW kernels 288
+   each, nothing else; model FLOPs counted on the active parameters (the
+   routed experts' at top_k / num_experts).
+18. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
+   gradients among the kernels, the plain run held to the kernel run's
+   routing in call order (remat routes twice a layer; the recompute must
+   choose the forward's experts): float32 at full width with 2 layers,
+   bf16 at 24; a second kernel run bitwise; the Trainer drill at SMOKE
+   granite.
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -163,14 +180,25 @@ every head dim it takes, both types, the masks and ragged lengths, and,
 timed beside the backward of SDPA, qwen3's training shape (q [2, 4096,
 16, 128], k, v [2, 4096, 8, 128], causal) and its served prefill
 ([8, 512, 16, 128]), each called twice, which must give the same bits (the
-wgmma kernel sums dq in a fixed order).
+wgmma kernel sums dq in a fixed order), with granite's training shape
+(q [2, 4096, 24, 64], k, v [2, 4096, 8, 64]) beside them.  And K3's
+gradients against their plain versions (1e-5 / 3e-2 relative): dX (K3's
+kernel reading w K-major) and dW (``csrc/moe_gemm_bwd.cu``) over a sweep
+in both types (ragged C, D and F, C of one, the strided dispatch view,
+deepseek's 160 experts of 5120 / 1536 with few rows), and, timed beside a
+batched ``torch.matmul`` on contiguous [E, B*C, .] operands and called
+twice for the same bits, at granite's training shapes: dX of the gate /
+up projection (dy [2, 40, 1024, 512], w [40, 1536, 512]) and of the down
+(dy [2, 40, 1024, 1536], w [40, 512, 1536]), dW of both (x [2, 40, 1024,
+1536] with dy [.., 512]; x [.., 512] with dy [.., 1536]).
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-``design``: ``wgmma`` for K3's and K1's backward's and ``mma.sync`` for
-K1's, K2's, K4's and K5's bf16 paths, which the main path takes; K3's decode shape beside its
+``design``: ``wgmma`` for K3's, its gradients' and K1's backward's and
+``mma.sync`` for K1's, K2's, K4's and K5's bf16 paths, which the main
+path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
 call), a ``total`` line (with the seconds of the two whisper phases and
-of the two train phases), the nvidia-smi line, and last ``{"ok": true,
+of the four train phases), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -235,8 +263,17 @@ TRAIN_GLOBAL_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 8, 2, 4
 # H19, over 28 layers).  The bf16 bars are about 4x the largest readings
 # on an H100 over seeds 0-2: 2.0e-5, 1.28e-4 and 8.4e-3 (wq, k_norm)
 TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
-TRAIN_BF16_LOSS_REL, TRAIN_BF16_NORM_REL, TRAIN_BF16_GRAD_REL = \
-    1e-4, 5e-4, 3e-2
+# (loss, global norm, leaf) bars of the bf16 parity at the train depth.
+# granite's, stated before its first run: qwen3's loss bar, twice its
+# norm bar and 5/3 of its leaf bar, since K3's gradients round dX and dW
+# to bf16 in every layer, beside K1's and its backward's roundings
+TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
+              "parity_train_moe": (1e-4, 1e-3, 5e-2)}
+# train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
+# 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
+# copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
+# peak at 1.72 B), so 32 layers (3.45 B) would not fit the card's 80 GB
+MOE_TRAIN_LAYERS = 24
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -253,24 +290,36 @@ FLASH_SWEEP = [(1, 128, 128, 4, 2, 64), (2, 256, 256, 4, 4, 32),
 FLASH_MODES = [(True, 0), (False, 0), (True, 64)]
 DECODE_SWEEP = [512, 300, 17, 1]
 MOE_SWEEP = [(4, 96, 160, 192), (2, 128, 64, 64), (8, 40, 100, 70)]
+# K3's gradients: (B, or None for [E, C, D]; E, C, D, F) in both types, x
+# the strided dispatch view: ragged C, D and F (the element-wise loaders),
+# C of one, 128-row tiles, deepseek's 160 experts of d 5120 / d_expert
+# 1536 with few rows
+MOE_GRAD_SWEEP = [(None, 4, 96, 160, 192), (2, 8, 40, 100, 70),
+                  (1, 3, 1, 7, 5), (2, 2, 300, 72, 136),
+                  (1, 160, 4, 5120, 1536)]
 RWKV_SWEEP = [(64, 16), (96, 32)]
 MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 # the bf16 redesigns and the tensor-core instruction each must compile to
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
+                    "moe_dw_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
                     "flash_bwd_wgmma_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
-# gemma3's head dim, deepseek-v2's (query/key, value) pair and K1's
-# backward at qwen3's head dim: these instantiations must be among them
+# gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
+# backward at qwen3's and granite's head dims, and K3's gradients at
+# granite's training shapes (dX: the 128-row tile, vector loader, w
+# K-major; dW: the vector loader): these instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_mma_kernel<192,128>", "flash_bwd_wgmma_kernel<128>",
-                 "flash_bwd_wgmma_kernel<64>")
+                 "flash_bwd_wgmma_kernel<64>",
+                 "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations, and how many instantiations one such call makes
 TENSOR_CORE_LAUNCHERS = {
     "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma", 1),
+    "moe_dw_wgmma_kernel": ("moe_gemm_bwd.cu", "launch_dw_wgmma", 1),
     "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma", 1),
     "flash_bwd_wgmma_kernel": ("flash_attention_bwd.cu", "launch_bwd_wgmma",
                                1),
@@ -282,6 +331,7 @@ TENSOR_CORE_LAUNCHERS = {
 # (the float32 paths of K1-K5 are FMA code)
 BF16_DESIGN = {"flash_attention": "mma.sync",
                "flash_attention_bwd": "wgmma", "moe_gemm": "wgmma",
+               "moe_gemm_dx": "wgmma", "moe_gemm_dw": "wgmma",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
                "rwkv6_scan": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
@@ -298,9 +348,26 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/models/attention.py:68",
     "decode_attention": "src/repro/kernels/decode_attention.py:58",
     "moe_gemm": "src/repro/kernels/moe_gemm.py:39",
+    # no TPU kernel: the reference differentiates the MoE layer's einsums
+    # (src/repro/models/moe.py:104-109)
+    "moe_gemm_dx": "src/repro/models/moe.py:104",
+    "moe_gemm_dw": "src/repro/models/moe.py:104",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:66",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
 }
+# the source of each kernel (K3's input gradient is K3's own kernel reading
+# w K-major)
+SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+           for name in REPLACES}
+SOURCES["moe_gemm_dx"] = "src/repro_torch/kernels/csrc/moe_gemm.cu"
+SOURCES["moe_gemm_dw"] = "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu"
+NO_TPU_KERNEL = {
+    "flash_attention_bwd": "no TPU kernel: the reference differentiates "
+                           "K1's XLA twin",
+    "moe_gemm_dx": "no TPU kernel: the reference differentiates "
+                   "src/repro/models/moe.py:104-109",
+    "moe_gemm_dw": "no TPU kernel: the reference differentiates "
+                   "src/repro/models/moe.py:104-109"}
 
 
 def emit(obj: dict) -> None:
@@ -817,6 +884,54 @@ def wrapper_host_us(ops, x, w, iters: int = 200) -> dict:
     return rec
 
 
+def moe_grad_case(ops, ref, kind, a, b, timed=False):
+    """K3's input gradient (``kind`` "dx": a = dy, b = w) or weight
+    gradient ("dw": a = x, b = dy) against its plain version (MOE_TOL,
+    relative to the largest output); ``timed``: also a second call that
+    must give the same bits, the times, the bound (2 E rows D F
+    operations; the operands read and the output written once) and the
+    library's batched ``torch.matmul`` on contiguous [E, B*C, .] operands
+    (yardstick only)."""
+    name = "moe_gemm_" + kind
+    call = lambda: getattr(ops, name)(a, b)
+    plain = lambda: getattr(ref, name + "_ref")(a, b)
+    out = call()
+    torch.cuda.synchronize()
+    want = plain()
+    err = max_abs_err(out, want)
+    rel = err / max(1e-6, float(want.float().abs().max()))
+    dt = a.dtype
+    rec = {"kind": kind, "shape": [list(a.shape), list(b.shape)],
+           "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+           "rel_err": rel, "tol": MOE_TOL[dt],
+           "ok": bool(rel < MOE_TOL[dt])
+           and bool(torch.isfinite(out.float()).all())}
+    del want
+    if timed:
+        rec["repeat_bitwise"] = bool(torch.equal(out, call()))
+        rec["ok"] = rec["ok"] and rec["repeat_bitwise"]
+        rows4 = (lambda t: t if t.dim() == 4 else t.unsqueeze(0))
+        lead = rows4(a)
+        e, rows = lead.shape[1], lead.shape[0] * lead.shape[2]
+        flat = lambda t: rows4(t).transpose(0, 1).reshape(
+            e, rows, t.shape[-1]).contiguous()
+        if kind == "dx":
+            dyc, w = flat(a), b
+            lib = lambda: torch.matmul(dyc, w.transpose(1, 2))
+            d, f, marker = w.shape[1], w.shape[2], "moe_gemm_wgmma"
+        else:
+            xc, dyc = flat(a), flat(b)
+            lib = lambda: torch.matmul(xc.transpose(1, 2), dyc)
+            d, f, marker = a.shape[-1], b.shape[-1], "moe_dw_"
+        b_ms, by = bound(nbytes(a, b, out), 2.0 * e * rows * d * f, dt)
+        rec.update(
+            ms=time_ms(call), device_ms=device_ms(call, marker),
+            plain_ms=time_ms(plain, iters=5, warmup=1),
+            library_ms=time_ms(lib), library_device_ms=device_ms(lib),
+            bound_ms=b_ms, bound_by=by)
+    return rec
+
+
 def rwkv_flops(b, s, h, d, chunk) -> float:
     """Float32 operations of the chunked scan (exp counted as one):
     inter-chunk product, pairwise scores with their exp, diagonal,
@@ -1053,6 +1168,12 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         f"{qcfg.name}/nq{NUM_QUERIES}": flash_bwd_case(
             ops, ref, rng, (NUM_QUERIES, PROMPT_LEN, PROMPT_LEN, h, kv, d),
             torch.bfloat16, True, 0, timed=True)}
+    # granite's training shape (G = 3, D = 64), the train_moe phase's
+    h, kv = moe_cfg.num_heads, moe_cfg.num_kv_heads
+    bwd_main[f"{moe_cfg.name}/train"] = flash_bwd_case(
+        ops, ref, rng, (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(),
+                        h, kv, moe_cfg.resolved_head_dim), torch.bfloat16,
+        True, 0, timed=True)
     torch.cuda.empty_cache()
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
@@ -1105,6 +1226,38 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                                 ds_dt), w_down, timed=timed)
     del w_up, w_down
     torch.cuda.empty_cache()
+    # K3's gradients: the sweep (deepseek's operands drawn on the card),
+    # then granite's training shapes (microbatch 2 at capacity 1024: the
+    # gate / up and the down projection), timed
+    grad_sweep = []
+    for b, e, c, d, f in MOE_GRAD_SWEEP:
+        src = gen if e > 64 else rng
+        for dtype in (torch.float32, torch.bfloat16):
+            lead = (e, c) if b is None else (b, e, c)
+            x = dispatch_view(src, b or 1, e, c, d, dtype)
+            x = x if b else x[0]
+            w = randn(src, (e, d, f), dtype) * d ** -0.5
+            dy = randn(src, lead + (f,), dtype)
+            grad_sweep += [moe_grad_case(ops, ref, "dx", dy, w),
+                           moe_grad_case(ops, ref, "dw", x, dy)]
+            del x, w, dy
+    torch.cuda.empty_cache()
+    m, dm = moe_cfg.moe, moe_cfg.d_model
+    cap = _capacity(train_seq_len(), moe_cfg)      # 1024 for granite
+    grad_main = {"moe_gemm_dx": {}, "moe_gemm_dw": {}}
+    for proj, d, f in (("gate_up", dm, m.d_expert), ("down", m.d_expert, dm)):
+        key = f"{moe_cfg.name}/train_{proj}"
+        x = (dispatch_view(rng, TRAIN_MICROBATCH, m.num_experts, cap, d, dt)
+             if proj == "gate_up" else
+             randn(rng, (TRAIN_MICROBATCH, m.num_experts, cap, d), dt))
+        w = randn(rng, (m.num_experts, d, f), dt) * d ** -0.5
+        dy = randn(rng, (TRAIN_MICROBATCH, m.num_experts, cap, f), dt)
+        grad_main["moe_gemm_dx"][key] = moe_grad_case(ops, ref, "dx", dy, w,
+                                                      timed=True)
+        grad_main["moe_gemm_dw"][key] = moe_grad_case(ops, ref, "dw", x, dy,
+                                                      timed=True)
+        del x, w, dy
+    torch.cuda.empty_cache()
     # K5: the sweep, an initial state, bf16 inputs, the serving shape
     rwkv_sweep = []
     for s_len, chunk in RWKV_SWEEP:
@@ -1152,7 +1305,9 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
              + list(decode_main.values()) + bwd_sweep
              + list(bwd_main.values()) + moe_sweep
-             + list(moe_main.values()) + rwkv_sweep
+             + list(moe_main.values()) + grad_sweep
+             + list(grad_main["moe_gemm_dx"].values())
+             + list(grad_main["moe_gemm_dw"].values()) + rwkv_sweep
              + list(rwkv_main.values()) + mamba_sweep
              + list(mamba_main.values()))
     bad = [c for c in cases if not c["ok"]]
@@ -1178,6 +1333,13 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             "sweep_cases": len(moe_sweep),
             "sweep_rel_err": sweep_err(moe_sweep, "rel_err"),
             "main_path": moe_main},
+        **{name: {
+            "sweep_cases": sum(c["kind"] == name[-2:] for c in grad_sweep),
+            "sweep_rel_err": sweep_err(
+                [c for c in grad_sweep if c["kind"] == name[-2:]],
+                "rel_err"),
+            "main_path": grad_main[name]}
+           for name in ("moe_gemm_dx", "moe_gemm_dw")},
         "rwkv6_scan": {
             "sweep_cases": len(rwkv_sweep),
             "sweep_max_abs_err": sweep_err(rwkv_sweep),
@@ -2078,15 +2240,18 @@ def encoder_score_std(bundle, frames) -> float:
 
 
 def attention_at_input_width(params) -> None:
-    """Rescale every GQA projection ``[layers, d, heads, hd]`` of an
-    EncDecLM, drawn at 1 / sqrt(heads) by the init (the reference's
-    fan-in axis), to 1 / sqrt(d), in place."""
-    for stack, blocks in (("encoder", ("attn",)),
-                          ("decoder", ("attn", "cross"))):
-        for blk in blocks:
+    """Rescale every GQA projection ``[layers, d, heads, hd]`` (the
+    ``attn`` and ``cross`` blocks of every stack), drawn at 1 / sqrt(heads)
+    by the init (the reference's fan-in axis), to 1 / sqrt(d), in place."""
+    for key, sub in params.items():
+        if not isinstance(sub, dict):
+            continue
+        if key in ("attn", "cross") and "wq" in sub:
             for name in ("wq", "wk", "wv"):
-                w = params[stack][blk][name]
+                w = sub[name]
                 w.mul_((w.shape[-2] / w.shape[-3]) ** 0.5)
+        else:
+            attention_at_input_width(sub)
 
 
 @torch.inference_mode()
@@ -2169,27 +2334,45 @@ def train_seq_len() -> int:
     return SHAPES["train_4k"].seq_len
 
 
+def active_params(cfg, n_params: int) -> float:
+    """The parameters a token goes through: all of them, but an MoE
+    layer's routed experts only as top_k of num_experts (the capacity's
+    padding is no model work)."""
+    if cfg.moe is None:
+        return float(n_params)
+    m = cfg.moe
+    routed = 3 * m.num_experts * cfg.d_model * m.d_expert * (
+        cfg.num_layers - cfg.moe_layer_start)
+    return n_params - routed * (1.0 - m.top_k / m.num_experts)
+
+
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 x parameters x tokens for the
-    matrix products, and attention's products (QK^T and PV: 4 D flops a
-    head and attended pair forward, twice that backward) over the causal
+    """Model FLOPs of one training step: 6 x active parameters x tokens for
+    the matrix products, and attention's products (QK^T and PV: 4 D flops
+    a head and attended pair forward, twice that backward) over the causal
     pairs.  The forward that remat repeats is not counted."""
     pairs = attended_pairs(seq, seq, True, 0)
     attn = 12.0 * cfg.num_layers * batch * cfg.num_heads \
         * cfg.resolved_head_dim * pairs
-    return 6.0 * n_params * batch * seq + attn
+    return 6.0 * active_params(cfg, n_params) * batch * seq + attn
 
 
 def train_launches(cfg, n_accum: int, steps: int) -> dict:
-    """Kernel launches of ``steps`` train steps of a dense decoder with
-    ``cfg.remat``: K1's forward once per layer and microbatch, and again in
-    the backward's recompute; its backward once per layer and
-    microbatch."""
+    """Kernel launches of ``steps`` train steps of a decoder with
+    ``cfg.remat``, per layer and microbatch: K1's forward once, and again
+    in the backward's recompute; its backward once; in an MoE layer K3's
+    forward three times (gate, up, down), again in the recompute, and its
+    dX and dW kernels three times each (every rows count of these calls
+    takes the 128-row tile)."""
     exp = dict.fromkeys(REPLACES, 0)
     exp["moe_gemm_decode_tile"] = 0
-    exp["flash_attention"] = cfg.num_layers * n_accum * steps * (
-        2 if cfg.remat else 1)
-    exp["flash_attention_bwd"] = cfg.num_layers * n_accum * steps
+    runs, fwd = n_accum * steps, 2 if cfg.remat else 1
+    exp["flash_attention"] = cfg.num_layers * runs * fwd
+    exp["flash_attention_bwd"] = cfg.num_layers * runs
+    if cfg.moe is not None:
+        gemms = 3 * (cfg.num_layers - cfg.moe_layer_start) * runs
+        exp["moe_gemm"] = gemms * fwd
+        exp["moe_gemm_dx"] = exp["moe_gemm_dw"] = gemms
     return exp
 
 
@@ -2204,8 +2387,9 @@ def master_params(model, seed: int) -> dict:
 def profile_train_step(step_fn, params, state, batch) -> dict:
     """One more train step traced with torch.profiler: the card's busy
     share of its wall, the device time by kind of kernel (K1's forward,
-    its backward, the matrix products, elementwise kernels and copies,
-    the rest) and K1's shares of the step's device time."""
+    its backward, K3's forward, dX and dW, the matrix products,
+    elementwise kernels and copies, the rest) and K1's and K3's shares of
+    the step's device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2217,8 +2401,13 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
     dev = sum(r[0] for r in rows) / 1e6
+    # K3's dX is K3's kernel with a K-major w: its last template argument
     kinds = {"k1_forward": ("flash_mma_kernel",),
              "k1_backward": ("bwd_",),
+             "k3_dx": tuple(f"moe_gemm_wgmma_kernel<{m}, {v}, true>"
+                            for m in (64, 128) for v in ("true", "false")),
+             "k3_forward": ("moe_gemm_wgmma_kernel",),
+             "k3_dw": ("moe_dw_",),
              "gemm": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
              "elementwise_and_copies": ("elementwise", "copy", "reduce")}
     share = dict.fromkeys(kinds, 0.0)
@@ -2232,28 +2421,34 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
             "device_s_by_kind": share,
             "k1_forward_share": share["k1_forward"] / dev,
             "k1_backward_share": share["k1_backward"] / dev,
+            "k3_share": (share["k3_forward"] + share["k3_dx"]
+                         + share["k3_dw"]) / dev,
             "top_device_time": [
                 {"name": k[:80], "calls": n, "ms": us / 1e3}
                 for us, n, k in rows[:10]]}
 
 
-def phase_train(mods, cfg, seed: int, profile: bool = False) -> dict:
-    """qwen3-1.7b at full width and depth trained through the port's
-    ``make_train_step`` with the reference's ``AdamWConfig()``: bf16
-    compute over float32 masters, bf16 moments, remat, TRAIN_GLOBAL_BATCH
-    sequences of train_4k's length per step in microbatches of
-    TRAIN_MICROBATCH.  One warm-up step (it builds and allocates), then
-    TRAIN_STEPS steps of ``SyntheticTokens.batch_at(step)`` with the
-    launch counts zeroed just before: the losses must be finite and the
-    last below the first, and K1's forward and backward must launch as
+def phase_train(mods, cfg, seed: int, profile: bool = False,
+                phase: str = "train", num_layers: int = 0) -> dict:
+    """``cfg`` at full width (qwen3-1.7b; granite-moe-3b-a800m as
+    ``train_moe``, its depth cut to ``num_layers``) trained through the
+    port's ``make_train_step`` with the reference's ``AdamWConfig()``:
+    bf16 compute over float32 masters, bf16 moments, remat,
+    TRAIN_GLOBAL_BATCH sequences of train_4k's length per step in
+    microbatches of TRAIN_MICROBATCH.  One warm-up step (it builds and
+    allocates), then TRAIN_STEPS steps of ``SyntheticTokens.batch_at(step)``
+    with the launch counts zeroed just before: the losses must be finite
+    and the last below the first, and the kernels must launch as
     ``train_launches`` predicts, nothing else.  Step seconds, tokens/s,
-    model FLOPs per second against 989 TFLOP/s, peak memory;
-    ``profile``: one more step traced."""
+    model FLOPs (on active parameters) per second against 989 TFLOP/s,
+    peak memory; ``profile``: one more step traced."""
     ops, steps, opt = mods["ops"], mods["steps"], mods["opt"]
+    from repro_torch.models.moe import _capacity
     from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.tree import tree_leaves
     full = cfg
-    cfg = dataclasses.replace(cfg, microbatch=TRAIN_MICROBATCH)
+    cfg = dataclasses.replace(cfg, microbatch=TRAIN_MICROBATCH,
+                              num_layers=num_layers or cfg.num_layers)
     seq = train_seq_len()
     step_fn, model = steps.make_train_step(
         cfg, dp_size=1, global_batch=TRAIN_GLOBAL_BATCH,
@@ -2291,19 +2486,28 @@ def phase_train(mods, cfg, seed: int, profile: bool = False) -> dict:
         problems.append(f"launches {counts}, expected {expect}")
     step_s = sum(times) / len(times)
     flops = train_flops(cfg, n_params, TRAIN_GLOBAL_BATCH, seq)
+    reduced = {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
+               "microbatch": f"{full.microbatch} -> {TRAIN_MICROBATCH}"}
+    if cfg.num_layers != full.num_layers:
+        reduced["num_layers"] = (
+            f"{full.num_layers} -> {cfg.num_layers} (peak "
+            f"{peak / 1e9:.2f} GB of the card's 80)")
     out = {
-        "phase": "train", "model": cfg.name,
+        "phase": phase, "model": cfg.name,
         "shape": {"layers": cfg.num_layers, "d_model": cfg.d_model,
                   "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
                   "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
-                  "vocab": cfg.vocab_size, "seq_len": seq},
+                  "vocab": cfg.vocab_size, "seq_len": seq,
+                  **({"experts": cfg.moe.num_experts,
+                      "top_k": cfg.moe.top_k,
+                      "d_expert": cfg.moe.d_expert,
+                      "capacity": _capacity(seq, cfg)} if cfg.moe else {})},
         "params": n_params,
+        "active_params": active_params(cfg, n_params),
         "dtype": f"{cfg.dtype} compute over float32 masters, bf16 moments",
         "remat": cfg.remat, "global_batch": TRAIN_GLOBAL_BATCH,
         "microbatch": TRAIN_MICROBATCH, "accum_steps": n_accum,
-        "reduced": {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
-                    "microbatch": f"{full.microbatch} -> "
-                                  f"{TRAIN_MICROBATCH}"},
+        "reduced": reduced,
         "warmup_loss": warm_loss, "warmup_s": warmup_s,
         "losses": losses, "step_s": times, "step_s_mean": step_s,
         "tokens_per_s": TRAIN_GLOBAL_BATCH * seq / step_s,
@@ -2319,7 +2523,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False) -> dict:
                                             data.batch_at(TRAIN_STEPS + 1))
     emit(out)
     if problems:
-        fail("train phase failed: " + "; ".join(problems))
+        fail(f"{phase} phase failed: " + "; ".join(problems))
     return out
 
 
@@ -2336,23 +2540,24 @@ def loss_and_grads(model, masters, batch, dtype):
     return loss.detach().float(), torch.autograd.grad(loss, leaves)
 
 
-def trainer_drill(mods, seed: int) -> dict:
-    """The Trainer on the card at SMOKE qwen3 (bf16 over float32 masters,
-    K1 and its backward at head dim 16, which the backward's wgmma kernel
-    takes padded to 64; sequences of 512 tokens, so that 4 key tiles add
-    into most query tiles' dq in its fixed order): an uninterrupted run of
-    6 steps; a run that fails at step 3 after its emergency checkpoint; a
-    restart whose restored parameters and moments must equal the saved ones
-    bit for bit, and whose losses must equal the uninterrupted run's bit
-    for bit (no operation of the step is known to vary from run to run on
-    the card)."""
+def trainer_drill(mods, seed: int, arch: str) -> dict:
+    """The Trainer on the card at ``arch``'s SMOKE size (qwen3, granite:
+    bf16 over float32 masters, K1 and its backward at head dim 16, which
+    the backward's wgmma kernel takes padded to 64; sequences of 512
+    tokens, so that 4 key tiles add into most query tiles' dq in its fixed
+    order; granite's K3 and its gradients at 640 rows an expert): an
+    uninterrupted run of 6 steps; a run that fails at step 3 after its
+    emergency checkpoint; a restart whose restored parameters and moments
+    must equal the saved ones bit for bit, and whose losses must equal the
+    uninterrupted run's bit for bit (no operation of the step is known to
+    vary from run to run on the card)."""
     import tempfile
     from repro_torch.configs.archs import SMOKE
     from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.trainer import TrainConfig, Trainer
     from repro_torch.training.tree import tree_paths
     steps, opt = mods["steps"], mods["opt"]
-    cfg = SMOKE["qwen3-1.7b"]
+    cfg = SMOKE[arch]
     step_fn, model = steps.make_train_step(
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
@@ -2393,100 +2598,146 @@ def trainer_drill(mods, seed: int) -> dict:
             and report.losses == want}
 
 
-def phase_parity_train(mods, cfg, seed: int) -> dict:
+def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
+                       num_layers: int = 0) -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
-    log-sum-exp and its backward) against the plain versions
-    (``plain_versions(ops, ref, ["flash_attention"])``: autograd through
-    ``flash_attention_ref``), on the train phase's first microbatch: in
-    float32 at full width with TRAIN_F32_LAYERS layers (the loss within
-    TRAIN_F32_LOSS_REL, each gradient leaf within TRAIN_F32_GRAD_REL of
-    its largest magnitude), and in bf16 over float32 masters at full
-    depth (the loss within TRAIN_BF16_LOSS_REL and the global gradient
-    norm within TRAIN_BF16_NORM_REL, relative, and each gradient leaf
-    within TRAIN_BF16_GRAD_REL of its largest magnitude); then the Trainer
-    drill."""
-    ops, ref, steps, opt = mods["ops"], mods["ref"], mods["steps"], \
-        mods["opt"]
+    log-sum-exp and its backward; for an MoE model K3 and its dX and dW
+    kernels) against the plain versions (``plain_versions`` of
+    flash_attention, and moe_gemm: autograd through the plain forwards),
+    on the train phase's first microbatch: in float32 at full width with
+    TRAIN_F32_LAYERS layers (the loss within TRAIN_F32_LOSS_REL, each
+    gradient leaf within TRAIN_F32_GRAD_REL of its largest magnitude), and
+    in bf16 over float32 masters at the train phase's depth (the loss and
+    the global gradient norm, relative, and each gradient leaf relative to
+    its largest magnitude, within TRAIN_BARS[phase]).  An MoE model's plain
+    run is held to the kernel run's routing (``held_routing``, replayed in
+    call order: the forward's, then remat's recompute in the backward);
+    the flips a free plain run would make are counted, and the recompute
+    must have chosen the forward's experts.  granite has no q / k norm, so
+    at the reference's init its attention saturates and 24 bf16 layers
+    amplify the kernels' rounding chaotically (ROADMAP H25): there its bf16
+    reading is reported, and the bars hold the same weights with the
+    attention projections drawn at 1 / sqrt(d)
+    (``attention_at_input_width``), as parity_whisper does.  Then a second
+    kernel run on the same microbatch, whose loss and gradients must equal
+    the first's bit for bit, and the Trainer drill at SMOKE size."""
+    ops, ref, moe_mod = mods["ops"], mods["ref"], mods["moe"]
     from repro_torch.models.families import build_model
     from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.tree import tree_paths
+    loss_bar, norm_bar, grad_bar = TRAIN_BARS[phase]
+    is_moe = cfg.moe is not None
+    names = ["flash_attention"] + (["moe_gemm"] if is_moe else [])
     seq = train_seq_len()
     batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
                                        TRAIN_GLOBAL_BATCH, seed=seed)) \
         .batch_at(1)
     micro = {k: v[:TRAIN_MICROBATCH] for k, v in batch.items()}
     problems = []
-    out = {"phase": "parity_train", "microbatch": [TRAIN_MICROBATCH, seq]}
+    out = {"phase": phase, "model": cfg.name,
+           "microbatch": [TRAIN_MICROBATCH, seq], "plain": names}
 
     def both(model, masters, dtype):
+        """(kernel loss, grads), (plain loss, grads), launches, routing."""
+        log, stats = [], {"decisions": 0, "flipped": 0}
+        hold = lambda st=None: (held_routing(moe_mod, log, st) if is_moe
+                                else contextlib.nullcontext())
         ops.reset_launch_counts()
-        kern = loss_and_grads(model, masters, micro, dtype)
+        with hold():
+            kern = loss_and_grads(model, masters, micro, dtype)
         counts = ops.counts()
-        with plain_versions(ops, ref, ["flash_attention"]):
+        with plain_versions(ops, ref, names), hold(stats):
             plain = loss_and_grads(model, masters, micro, dtype)
-        return kern, plain, counts
+        routing = None
+        if is_moe:
+            n = model.cfg.num_layers
+            routing = {"route_calls": len(log), **stats,
+                       "recompute_chose_the_forwards_experts":
+                           len(log) == 2 * n and all(
+                               torch.equal(log[i], log[2 * n - 1 - i])
+                               for i in range(n))}
+            if not routing["recompute_chose_the_forwards_experts"]:
+                problems.append(f"{dtype}: remat's recompute routed "
+                                f"otherwise than the forward")
+        return kern, plain, counts, routing
+
+    def compare(model, masters, dtype, layers):
+        paths = [p for p, _ in tree_paths(masters)]
+        (lk, gk), (lp, gp), counts, routing = both(model, masters, dtype)
+        norm = lambda gs: float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                               for g in gs)))
+        nk, np_ = norm(gk), norm(gp)
+        leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
+        rec = {"layers": layers, "loss_kernels": float(lk),
+               "loss_plain": float(lp),
+               "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
+               "grad_norm_kernels": nk, "grad_norm_plain": np_,
+               "grad_norm_rel_diff": abs(nk - np_) / np_,
+               "grad_rel_diff_max": max(leaf_rel.values()),
+               "grad_rel_diff_worst_leaf": max(leaf_rel, key=leaf_rel.get),
+               "finite": bool(torch.isfinite(lk)) and bool(np.isfinite(nk)),
+               "launches": {k: n for k, n in counts.items() if n}}
+        if routing is not None:
+            rec["routing_held"] = routing
+        del gp
+        return rec, lk, gk
 
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 num_layers=TRAIN_F32_LAYERS)
     model = build_model(cfg32, "cuda")
     masters = master_params(model, seed)
-    (lk, gk), (lp, gp), counts = both(model, masters, torch.float32)
-    paths = [p for p, _ in tree_paths(masters)]
-    leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
-    f32 = {"layers": TRAIN_F32_LAYERS, "loss_kernels": float(lk),
-           "loss_plain": float(lp),
-           "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
-           "grad_rel_diff_max": max(leaf_rel.values()),
-           "grad_rel_diff_worst_leaf": max(leaf_rel, key=leaf_rel.get),
-           "launches": {k: n for k, n in counts.items() if n},
-           "tol": {"loss": TRAIN_F32_LOSS_REL, "grad": TRAIN_F32_GRAD_REL}}
+    f32, _, gk = compare(model, masters, torch.float32, TRAIN_F32_LAYERS)
+    f32["tol"] = {"loss": TRAIN_F32_LOSS_REL, "grad": TRAIN_F32_GRAD_REL}
     if not (f32["loss_rel_diff"] <= TRAIN_F32_LOSS_REL
             and f32["grad_rel_diff_max"] <= TRAIN_F32_GRAD_REL):
         problems.append(f"float32: loss or a gradient leaf beyond its bar "
                         f"({f32['loss_rel_diff']}, "
                         f"{f32['grad_rel_diff_max']})")
     out["float32_cut_depth"] = f32
-    del model, masters, gk, gp
+    del model, masters, gk
     torch.cuda.empty_cache()
 
+    cfg = dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers)
     model = build_model(cfg, "cuda")
     masters = master_params(model, seed)
-    paths = [p for p, _ in tree_paths(masters)]
-    (lk, gk), (lp, gp), counts = both(model, masters, torch.bfloat16)
-    norm = lambda gs: float(torch.sqrt(sum(torch.sum(g.float() ** 2)
-                                           for g in gs)))
-    nk, np_ = norm(gk), norm(gp)
-    leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
-    bf16 = {"layers": cfg.num_layers, "loss_kernels": float(lk),
-            "loss_plain": float(lp),
-            "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
-            "grad_norm_kernels": nk, "grad_norm_plain": np_,
-            "grad_norm_rel_diff": abs(nk - np_) / np_,
-            "grad_rel_diff_max": max(leaf_rel.values()),
-            "grad_rel_diff_worst_leaf": max(leaf_rel, key=leaf_rel.get),
-            "finite": bool(torch.isfinite(lk)) and bool(np.isfinite(nk)),
-            "launches": {k: n for k, n in counts.items() if n},
-            "tol": {"loss": TRAIN_BF16_LOSS_REL,
-                    "grad_norm": TRAIN_BF16_NORM_REL,
-                    "grad": TRAIN_BF16_GRAD_REL}}
-    if not (bf16["finite"] and bf16["loss_rel_diff"] <= TRAIN_BF16_LOSS_REL
-            and bf16["grad_norm_rel_diff"] <= TRAIN_BF16_NORM_REL
-            and bf16["grad_rel_diff_max"] <= TRAIN_BF16_GRAD_REL):
+    bf16, lk, gk = compare(model, masters, torch.bfloat16, cfg.num_layers)
+    # the same microbatch again through the kernels: the same bits
+    torch.cuda.empty_cache()
+    l2, g2 = loss_and_grads(model, masters, micro, torch.bfloat16)
+    repeat = bool(torch.equal(lk, l2)) and all(
+        torch.equal(a, b) for a, b in zip(gk, g2))
+    if not repeat:
+        problems.append("bf16: a second gradient call gave other bits")
+    del lk, gk, l2, g2
+    torch.cuda.empty_cache()
+    if is_moe:
+        out["bf16_train_depth_reference_init"] = {**bf16,
+                                                  "repeat_bitwise": repeat}
+        attention_at_input_width(masters)
+        bf16, _, _ = compare(model, masters, torch.bfloat16, cfg.num_layers)
+        bf16["init"] = "attention projections at 1 / sqrt(d)"
+    else:
+        bf16["repeat_bitwise"] = repeat
+    bf16["tol"] = {"loss": loss_bar, "grad_norm": norm_bar,
+                   "grad": grad_bar}
+    if not (bf16["finite"] and bf16["loss_rel_diff"] <= loss_bar
+            and bf16["grad_norm_rel_diff"] <= norm_bar
+            and bf16["grad_rel_diff_max"] <= grad_bar):
         problems.append(f"bf16: loss, gradient norm or a gradient leaf "
                         f"beyond its bar ({bf16['loss_rel_diff']}, "
                         f"{bf16['grad_norm_rel_diff']}, "
                         f"{bf16['grad_rel_diff_max']})")
-    out["bf16_full_depth"] = bf16
-    del model, masters, gk, gp
+    out["bf16_train_depth"] = bf16
+    del model, masters
     torch.cuda.empty_cache()
 
-    out["trainer_drill"] = trainer_drill(mods, seed)
+    out["trainer_drill"] = trainer_drill(mods, seed, cfg.name)
     if not out["trainer_drill"]["ok"]:
         problems.append("Trainer drill: restore or resumed losses differ")
     out["ok"], out["problems"] = not problems, problems
     emit(out)
     if problems:
-        fail("parity_train phase failed: " + "; ".join(problems))
+        fail(f"{phase} phase failed: " + "; ".join(problems))
     return out
 
 
@@ -2649,9 +2900,10 @@ def phase_profile(bundles, prompts, name: str, frames=None) -> dict:
 def kernel_summary(kernels_out, serve_outs) -> dict:
     """One row per kernel: its time at the main shape (the first timed
     one: qwen3's for K1 and K2, qwen3's training shape for K1's backward,
-    the gate/up projection at prefill for K3, zamba2's prefill for K4,
-    rwkv6's prefill for K5) and its launches summed over the serve phases
-    and the train phase (``serve_outs``), with the other timed shapes and
+    the gate/up projection at prefill for K3 and at granite's training
+    microbatch for its gradients, zamba2's prefill for K4, rwkv6's prefill
+    for K5) and its launches summed over the serve phases and the train
+    phases (``serve_outs``), with the other timed shapes and
     the launches per phase; for K3 also its decode gate/up shape with the
     launches of the 64-row tile that the serve phases counted, and the
     wrapper's host microseconds per call beside its plan's; for K2 the
@@ -2661,8 +2913,10 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     main_key = {"flash_attention": "qwen3-1.7b",
                 "flash_attention_bwd": "qwen3-1.7b/train",
                 "decode_attention": "qwen3-1.7b",
-                "moe_gemm": "prefill_up", "mamba2_scan": "prefill",
-                "rwkv6_scan": "prefill"}
+                "moe_gemm": "prefill_up",
+                "moe_gemm_dx": "granite-moe-3b-a800m/train_gate_up",
+                "moe_gemm_dw": "granite-moe-3b-a800m/train_gate_up",
+                "mamba2_scan": "prefill", "rwkv6_scan": "prefill"}
     rows = []
     for name in REPLACES:
         main = kernels_out[name]["main_path"]
@@ -2676,7 +2930,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             "name": name, "route": "cuda",
             "design": (BF16_DESIGN.get(name, "fma")
                        if c["dtype"] == "bfloat16" else "fma"),
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": launches,
             "launches_by_phase": {o["phase"]: o["launches"][name]
@@ -2692,11 +2946,13 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                 "value_head_dim", "library_backend") if f in x}
                 for k, x in timed.items() if k != key},
         }
+        if name in NO_TPU_KERNEL:
+            row["note"] = NO_TPU_KERNEL[name]
         if name == "flash_attention_bwd":
-            row["note"] = ("no TPU kernel: the reference differentiates "
-                           "K1's XLA twin")
             row["max_rel_err"] = max(max(x["rel_err_dq_dk_dv"])
                                      for x in main.values())
+        if name in ("moe_gemm_dx", "moe_gemm_dw"):
+            row["max_rel_err"] = max(x["rel_err"] for x in main.values())
         if name == "moe_gemm":
             dkey = next(k for k in timed if k.startswith("decode_up"))
             row["decode"] = {
@@ -2839,10 +3095,19 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_train(mods, qwen, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_moe_out = phase_train(mods, granite, args.seed,
+                                profile=args.profile, phase="train_moe",
+                                num_layers=MOE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_train(mods, granite, args.seed, phase="parity_train_moe",
+                       num_layers=MOE_TRAIN_LAYERS)
     train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
                                       serve4_out, serve5_out, whisper_out,
-                                      train_out]))
+                                      train_out, train_moe_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "whisper_phases_seconds": whisper_s,
           "train_phases_seconds": train_s})

@@ -182,6 +182,9 @@ ARGTYPES = {
     "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3
     + [_I64] * 10 + [_I32] + [_P],
     "fate_moe_gemm": [_P] * 3 + [_I32] * 5 + [_I64] * 10 + [_I32] * 2 + [_P],
+    # x, dy, dw, B, E, C, D, F, x strides, dy strides, dtype, vector, stream
+    "fate_moe_gemm_dw": [_P] * 3 + [_I32] * 5 + [_I64] * 8 + [_I32] * 2
+    + [_P],
     # ..., dtype, out_dtype, stream
     "fate_rwkv6_scan": [_P] * 8 + [_I32] * 5 + [_I64] * 15 + [_I32] * 2
     + [_P],

@@ -56,6 +56,21 @@
 // bar, which needs true float32 products (TF32 would miss it).  Grid
 // (F / 64, B*C / 64, E), 256 threads with 4 x 4 outputs each, depth in
 // steps of 16 through shared memory.  No bf16 input reaches it.
+//
+// K3's input gradient, dx[b, e] = dy[b, e] [C, F] . w[e]^T -> [B, E, C, D],
+// is this kernel too: it replaces no TPU kernel (the reference
+// differentiates the einsums of src/repro/models/moe.py:104-109).  The
+// caller passes dy as x and w's transpose [E, F, D] as w, whose
+// contraction (the weight's F) is contiguous.  In bf16 the wgmma kernel
+// then reads w K-major (template KB, plan bit 2): each of the tile's 128
+// output columns d is one 128-byte swizzled line of 64 depth elements, read
+// by 16-byte copies along w's rows as A is read, and the transpose bit of
+// B is clear; the element-wise loader reading w through swapped strides
+// would give the same numbers but read w a column at a time.  Bound as the
+// forward: at granite's training microbatch (2048 rows an expert) a call
+// is 128.8 GFLOP over 399 MB, operations bound (0.130 ms).  In float32 the
+// FMA kernel takes w's swapped strides as they are.  The weight gradient
+// is csrc/moe_gemm_bwd.cu.
 #include "common.cuh"
 
 namespace {
@@ -184,51 +199,11 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE + 1024;  // + alignment slack
 };
 
-// d[64 x 128] += A[64 x 16] (K-major) . B[16 x 128] (MN-major: the
-// transpose bit of B is set), float32 accumulators.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Byte offset of element (line, col) of a swizzled region of 128-byte
-// lines (64 bf16 each; the region starts 1024-byte aligned).
-__device__ __forceinline__ int sw128_offset(int line, int col) {
-  return line * 128 + ((((col >> 3) ^ line) & 7) << 4) + (col & 7) * 2;
-}
-
-template <int BM, bool VEC>
+// KB (K3's input gradient): w is read K-major, w[e] an [F, D] operand with
+// its D (the contraction) contiguous, as the weight [E, F, D] of the
+// forward is when dX = dY . w^T takes its rows: B is 128 lines of 64
+// depth elements, like A, and the transpose bit of B is clear.
+template <int BM, bool VEC, bool KB>
 __global__ void __launch_bounds__(Tile<BM>::THREADS, 1)
 moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                       bf16* __restrict__ out, int C, int D, int F, int rows,
@@ -253,13 +228,15 @@ moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int KT = (D + BK - 1) / BK;
 
   // Vector loader: this thread's fixed 16-byte chunk column in A (a_c)
-  // and in B (b_cc), its A rows' offsets, its B columns' byte count.
+  // and in B (b_cc; K-major: a_c as in A), its A rows' offsets, its B
+  // columns' byte count.
   constexpr int A_PT = BM * 8 / T;       // A chunks per thread (4)
   constexpr int B_PT = BK * 16 / T;      // B chunks per thread (8 or 4)
   const int a_c = tid & 7;
   const int b_cc = tid & 15;
   const int b_n = n0 + 8 * b_cc;
   const int b_bytes = max(0, min(16, (F - b_n) * 2));
+  static_assert(BK * 16 == BN * 8, "both B layouts take B_PT chunks");
   int64_t a_off[A_PT];
   bool a_ok[A_PT];
 #pragma unroll
@@ -285,14 +262,26 @@ moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const bf16* src = nb ? xe + a_off[i] + ka : x;
         cp_async16(smem_addr(sa + m * 128 + (((a_c ^ m) & 7) << 4)), src, nb);
       }
+      if constexpr (KB) {
+        // line n of the tile: w[e] row n0 + n, its depth ka.. contiguous
 #pragma unroll
-      for (int i = 0; i < B_PT; ++i) {
-        const int kr = (tid >> 4) + i * (T / 16);
-        const int nb = (k0 + kr < D) ? b_bytes : 0;
-        const bf16* src = nb ? we + (int64_t)(k0 + kr) * w_sd + b_n : w;
-        cp_async16(smem_addr(sb + (b_cc >> 3) * B_HALF + kr * 128 +
-                             ((((b_cc & 7) ^ kr) & 7) << 4)),
-                   src, nb);
+        for (int i = 0; i < B_PT; ++i) {
+          const int n = (tid >> 3) + i * (T / 8);
+          const int nb = (n0 + n < F) ? ka_bytes : 0;
+          const bf16* src = nb ? we + (int64_t)(n0 + n) * w_sf + ka : w;
+          cp_async16(smem_addr(sb + n * 128 + (((a_c ^ n) & 7) << 4)), src,
+                     nb);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < B_PT; ++i) {
+          const int kr = (tid >> 4) + i * (T / 16);
+          const int nb = (k0 + kr < D) ? b_bytes : 0;
+          const bf16* src = nb ? we + (int64_t)(k0 + kr) * w_sd + b_n : w;
+          cp_async16(smem_addr(sb + (b_cc >> 3) * B_HALF + kr * 128 +
+                               ((((b_cc & 7) ^ kr) & 7) << 4)),
+                     src, nb);
+        }
       }
     } else {
       const bf16 zero = __float2bfloat16_rn(0.f);
@@ -307,15 +296,26 @@ moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    (int64_t)(k0 + k) * x_sd];
         *reinterpret_cast<bf16*>(sa + sw128_offset(m, k)) = val;
       }
-      const int n = tid & 127;                // this thread's B column
+      if constexpr (KB) {
 #pragma unroll 4
-      for (int j = 0; j < BK * BN / T; ++j) {
-        const int kr = (tid >> 7) + j * (T / 128);
-        bf16 val = zero;
-        if (k0 + kr < D && n0 + n < F)
-          val = we[(int64_t)(k0 + kr) * w_sd + (int64_t)(n0 + n) * w_sf];
-        *reinterpret_cast<bf16*>(sb + (n >> 6) * B_HALF +
-                                 sw128_offset(kr, n & 63)) = val;
+        for (int j = 0; j < BK * BN / T; ++j) {
+          const int n = (tid >> 6) + j * (T / 64);   // k: A's column
+          bf16 val = zero;
+          if (k0 + k < D && n0 + n < F)
+            val = we[(int64_t)(k0 + k) * w_sd + (int64_t)(n0 + n) * w_sf];
+          *reinterpret_cast<bf16*>(sb + sw128_offset(n, k)) = val;
+        }
+      } else {
+        const int n = tid & 127;              // this thread's B column
+#pragma unroll 4
+        for (int j = 0; j < BK * BN / T; ++j) {
+          const int kr = (tid >> 7) + j * (T / 128);
+          bf16 val = zero;
+          if (k0 + kr < D && n0 + n < F)
+            val = we[(int64_t)(k0 + kr) * w_sd + (int64_t)(n0 + n) * w_sf];
+          *reinterpret_cast<bf16*>(sb + (n >> 6) * B_HALF +
+                                   sw128_offset(kr, n & 63)) = val;
+        }
       }
     }
   };
@@ -348,10 +348,16 @@ moe_gemm_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int kk = 0; kk < BK / 16; ++kk) {
       // A: this warpgroup's 64 lines, k16 step = 32 bytes along the line;
       // B: two 64-column halves B_HALF apart (LBO), 8-deep line groups
-      // 1024 bytes apart (SBO), k16 step = 16 lines
+      // 1024 bytes apart (SBO), k16 step = 16 lines; K-major B: 128 lines
+      // as A's, 8-line groups 1024 bytes apart
       const uint64_t da = sw128_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024);
-      const uint64_t db = sw128_desc(sb + kk * 16 * 128, B_HALF, 1024);
-      wgmma_m64n128k16(acc, da, db);
+      if constexpr (KB) {
+        wgmma_m64n128k16<0, 0>(acc, da,
+                               sw128_desc(sb + kk * 32, 16, 1024));
+      } else {
+        wgmma_m64n128k16<0, 1>(
+            acc, da, sw128_desc(sb + kk * 16 * 128, B_HALF, 1024));
+      }
     }
     wgmma_commit();
     wgmma_wait<1>();
@@ -410,10 +416,10 @@ int launch_fma(const GemmArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <int BM, bool VEC>
+template <int BM, bool VEC, bool KB>
 int launch_wgmma(const GemmArgs& a) {
   static unsigned smem_set = 0;
-  auto kern = moe_gemm_wgmma_kernel<BM, VEC>;
+  auto kern = moe_gemm_wgmma_kernel<BM, VEC, KB>;
   cudaError_t err = allow_smem(kern, Tile<BM>::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int rows = a.B * a.C;
@@ -427,12 +433,14 @@ int launch_wgmma(const GemmArgs& a) {
 }
 
 // The vector loader's condition: the 16-byte rule (common.cuh) on both
-// operands, unit stride along D in x and along F in w.
-bool vector_ok(const GemmArgs& a) {
-  return base16(a.x) && base16(a.w) && (a.D == 1 || a.x_sd == 1) &&
-         (a.F == 1 || a.w_sf == 1) && stride16(a.B, a.x_sb) &&
-         stride16(a.E, a.x_se) && stride16(a.C, a.x_sc) &&
-         stride16(a.E, a.w_se) && stride16(a.D, a.w_sd);
+// operands, unit stride along D in x and along F in w (along D in a
+// K-major w).
+bool vector_ok(const GemmArgs& a, bool kb) {
+  const bool w_ok = kb ? (a.D == 1 || a.w_sd == 1) && stride16(a.F, a.w_sf)
+                       : (a.F == 1 || a.w_sf == 1) && stride16(a.D, a.w_sd);
+  return base16(a.x) && base16(a.w) && (a.D == 1 || a.x_sd == 1) && w_ok &&
+         stride16(a.B, a.x_sb) && stride16(a.E, a.x_se) &&
+         stride16(a.C, a.x_sc) && stride16(a.E, a.w_se);
 }
 
 }  // namespace
@@ -440,8 +448,11 @@ bool vector_ok(const GemmArgs& a) {
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).  plan (bf16
 // only): bit 0 = the 128-row tile (else 64 rows), bit 1 = the element-wise
 // loader (else 16-byte cp.async copies, refused with -1 for operands that
-// vector_ok rejects).  Strides are in elements; out's last dimension has
-// stride 1.  x [B, E, C, D], w [E, D, F], out [B, E, C, F].  Requires every
+// vector_ok rejects), bit 2 = w read K-major (K3's input gradient: w the
+// transposed view of a weight whose rows hold the contraction; the FMA
+// kernel takes any strides, so float32 needs no bit).  Strides are in
+// elements; out's last dimension has stride 1.  x [B, E, C, D], w [E, D,
+// F], out [B, E, C, F].  Requires every
 // dimension >= 1, B * C < 2^31, at most 65535 row tiles and E <= 65535.
 // Returns cudaGetLastError() after the launch (0 on success), -1 for
 // arguments it does not take.  Launches on `stream`, does not
@@ -458,11 +469,21 @@ extern "C" int fate_moe_gemm(const void* x, const void* w, void* out, int B,
                    w_se, w_sd, w_sf, o_sb, o_se, o_sc,
                    static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch_fma(a);
-  if (dtype != 1 || plan < 0 || plan > 3) return -1;
+  if (dtype != 1 || plan < 0 || plan > 7) return -1;
   const bool wide = plan & 1;
   const bool element = plan & 2;
-  if (!element && !vector_ok(a)) return -1;
+  const bool kb = plan & 4;
+  if (!element && !vector_ok(a, kb)) return -1;
+  if (kb) {
+    if (wide)
+      return element ? launch_wgmma<128, false, true>(a)
+                     : launch_wgmma<128, true, true>(a);
+    return element ? launch_wgmma<64, false, true>(a)
+                   : launch_wgmma<64, true, true>(a);
+  }
   if (wide)
-    return element ? launch_wgmma<128, false>(a) : launch_wgmma<128, true>(a);
-  return element ? launch_wgmma<64, false>(a) : launch_wgmma<64, true>(a);
+    return element ? launch_wgmma<128, false, false>(a)
+                   : launch_wgmma<128, true, false>(a);
+  return element ? launch_wgmma<64, false, false>(a)
+                 : launch_wgmma<64, true, false>(a);
 }

@@ -14,6 +14,17 @@ ridge.  bf16 runs on Hopper's warpgroup tensor cores (``wgmma``) fed by a
 ring of ``cp.async`` copies; float32 keeps the FMA kernel of the first
 port for its 1e-5 bar (see the source note and ``PERF.md``).
 :func:`gemm_plan` chooses the bf16 kernel's tile shape and loader.
+
+Training: where grad is enabled and an input requires it,
+:func:`moe_gemm` goes through a ``torch.autograd.Function`` whose backward
+launches only the gradients autograd asks for: :func:`moe_gemm_dx`
+(``dy @ w^T``, the same kernel reading ``w`` K-major: its rows hold the
+contraction) and :func:`moe_gemm_dw` (``x^T @ dy`` per expert, summed over
+the batch, ``csrc/moe_gemm_bwd.cu``).  Neither replaces a TPU kernel: the
+reference differentiates the einsums of ``src/repro/models/moe.py:104-109``.
+Both sum in a fixed order (no split over the contraction, no atomics), so
+two calls give the same bits.  On the CPU all three take their plain
+versions.
 """
 from __future__ import annotations
 
@@ -35,34 +46,41 @@ class GemmPlan:
     """How the bf16 kernel runs one call: ``block_rows`` x ``BLOCK_N``
     output tiles on a ``grid`` of (column tiles, row tiles, experts), its
     operands read by 16-byte ``cp.async`` copies (``vector``) or element
-    by element."""
+    by element, ``w`` MN-major (the forward) or K-major (``kmajor``, the
+    input gradient)."""
     block_rows: int
     vector: bool
     grid: tuple[int, int, int]
+    kmajor: bool = False
 
     @property
     def code(self) -> int:
         """The ``plan`` argument of ``fate_moe_gemm``: bit 0 the 128-row
-        tile, bit 1 the element-wise loader."""
-        return int(self.block_rows == PREFILL_ROWS) | (0 if self.vector
-                                                       else 2)
+        tile, bit 1 the element-wise loader, bit 2 ``w`` K-major."""
+        return (int(self.block_rows == PREFILL_ROWS)
+                | (0 if self.vector else 2) | (4 if self.kmajor else 0))
 
 
 def gemm_plan(b: int, e: int, c: int, d: int, f: int, x_strides, w_strides,
-              x_ptr: int, w_ptr: int, itemsize: int = 2) -> GemmPlan:
-    """Tile shape and loader for ``x [b, e, c, d] @ w [e, d, f]`` with these
-    element strides and base addresses.  The 128-row tile (two warpgroups)
-    once an expert has ``PREFILL_MIN_ROWS`` rows (``b * c``), else the
-    64-row tile; the vector loader where both operands pass
-    :func:`_build.aligned16`, else the element-wise one."""
+              x_ptr: int, w_ptr: int, itemsize: int = 2,
+              kmajor: bool = False) -> GemmPlan:
+    """Tile shape and loader for ``x [b, e, c, d] @ w -> [b, e, c, f]``
+    with these element strides and base addresses, ``w`` lying as
+    ``[e, d, f]`` or, with ``kmajor``, as ``[e, f, d]`` (the weight whose
+    transpose the input gradient multiplies).  The 128-row tile (two
+    warpgroups) once an expert has ``PREFILL_MIN_ROWS`` rows (``b * c``),
+    else the 64-row tile; the vector loader where both operands, as they
+    lie, pass :func:`_build.aligned16`, else the element-wise one."""
     rows = b * c
     block_rows = PREFILL_ROWS if rows >= PREFILL_MIN_ROWS else DECODE_ROWS
     row_tiles = -(-rows // block_rows)
     if row_tiles > MAX_ROW_TILES:
         raise ValueError(f"{rows} rows per expert exceed the kernel's grid")
+    w_sizes = (e, f, d) if kmajor else (e, d, f)
     vector = (_build.aligned16((b, e, c, d), x_strides, x_ptr, itemsize)
-              and _build.aligned16((e, d, f), w_strides, w_ptr, itemsize))
-    return GemmPlan(block_rows, vector, (-(-f // BLOCK_N), row_tiles, e))
+              and _build.aligned16(w_sizes, w_strides, w_ptr, itemsize))
+    return GemmPlan(block_rows, vector, (-(-f // BLOCK_N), row_tiles, e),
+                    kmajor)
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -70,6 +88,22 @@ def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     or [B, E, C, D]; w: [E, D, F]; returns [..., E, C, F] in ``x.dtype``."""
     return torch.einsum("...ecd,edf->...ecf", x.float(),
                         w.float()).to(x.dtype)
+
+
+def moe_gemm_dx_ref(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the input gradient: dy [..., E, C, F] @ w[e]^T for
+    w [E, D, F] -> [..., E, C, D], a float32 einsum rounded to
+    ``dy.dtype``."""
+    return torch.einsum("...ecf,edf->...ecd", dy.float(),
+                        w.float()).to(dy.dtype)
+
+
+def moe_gemm_dw_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of the weight gradient: x [..., E, C, D]^T @ dy
+    [..., E, C, F] per expert, summed over the batch -> [E, D, F], a
+    float32 einsum rounded to ``x.dtype``."""
+    return torch.einsum("...ecd,...ecf->edf", x.float(),
+                        dy.float()).to(x.dtype)
 
 
 def _check(x, w):
@@ -81,14 +115,151 @@ def _check(x, w):
         raise ValueError(
             f"x {tuple(x.shape)} and w {tuple(w.shape)} do not agree on the "
             f"expert count or the contraction dim")
-    if x.dtype != w.dtype or x.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"x and w must share float32 or bfloat16, got "
-                        f"{x.dtype}, {w.dtype}")
-    if x.device != w.device:
-        raise ValueError("x and w must lie on one device")
-    if min(x.shape) < 1 or min(w.shape) < 1:
-        raise ValueError(f"empty operand: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
+    _check_pair(x, w)
+
+
+def _check_pair(a, b):
+    if a.dtype != b.dtype or a.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"operands must share float32 or bfloat16, got "
+                        f"{a.dtype}, {b.dtype}")
+    if a.device != b.device:
+        raise ValueError("operands must lie on one device")
+    if min(a.shape) < 1 or min(b.shape) < 1:
+        raise ValueError(f"empty operand: {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+
+
+def _gemm_launch(x4, w, out, d: int, f: int, w_strides, plan) -> None:
+    """``fate_moe_gemm`` on x4 [B, E, C, d] and a weight with (expert,
+    contraction, output) strides ``w_strides`` into out [B, E, C, f]."""
+    b, e, c, _ = x4.shape
+    if b * c >= 2 ** 31 or e > 65535:
+        raise ValueError(f"x {tuple(x4.shape)} exceeds the kernel's grid")
+    lib = _build.load()
+    with torch.cuda.device(x4.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fate_moe_gemm(
+            x4.data_ptr(), w.data_ptr(), out.data_ptr(), b, e, c, d, f,
+            *x4.stride(), *w_strides, *out.stride()[:3],
+            _build.DTYPE_CODE[x4.dtype], plan.code if plan is not None else 0,
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"moe_gemm kernel launch failed (code {rc}) for x "
+            f"{tuple(x4.shape)}, w {tuple(w.shape)}, {x4.dtype}")
+
+
+def _cuda_only(name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no {name} kernel for {x.device}")
+
+
+def _moe_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return moe_gemm_ref(x, w)
+    _cuda_only("moe_gemm", x)
+    x4 = x if x.dim() == 4 else x.unsqueeze(0)
+    b, e, c, d = x4.shape
+    f = w.shape[2]
+    plan = None
+    if x.dtype == torch.bfloat16:
+        plan = gemm_plan(b, e, c, d, f, x4.stride(), w.stride(),
+                         x4.data_ptr(), w.data_ptr())
+    out = torch.empty((b, e, c, f), dtype=x.dtype, device=x.device)
+    _gemm_launch(x4, w, out, d, f, w.stride(), plan)
+    moe_gemm.launches += 1
+    if plan is not None and plan.block_rows == DECODE_ROWS:
+        moe_gemm.decode_tile_launches += 1
+    return out if x.dim() == 4 else out[0]
+
+
+def moe_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3's input gradient: dy [E, C, F] or [B, E, C, F]; w [E, D, F] ->
+    [..., E, C, D] in ``dy.dtype``.  On the card K3's kernel with ``w``
+    read K-major (bf16: the wgmma kernel, both operands' rows along F;
+    float32: the FMA kernel through w's transposed strides).  A CUDA
+    tensor goes through the kernel or raises; the plain version is taken
+    only for tensors that lie on the CPU.  ``moe_gemm_dx.launches``
+    counts kernel launches."""
+    if dy.dim() not in (3, 4) or w.dim() != 3 or \
+            dy.shape[-3] != w.shape[0] or dy.shape[-1] != w.shape[2]:
+        raise ValueError(f"expected dy [..., E, C, F] and w [E, D, F], got "
+                         f"{tuple(dy.shape)}, {tuple(w.shape)}")
+    _check_pair(dy, w)
+    if dy.device.type == "cpu":
+        return moe_gemm_dx_ref(dy, w)
+    _cuda_only("moe_gemm_dx", dy)
+    dy4 = dy if dy.dim() == 4 else dy.unsqueeze(0)
+    b, e, c, f = dy4.shape
+    d = w.shape[1]
+    plan = None
+    if dy.dtype == torch.bfloat16:
+        plan = gemm_plan(b, e, c, f, d, dy4.stride(), w.stride(),
+                         dy4.data_ptr(), w.data_ptr(), kmajor=True)
+    out = torch.empty((b, e, c, d), dtype=dy.dtype, device=dy.device)
+    # w^T [E, F, D]: the contraction F, the output columns D
+    _gemm_launch(dy4, w, out, f, d, w.transpose(1, 2).stride(), plan)
+    moe_gemm_dx.launches += 1
+    return out if dy.dim() == 4 else out[0]
+
+
+def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K3's weight gradient: x [E, C, D] or [B, E, C, D] and dy [..., E, C,
+    F] of the same leading shape -> [E, D, F] in ``x.dtype``, summed over
+    the batch and the rows in increasing order (``csrc/moe_gemm_bwd.cu``).
+    A CUDA tensor goes through the kernel or raises; the plain version is
+    taken only for tensors that lie on the CPU.  ``moe_gemm_dw.launches``
+    counts kernel launches."""
+    if x.dim() not in (3, 4) or dy.dim() != x.dim() or \
+            x.shape[:-1] != dy.shape[:-1]:
+        raise ValueError(f"expected x [..., E, C, D] and dy [..., E, C, F], "
+                         f"got {tuple(x.shape)}, {tuple(dy.shape)}")
+    _check_pair(x, dy)
+    if x.device.type == "cpu":
+        return moe_gemm_dw_ref(x, dy)
+    _cuda_only("moe_gemm_dw", x)
+    x4 = x if x.dim() == 4 else x.unsqueeze(0)
+    dy4 = dy if dy.dim() == 4 else dy.unsqueeze(0)
+    b, e, c, d = x4.shape
+    f = dy4.shape[3]
+    if b * c >= 2 ** 31 or e > 65535:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
+    item = x.element_size()
+    vector = x.dtype == torch.bfloat16 and \
+        _build.aligned16(x4.shape, x4.stride(), x4.data_ptr(), item) and \
+        _build.aligned16(dy4.shape, dy4.stride(), dy4.data_ptr(), item)
+    out = torch.empty((e, d, f), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fate_moe_gemm_dw(
+            x4.data_ptr(), dy4.data_ptr(), out.data_ptr(), b, e, c, d, f,
+            *x4.stride(), *dy4.stride(), _build.DTYPE_CODE[x.dtype],
+            int(vector), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"moe_gemm_dw kernel launch failed (code {rc}) for x "
+            f"{tuple(x.shape)}, dy {tuple(dy.shape)}, {x.dtype}")
+    moe_gemm_dw.launches += 1
+    return out
+
+
+class _MoeGemm(torch.autograd.Function):
+    """K3 with a gradient: the forward saves x and w; the backward
+    launches :func:`moe_gemm_dx` and :func:`moe_gemm_dw` where autograd
+    needs them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _moe_gemm_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = moe_gemm_dx(dy, w) if ctx.needs_input_grad[0] else None
+        dw = moe_gemm_dw(x, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -96,46 +267,20 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes through the kernel (which is built at first use) or
     raises; the plain version is taken only for tensors that lie on the
-    CPU.  With grad enabled and an input that requires it, a CUDA call
-    raises ``NotImplementedError``: there is no backward kernel (autograd
-    runs through the plain version on the CPU).  ``moe_gemm.launches``
-    counts kernel launches, and ``moe_gemm.decode_tile_launches`` those of
-    them that took the 64-row tile (the decode steps of the serving path).
+    CPU.  Where grad is enabled and an input requires it, the call is
+    differentiable: its backward is :func:`moe_gemm_dx` and
+    :func:`moe_gemm_dw` (their kernels on the card, their plain versions
+    on the CPU).  ``moe_gemm.launches`` counts kernel launches of the
+    forward, and ``moe_gemm.decode_tile_launches`` those of them that took
+    the 64-row tile (the decode steps of the serving path).
     """
     _check(x, w)
-    if x.device.type == "cpu":
-        return moe_gemm_ref(x, w)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no moe_gemm kernel for {x.device}")
-    _build.refuse_grad("moe_gemm; MoE training (K3's dX / dW kernels) is "
-                       "ROADMAP item 14a", x, w)
-    x4 = x if x.dim() == 4 else x.unsqueeze(0)
-    b, e, c, d = x4.shape
-    f = w.shape[2]
-    if b * c >= 2 ** 31 or e > 65535:
-        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
-    plan = None
-    if x.dtype == torch.bfloat16:
-        plan = gemm_plan(b, e, c, d, f, x4.stride(), w.stride(),
-                         x4.data_ptr(), w.data_ptr())
-    out = torch.empty((b, e, c, f), dtype=x.dtype, device=x.device)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fate_moe_gemm(
-            x4.data_ptr(), w.data_ptr(), out.data_ptr(), b, e, c, d, f,
-            *x4.stride(), *w.stride(), *out.stride()[:3],
-            _build.DTYPE_CODE[x.dtype], plan.code if plan is not None else 0,
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"moe_gemm kernel launch failed (code {rc}) for x "
-            f"{tuple(x.shape)}, w {tuple(w.shape)}, {x.dtype}")
-    moe_gemm.launches += 1
-    if plan is not None and plan.block_rows == DECODE_ROWS:
-        moe_gemm.decode_tile_launches += 1
-    return out if x.dim() == 4 else out[0]
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MoeGemm.apply(x, w)
+    return _moe_gemm_fwd(x, w)
 
 
 moe_gemm.launches = 0
 moe_gemm.decode_tile_launches = 0
+moe_gemm_dx.launches = 0
+moe_gemm_dw.launches = 0

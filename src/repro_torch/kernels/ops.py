@@ -18,7 +18,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                   flash_attention_bwd)
 from repro_torch.kernels.mamba2_scan import mamba2_scan
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw, moe_gemm_dx
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 KERNELS = {
@@ -26,13 +26,15 @@ KERNELS = {
     "flash_attention_bwd": flash_attention_bwd,
     "decode_attention": decode_attention,
     "moe_gemm": moe_gemm,
+    "moe_gemm_dx": moe_gemm_dx,
+    "moe_gemm_dw": moe_gemm_dw,
     "mamba2_scan": mamba2_scan,
     "rwkv6_scan": rwkv6_scan,
 }
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "mamba2_scan",
-           "moe_gemm", "rwkv6_scan", "add_counts", "counts",
+           "flash_attention_bwd", "mamba2_scan", "moe_gemm", "moe_gemm_dw",
+           "moe_gemm_dx", "rwkv6_scan", "add_counts", "counts",
            "launch_counts", "reset_launch_counts"]
 
 

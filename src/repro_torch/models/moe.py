@@ -12,8 +12,11 @@ The reference's combine step scatter-adds each token's contributions;
 on the card ``index_add_`` adds in an order that changes from run to run.
 Here the contributions are gathered back into token order (the inverse of
 the sort) and summed over ``top_k``, which gives the same sum in a fixed
-order (ROADMAP queue 3).  The dispatch's scatter-set is deterministic as
-it is: only zeros land in the shared dropped-token slot.  The expert
+order (ROADMAP H16).  The dispatch's scatter-set is deterministic as it
+is: only zeros land in the shared dropped-token slot.  Its gather of each
+token ``top_k`` times is written so that its gradient is summed in a fixed
+order too (ROADMAP H27): the backward of a gather whose index repeats is
+an atomic scatter-add on the card.  The expert
 weights' sharding constraints of the reference act on a mesh and have no
 counterpart on one card.
 """
@@ -69,6 +72,20 @@ def route(p: dict, cfg, x: torch.Tensor,
     return top_g, experts
 
 
+def dispatch_rows(x: torch.Tensor, order: torch.Tensor,
+                  top_k: int) -> torch.Tensor:
+    """x [B, S, d] -> [B, S * top_k, d]: row i the token of the i-th
+    (token, k) pair in expert order, ``x[:, order[:, i] // top_k]`` (the
+    reference's ``take_along_axis(x, st)``).  Written as x repeated
+    ``top_k`` times in token-major order (``repeat_interleave`` spelt out,
+    whose backward sums the copies by a reduction) and gathered by the
+    permutation ``order``, whose backward has no colliding index: the
+    gradient is summed in a fixed order on the card (ROADMAP H27)."""
+    b, s, d = x.shape
+    xr = x[:, :, None].expand(b, s, top_k, d).reshape(b, s * top_k, d)
+    return torch.gather(xr, 1, order[..., None].expand(-1, -1, d))
+
+
 def apply_moe(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d].  Dispatch is per sample: capacity, sort
     and placement are batched over B, as in the reference."""
@@ -82,11 +99,8 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
 
     # (token, k) pairs of each sample, token-major; sort them by expert
     flat_e = top_e.reshape(b, s * top_k)
-    flat_t = torch.arange(s, device=dev).repeat_interleave(top_k)
-    flat_t = flat_t.expand(b, -1)
     order = torch.argsort(flat_e, dim=-1, stable=True)
     se = torch.gather(flat_e, 1, order)
-    st = torch.gather(flat_t, 1, order)
     # position within expert = running index - first index of the expert
     first = torch.searchsorted(
         se, torch.arange(e, device=dev).expand(b, e).contiguous())
@@ -95,7 +109,7 @@ def apply_moe(p: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     keep = pos < cap
     slot = torch.where(keep, se * cap + pos, torch.full_like(pos, e * cap))
 
-    xt = torch.gather(x, 1, st[..., None].expand(-1, -1, d))     # [B,SK,d]
+    xt = dispatch_rows(x, order, top_k)                          # [B,SK,d]
     gathered = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=dev)
     gathered.scatter_(1, slot[..., None].expand(-1, -1, d),
                       xt * keep[..., None].to(x.dtype))

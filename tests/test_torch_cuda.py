@@ -1204,14 +1204,14 @@ def test_flash_attention_bwd_refuses_unported_head_dims(card):
 
 
 def test_wrappers_without_backward_refuse_grad_on_card(card):
-    """K2-K5 have no backward kernel: under grad on the card they raise
-    and name the ROADMAP item; without grad they launch as before."""
+    """K2, K4 and K5 have no backward kernel: under grad on the card they
+    raise and name the ROADMAP item; without grad they launch as before
+    (K3 has its gradients since ROADMAP item 14a)."""
     rng = np.random.default_rng(45)
     bf = torch.bfloat16
     calls = {
         "decode_attention": lambda t: ops.decode_attention(
             t(2, 1, 4, 64), t(2, 32, 2, 64), t(2, 32, 2, 64), 20),
-        "moe_gemm": lambda t: ops.moe_gemm(t(4, 16, 64), t(4, 64, 32)),
         "mamba2_scan": lambda t: ops.mamba2_scan(
             t(1, 64, 2, 64), t(1, 64, 64), t(1, 64, 64),
             torch.rand(1, 64, 2, device=card, dtype=bf), t(2),
@@ -1221,11 +1221,197 @@ def test_wrappers_without_backward_refuse_grad_on_card(card):
             torch.rand(1, 32, 2, 64, device=card, dtype=bf) * 0.5 + 0.4,
             t(2, 64), chunk=16),
     }
-    items = {"decode_attention": "item 14", "moe_gemm": "14a",
-             "mamba2_scan": "14e", "rwkv6_scan": "14d"}
+    items = {"decode_attention": "item 14", "mamba2_scan": "14e",
+             "rwkv6_scan": "14d"}
     for name, call in calls.items():
         plain = lambda *s: _randn(rng, s, bf, card)
         graded = lambda *s: _randn(rng, s, bf, card).requires_grad_()
         call(plain)
         with pytest.raises(NotImplementedError, match=items[name]):
             call(graded)
+
+
+# --- K3's gradients (ROADMAP item 14a) -------------------------------------
+
+# (B or None for [E, C, D], E, C, D, F): tiles of one wgmma, ragged C, D
+# and F (the element-wise loaders), C of one, granite's training shapes
+# (gate / up and down, microbatch 2 at capacity 1024), deepseek's 160
+# experts of d 5120 / d_expert 1536 with few rows, 128-row tiles
+GRAD_SWEEP = [(None, 4, 96, 160, 192), (2, 8, 40, 100, 70),
+              (1, 3, 1, 7, 5), (None, 5, 1, 64, 128),
+              (2, 40, 1024, 1536, 512), (2, 40, 1024, 512, 1536),
+              (1, 160, 4, 5120, 1536), (2, 2, 300, 72, 136)]
+
+
+def _grad_operands(rng, b, e, c, d, f, dtype, card):
+    """x as the MoE layer hands it over (a view of a dispatch buffer whose
+    dropped-token row is NaN), w [E, D, F] and dy [..., E, C, F]."""
+    lead = (e, c) if b is None else (b, e, c)
+    bb = 1 if b is None else b
+    buf = _randn(rng, (bb, e * c + 1, d), dtype, card)
+    buf[:, -1] = float("nan")
+    x = buf[:, :-1].view(lead + (d,))
+    w = _randn(rng, (e, d, f), dtype, card) * d ** -0.5
+    dy = _randn(rng, lead + (f,), dtype, card)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("shape", GRAD_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_dx_kernel(card, shape, dtype):
+    """K3's input gradient (K3's kernel reading w K-major in bf16, the FMA
+    kernel through w's transposed strides in float32) against its plain
+    version, relative to the largest output."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    b, e, c, d, f = shape
+    _, w, dy = _grad_operands(np.random.default_rng(50), b, e, c, d, f,
+                              dtype, card)
+    if dtype == torch.bfloat16:
+        dy4 = dy if b else dy.unsqueeze(0)
+        plan = mg_mod.gemm_plan(b or 1, e, c, f, d, dy4.stride(), w.stride(),
+                                dy4.data_ptr(), w.data_ptr(), kmajor=True)
+        assert plan.kmajor and plan.vector == (f % 8 == 0)
+    counts = ops.counts()
+    got = ops.moe_gemm_dx(dy, w)
+    torch.cuda.synchronize()
+    after = ops.counts()
+    assert after["moe_gemm_dx"] == counts["moe_gemm_dx"] + 1
+    assert {k: n for k, n in after.items() if k != "moe_gemm_dx"} == \
+        {k: n for k, n in counts.items() if k != "moe_gemm_dx"}
+    want = ref.moe_gemm_dx_ref(dy, w)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) < MOE_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", GRAD_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_dw_kernel(card, shape, dtype):
+    """K3's weight gradient (wgmma in bf16, FMA in float32) against its
+    plain version on the dispatch view, never reading its NaN row."""
+    b, e, c, d, f = shape
+    x, w, dy = _grad_operands(np.random.default_rng(51), b, e, c, d, f,
+                              dtype, card)
+    before = ops.moe_gemm_dw.launches
+    got = ops.moe_gemm_dw(x, dy)
+    torch.cuda.synchronize()
+    assert ops.moe_gemm_dw.launches == before + 1
+    want = ref.moe_gemm_dw_ref(x, dy)
+    assert got.shape == w.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) < MOE_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_gradients_on_strided_operands(card, dtype):
+    """A transposed weight view (dX's element-wise loader) and a column
+    slice of dy (dW's)."""
+    rng = np.random.default_rng(52)
+    x = _randn(rng, (3, 5, 24, 72), dtype, card)
+    w = _randn(rng, (5, 40, 72), dtype, card).transpose(1, 2)
+    dy = _randn(rng, (3, 5, 24, 48), dtype, card)[..., :40]
+    assert _rel(ops.moe_gemm_dx(dy, w), ref.moe_gemm_dx_ref(dy, w)) < \
+        MOE_TOL[dtype]
+    assert _rel(ops.moe_gemm_dw(x, dy), ref.moe_gemm_dw_ref(x, dy)) < \
+        MOE_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", GRAD_SWEEP[:3] + GRAD_SWEEP[4:6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_gradients_repeat_bitwise(card, shape, dtype):
+    """Both kernels sum in a fixed order: two calls, the same bits."""
+    b, e, c, d, f = shape
+    x, w, dy = _grad_operands(np.random.default_rng(53), b, e, c, d, f,
+                              dtype, card)
+    assert torch.equal(ops.moe_gemm_dx(dy, w), ops.moe_gemm_dx(dy, w))
+    assert torch.equal(ops.moe_gemm_dw(x, dy), ops.moe_gemm_dw(x, dy))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_autograd_on_card(card, dtype, monkeypatch):
+    """Under grad on the card ``moe_gemm`` launches its forward kernel and
+    its dX and dW kernels once each, never a plain version; the gradients
+    equal autograd through the plain version."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    rng = np.random.default_rng(54)
+    x0, w0, dy = _grad_operands(rng, 2, 8, 40, 64, 96, dtype, card)
+    x = x0.detach().clone().requires_grad_()
+    w = w0.detach().clone().requires_grad_()
+    names = ("moe_gemm", "moe_gemm_dx", "moe_gemm_dw")
+    with monkeypatch.context() as m:
+        for name in names:
+            m.setattr(mg_mod, name + "_ref", None)
+        before = ops.counts()
+        ops.moe_gemm(x, w).backward(dy)
+        after = ops.counts()
+    assert {k: after[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+    xp = x0.detach().clone().requires_grad_()
+    wp = w0.detach().clone().requires_grad_()
+    ref.moe_gemm_ref(xp, wp).backward(dy)
+    assert _rel(x.grad, xp.grad) < MOE_TOL[dtype]
+    assert _rel(w.grad, wp.grad) < MOE_TOL[dtype]
+
+
+def _granite_smoke_grads(card, remat=False, dtype="bfloat16"):
+    """SMOKE granite's ``grads_of`` on one microbatch on the card (through
+    ``make_train_step``'s own function), from seeded float32 masters."""
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.launch import steps
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    cfg = dataclasses.replace(SMOKE["granite-moe-3b-a800m"], remat=remat,
+                              dtype=dtype)
+    _, model = steps.make_train_step(cfg, dp_size=1, global_batch=2,
+                                     device=card)
+    params = tree_map(lambda p: p.float(), model.init(
+        torch.Generator(device=card).manual_seed(0)))
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, 64, 2)).batch_at(
+        0, device=card)
+    dt = getattr(torch, dtype)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    cast = tree_map(lambda p: p.to(dt) if p.dim() > 1 else p,
+                    tree_unflatten(params, leaves))
+    loss = model.train_loss(cast, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_granite_smoke_gradients_repeat_bitwise(card):
+    """Two gradient calls of SMOKE granite in bf16 on one microbatch give
+    the same bits: K3's kernels, the dispatch's gather by a permutation and
+    the combine's gather sum in fixed orders."""
+    before = ops.counts()
+    a = _granite_smoke_grads(card)
+    b = _granite_smoke_grads(card)
+    after = ops.counts()
+    assert after["moe_gemm_dx"] > before["moe_gemm_dx"]
+    assert after["moe_gemm_dw"] > before["moe_gemm_dw"]
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def test_granite_smoke_remat_equals_no_remat_bitwise(card):
+    """Remat recomputes each block in the backward, the router's top-k
+    among it: it must choose the same experts, so the gradients are the
+    no-remat run's bit for bit."""
+    a = _granite_smoke_grads(card, remat=False)
+    b = _granite_smoke_grads(card, remat=True)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_granite_groups(card, dtype):
+    """K1's backward at granite's G = 3, D = 64 (24 heads over 8), causal,
+    against its plain version and repeated bit for bit."""
+    rng = np.random.default_rng(55)
+    q = _randn(rng, (1, 320, 24, 64), dtype, card)
+    k = _randn(rng, (1, 320, 8, 64), dtype, card)
+    v = _randn(rng, (1, 320, 8, 64), dtype, card)
+    do = _randn(rng, (1, 320, 24, 64), dtype, card)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True)
+    assert max(_rel_err(a, b) for a, b in zip(got, want)) < BWD_TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

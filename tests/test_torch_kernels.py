@@ -409,17 +409,21 @@ def test_launch_counts_reset():
     ops.flash_attention_bwd.launches = 6
     ops.decode_attention.launches = 7
     ops.moe_gemm.launches = 3
+    ops.moe_gemm_dx.launches = 8
+    ops.moe_gemm_dw.launches = 9
     ops.mamba2_scan.launches = 4
     ops.rwkv6_scan.launches = 2
     ops.moe_gemm.decode_tile_launches = 1
     assert ops.launch_counts() == {"flash_attention": 5,
                                    "flash_attention_bwd": 6,
                                    "decode_attention": 7, "moe_gemm": 3,
+                                   "moe_gemm_dx": 8, "moe_gemm_dw": 9,
                                    "mamba2_scan": 4, "rwkv6_scan": 2}
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0, "moe_gemm": 0,
+                                   "moe_gemm_dx": 0, "moe_gemm_dw": 0,
                                    "mamba2_scan": 0, "rwkv6_scan": 0}
     assert ops.moe_gemm.decode_tile_launches == 0
 
@@ -444,6 +448,8 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(fa_mod, "flash_attention_bwd_ref", no_plain)
     monkeypatch.setattr(torch_decode_mod, "decode_attention_ref", no_plain)
     monkeypatch.setattr(mg_mod, "moe_gemm_ref", no_plain)
+    monkeypatch.setattr(mg_mod, "moe_gemm_dx_ref", no_plain)
+    monkeypatch.setattr(mg_mod, "moe_gemm_dw_ref", no_plain)
     monkeypatch.setattr(rs_mod, "rwkv6_scan_ref", no_plain)
     monkeypatch.setattr(ms_mod, "mamba2_scan_ref", no_plain)
     monkeypatch.setattr(_build, "load", no_build)
@@ -459,6 +465,12 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError):
         ops.moe_gemm(torch.zeros(2, 4, 8, 16, device="meta"),
                      torch.zeros(4, 16, 8, device="meta"))
+    with pytest.raises(RuntimeError):
+        ops.moe_gemm_dx(torch.zeros(2, 4, 8, 8, device="meta"),
+                        torch.zeros(4, 16, 8, device="meta"))
+    with pytest.raises(RuntimeError):
+        ops.moe_gemm_dw(torch.zeros(2, 4, 8, 16, device="meta"),
+                        torch.zeros(2, 4, 8, 8, device="meta"))
     x = torch.zeros(1, 8, 2, 16, device="meta")
     with pytest.raises(RuntimeError):
         ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 16, device="meta"),

@@ -7,6 +7,7 @@
     python3 tools/kernel_probe.py flash-bits --against DIR   # K1 against another tree's
     python3 tools/kernel_probe.py flash-bwd --against DIR    # K1's backward, the same
     python3 tools/kernel_probe.py flash-bwd-phases # K1's backward with one step removed
+    python3 tools/kernel_probe.py moe-dw-phases    # K3's weight gradient, the same
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -65,6 +66,16 @@ mask test; the exponentials; the stores of ds; the dk / dv products; the
 dq products; the dq hand-off) and times each at the training shape in turns with the full
 kernel, as ``mamba2-phases`` does.  A variant computes wrong numbers; only
 its time is read.
+
+``moe-dw-phases`` does the same for K3's weight gradient
+(``csrc/moe_gemm_bwd.cu``, the bf16 wgmma kernel on its vector loader;
+``MOE_DW_CUTS``: the copies, the wgmma products, and the transpose bit
+of A cleared; and one variant that adds work: the division per row and
+stage that maps a loaded row to its (sample, slot) pair, which the first
+version of the kernel made) at granite-moe's training shape (x the dispatch view [2, 40,
+1024, 1536], dy [2, 40, 1024, 512]), in turns with the full kernel, and
+times K3's forward on the same bytes (``x [2, 40, 1024, 1536] @ w [40,
+1536, 512]``) beside them.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -165,6 +176,28 @@ FLASH_BWD_CUTS = {
 }
 
 
+# step of K3's weight-gradient kernel -> [(text in moe_gemm_bwd.cu, its
+# replacement), ...]
+MOE_DW_CUTS = {
+    # not a cut: the vector loader's row offsets computed by a division per
+    # row and stage again, as the kernel's first version did (a negative
+    # saving is what the division costs)
+    "row_division": [("        const bool ok = row[i] < rows;\n",
+                      "        const bool ok = row[i] < rows;\n"
+                      "        if (ok) {\n"
+                      "          const int64_t b = row[i] / C, c = row[i] % C;\n"
+                      "          ox[i] = b * x_sb + c * x_sc;\n"
+                      "          oy[i] = b * y_sb + c * y_sc;\n"
+                      "        }\n")],
+    "loads": [("      for (int i = 0; i < PT; ++i) {",
+               "      for (int i = 0; i < 0; ++i) {")],
+    "wgmma": [("      wgmma_m64n128k16<1, 1>(",
+               "      if (false) wgmma_m64n128k16<1, 1>(")],
+    "a_transpose": [("      wgmma_m64n128k16<1, 1>(",
+                     "      wgmma_m64n128k16<0, 1>(")],
+}
+
+
 def device_ms(fn, marker: str, iters: int = 20):
     """Mean device milliseconds per call in kernels whose name holds
     ``marker`` (torch.profiler; up to three traces, as one now and then
@@ -212,10 +245,10 @@ def decode_splits() -> None:
                           "rows": rows}), flush=True)
 
 
-def build_variant(kernel: str, name: str, source: str,
-                  out: Path) -> ctypes.CDLL:
+def build_variant(kernel: str, name: str, source: str, out: Path,
+                  entry: str = "") -> ctypes.CDLL:
     """Compile one variant of ``csrc/<kernel>.cu`` into its own library
-    and declare its C entry point."""
+    and declare its C entry point (``entry``, else ``fate_<kernel>``)."""
     from repro_torch.kernels import _build
     cu = out / f"{kernel}_{name}.cu"
     lib = out / f"{kernel}_{name}.so"
@@ -224,11 +257,11 @@ def build_variant(kernel: str, name: str, source: str,
                     "-I", str(_build.CSRC), "-o", str(lib), str(cu)],
                    check=True, capture_output=True, text=True)
     dll = ctypes.CDLL(str(lib))
-    _build.declare(dll, [f"fate_{kernel}"])
+    _build.declare(dll, [entry or f"fate_{kernel}"])
     return dll
 
 
-def build_variants(kernel: str, cuts_by_name: dict) -> dict:
+def build_variants(kernel: str, cuts_by_name: dict, entry: str = "") -> dict:
     """The full source and one variant per entry of ``cuts_by_name``,
     each built in parallel; exits naming a cut that is not found once."""
     from concurrent.futures import ThreadPoolExecutor
@@ -247,7 +280,7 @@ def build_variants(kernel: str, cuts_by_name: dict) -> dict:
         sources[name] = variant
     with ThreadPoolExecutor(len(sources)) as pool:
         return dict(zip(sources, pool.map(
-            lambda kv: build_variant(kernel, kv[0], kv[1], out),
+            lambda kv: build_variant(kernel, kv[0], kv[1], out, entry),
             sources.items())))
 
 
@@ -522,11 +555,42 @@ def flash_bwd_phases() -> None:
                                    if k != "full"}}), flush=True)
 
 
+def moe_dw_phases() -> None:
+    from repro_torch.kernels import moe_gemm as mg
+    libs = build_variants("moe_gemm_bwd", MOE_DW_CUTS, "fate_moe_gemm_dw")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, e, c, d, f = 2, 40, 1024, 1536, 512
+    buf = torch.randn(b, e * c + 1, d, device="cuda", generator=gen)
+    x = buf.bfloat16()[:, :-1].view(b, e, c, d)
+    dy = torch.randn(b, e, c, f, device="cuda", generator=gen).bfloat16()
+    w = torch.randn(e, d, f, device="cuda", generator=gen).bfloat16()
+    dw = torch.empty(e, d, f, device="cuda", dtype=torch.bfloat16)
+
+    def call(lib):
+        rc = lib.fate_moe_gemm_dw(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(), b, e, c, d, f,
+            *x.stride(), *dy.stride(), 1, 1,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            sys.exit(f"kernel_probe: launch failed with code {rc}")
+    times = in_turns(call, libs)
+    full = sum(times["full"]) / 2
+    fwd = events_ms(lambda _: mg.moe_gemm(x, w), None)
+    print(json.dumps({"probe": "moe-dw-phases",
+                      "shape": [[b, e, c, d], [b, e, c, f]],
+                      "ms": times, "full_ms": full,
+                      "saved_ms": {k: full - sum(t) / 2
+                                   for k, t in times.items()
+                                   if k != "full"},
+                      "forward_same_bytes_ms": fwd}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
                                       "rwkv6-phases", "flash-bits",
-                                      "flash-bwd", "flash-bwd-phases"])
+                                      "flash-bwd", "flash-bwd-phases",
+                                      "moe-dw-phases"])
     ap.add_argument("--against", type=Path,
                     help="flash-bits, flash-bwd: the root of the other "
                          "checkout")
@@ -551,6 +615,8 @@ def main() -> None:
         flash_bits(args.against.resolve())
     elif args.probe == "flash-bwd":
         flash_bwd(args.against.resolve())
+    elif args.probe == "moe-dw-phases":
+        moe_dw_phases()
     else:
         flash_bwd_phases()
 
