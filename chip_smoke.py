@@ -160,6 +160,18 @@ ends the run with a non-zero exit code and no result line:
    choose the forward's experts): float32 at full width with 2 layers,
    bf16 at 24; a second kernel run bitwise; the Trainer drill at SMOKE
    granite.
+19. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
+   vocab 262144, tied; a sliding window of 1024 on 5 of every 6 layers)
+   at full width, its depth cut from 34 to 18 layers (15 local, 3 global;
+   ``reduced`` says so, with the measured peak), after granite's are
+   freed, trained as ``train``: per step K1 144 and its backward 72 (the
+   column-split kernel at D = 256), 60 of them under the window, nothing
+   else; model FLOPs count each local layer's attention over its window's
+   pairs.
+20. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
+   width with its first 6 layers (5 local, 1 global), bf16 at 18; a
+   second kernel run bitwise; the Trainer drill at SMOKE gemma3 with head
+   dim 256 and a window of 128 over its 512 tokens.
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -181,7 +193,11 @@ timed beside the backward of SDPA, qwen3's training shape (q [2, 4096,
 16, 128], k, v [2, 4096, 8, 128], causal) and its served prefill
 ([8, 512, 16, 128]), each called twice, which must give the same bits (the
 wgmma kernel sums dq in a fixed order), with granite's training shape
-(q [2, 4096, 24, 64], k, v [2, 4096, 8, 64]) beside them.  And K3's
+(q [2, 4096, 24, 64], k, v [2, 4096, 8, 64]) beside them, and gemma3's
+(q [2, 4096, 8, 256], k, v [2, 4096, 4, 256], causal), a local layer
+(window 1024, beside SDPA's backward with the sliding mask) and a global
+one, timed in bf16, called twice for the same bits, and held in float32.
+And K3's
 gradients against their plain versions (1e-5 / 3e-2 relative): dX (K3's
 kernel reading w K-major) and dW (``csrc/moe_gemm_bwd.cu``) over a sweep
 in both types (ragged C, D and F, C of one, the strided dispatch view,
@@ -198,7 +214,7 @@ Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
 call), a ``total`` line (with the seconds of the two whisper phases and
-of the four train phases), the nvidia-smi line, and last ``{"ok": true,
+of the six train phases), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -267,13 +283,28 @@ TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
 # granite's, stated before its first run: qwen3's loss bar, twice its
 # norm bar and 5/3 of its leaf bar, since K3's gradients round dX and dW
 # to bf16 in every layer, beside K1's and its backward's roundings
+# gemma3's, stated before its first run: granite's, since K1's backward
+# at D = 256 sums its products over twice qwen3's columns and rounds p^T
+# and ds^T to bf16 in every layer, under the window on 15 of 18 layers
 TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
-              "parity_train_moe": (1e-4, 1e-3, 5e-2)}
+              "parity_train_moe": (1e-4, 1e-3, 5e-2),
+              "parity_train_gemma3": (1e-4, 1e-3, 5e-2)}
 # train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
 # 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
 # copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
 # peak at 1.72 B), so 32 layers (3.45 B) would not fit the card's 80 GB
 MOE_TRAIN_LAYERS = 24
+# train_gemma3: gemma3-4b at full width, its depth cut from 34 to 18
+# layers (15 local, 3 global: the deepest multiple of its 6-layer pattern
+# that fits; 2.37 B parameters): at qwen3's and granite's 18-24 bytes a
+# parameter and about 26 GB for a microbatch's 2 x 4096 x 262144 logits,
+# 34 layers (3.88 B) would take about 100 GB.  Its float32 parity at
+# GEMMA_F32_LAYERS (5 local, 1 global)
+GEMMA_TRAIN_LAYERS = 18
+# the Trainer drill's SMOKE config changed where the card path needs it:
+# gemma3 at its published head dim, so that the drill runs K1's backward
+# at D = 256, with a window shorter than its 512 tokens
+DRILL_OVER = {"gemma3-4b": dict(head_dim=256, sliding_window=128)}
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -304,16 +335,18 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "moe_dw_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
                     "flash_bwd_wgmma_kernel": "HGMMA",
+                    "flash_bwd_colsplit_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
 # gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
-# backward at qwen3's and granite's head dims, and K3's gradients at
-# granite's training shapes (dX: the 128-row tile, vector loader, w
+# backward at qwen3's, granite's and gemma3's head dims, and K3's gradients
+# at granite's training shapes (dX: the 128-row tile, vector loader, w
 # K-major; dW: the vector loader): these instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_mma_kernel<192,128>", "flash_bwd_wgmma_kernel<128>",
                  "flash_bwd_wgmma_kernel<64>",
+                 "flash_bwd_colsplit_kernel<256>",
                  "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations, and how many instantiations one such call makes
@@ -323,6 +356,8 @@ TENSOR_CORE_LAUNCHERS = {
     "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma", 1),
     "flash_bwd_wgmma_kernel": ("flash_attention_bwd.cu", "launch_bwd_wgmma",
                                1),
+    "flash_bwd_colsplit_kernel": ("flash_attention_bwd.cu",
+                                  "launch_bwd_colsplit", 1),
     "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma", 1),
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
     "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
@@ -581,7 +616,8 @@ def tensor_core_check(build_mod) -> dict:
     if bad_reduce:
         fail(f"bulk reduce that does not add float32 in the SASS: "
              f"{bad_reduce[:4]}")
-    no_sum = [k for k in found if k.startswith("flash_bwd_wgmma_kernel")
+    no_sum = [k for k in found if k.startswith(("flash_bwd_wgmma_kernel",
+                                                "flash_bwd_colsplit_kernel"))
               and not found[k].get("bulk_reduce_f32")]
     if no_sum:
         fail(f"no float32 bulk reduce (the dq sums) in {no_sum}")
@@ -709,13 +745,21 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
                  / b.float().abs().max().clamp(min=1e-30))
 
 
-def sdpa_bwd(q, k, v, dout, causal):
+def sdpa_bwd(q, k, v, dout, causal, window=0):
     """The backward of one library call computing the same function
-    (yardstick only): grouped-query SDPA on heads-first views."""
+    (yardstick only): grouped-query SDPA on heads-first views, a sliding
+    window as a boolean mask, as :func:`sdpa`."""
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=causal, enable_gqa=True)
+    if window:
+        qi = torch.arange(q.shape[1], device=q.device)[:, None]
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (qi - ki < window) & ((qi >= ki) if causal else True)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+    else:
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=True)
     dh = dout.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qh, kh, vh), dh,
                                        retain_graph=True)
@@ -766,7 +810,7 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
         pairs = attended_pairs(sq, sk, causal, window)
         b_ms, by = bound(nbytes(q, k, v, o, do, lse, *got),
                          5 * 2.0 * b * h * d * pairs, dtype)
-        lib = sdpa_bwd(q, k, v, do, causal)
+        lib = sdpa_bwd(q, k, v, do, causal, window)
         rec.update(
             ms=time_ms(call), device_ms=device_ms(call, "bwd_"),
             plain_ms=time_ms(plain, iters=3, warmup=1),
@@ -1174,6 +1218,21 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         ops, ref, rng, (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(),
                         h, kv, moe_cfg.resolved_head_dim), torch.bfloat16,
         True, 0, timed=True)
+    # gemma3's training shape (G = 2, D = 256: the column-split kernel), the
+    # train_gemma3 phase's: a local layer (its window) and a global one,
+    # timed in bf16 beside SDPA's backward (masked for the local layer),
+    # and held in float32
+    h, kv = gemma_cfg.num_heads, gemma_cfg.num_kv_heads
+    gshape = (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(), h, kv,
+              gemma_cfg.resolved_head_dim)
+    for kind, window in (("local", gemma_cfg.sliding_window),
+                         ("global", 0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16
+            bwd_main[f"{gemma_cfg.name}/train_{kind}"
+                     + ("" if timed else "/float32")] = flash_bwd_case(
+                ops, ref, rng, gshape, dtype, True, window, timed=timed)
+            torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
@@ -2346,14 +2405,25 @@ def active_params(cfg, n_params: int) -> float:
     return n_params - routed * (1.0 - m.top_k / m.num_experts)
 
 
+def layer_kinds(cfg) -> list[str]:
+    """The model's layer kinds in execution order ('L' local, under the
+    sliding window; 'G' global)."""
+    from repro_torch.models.transformer import DecoderLM
+    return DecoderLM(cfg, device="cpu").layer_kinds()
+
+
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 x active parameters x tokens for
     the matrix products, and attention's products (QK^T and PV: 4 D flops
-    a head and attended pair forward, twice that backward) over the causal
-    pairs.  The forward that remat repeats is not counted."""
-    pairs = attended_pairs(seq, seq, True, 0)
-    attn = 12.0 * cfg.num_layers * batch * cfg.num_heads \
-        * cfg.resolved_head_dim * pairs
+    a head and attended pair forward, twice that backward) over the pairs
+    each layer's mask keeps: the causal pairs on a global layer, those
+    within the sliding window on a local one (gemma3's).  The forward that
+    remat repeats is not counted."""
+    pairs = {"G": attended_pairs(seq, seq, True, 0)}
+    if cfg.sliding_window:
+        pairs["L"] = attended_pairs(seq, seq, True, cfg.sliding_window)
+    attn = 12.0 * batch * cfg.num_heads * cfg.resolved_head_dim * sum(
+        pairs[kind] for kind in layer_kinds(cfg))
     return 6.0 * active_params(cfg, n_params) * batch * seq + attn
 
 
@@ -2431,7 +2501,8 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
 def phase_train(mods, cfg, seed: int, profile: bool = False,
                 phase: str = "train", num_layers: int = 0) -> dict:
     """``cfg`` at full width (qwen3-1.7b; granite-moe-3b-a800m as
-    ``train_moe``, its depth cut to ``num_layers``) trained through the
+    ``train_moe`` and gemma3-4b as ``train_gemma3``, their depth cut to
+    ``num_layers``) trained through the
     port's ``make_train_step`` with the reference's ``AdamWConfig()``:
     bf16 compute over float32 masters, bf16 moments, remat,
     TRAIN_GLOBAL_BATCH sequences of train_4k's length per step in
@@ -2439,7 +2510,9 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     allocates), then TRAIN_STEPS steps of ``SyntheticTokens.batch_at(step)``
     with the launch counts zeroed just before: the losses must be finite
     and the last below the first, and the kernels must launch as
-    ``train_launches`` predicts, nothing else.  Step seconds, tokens/s,
+    ``train_launches`` predicts, nothing else, K1's backward under the
+    sliding window once per local layer and microbatch.  Step seconds,
+    tokens/s,
     model FLOPs (on active parameters) per second against 989 TFLOP/s,
     peak memory; ``profile``: one more step traced."""
     ops, steps, opt = mods["ops"], mods["steps"], mods["opt"]
@@ -2477,13 +2550,19 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     counts = ops.counts()
+    windowed = ops.flash_attention_bwd.window_launches
     peak = torch.cuda.max_memory_allocated()
     expect = train_launches(cfg, n_accum, TRAIN_STEPS)
+    # K1's backward under the window: once per local layer and microbatch
+    expect_windowed = layer_kinds(cfg).count("L") * n_accum * TRAIN_STEPS
     problems = []
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         problems.append(f"losses {losses}: not finite or not falling")
     if counts != expect:
         problems.append(f"launches {counts}, expected {expect}")
+    if windowed != expect_windowed:
+        problems.append(f"{windowed} windowed backward launches, expected "
+                        f"{expect_windowed}")
     step_s = sum(times) / len(times)
     flops = train_flops(cfg, n_params, TRAIN_GLOBAL_BATCH, seq)
     reduced = {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
@@ -2516,8 +2595,13 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         "mfu_of_989_tflops": flops / step_s / PEAK_FLOPS[torch.bfloat16],
         "peak_gb": peak / 1e9,
         "launches": counts, "launches_expected": expect,
+        "flash_attention_bwd_windowed": {"launches": windowed,
+                                         "expected": expect_windowed},
         "ok": not problems, "problems": problems,
     }
+    if cfg.sliding_window:
+        out["shape"].update(sliding_window=cfg.sliding_window,
+                            layer_kinds="".join(layer_kinds(cfg)))
     if profile:
         out["profile"] = profile_train_step(step_fn, params, state,
                                             data.batch_at(TRAIN_STEPS + 1))
@@ -2525,6 +2609,26 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if problems:
         fail(f"{phase} phase failed: " + "; ".join(problems))
     return out
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """PyTorch's caching allocator with expandable segments (segments
+    that grow page by page) while the block runs, the default after it.
+    gemma3's microbatch frees and asks for blocks of 4 and 8 GiB (its
+    [2, 4096, 262144] logits in bf16 and float32): with fixed segments its
+    first train step at 18 layers ran out of memory with 55.4 GiB
+    allocated and 16.2 GiB reserved but unusable (on an H100 80GB HBM3)."""
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
 
 
 def loss_and_grads(model, masters, batch, dtype):
@@ -2545,7 +2649,9 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     bf16 over float32 masters, K1 and its backward at head dim 16, which
     the backward's wgmma kernel takes padded to 64; sequences of 512
     tokens, so that 4 key tiles add into most query tiles' dq in its fixed
-    order; granite's K3 and its gradients at 640 rows an expert): an
+    order; granite's K3 and its gradients at 640 rows an expert; gemma3 at
+    DRILL_OVER's head dim 256, the column-split kernel, under a window of
+    128 on its local layers): an
     uninterrupted run of 6 steps; a run that fails at step 3 after its
     emergency checkpoint; a restart whose restored parameters and moments
     must equal the saved ones bit for bit, and whose losses must equal the
@@ -2557,7 +2663,7 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     from repro_torch.training.trainer import TrainConfig, Trainer
     from repro_torch.training.tree import tree_paths
     steps, opt = mods["steps"], mods["opt"]
-    cfg = SMOKE[arch]
+    cfg = dataclasses.replace(SMOKE[arch], **DRILL_OVER.get(arch, {}))
     step_fn, model = steps.make_train_step(
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
@@ -2599,13 +2705,15 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
 
 
 def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
-                       num_layers: int = 0) -> dict:
+                       num_layers: int = 0, f32_layers: int = 0) -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
     log-sum-exp and its backward; for an MoE model K3 and its dX and dW
     kernels) against the plain versions (``plain_versions`` of
     flash_attention, and moe_gemm: autograd through the plain forwards),
     on the train phase's first microbatch: in float32 at full width with
-    TRAIN_F32_LAYERS layers (the loss within TRAIN_F32_LOSS_REL, each
+    ``f32_layers`` layers (TRAIN_F32_LAYERS; gemma3 GEMMA_F32_LAYERS, five
+    local layers and its first global one) (the loss within
+    TRAIN_F32_LOSS_REL, each
     gradient leaf within TRAIN_F32_GRAD_REL of its largest magnitude), and
     in bf16 over float32 masters at the train phase's depth (the loss and
     the global gradient norm, relative, and each gradient leaf relative to
@@ -2682,11 +2790,11 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         del gp
         return rec, lk, gk
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32",
-                                num_layers=TRAIN_F32_LAYERS)
+    f32_layers = f32_layers or TRAIN_F32_LAYERS
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers)
     model = build_model(cfg32, "cuda")
     masters = master_params(model, seed)
-    f32, _, gk = compare(model, masters, torch.float32, TRAIN_F32_LAYERS)
+    f32, _, gk = compare(model, masters, torch.float32, f32_layers)
     f32["tol"] = {"loss": TRAIN_F32_LOSS_REL, "grad": TRAIN_F32_GRAD_REL}
     if not (f32["loss_rel_diff"] <= TRAIN_F32_LOSS_REL
             and f32["grad_rel_diff_max"] <= TRAIN_F32_GRAD_REL):
@@ -3104,10 +3212,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_parity_train(mods, granite, args.seed, phase="parity_train_moe",
                        num_layers=MOE_TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with expandable_segments():
+        train_gemma_out = phase_train(
+            mods, gemma, args.seed, profile=args.profile,
+            phase="train_gemma3", num_layers=GEMMA_TRAIN_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_parity_train(mods, gemma, args.seed,
+                           phase="parity_train_gemma3",
+                           num_layers=GEMMA_TRAIN_LAYERS,
+                           f32_layers=GEMMA_F32_LAYERS)
     train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
                                       serve4_out, serve5_out, whisper_out,
-                                      train_out, train_moe_out]))
+                                      train_out, train_moe_out,
+                                      train_gemma_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "whisper_phases_seconds": whisper_s,
           "train_phases_seconds": train_s})

@@ -36,8 +36,8 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
                    (256, 256), (192, 128))
 # head dims (D == Dv) that K1's backward (csrc/flash_attention_bwd.cu)
-# dispatches
-FLASH_BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+# dispatches: 256 for gemma3
+FLASH_BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # head dims of K2's dispatch switches in csrc/decode_attention.cu
 DECODE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 

@@ -95,6 +95,27 @@
 // The padding does 4x the work at D = 16, 2x at 32 and 1.6x at 80, dims
 // that no model of the registry trains at full size on the card.
 //
+// bf16 at D = 256 (gemma3): flash_bwd_colsplit_kernel, the same three
+// launches, pre-pass, dq pass, counters and ordered sums.  The layout
+// above cannot hold it: a warpgroup owning 64 keys would keep 2 x 64 x 256
+// / 128 = 256 floats a thread of dk and dv (ptxas gives 255 at 8 warps),
+// and 128-key tiles need 128 KB of K and V.  So a work tile is 64 keys,
+// shared by both warpgroups, and its columns are split: warpgroup w keeps
+// dk and dv for columns 128 w .. 128 w + 127 (64 + 64 floats a thread).
+// Per 64-row query tile, warpgroup w computes s^T and dp^T for queries
+// 32 w .. 32 w + 31 over all 256 columns and writes p^T and ds^T to shared
+// memory in bf16; then both run dV[:, cols] += p^T dO[:, cols] and
+// dK[:, cols] += ds^T q[:, cols] over the 64 queries with A from shared
+// memory (five products a pair, none twice), and dq = ds K by 64-column
+// blocks, two a warpgroup.  Shared memory (ColTile, 213,504 bytes of the
+// 232,448) holds K and V (32 KB each), ONE stage of q and dO (32 KB each),
+// p^T and ds^T (8 KB each) and ONE 64 KB dq hand-off: the next query
+// tile's copies are issued once both warpgroups have read the stage (they
+// land during the dq products), and the hand-off is freed before the dq
+// products are written, so the leader waits there for the admission and
+// landing of the last tile's sum.  The ordered sums and the argument above
+// hold for 64-key tiles unchanged (a block has at most one pending tile).
+//
 // float32 at every head dim: FMA on a 16 x 16 thread grid, three launches
 // (delta pre-pass; one block per (b, KV head, 32 keys) streams query
 // tiles, sums dk and dv; one block per (b, head, 32 queries) streams key
@@ -591,16 +612,18 @@ struct WgArgs {
   float scale, scale_log2;
 };
 
-// The query tiles [lo, hi) that key tile kt visits: those holding a query
-// that sees a key of the tile.  lo and hi never decrease as kt grows
-// (tests/test_torch_kernels.py :: bwd_key_tile_queries is the same).
+// The query tiles [lo, hi) that key tile kt (of BC keys) visits: those
+// holding a query that sees a key of the tile.  lo and hi never decrease
+// as kt grows (tests/test_torch_kernels.py :: bwd_key_tile_queries is the
+// same).
 struct TileRange {
   int lo, hi;
 };
+template <int BC>
 __device__ __forceinline__ TileRange key_tile_queries(const WgArgs& a,
                                                       int kt) {
-  const int k0 = kt * WG_BC;
-  const int k_last = min(k0 + WG_BC, a.Sk) - 1;
+  const int k0 = kt * BC;
+  const int k_last = min(k0 + BC, a.Sk) - 1;
   const int q_begin = a.causal ? k0 : 0;   // the first query that sees k0
   const int q_end =                        // past the last that sees k_last
       a.window > 0 ? min(a.Sq, k_last + a.window) : a.Sq;
@@ -613,9 +636,10 @@ __device__ __forceinline__ TileRange key_tile_queries(const WgArgs& a,
 // visits): without a window every key tile's range reaches the last query
 // tile; with one, the first whose last key is within the window of the
 // tile's first query (tests/test_torch_kernels.py :: bwd_first_key_tile).
+template <int BC>
 __device__ __forceinline__ int first_key_tile(const WgArgs& a, int qt) {
   if (a.window <= 0) return 0;
-  return max(0, qt * WG_BR - a.window + 1) / WG_BC;
+  return max(0, qt * WG_BR - a.window + 1) / BC;
 }
 
 // 2^x by the hardware's approximation (flushing denormal results to 0),
@@ -790,7 +814,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int kt = item / BKV;
     const int b = (item % BKV) / a.KV;
     const int hk = item % a.KV;
-    const TileRange qr = key_tile_queries(a, kt);
+    const TileRange qr = key_tile_queries<WG_BC>(a, kt);
     const int per_head = qr.hi - qr.lo;
     const int n_tiles = per_head * G;
     if (leader) {
@@ -1008,7 +1032,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       bar_sync(1, WG_THREADS);
       if (leader) {
         sums.state[hb] = DqSums::PENDING;
-        sums.want[hb] = kt - first_key_tile(a, qt);
+        sums.want[hb] = kt - first_key_tile<WG_BC>(a, qt);
         sums.tile[hb] = ((int64_t)b * a.H + h) * a.n_qt + qt;
         sums.advance(a, hb ^ 1, sDQ, DQ_BYTES);
       }
@@ -1037,6 +1061,333 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     sums.advance(a, tc % WG_NDQ, sDQ, DQ_BYTES);
     sums.advance(a, (tc + 1) % WG_NDQ, sDQ, DQ_BYTES);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D = 256: the column-split wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int CS_BC = 64;   // keys of a work tile, shared by both warpgroups
+
+// Descriptor `desc` advanced by `bytes` (its address field holds the
+// shared address >> 4 in 14 bits, which addresses below 256 KB never
+// overflow), and `x` made opaque to the compiler where it is formed.  The
+// descriptors of a tile's products do not change from tile to tile; formed
+// from such bases, each is added next to its product instead of all being
+// kept across the loop in registers, which made ptxas spill at 255.
+__device__ __forceinline__ uint64_t desc_plus(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+__device__ __forceinline__ uint64_t per_tile(uint64_t x) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(x));
+  return x;
+}
+
+// Shared memory of the column-split kernel at D = 256 (four 64-column
+// blocks a row): K and V of the tile's 64 keys, 32 KB each; ONE stage of q
+// and dO for a 64-row query tile, 32 KB each; p^T and ds^T in bf16, 8 KB
+// each; ONE float32 dq hand-off of the query tile, 64 KB; lse and delta,
+// 512 bytes: 213,504 bytes beside the barriers, of the 232,448 a block may
+// hold (a second stage or a second hand-off would need 64 KB more).
+template <int DP>
+struct ColTile {
+  static constexpr int NB = DP / 64;
+  static constexpr int KV_BLOCK = CS_BC * LINE;
+  static constexpr int Q_BLOCK = WG_BR * LINE;
+  static constexpr int KV_BYTES = NB * KV_BLOCK;
+  static constexpr int Q_BYTES = NB * Q_BLOCK;
+  static constexpr int PD_BYTES = CS_BC * LINE;   // 64 keys x 64 queries
+  static constexpr int DQ_FLOATS = WG_BR * DP;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + KV_BYTES;
+  static constexpr int Q_OFF = V_OFF + KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + Q_BYTES;
+  static constexpr int P_OFF = DO_OFF + Q_BYTES;
+  static constexpr int DS_OFF = P_OFF + PD_BYTES;
+  static constexpr int DQ_OFF = DS_OFF + PD_BYTES;
+  static constexpr int LD_OFF = DQ_OFF + DQ_FLOATS * 4;   // lse log2 e, delta
+  static constexpr int BAR_OFF = LD_OFF + 2 * WG_BR * 4;  // kv_full, q_full
+  static constexpr int SCHED_OFF = BAR_OFF + 16;          // int [2]
+  static constexpr int SMEM = SCHED_OFF + 8 + 1024;   // + alignment slack
+  static constexpr uint32_t Q_TX = 2 * Q_BYTES + 2 * WG_BR * 4;
+  static_assert(DP == 256, "the column split is the design of D = 256");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+template <int DP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_colsplit_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const WgArgs a) {
+  using Tl = ColTile<DP>;
+  constexpr int NB = Tl::NB;
+  constexpr int DQ_BYTES = Tl::DQ_FLOATS * 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle atom's size
+  uint8_t* sm = smem_raw + (base - raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + Tl::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;
+  volatile int* sched = reinterpret_cast<volatile int*>(sm + Tl::SCHED_OFF);
+
+  const int tid = threadIdx.x;
+  const bool leader = tid == 0;
+  const int cw = __shfl_sync(0xffffffffu, tid >> 7, 0);   // warpgroup
+  const int ct = tid & 127;                               // its thread
+  const int warp = __shfl_sync(0xffffffffu, ct >> 5, 0);
+  const int lane = tid & 31;
+  // as in flash_bwd_wgmma_kernel, every `if (leader)` block before a
+  // barrier or a wgmma ends in __syncwarp()
+  if (leader) {
+    mbar_init(kv_full, 1);
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncwarp();
+  __syncthreads();
+  const int G = a.H / a.KV;
+  const int BKV = a.B * a.KV;
+  const int sq_pad = a.n_qt * WG_BR;
+  const uint32_t sK = base + Tl::K_OFF, sV = base + Tl::V_OFF;
+  const uint32_t sQ = base + Tl::Q_OFF, sDO = base + Tl::DO_OFF;
+  const uint32_t sP = base + Tl::P_OFF, sDS = base + Tl::DS_OFF;
+  const uint32_t sDQ = base + Tl::DQ_OFF;
+  uint8_t* p_s = sm + Tl::P_OFF;
+  uint8_t* ds_s = sm + Tl::DS_OFF;
+  const float* lse_s = reinterpret_cast<const float*>(sm + Tl::LD_OFF);
+  const float* del_s = lse_s + WG_BR;
+  float2* dq_s = reinterpret_cast<float2*>(sm + Tl::DQ_OFF);
+  const int64_t k_rs = (int64_t)a.KV * a.D;
+
+  // the leader's copies of streamed tile i of a work tile: head g = i / n,
+  // query tile hi - 1 - i % n (highest first)
+  auto load_tile = [&](int i, int n, const TileRange& qr, int b, int hk) {
+    const int h = hk * G + i / n;
+    const int qt = qr.hi - 1 - i % n;
+    mbar_expect_tx(q_full, Tl::Q_TX);
+    for (int c = 0; c < NB; ++c) {
+      tma_load_4d(sQ + c * Tl::Q_BLOCK, &tq, q_full, 64 * c, h, qt * WG_BR,
+                  b);
+      tma_load_4d(sDO + c * Tl::Q_BLOCK, &tdo, q_full, 64 * c, h,
+                  qt * WG_BR, b);
+    }
+    const int64_t row = ((int64_t)b * a.H + h) * sq_pad + qt * WG_BR;
+    bulk_load(base + Tl::LD_OFF, a.lse2 + row, WG_BR * 4, q_full);
+    bulk_load(base + Tl::LD_OFF + WG_BR * 4, a.delta + row, WG_BR * 4,
+              q_full);
+  };
+
+  // one hand-off buffer: the other kernel's DqSums on buffer 0 alone
+  DqSums sums;
+  sums.state[0] = sums.state[1] = DqSums::FREE;
+  int tc = 0;                      // streamed tiles so far: the phase
+  for (int n = 0;; ++n) {
+    if (leader) {
+      const int item = atomicAdd(a.counters + (int64_t)a.B * a.H * a.n_qt, 1);
+      sched[n & 1] = item < a.n_items ? item : -1;
+    }
+    __syncwarp();
+    bar_sync(1, WG_THREADS);
+    const int item = __shfl_sync(0xffffffffu, sched[n & 1], 0);
+    if (item < 0) break;
+    const int kt = item / BKV;
+    const int b = (item % BKV) / a.KV;
+    const int hk = item % a.KV;
+    const TileRange qr = key_tile_queries<CS_BC>(a, kt);
+    const int per_head = qr.hi - qr.lo;
+    const int n_tiles = per_head * G;
+    if (leader) {
+      mbar_expect_tx(kv_full, 2 * Tl::KV_BYTES);
+      for (int c = 0; c < NB; ++c) {
+        tma_load_4d(sK + c * Tl::KV_BLOCK, &tk, kv_full, 64 * c, hk,
+                    kt * CS_BC, b);
+        tma_load_4d(sV + c * Tl::KV_BLOCK, &tv, kv_full, 64 * c, hk,
+                    kt * CS_BC, b);
+      }
+      if (n_tiles > 0) load_tile(0, per_head, qr, b, hk);
+    }
+    __syncwarp();
+    // accumulator layout of m64nNk16: thread (warp w, lane l) holds rows
+    // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1) of every
+    // 8-column group j, as d[4 j + 2 half + e].  Both warpgroups hold the
+    // tile's 64 keys; warpgroup w their dk and dv columns 128 w .. + 127.
+    const int k0 = kt * CS_BC;
+    const int key0 = k0 + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+    mbar_wait(kv_full, n & 1);
+    for (int it = 0; it < n_tiles; ++it, ++tc) {
+      const int h = hk * G + it / per_head;
+      const int qt = qr.hi - 1 - it % per_head;
+      const int q0 = qt * WG_BR;
+      mbar_wait(q_full, tc & 1);
+      const bool masked =
+          q0 + WG_BR > a.Sq || k0 + CS_BC > a.Sk ||
+          (a.causal && q0 < k0 + CS_BC - 1) ||
+          (a.window > 0 && q0 + WG_BR - 1 - k0 >= a.window);
+
+      // s^T = K q^T and dp^T = V dO^T for this warpgroup's 32 queries
+      // (queries 32 w .. + 31 of the tile) over all 256 columns: [64 keys
+      // x 32 queries], both operands K-major, a k16 step 32 bytes along a
+      // line, the 64-column blocks apart
+      float s[16], dp[16];
+      const uint64_t kd = per_tile(sw128_desc(sK, 16, 1024));
+      const uint64_t vd = per_tile(sw128_desc(sV, 16, 1024));
+      const uint64_t qd = per_tile(sw128_desc(sQ + cw * 32 * LINE, 16, 1024));
+      const uint64_t od =
+          per_tile(sw128_desc(sDO + cw * 32 * LINE, 16, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ko = (kk >> 2) * Tl::KV_BLOCK + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * Tl::Q_BLOCK + (kk & 3) * 32;
+        wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko), desc_plus(qd, qo), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t ko = (kk >> 2) * Tl::KV_BLOCK + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * Tl::Q_BLOCK + (kk & 3) * 32;
+        wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko), desc_plus(od, qo), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+
+      // p^T = 2^(s^T scale log2 e - lse log2 e), ds^T = p^T (dp^T - delta)
+      // (the mask test only where the tile crosses it or a tail), rounded
+      // to bf16 into the shared p^T and ds^T: line = key, the tile's 64
+      // queries along it, 16-byte chunks XORed with the line mod 8 (the
+      // last tile's dq products read ds^T before the barrier that ended it)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * cw + 8 * j + col0;    // query column
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(del_s + c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * j + r;
+          const int qp = q0 + c + (r & 1);
+          const int kp = key0 + 8 * (r >> 1);
+          const float row_lse = (r & 1) ? l2.y : l2.x;
+          const float row_delta = (r & 1) ? dl.y : dl.x;
+          const bool keep =
+              !masked ||
+              (qp < a.Sq && kp < a.Sk && (!a.causal || qp >= kp) &&
+               (a.window <= 0 || qp - kp < a.window));
+          const float p =
+              keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - row_delta);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kl = 16 * warp + (lane >> 2) + 8 * half;
+          const int at = kl * LINE + ((((4 * cw + j) ^ kl) & 7) << 4) +
+                         col0 * 2;
+          *reinterpret_cast<uint32_t*>(p_s + at) =
+              pack_bf16(s[4 * j + 2 * half], s[4 * j + 2 * half + 1]);
+          *reinterpret_cast<uint32_t*>(ds_s + at) =
+              pack_bf16(dp[4 * j + 2 * half], dp[4 * j + 2 * half + 1]);
+        }
+      }
+      fence_proxy_async();
+      bar_sync(1, WG_THREADS);
+
+      // dV[:, 128 w ..] += p^T dO[:, 128 w ..] and dK[:, 128 w ..] +=
+      // ds^T q[:, 128 w ..] over the tile's 64 queries: A K-major from the
+      // shared p^T / ds^T, B MN-major, 16 query lines a step, its two
+      // 64-column blocks Q_BLOCK apart
+      const uint64_t pd = per_tile(sw128_desc(sP, 16, 1024));
+      const uint64_t sd = per_tile(sw128_desc(sDS, 16, 1024));
+      const uint64_t om = per_tile(
+          sw128_desc(sDO + 2 * cw * Tl::Q_BLOCK, Tl::Q_BLOCK, 1024));
+      const uint64_t qm = per_tile(
+          sw128_desc(sQ + 2 * cw * Tl::Q_BLOCK, Tl::Q_BLOCK, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        wgmma_m64n128k16<0, 1>(dv, desc_plus(pd, t * 32),
+                               desc_plus(om, t * 16 * LINE));
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        wgmma_m64n128k16<0, 1>(dk, desc_plus(sd, t * 32),
+                               desc_plus(qm, t * 16 * LINE));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+      // q, dO, lse and delta read by both warpgroups: the leader refills
+      // the stage, then frees the hand-off buffer (the last tile's sum is
+      // issued once its counter admits it, and lands)
+      bar_sync(1, WG_THREADS);
+      if (leader) {
+        if (it + 1 < n_tiles) load_tile(it + 1, per_head, qr, b, hk);
+        sums.advance(a, 0, sDQ, DQ_BYTES);
+      }
+      __syncwarp();
+
+      // dq[:, 64 c ..] = ds K[:, 64 c ..] for this warpgroup's blocks
+      // c = 2 w, 2 w + 1 over the 64 keys: A = ds (MN-major), B = K
+      // (MN-major), 16 key lines a step; each block into the hand-off in
+      // the fragment order of a 64 x 64 accumulator (float2 i / 2 of
+      // thread ct at (i / 2 * 128 + ct) * 2), blocks 64 x 64 floats apart
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = 2 * cw + j;
+        float dq[32];
+        const uint64_t am = per_tile(sw128_desc(sDS, Tl::PD_BYTES, 1024));
+        const uint64_t km = per_tile(
+            sw128_desc(sK + c * Tl::KV_BLOCK, Tl::KV_BLOCK, 1024));
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),
+                             desc_plus(km, t * 16 * LINE), t > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dq);
+        if (j == 0) bar_sync(1, WG_THREADS);     // the buffer is free
+        float2* blk = dq_s + c * (WG_BR * 64 / 2);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          blk[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);
+      }
+      fence_proxy_async();
+      bar_sync(1, WG_THREADS);
+      if (leader) {
+        sums.state[0] = DqSums::PENDING;
+        sums.want[0] = kt - first_key_tile<CS_BC>(a, qt);
+        sums.tile[0] = ((int64_t)b * a.H + h) * a.n_qt + qt;
+        sums.try_issue(a, 0, sDQ, DQ_BYTES);
+      }
+      __syncwarp();
+    }
+
+    // dk, dv of the tile's keys below Sk, this warpgroup's columns
+    __nv_bfloat16* dkp = a.dk + (int64_t)b * a.Sk * k_rs + hk * a.D;
+    __nv_bfloat16* dvp = a.dv + (int64_t)b * a.Sk * k_rs + hk * a.D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kp = key0 + 8 * half;
+      if (kp >= a.Sk) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int64_t off = (int64_t)kp * k_rs + 128 * cw + 8 * j + col0;
+        store2(dkp + off, dk[4 * j + 2 * half] * a.scale,
+               dk[4 * j + 2 * half + 1] * a.scale);
+        store2(dvp + off, dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+  if (leader) sums.advance(a, 0, sDQ, DQ_BYTES);   // the last sum lands
 }
 
 // pre-pass of the wgmma kernel, one warp per row (b * H + h) * sq_pad + i
@@ -1192,26 +1543,24 @@ int sm_count() {
   return n;
 }
 
-// bf16: the pre-pass, the wgmma kernel, the dq pass, at the head dim a.D
-// rounded up to DP (64 or 128)
-template <int DP>
-int launch_bwd_wgmma(const BwdArgs& a) {
-  using Tl = WgTile<DP>;
+// bf16: the pre-pass, the wgmma pass `kern` (its shared memory `smem`,
+// work tiles of BC keys), the dq pass, at the head dim a.D rounded up to DP
+template <int DP, int BC, typename Kernel>
+int launch_bwd_passes(const BwdArgs& a, Kernel kern, int smem,
+                      unsigned& smem_set) {
   if (a.dq_accum == nullptr || a.counters == nullptr) return -1;
-  static unsigned smem_set = 0;
-  auto kern = flash_bwd_wgmma_kernel<DP>;
-  cudaError_t err = allow_smem(kern, Tl::SMEM, smem_set);
+  cudaError_t err = allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
   if (!head_rows_map(&tq, a.q, a.B, a.Sq, a.H, a.D, WG_BR) ||
       !head_rows_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, WG_BR) ||
-      !head_rows_map(&tk, a.k, a.B, a.Sk, a.KV, a.D, WG_BC) ||
-      !head_rows_map(&tv, a.v, a.B, a.Sk, a.KV, a.D, WG_BC))
+      !head_rows_map(&tk, a.k, a.B, a.Sk, a.KV, a.D, BC) ||
+      !head_rows_map(&tv, a.v, a.B, a.Sk, a.KV, a.D, BC))
     return -1;
   const int sms = sm_count();
   if (sms < 1) return -1;
   const int n_qt = (a.Sq + WG_BR - 1) / WG_BR;
-  const int n_kt = (a.Sk + WG_BC - 1) / WG_BC;
+  const int n_kt = (a.Sk + BC - 1) / BC;
   const int64_t rows = (int64_t)a.B * a.H * n_qt * WG_BR;
   float* lse2 = a.delta + rows;
   bwd_prep_kernel<DP><<<(unsigned)((rows + 7) / 8), 256, 0, a.stream>>>(
@@ -1226,8 +1575,8 @@ int launch_bwd_wgmma(const BwdArgs& a) {
                  a.B, a.Sq, a.Sk, a.H, a.KV, a.D, a.causal, a.window, n_qt,
                  n_kt * a.B * a.KV, (float)scale,
                  (float)(scale * 1.4426950408889634)};
-  kern<<<min(sms, w.n_items), WG_THREADS, Tl::SMEM, a.stream>>>(tq, tk, tv,
-                                                               tdo, w);
+  kern<<<min(sms, w.n_items), WG_THREADS, smem, a.stream>>>(tq, tk, tv, tdo,
+                                                          w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t tasks = rows * (DP / 8);
@@ -1237,14 +1586,33 @@ int launch_bwd_wgmma(const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
+// DP 64 or 128: work tiles of 128 keys, 64 a warpgroup
+template <int DP>
+int launch_bwd_wgmma(const BwdArgs& a) {
+  static unsigned smem_set = 0;
+  return launch_bwd_passes<DP, WG_BC>(a, flash_bwd_wgmma_kernel<DP>,
+                                      WgTile<DP>::SMEM, smem_set);
+}
+
+// DP 256: work tiles of 64 keys, their columns split between the
+// warpgroups
+template <int DP>
+int launch_bwd_colsplit(const BwdArgs& a) {
+  static unsigned smem_set = 0;
+  return launch_bwd_passes<DP, CS_BC>(a, flash_bwd_colsplit_kernel<DP>,
+                                      ColTile<DP>::SMEM, smem_set);
+}
+
 // head dims: kernels/_build.py :: FLASH_BWD_HEAD_DIMS lists the same; in
-// bf16 each takes the wgmma kernel at its head dim rounded up to 64
+// bf16 each takes the wgmma kernel at its head dim rounded up to 64, but
+// 256, which takes the column-split kernel
 int dispatch_fma(const BwdArgs& a, int D) {
   if (D == 16) return launch_bwd_fma<16>(a);
   if (D == 32) return launch_bwd_fma<32>(a);
   if (D == 64) return launch_bwd_fma<64>(a);
   if (D == 80) return launch_bwd_fma<80>(a);
   if (D == 128) return launch_bwd_fma<128>(a);
+  if (D == 256) return launch_bwd_fma<256>(a);
   return -1;
 }
 
@@ -1254,6 +1622,7 @@ int dispatch_bf16(const BwdArgs& a, int D) {
   if (D == 64) return launch_bwd_wgmma<64>(a);
   if (D == 80) return launch_bwd_wgmma<128>(a);
   if (D == 128) return launch_bwd_wgmma<128>(a);
+  if (D == 256) return launch_bwd_colsplit<256>(a);
   return -1;
 }
 

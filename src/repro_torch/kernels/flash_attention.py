@@ -31,17 +31,18 @@ forward also writes each row's log-sum-exp (float32 [B, H, Sq], from the
 same kernel; the output's bits are those of a call without it) and whose
 backward is the hand-written kernel ``csrc/flash_attention_bwd.cu``.  In
 bf16 it is one wgmma pass after FlashAttention-3's, at the head dim rounded
-up to 64: a block per (batch, KV head, 128-key tile) streams the query
-tiles of the G heads that see its keys and computes dk and dv, and each
-tile's dq is summed into a float32 accumulator in ascending key-tile
-order, admitted by a counter per query tile, so two calls give the same
-bits.  float32 keeps FlashAttention-2's design (a dk / dv kernel per key
-tile, a dq kernel per query tile; no atomics).  The TPU kernel has no
-backward: the JAX models differentiate its XLA twin.  On the CPU both
-directions take their plain versions; on the card there is no fallback.
-The backward takes D in ``_build.FLASH_BWD_HEAD_DIMS`` with Dv == D: head
-dim 256 and (192, 128) raise ``NotImplementedError`` (ROADMAP items 14b,
-14c).
+up to 64: a block per (batch, KV head, key tile) streams the query tiles
+of the G heads that see its keys and computes dk and dv, and each tile's
+dq is summed into a float32 accumulator in ascending key-tile order,
+admitted by a counter per query tile, so two calls give the same bits.
+Up to D = 128 a key tile is 128 keys, 64 a warpgroup; at D = 256
+(gemma3) it is 64 keys whose dk and dv columns the two warpgroups split
+(:func:`bwd_tiles`).  float32 keeps FlashAttention-2's design (a dk / dv
+kernel per key tile, a dq kernel per query tile; no atomics).  The TPU
+kernel has no backward: the JAX models differentiate its XLA twin.  On
+the CPU both directions take their plain versions; on the card there is
+no fallback.  The backward takes D in ``_build.FLASH_BWD_HEAD_DIMS`` with
+Dv == D: (192, 128) raises ``NotImplementedError`` (ROADMAP item 14c).
 """
 from __future__ import annotations
 
@@ -50,9 +51,14 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the wgmma backward's tiles (csrc/flash_attention_bwd.cu :: WG_BC, WG_BR):
-# keys of a work tile, queries of a streamed tile
-BWD_KEY_TILE, BWD_QUERY_TILE = 128, 64
+
+
+def bwd_tiles(d: int) -> tuple[int, int]:
+    """The bf16 backward's tiles at head dim ``d``: keys of a work tile
+    and queries of a streamed tile (csrc/flash_attention_bwd.cu :: WG_BC,
+    WG_BR up to D = 128; CS_BC, WG_BR for the column-split kernel of
+    D = 256)."""
+    return (64, 64) if d > 128 else (128, 64)
 
 
 def _scores(q, k, causal, window):
@@ -200,8 +206,9 @@ def bwd_scratch(b: int, h: int, sq: int, d: int, dtype, device):
     f32 = dict(dtype=torch.float32, device=device)
     if dtype != torch.bfloat16:
         return torch.empty((b, h, sq), **f32), None, None
-    n_qt = -(-sq // BWD_QUERY_TILE)
-    sq_pad = n_qt * BWD_QUERY_TILE
+    query_tile = bwd_tiles(d)[1]
+    n_qt = -(-sq // query_tile)
+    sq_pad = n_qt * query_tile
     return (torch.empty((2, b, h, sq_pad), **f32),
             torch.empty((b, h, sq_pad, -(-d // 64) * 64), **f32),
             torch.empty(b * h * n_qt + 1, dtype=torch.int32, device=device))
@@ -216,10 +223,6 @@ def _dense16(x: torch.Tensor) -> torch.Tensor:
 
 def _check_bwd_dims(d: int, dv: int) -> None:
     """Raise where the backward kernel has no instantiation for (D, Dv)."""
-    if d == 256:
-        raise NotImplementedError(
-            "flash_attention_bwd at head dim 256 (gemma3's training) is "
-            "ROADMAP item 14b")
     if dv != d:
         raise NotImplementedError(
             f"flash_attention_bwd at (D, Dv) = {(d, dv)} (deepseek-v2's "
@@ -240,7 +243,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
     taken only for tensors that lie on the CPU.
     ``flash_attention_bwd.launches`` counts kernel calls (each launches
     three kernels: the pre-pass, then the wgmma pass and the dq pass, or
-    the dk / dv kernel and the dq kernel).  The scratch
+    the dk / dv kernel and the dq kernel), and ``.window_launches`` those
+    of them under a sliding window.  The scratch
     (:func:`bwd_scratch`) is allocated here.
     """
     _check(q, k, v)
@@ -278,6 +282,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
             f"flash_attention_bwd kernel launch failed (code {rc}) for q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}")
     flash_attention_bwd.launches += 1
+    if window:
+        flash_attention_bwd.window_launches += 1
     return dq, dk, dvv
 
 
@@ -325,3 +331,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.window_launches = 0

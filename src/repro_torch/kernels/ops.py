@@ -45,10 +45,11 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0 (K3's count of 64-row tile
-    launches too)."""
+    launches and K1's backward's count of windowed calls too)."""
     for fn in KERNELS.values():
         fn.launches = 0
     moe_gemm.decode_tile_launches = 0
+    flash_attention_bwd.window_launches = 0
 
 
 def counts() -> dict[str, int]:

@@ -1036,7 +1036,7 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("causal,window", BWD_MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 def test_flash_attention_bwd_kernel(card, shape, causal, window, dtype, d):
     rng = np.random.default_rng(41)
     q, k, v, o, do, lse = _bwd_case(rng, shape, d, dtype, causal, window,
@@ -1074,7 +1074,7 @@ def test_flash_attention_lse_leaves_output_bits(card, dtype, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_flash_attention_rows_without_keys(card, dtype, d):
     """Sq > Sk + window (ROADMAP H10): K1 gives the rows that attend no
     key 0 and a log-sum-exp of +inf (a 64-row tile where every row has
@@ -1102,14 +1102,15 @@ def test_flash_attention_rows_without_keys(card, dtype, d):
 
 
 @pytest.mark.parametrize("causal,window", BWD_MODES)
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype, d, causal,
                                                     window):
-    """Two calls give the same bits: in bf16 the wgmma kernel sums each
+    """Two calls give the same bits: in bf16 the wgmma kernels sum each
     query tile's dq in ascending key-tile order (B = 2, G = 2, 24 query
     tiles a head, every mask, every head dim: 16, 32 and 80 padded to 64
-    and 128), whatever order its blocks run in."""
+    and 128, 256 on the column-split kernel), whatever order its blocks
+    run in."""
     rng = np.random.default_rng(43)
     args = _bwd_case(rng, (2, 1500, 1500, 4, 2), d, dtype, causal, window,
                      card)
@@ -1118,15 +1119,17 @@ def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype, d, causal,
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (4096, 4096, True, 0), (300, 700, True, 0), (700, 300, False, 0),
     (1500, 1500, True, 64), (600, 200, True, 100), (333, 1000, False, 200)])
 def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
-                                                       window):
-    """After a bf16 call at D = 128, each (b, head, query tile) counter of
-    the wgmma kernel holds the number of key tiles that added into that
-    tile's dq, which must be the number of 128-key tiles holding a pair
-    the mask keeps with one of the tile's queries (the kernel's
+                                                       window, d):
+    """After a bf16 call at D = 128 or 256, each (b, head, query tile)
+    counter of the wgmma kernel holds the number of key tiles that added
+    into that tile's dq, which must be the number of key tiles (128 keys,
+    or 64 at D = 256: ``bwd_tiles``) holding a pair the mask keeps with
+    one of the tile's queries (the kernel's
     key_tile_queries; tests/test_torch_kernels.py holds its copy to the
     same walk), and the work counter every work tile plus one last take
     per block.  The call ends only if first_key_tile is right: a key tile
@@ -1135,7 +1138,7 @@ def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(47)
-    b, h, kv, d = 2, 4, 2, 128
+    b, h, kv = 2, 4, 2
     q, k, v, o, do, lse = _bwd_case(rng, (b, sq, sk, h, kv), d,
                                     torch.bfloat16, causal, window, card)
     delta, acc, counters = fa.bwd_scratch(b, h, sq, d, q.dtype, q.device)
@@ -1148,7 +1151,7 @@ def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
-    bq, bk = fa.BWD_QUERY_TILE, fa.BWD_KEY_TILE
+    bk, bq = fa.bwd_tiles(d)
     n_qt, n_kt = -(-sq // bq), -(-sk // bk)
     qi, ki = np.arange(sq)[:, None], np.arange(sk)[None, :]
     mask = np.ones((sq, sk), bool)
@@ -1189,10 +1192,11 @@ def test_flash_attention_autograd_on_card(card, dtype):
 
 
 def test_flash_attention_bwd_refuses_unported_head_dims(card):
-    """gemma3's head dim 256 and deepseek's (192, 128) have no backward
-    kernel yet: under grad the forward raises and names its ROADMAP item,
-    and so does a direct backward call; without grad K1 serves them."""
-    for d, dv, item in ((256, 256, "14b"), (192, 128, "14c")):
+    """deepseek's (192, 128) has no backward kernel yet: under grad the
+    forward raises and names its ROADMAP item, and so does a direct
+    backward call; without grad K1 serves it.  (gemma3's 256 has its
+    kernel: test_flash_attention_bwd_gemma3_training_shape.)"""
+    for d, dv, item in ((192, 128, "14c"),):
         q = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
         k = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
         v = torch.randn(1, 64, 2, dv, device=card, dtype=torch.bfloat16)
@@ -1415,3 +1419,69 @@ def test_flash_attention_bwd_kernel_granite_groups(card, dtype):
     want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=True)
     assert max(_rel_err(a, b) for a, b in zip(got, want)) < BWD_TOL[dtype]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("window", [1024, 0])
+def test_flash_attention_bwd_gemma3_training_shape(card, window):
+    """K1's backward at gemma3-4b's training shape in bf16 (q [2, 4096, 8,
+    256], k, v [2, 4096, 4, 256], causal; the column-split kernel): a local
+    layer (window 1024) and a global one, against the plain version and
+    repeated bit for bit."""
+    rng = np.random.default_rng(56)
+    args = _bwd_case(rng, (2, 4096, 4096, 8, 4), 256, torch.bfloat16, True,
+                     window, card)
+    got = ops.flash_attention_bwd(*args, causal=True, window=window)
+    again = ops.flash_attention_bwd(*args, causal=True, window=window)
+    want = ref.flash_attention_bwd_ref(*args, causal=True, window=window)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert max(errs) < BWD_TOL[torch.bfloat16], errs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _gemma3_smoke_grads(card, remat=False, dtype="bfloat16"):
+    """SMOKE gemma3 at head dim 256 with a window of 64 over 256 tokens (5
+    local layers, 2 global): one microbatch's loss and gradients on the
+    card from seeded float32 masters, as ``make_train_step`` takes them."""
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.launch import steps
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    cfg = dataclasses.replace(SMOKE["gemma3-4b"], head_dim=256,
+                              sliding_window=64, remat=remat, dtype=dtype)
+    _, model = steps.make_train_step(cfg, dp_size=1, global_batch=2,
+                                     device=card)
+    params = tree_map(lambda p: p.float(), model.init(
+        torch.Generator(device=card).manual_seed(0)))
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, 256, 2)).batch_at(
+        0, device=card)
+    dt = getattr(torch, dtype)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    cast = tree_map(lambda p: p.to(dt) if p.dim() > 1 else p,
+                    tree_unflatten(params, leaves))
+    loss = model.train_loss(cast, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_gemma3_smoke_gradients_at_head_dim_256(card, monkeypatch):
+    """SMOKE gemma3 at head dim 256 under its window: in float32 the
+    kernels' loss and gradients against autograd through K1's plain
+    version (1e-5 relative on the loss, 1e-3 of each leaf's largest
+    magnitude, chip_smoke's float32 training bars), one K1 backward a
+    layer; in bf16 two calls give the same bits, and remat gives the bits
+    of no remat."""
+    before = ops.counts()
+    loss, grads = _gemma3_smoke_grads(card, dtype="float32")
+    assert ops.counts()["flash_attention_bwd"] - \
+        before["flash_attention_bwd"] == 7
+    with monkeypatch.context() as m:
+        m.setattr(ops, "flash_attention", ref.flash_attention_ref)
+        ploss, pgrads = _gemma3_smoke_grads(card, dtype="float32")
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    assert max(_rel_err(a, b) for a, b in zip(grads, pgrads)) < 1e-3
+    a = _gemma3_smoke_grads(card)
+    b = _gemma3_smoke_grads(card)
+    c = _gemma3_smoke_grads(card, remat=True)
+    for x in (b, c):
+        assert torch.equal(a[0], x[0])
+        assert all(torch.equal(g, h) for g, h in zip(a[1], x[1]))

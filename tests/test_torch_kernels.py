@@ -74,9 +74,11 @@ def test_flash_attention_plain_vs_jax(b, sq, sk, h, kv, d, dtype, causal,
 
 
 # K1's backward: (B, Sq, Sk, H, KV, D) over causal, windowed and
-# bidirectional masks; Sq != Sk both ways, G in {1, 2, 4}, ragged tiles
+# bidirectional masks; Sq != Sk both ways, G in {1, 2, 4}, ragged tiles;
+# gemma3's head dim 256 at G = 2 (the window of 24 binds in both)
 BWD_CASES = [(1, 64, 64, 4, 2, 32), (2, 100, 100, 4, 1, 16),
-             (1, 70, 130, 2, 2, 16), (1, 130, 70, 4, 4, 32)]
+             (1, 70, 130, 2, 2, 16), (1, 130, 70, 4, 4, 32),
+             (1, 70, 70, 2, 1, 256), (1, 130, 100, 4, 2, 256)]
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d", BWD_CASES)
@@ -288,41 +290,41 @@ def test_wrappers_reject_bad_arguments(bad):
 # against a walk over the mask here; the card test
 # test_flash_attention_bwd_counters_follow_tile_plan reads the kernel's
 # own counts.
-def bwd_key_tile_queries(kt, sq, sk, causal, window):
-    """The query tiles that key tile ``kt`` visits: those holding a query
-    that sees a key of the tile.  Both ends never decrease as ``kt``
-    grows."""
-    from repro_torch.kernels.flash_attention import (BWD_KEY_TILE,
-                                                     BWD_QUERY_TILE)
-    k0 = kt * BWD_KEY_TILE
-    k_last = min(k0 + BWD_KEY_TILE, sk) - 1
+def bwd_key_tile_queries(kt, sq, sk, causal, window, d=128):
+    """The query tiles that key tile ``kt`` visits (the key tile of head
+    dim ``d``): those holding a query that sees a key of the tile.  Both
+    ends never decrease as ``kt`` grows."""
+    from repro_torch.kernels.flash_attention import bwd_tiles
+    bk, bq = bwd_tiles(d)
+    k0 = kt * bk
+    k_last = min(k0 + bk, sk) - 1
     q_begin = k0 if causal else 0
     q_end = min(sq, k_last + window) if window > 0 else sq
-    lo = q_begin // BWD_QUERY_TILE
-    hi = -(-q_end // BWD_QUERY_TILE) if q_end > q_begin else lo
+    lo = q_begin // bq
+    hi = -(-q_end // bq) if q_end > q_begin else lo
     return range(lo, hi)
 
 
-def bwd_work_tiles(b, kv, sk):
+def bwd_work_tiles(b, kv, sk, d=128):
     """The work tiles (key tile, batch, KV head) in the order the blocks
     take them from the work counter: key tile major."""
-    from repro_torch.kernels.flash_attention import BWD_KEY_TILE
+    from repro_torch.kernels.flash_attention import bwd_tiles
     n = b * kv
     return [(item // n, item % n // kv, item % kv)
-            for item in range(-(-sk // BWD_KEY_TILE) * n)]
+            for item in range(-(-sk // bwd_tiles(d)[0]) * n)]
 
 
-def bwd_first_key_tile(qt, sq, sk, causal, window):
+def bwd_first_key_tile(qt, sq, sk, causal, window, d=128):
     """The first key tile that visits query tile ``qt``: a key tile ``kt``
     that visits it has ``kt - bwd_first_key_tile(qt)`` predecessors in its
     dq sum.  Without a window every key tile's range reaches the last
     query tile; with one, the first key tile whose last key is within the
     window of the tile's first query."""
-    from repro_torch.kernels.flash_attention import (BWD_KEY_TILE,
-                                                     BWD_QUERY_TILE)
+    from repro_torch.kernels.flash_attention import bwd_tiles
+    bk, bq = bwd_tiles(d)
     if window <= 0:
         return 0
-    return max(0, qt * BWD_QUERY_TILE - window + 1) // BWD_KEY_TILE
+    return max(0, qt * bq - window + 1) // bk
 
 
 def _bwd_plan_case(seed):
@@ -335,14 +337,16 @@ def _bwd_plan_case(seed):
     return sq, sk, causal, window
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("seed", range(8))
-def test_flash_attention_bwd_tile_plan_matches_mask(seed):
+def test_flash_attention_bwd_tile_plan_matches_mask(seed, d):
     """The wgmma backward's tile plan against a brute-force walk over the
-    mask: key tile kt visits exactly the query tiles that hold a pair the
-    mask keeps with one of its keys, the key tiles that visit a query tile
-    are a run that starts at bwd_first_key_tile, and every predecessor in
-    a query tile's dq sum is taken from the work counter (key tile major)
-    before its successor."""
+    mask, for the 128-key tiles of D <= 128 and the 64-key tiles of
+    D = 256: key tile kt visits exactly the query tiles that hold a pair
+    the mask keeps with one of its keys, the key tiles that visit a query
+    tile are a run that starts at bwd_first_key_tile, and every
+    predecessor in a query tile's dq sum is taken from the work counter
+    (key tile major) before its successor."""
     from repro_torch.kernels import flash_attention as fa
     for sq, sk, causal, window in [_bwd_plan_case(seed),
                                    _bwd_plan_case(100 + seed)]:
@@ -353,20 +357,20 @@ def test_flash_attention_bwd_tile_plan_matches_mask(seed):
             mask &= qi >= ki
         if window:
             mask &= qi - ki < window
-        bq, bk = fa.BWD_QUERY_TILE, fa.BWD_KEY_TILE
+        bk, bq = fa.bwd_tiles(d)
         n_qt, n_kt = -(-sq // bq), -(-sk // bk)
         visits = {}
         for kt in range(n_kt):
             want = [qt for qt in range(n_qt)
                     if mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk].any()]
-            got = list(bwd_key_tile_queries(kt, sq, sk, causal, window))
+            got = list(bwd_key_tile_queries(kt, sq, sk, causal, window, d))
             assert got == want, (sq, sk, causal, window, kt)
             for qt in got:
                 visits.setdefault(qt, []).append(kt)
-        taken = {t: i for i, t in enumerate(bwd_work_tiles(2, 3, sk))}
+        taken = {t: i for i, t in enumerate(bwd_work_tiles(2, 3, sk, d))}
         assert len(taken) == n_kt * 6
         for qt, kts in visits.items():
-            first = bwd_first_key_tile(qt, sq, sk, causal, window)
+            first = bwd_first_key_tile(qt, sq, sk, causal, window, d)
             assert kts == list(range(first, first + len(kts)))
             for b in range(2):
                 for hk in range(3):
@@ -380,24 +384,26 @@ def test_flash_attention_bwd_tile_plan_matches_mask(seed):
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
                                      (torch.bfloat16, 64),
                                      (torch.bfloat16, 80),
+                                     (torch.bfloat16, 256),
                                      (torch.float32, 128)])
 def test_flash_attention_bwd_scratch_layout(dtype, d):
-    """The wrapper's scratch for the backward kernel: the wgmma kernel
-    (bf16) takes delta and lse log2 e over Sq rounded up to the query tile,
+    """The wrapper's scratch for the backward kernel: the wgmma kernels
+    (bf16) take delta and lse log2 e over Sq rounded up to the query tile,
     a float32 dq accumulator of whole query tiles and of the head dim
-    rounded up to 64 (128 at D = 80) and one counter per (batch, head,
-    query tile) plus the work counter; float32 takes delta [B, H, Sq]
-    alone."""
+    rounded up to 64 (128 at D = 80, 256 at gemma3's 256) and one counter
+    per (batch, head, query tile) plus the work counter; float32 takes
+    delta [B, H, Sq] alone."""
     from repro_torch.kernels import flash_attention as fa
     b, h, sq = 2, 4, 130
     delta, acc, cnt = fa.bwd_scratch(b, h, sq, d, dtype, "cpu")
     assert delta.dtype == torch.float32
     if dtype == torch.bfloat16:
-        n_qt = -(-sq // fa.BWD_QUERY_TILE)
-        pad = n_qt * fa.BWD_QUERY_TILE
-        assert pad >= sq > pad - fa.BWD_QUERY_TILE
+        bq = fa.bwd_tiles(d)[1]
+        n_qt = -(-sq // bq)
+        pad = n_qt * bq
+        assert pad >= sq > pad - bq
         assert delta.shape == (2, b, h, pad)
-        d_pad = {64: 64, 80: 128, 128: 128}[d]
+        d_pad = {64: 64, 80: 128, 128: 128, 256: 256}[d]
         assert acc.shape == (b, h, pad, d_pad) and acc.dtype == torch.float32
         assert cnt.shape == (b * h * n_qt + 1,) and cnt.dtype == torch.int32
     else:
@@ -414,6 +420,7 @@ def test_launch_counts_reset():
     ops.mamba2_scan.launches = 4
     ops.rwkv6_scan.launches = 2
     ops.moe_gemm.decode_tile_launches = 1
+    ops.flash_attention_bwd.window_launches = 2
     assert ops.launch_counts() == {"flash_attention": 5,
                                    "flash_attention_bwd": 6,
                                    "decode_attention": 7, "moe_gemm": 3,
@@ -426,6 +433,7 @@ def test_launch_counts_reset():
                                    "moe_gemm_dx": 0, "moe_gemm_dw": 0,
                                    "mamba2_scan": 0, "rwkv6_scan": 0}
     assert ops.moe_gemm.decode_tile_launches == 0
+    assert ops.flash_attention_bwd.window_launches == 0
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
@@ -500,19 +508,22 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     if name == "flash_attention_bwd":
         # one `if (D == .) return launch_bwd_...<.>(a);` per dim in each
         # dispatch: float32 (FMA at D) and bf16 (wgmma at D rounded up to
-        # 64, the columns past D zero)
+        # 64, the columns past D zero; the column-split kernel at 256)
         got = re.findall(r"if \(D == (\d+)\) return (launch_bwd_\w+)<(\d+)>"
                          r"\(a\);", src)
         fma = [int(d) for d, fn, d2 in got if fn == "launch_bwd_fma"
                and d == d2]
-        bf16 = {int(d): int(d2) for d, fn, d2 in got
-                if fn == "launch_bwd_wgmma"}
+        bf16 = {int(d): (fn, int(d2)) for d, fn, d2 in got
+                if fn in ("launch_bwd_wgmma", "launch_bwd_colsplit")}
         assert sorted(fma) == sorted(set(fma)) == \
             sorted(_build.FLASH_BWD_HEAD_DIMS)
         assert sorted(bf16) == sorted(_build.FLASH_BWD_HEAD_DIMS)
         assert len(fma) + len(bf16) == len(got)
-        assert all(dp == -(-d // 64) * 64 for d, dp in bf16.items())
-        assert {bf16[64], bf16[128]} == {64, 128}
+        assert all(dp == -(-d // 64) * 64 for d, (_, dp) in bf16.items())
+        assert {bf16[64][1], bf16[128][1]} == {64, 128}
+        assert bf16[256] == ("launch_bwd_colsplit", 256)
+        assert all(fn == "launch_bwd_wgmma" for d, (fn, _) in bf16.items()
+                   if d <= 128)
         return
     if name == "mamba2_scan":
         got = {(int(p), int(n)) for p, n in

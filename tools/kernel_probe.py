@@ -63,8 +63,11 @@ point from its source: the one of the first backward (one scratch, delta
 one step of the bf16 wgmma kernel cut out (``FLASH_BWD_CUTS``: the counter
 waits that order each query tile's dq sums; the dq sums themselves; the
 mask test; the exponentials; the stores of ds; the dk / dv products; the
-dq products; the dq hand-off) and times each at the training shape in turns with the full
-kernel, as ``mamba2-phases`` does.  A variant computes wrong numbers; only
+dq products; the dq hand-off) and times each at qwen3's training shape in
+turns with the full kernel, as ``mamba2-phases`` does; then the same for
+the column-split kernel of D = 256 (``FLASH_BWD_COLS_CUTS``, the score
+products among them) at gemma3-4b's global training shape (``q [2, 4096,
+8, 256]``, ``k, v [2, 4096, 4, 256]``, causal).  A variant computes wrong numbers; only
 its time is read.
 
 ``moe-dw-phases`` does the same for K3's weight gradient
@@ -175,6 +178,35 @@ FLASH_BWD_CUTS = {
                  "          ;")],
 }
 
+# step of the column-split kernel of D = 256 -> [(text in
+# flash_attention_bwd.cu, its replacement), ...]: the same steps, with the
+# shared p^T / ds^T stores and the score products (s^T, dp^T) beside them
+FLASH_BWD_COLS_CUTS = {
+    "admission": FLASH_BWD_CUTS["admission"],
+    "dq_sum": [("        sums.state[0] = DqSums::PENDING;",
+                "        sums.state[0] = DqSums::FREE;")],
+    "mask": [("      const bool masked =\n",
+              "      const bool masked = false &&\n")],
+    "exp2": [("keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f",
+              "keep ? s[i] : 0.f")],
+    "pds_store": [("          *reinterpret_cast<uint32_t*>(p_s + at) =",
+                   "          if (false) *reinterpret_cast<uint32_t*>(p_s + at) ="),
+                  ("          *reinterpret_cast<uint32_t*>(ds_s + at) =",
+                   "          if (false) *reinterpret_cast<uint32_t*>(ds_s + at) =")],
+    "score_mma": [("        wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko),",
+                   "        if (false) wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko),"),
+                  ("        wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko),",
+                   "        if (false) wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko),")],
+    "dkdv_mma": [("        wgmma_m64n128k16<0, 1>(dv, desc_plus(pd, t * 32),",
+                  "        if (false) wgmma_m64n128k16<0, 1>(dv, desc_plus(pd, t * 32),"),
+                 ("        wgmma_m64n128k16<0, 1>(dk, desc_plus(sd, t * 32),",
+                  "        if (false) wgmma_m64n128k16<0, 1>(dk, desc_plus(sd, t * 32),")],
+    "dq_mma": [("          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),",
+                "          if (false) wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),")],
+    "handoff": [("          blk[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);",
+                 "          ;")],
+}
+
 
 # step of K3's weight-gradient kernel -> [(text in moe_gemm_bwd.cu, its
 # replacement), ...]
@@ -261,9 +293,11 @@ def build_variant(kernel: str, name: str, source: str, out: Path,
     return dll
 
 
-def build_variants(kernel: str, cuts_by_name: dict, entry: str = "") -> dict:
+def build_variants(kernel: str, cuts_by_name: dict, entry: str = "",
+                   tag: str = "") -> dict:
     """The full source and one variant per entry of ``cuts_by_name``,
-    each built in parallel; exits naming a cut that is not found once."""
+    each built in parallel (its files named with ``tag``); exits naming a
+    cut that is not found once."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
     src = (_build.CSRC / f"{kernel}.cu").read_text()
@@ -280,7 +314,7 @@ def build_variants(kernel: str, cuts_by_name: dict, entry: str = "") -> dict:
         sources[name] = variant
     with ThreadPoolExecutor(len(sources)) as pool:
         return dict(zip(sources, pool.map(
-            lambda kv: build_variant(kernel, kv[0], kv[1], out, entry),
+            lambda kv: build_variant(kernel, tag + kv[0], kv[1], out, entry),
             sources.items())))
 
 
@@ -496,7 +530,8 @@ def bwd_call(fn, new_entry: bool, q, k, v, o, do, lse, outs=None):
 
 
 BWD_SHAPES = {"qwen3_train": (2, 4096, 16, 8, 128),
-              "qwen3_served": (8, 512, 16, 8, 128)}
+              "qwen3_served": (8, 512, 16, 8, 128),
+              "gemma3_train": (2, 4096, 8, 4, 256)}
 
 
 def flash_bwd(against: Path) -> None:
@@ -538,21 +573,26 @@ def flash_bwd(against: Path) -> None:
 
 
 def flash_bwd_phases() -> None:
-    libs = build_variants("flash_attention_bwd", FLASH_BWD_CUTS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    args = bwd_inputs(*BWD_SHAPES["qwen3_train"], gen)
-    outs = [torch.empty_like(x) for x in args[:3]]
+    for shape, cuts, tag in (("qwen3_train", FLASH_BWD_CUTS, ""),
+                             ("gemma3_train", FLASH_BWD_COLS_CUTS, "cols_")):
+        libs = build_variants("flash_attention_bwd", cuts, tag=tag)
+        args = bwd_inputs(*BWD_SHAPES[shape], gen)
+        outs = [torch.empty_like(x) for x in args[:3]]
 
-    def call(lib):
-        return bwd_call(lib.fate_flash_attention_bwd, True, *args, outs=outs)
-    times = in_turns(call, libs)
-    full = sum(times["full"]) / 2
-    print(json.dumps({"probe": "flash-bwd-phases",
-                      "shape": list(BWD_SHAPES["qwen3_train"]),
-                      "ms": times, "full_ms": full,
-                      "saved_ms": {k: full - sum(t) / 2
-                                   for k, t in times.items()
-                                   if k != "full"}}), flush=True)
+        def call(lib):
+            return bwd_call(lib.fate_flash_attention_bwd, True, *args,
+                            outs=outs)
+        times = in_turns(call, libs)
+        full = sum(times["full"]) / 2
+        print(json.dumps({"probe": "flash-bwd-phases", "shape_name": shape,
+                          "shape": list(BWD_SHAPES[shape]),
+                          "ms": times, "full_ms": full,
+                          "saved_ms": {k: full - sum(t) / 2
+                                       for k, t in times.items()
+                                       if k != "full"}}), flush=True)
+        del args, outs, libs
+        torch.cuda.empty_cache()
 
 
 def moe_dw_phases() -> None:
