@@ -172,6 +172,22 @@ ends the run with a non-zero exit code and no result line:
    width with its first 6 layers (5 local, 1 global), bf16 at 18; a
    second kernel run bitwise; the Trainer drill at SMOKE gemma3 with head
    dim 256 and a window of 128 over its 512 tokens.
+21. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
+   latent attention: query rank 1536, latent rank 512, query / key head
+   dim 128 + 64, value head dim 128; vocab 102400, untied; dense d_ff
+   12288) at full width, its depth cut from 60 to its dense first layer
+   (``reduced`` says so, with the measured peak and what two layers would
+   need), after gemma3's are freed, trained as ``train``: per step K1 8
+   and its backward 4 (the kv-split kernel at (D, Dv) = (192, 128)),
+   nothing else; model FLOPs count attention at 6 (D + Dv) a head and
+   pair.
+22. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
+   layer, float32 and bf16, on sequences of 2048 tokens (the plain
+   attention's float32 score tensors over 128 heads would not fit at
+   4096); a second kernel run bitwise; the Trainer drill at SMOKE deepseek
+   with the published latent attention's head dims (its dense layer and
+   two MoE layers: K1's backward at (192, 128) beside K3 and its
+   gradients).
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -196,8 +212,12 @@ wgmma kernel sums dq in a fixed order), with granite's training shape
 (q [2, 4096, 24, 64], k, v [2, 4096, 8, 64]) beside them, and gemma3's
 (q [2, 4096, 8, 256], k, v [2, 4096, 4, 256], causal), a local layer
 (window 1024, beside SDPA's backward with the sliding mask) and a global
-one, timed in bf16, called twice for the same bits, and held in float32.
-And K3's
+one, timed in bf16, called twice for the same bits, and held in float32;
+and deepseek-v2's (q, k [2, 4096, 128, 192], v [2, 4096, 128, 128],
+causal), timed in bf16 beside SDPA's backward, called twice for the same
+bits and held to the plain version 16 heads at a time (G = 1, so each
+head's gradients depend on its own head alone), and in float32 on 16 of
+its heads.  And K3's
 gradients against their plain versions (1e-5 / 3e-2 relative): dX (K3's
 kernel reading w K-major) and dW (``csrc/moe_gemm_bwd.cu``) over a sweep
 in both types (ragged C, D and F, C of one, the strided dispatch view,
@@ -214,7 +234,7 @@ Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
 call), a ``total`` line (with the seconds of the two whisper phases and
-of the six train phases), the nvidia-smi line, and last ``{"ok": true,
+of the eight train phases), the nvidia-smi line, and last ``{"ok": true,
 "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -260,8 +280,8 @@ WHISPER_PROMPT_LEN, WHISPER_F32_LAYERS = 224, 2
 # sums in another order; bf16 p and ds rounded as product operands (the
 # plain version keeps them float32) and rounded outputs
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# K1's backward sweep: (B, Sq, Sk, H, KV), every head dim of
-# _build.FLASH_BWD_HEAD_DIMS, the FLASH_MODES masks: a ragged tile,
+# K1's backward sweep: (B, Sq, Sk, H, KV), every (D, Dv) pair of
+# _build.FLASH_HEAD_DIMS, the FLASH_MODES masks: a ragged tile,
 # whisper's 1500 frames (23 x 64 + 28), Sq != Sk at G = 16, and B = 2 with
 # Sq > Sk, both ragged, G = 2 (every query row keeps a key under the window)
 BWD_SWEEP = [(1, 200, 200, 4, 2), (1, 1500, 1500, 2, 1), (1, 70, 200, 16, 1),
@@ -286,9 +306,14 @@ TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
 # gemma3's, stated before its first run: granite's, since K1's backward
 # at D = 256 sums its products over twice qwen3's columns and rounds p^T
 # and ds^T to bf16 in every layer, under the window on 15 of 18 layers
+# deepseek's, stated before its first run: gemma3's, since K1's backward
+# at (192, 128) rounds p^T and ds^T to bf16 over 2.5x qwen3's columns a
+# pair, with 128 heads summed into wo's gradient, and its one layer keeps
+# the MLA projections' roundings beside K1's
 TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
               "parity_train_moe": (1e-4, 1e-3, 5e-2),
-              "parity_train_gemma3": (1e-4, 1e-3, 5e-2)}
+              "parity_train_gemma3": (1e-4, 1e-3, 5e-2),
+              "parity_train_deepseek": (1e-4, 1e-3, 5e-2)}
 # train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
 # 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
 # copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
@@ -301,10 +326,25 @@ MOE_TRAIN_LAYERS = 24
 # 34 layers (3.88 B) would take about 100 GB.  Its float32 parity at
 # GEMMA_F32_LAYERS (5 local, 1 global)
 GEMMA_TRAIN_LAYERS = 18
+# train_deepseek: deepseek-v2-236b at full width, its depth cut from 60 to
+# its dense first layer (1.387 B parameters; ArchConfig.param_count's
+# 1.575 B counts the layer's FFN twice): a second layer is an MoE layer of
+# 3.97 B parameters (3.77 B in its 160 routed experts), and at about 22
+# bytes a parameter its 5.359 B would need about 118 GB.  Its parity
+# at that depth in both types, on a microbatch of DEEPSEEK_PARITY_SEQ
+# tokens a sequence: the plain attention keeps float32 [2, 128, S, S]
+# tensors (scores, masked scores, p, and dp, ds in the backward: 17.2 GB
+# each at 4096, 86 GB, more than the card), 4.3 GB each at 2048
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_PARITY_SEQ = 1, 2048
 # the Trainer drill's SMOKE config changed where the card path needs it:
 # gemma3 at its published head dim, so that the drill runs K1's backward
-# at D = 256, with a window shorter than its 512 tokens
-DRILL_OVER = {"gemma3-4b": dict(head_dim=256, sliding_window=128)}
+# at D = 256, with a window shorter than its 512 tokens; deepseek at its
+# published latent attention's head dims, (D, Dv) = (192, 128) (a dict
+# value replaces fields of that sub-config)
+DRILL_OVER = {"gemma3-4b": dict(head_dim=256, sliding_window=128),
+              "deepseek-v2-236b": dict(mla=dict(
+                  qk_nope_head_dim=128, qk_rope_head_dim=64,
+                  v_head_dim=128))}
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
@@ -336,17 +376,20 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
                     "flash_bwd_wgmma_kernel": "HGMMA",
                     "flash_bwd_colsplit_kernel": "HGMMA",
+                    "flash_bwd_kvsplit_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA"}
 # gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
-# backward at qwen3's, granite's and gemma3's head dims, and K3's gradients
+# backward at qwen3's, granite's, gemma3's and deepseek's head dims, and
+# K3's gradients
 # at granite's training shapes (dX: the 128-row tile, vector loader, w
 # K-major; dW: the vector loader): these instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_mma_kernel<192,128>", "flash_bwd_wgmma_kernel<128>",
                  "flash_bwd_wgmma_kernel<64>",
                  "flash_bwd_colsplit_kernel<256>",
+                 "flash_bwd_kvsplit_kernel<192,128>",
                  "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>")
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations, and how many instantiations one such call makes
@@ -358,6 +401,8 @@ TENSOR_CORE_LAUNCHERS = {
                                1),
     "flash_bwd_colsplit_kernel": ("flash_attention_bwd.cu",
                                   "launch_bwd_colsplit", 1),
+    "flash_bwd_kvsplit_kernel": ("flash_attention_bwd.cu",
+                                 "launch_bwd_kvsplit", 1),
     "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma", 1),
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
     "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
@@ -617,7 +662,8 @@ def tensor_core_check(build_mod) -> dict:
         fail(f"bulk reduce that does not add float32 in the SASS: "
              f"{bad_reduce[:4]}")
     no_sum = [k for k in found if k.startswith(("flash_bwd_wgmma_kernel",
-                                                "flash_bwd_colsplit_kernel"))
+                                                "flash_bwd_colsplit_kernel",
+                                                "flash_bwd_kvsplit_kernel"))
               and not found[k].get("bulk_reduce_f32")]
     if no_sum:
         fail(f"no float32 bulk reduce (the dq sums) in {no_sum}")
@@ -766,19 +812,24 @@ def sdpa_bwd(q, k, v, dout, causal, window=0):
 
 
 def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
-                   timed=False):
-    """K1's backward on q [b, sq, h, d], k, v [b, sk, kv, d], a seeded dO
-    and K1's own output and log-sum-exp, against its plain version
-    (BWD_TOL, relative to each gradient's largest magnitude); ``timed``:
-    also its times, the library's backward and the bound (five products
-    over the attended pairs; q, k, v, o, dO, lse read and dq, dk, dv
-    written once), and a second call that must give the same bits."""
+                   timed=False, dv=None, head_slice=0):
+    """K1's backward on q [b, sq, h, d], k [b, sk, kv, d], v [b, sk, kv,
+    dv] (``dv`` None: d), a seeded dO and K1's own output and log-sum-exp,
+    against its plain version (BWD_TOL, relative to each gradient's
+    largest magnitude); with ``head_slice`` (G = 1) the plain version runs
+    on that many heads at a time, each head's gradients depending on its
+    own head alone; ``timed``: also its times, the library's backward and
+    the bound (five products over the attended pairs, three over D and two
+    over Dv; q, k, v, o, dO, lse read and dq, dk, dv written once), and a
+    second call that must give the same bits.  ``rng`` may be a
+    ``torch.Generator`` on the card for operands of gigabytes."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     b, sq, sk, h, kv, d = shape
+    dv = dv or d
     q = randn(rng, (b, sq, h, d), dtype)
     k = randn(rng, (b, sk, kv, d), dtype)
-    v = randn(rng, (b, sk, kv, d), dtype)
-    do = randn(rng, (b, sq, h, d), dtype)
+    v = randn(rng, (b, sk, kv, dv), dtype)
+    do = randn(rng, (b, sq, h, dv), dtype)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                  return_lse=True)
 
@@ -786,21 +837,42 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
         return ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
 
-    def plain():
-        return ref.flash_attention_bwd_ref(q, k, v, o, do, lse,
-                                           causal=causal, window=window)
+    def plain(hs=slice(None)):
+        return ref.flash_attention_bwd_ref(
+            q[:, :, hs], k[:, :, hs], v[:, :, hs], o[:, :, hs],
+            do[:, :, hs], lse[:, hs], causal=causal, window=window)
 
     got = call()
     torch.cuda.synchronize()
-    want = plain()
-    rels = [rel_err(g, w) for g, w in zip(got, want)]
+    if head_slice:
+        assert h == kv, "head slices need G = 1"
+        errs = []
+        for h0 in range(0, h, head_slice):
+            hs = slice(h0, h0 + head_slice)
+            want = plain(hs)
+            errs.append([(max_abs_err(g[:, :, hs], w),
+                          float(w.float().abs().max()))
+                         for g, w in zip(got, want)])
+            del want
+        # each gradient relative to its largest magnitude over all heads
+        rels = [max(e[i][0] for e in errs) / max(e[i][1] for e in errs)
+                for i in range(3)]
+        abs_err = max(e[i][0] for e in errs for i in range(3))
+    else:
+        want = plain()
+        rels = [rel_err(g, w) for g, w in zip(got, want)]
+        abs_err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        del want
     finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "causal": causal, "window": window,
-           "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
+           "max_abs_err": abs_err,
            "rel_err_dq_dk_dv": rels, "tol": BWD_TOL[dtype],
            "ok": max(rels) < BWD_TOL[dtype] and finite}
-    del want
+    if dv != d:
+        rec["value_head_dim"] = dv
+    if head_slice:
+        rec["plain_checked_by_head_slices_of"] = head_slice
     if timed:
         again = call()
         rec["repeat_bitwise"] = all(torch.equal(x, y)
@@ -809,13 +881,18 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
         del again
         pairs = attended_pairs(sq, sk, causal, window)
         b_ms, by = bound(nbytes(q, k, v, o, do, lse, *got),
-                         5 * 2.0 * b * h * d * pairs, dtype)
+                         2.0 * b * h * (3 * d + 2 * dv) * pairs, dtype)
         lib = sdpa_bwd(q, k, v, do, causal, window)
+        # with head slices, the plain version on one, scaled to the heads
+        hs = slice(0, head_slice) if head_slice else slice(None)
         rec.update(
             ms=time_ms(call), device_ms=device_ms(call, "bwd_"),
-            plain_ms=time_ms(plain, iters=3, warmup=1),
+            plain_ms=time_ms(lambda: plain(hs), iters=3, warmup=1)
+            * h / (head_slice or h),
             library_ms=time_ms(lib), library_device_ms=device_ms(lib),
             library_backend=sdpa_backend(lib), bound_ms=b_ms, bound_by=by)
+        if head_slice:
+            rec["plain_ms_from"] = f"{head_slice} heads x {h // head_slice}"
     return rec
 
 
@@ -1193,13 +1270,13 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             decode_main[tag.format(kind) + f"/len{rows}"] = decode_case(
                 ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
                 timed=timed, device_length=on_device)
-    # K1's backward: a sweep over every head dim, both types, the masks and
-    # ragged lengths; qwen3-1.7b's training shape (the train phase's
+    # K1's backward: a sweep over every (D, Dv) pair, both types, the masks
+    # and ragged lengths; qwen3-1.7b's training shape (the train phase's
     # microbatch) and its served prefill, timed in bf16
     from repro_torch.kernels import _build
     bwd_sweep = [flash_bwd_case(ops, ref, rng, (b, sq, sk, h, kv, d), dtype,
-                                causal, window)
-                 for d in _build.FLASH_BWD_HEAD_DIMS
+                                causal, window, dv=dv)
+                 for d, dv in _build.FLASH_HEAD_DIMS
                  for dtype in (torch.float32, torch.bfloat16)
                  for causal, window in FLASH_MODES
                  for b, sq, sk, h, kv in BWD_SWEEP]
@@ -1233,6 +1310,20 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                      + ("" if timed else "/float32")] = flash_bwd_case(
                 ops, ref, rng, gshape, dtype, True, window, timed=timed)
             torch.cuda.empty_cache()
+    # deepseek-v2's training shape (128 heads, G = 1, (D, Dv) = (192, 128):
+    # the kv-split kernel), the train_deepseek phase's: timed in bf16
+    # beside SDPA's backward and held to the plain version 16 heads at a
+    # time (the whole plain backward would need about 70 GB), operands drawn
+    # on the card; in float32 on 16 of its heads
+    h = deepseek_cfg.num_heads
+    dshape = (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(), h, h, dqk)
+    bwd_main[f"{deepseek_cfg.name}/train"] = flash_bwd_case(
+        ops, ref, torch.Generator(device="cuda").manual_seed(seed), dshape,
+        torch.bfloat16, True, 0, timed=True, dv=ml.v_head_dim, head_slice=16)
+    torch.cuda.empty_cache()
+    bwd_main[f"{deepseek_cfg.name}/train_16_heads/float32"] = flash_bwd_case(
+        ops, ref, rng, dshape[:3] + (16, 16, dqk), torch.float32, True, 0,
+        dv=ml.v_head_dim)
     torch.cuda.empty_cache()
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
@@ -2412,17 +2503,28 @@ def layer_kinds(cfg) -> list[str]:
     return DecoderLM(cfg, device="cpu").layer_kinds()
 
 
+def attention_head_dims(cfg) -> tuple[int, int]:
+    """(D, Dv) of the model's attention: the query / key and the value
+    head dim, (128 + 64, 128) for deepseek's latent attention, the head
+    dim twice for the others."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    return cfg.resolved_head_dim, cfg.resolved_head_dim
+
+
 def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model FLOPs of one training step: 6 x active parameters x tokens for
-    the matrix products, and attention's products (QK^T and PV: 4 D flops
-    a head and attended pair forward, twice that backward) over the pairs
-    each layer's mask keeps: the causal pairs on a global layer, those
-    within the sliding window on a local one (gemma3's).  The forward that
-    remat repeats is not counted."""
+    the matrix products, and attention's products (QK^T over D and PV over
+    Dv: 2 (D + Dv) flops a head and attended pair forward, twice that
+    backward, so 6 (D + Dv)) over the pairs each layer's mask keeps: the
+    causal pairs on a global layer, those within the sliding window on a
+    local one (gemma3's).  The forward that remat repeats is not
+    counted."""
     pairs = {"G": attended_pairs(seq, seq, True, 0)}
     if cfg.sliding_window:
         pairs["L"] = attended_pairs(seq, seq, True, cfg.sliding_window)
-    attn = 12.0 * batch * cfg.num_heads * cfg.resolved_head_dim * sum(
+    attn = 6.0 * sum(attention_head_dims(cfg)) * batch * cfg.num_heads * sum(
         pairs[kind] for kind in layer_kinds(cfg))
     return 6.0 * active_params(cfg, n_params) * batch * seq + attn
 
@@ -2499,10 +2601,12 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
 
 
 def phase_train(mods, cfg, seed: int, profile: bool = False,
-                phase: str = "train", num_layers: int = 0) -> dict:
+                phase: str = "train", num_layers: int = 0,
+                depth_note: str = "") -> dict:
     """``cfg`` at full width (qwen3-1.7b; granite-moe-3b-a800m as
-    ``train_moe`` and gemma3-4b as ``train_gemma3``, their depth cut to
-    ``num_layers``) trained through the
+    ``train_moe``, gemma3-4b as ``train_gemma3`` and deepseek-v2-236b as
+    ``train_deepseek``, their depth cut to ``num_layers``, ``depth_note``
+    saying why beside the measured peak) trained through the
     port's ``make_train_step`` with the reference's ``AdamWConfig()``:
     bf16 compute over float32 masters, bf16 moments, remat,
     TRAIN_GLOBAL_BATCH sequences of train_4k's length per step in
@@ -2570,7 +2674,8 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if cfg.num_layers != full.num_layers:
         reduced["num_layers"] = (
             f"{full.num_layers} -> {cfg.num_layers} (peak "
-            f"{peak / 1e9:.2f} GB of the card's 80)")
+            f"{peak / 1e9:.2f} GB of the card's 80"
+            + (f"; {depth_note}" if depth_note else "") + ")")
     out = {
         "phase": phase, "model": cfg.name,
         "shape": {"layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -2602,6 +2707,11 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if cfg.sliding_window:
         out["shape"].update(sliding_window=cfg.sliding_window,
                             layer_kinds="".join(layer_kinds(cfg)))
+    if cfg.mla is not None:
+        out["shape"].update(head_dims_qk_v=list(attention_head_dims(cfg)),
+                            q_lora_rank=cfg.mla.q_lora_rank,
+                            kv_lora_rank=cfg.mla.kv_lora_rank,
+                            moe_layer_start=cfg.moe_layer_start)
     if profile:
         out["profile"] = profile_train_step(step_fn, params, state,
                                             data.batch_at(TRAIN_STEPS + 1))
@@ -2634,14 +2744,17 @@ def expandable_segments():
 def loss_and_grads(model, masters, batch, dtype):
     """The loss of ``batch`` and its gradients with respect to the float32
     ``masters``, every leaf of more than one dimension cast to ``dtype``
-    inside the loss, as make_train_step takes them."""
+    inside the loss, as make_train_step takes them (a leaf the loss does
+    not use, as an empty MoE stack's, gets zeros)."""
     from repro_torch.training.tree import (tree_leaves, tree_map,
                                            tree_unflatten)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(masters)]
     cast = lambda p: p.to(dtype) if p.dim() > 1 else p
     loss = model.train_loss(tree_map(cast, tree_unflatten(masters, leaves)),
                             batch)
-    return loss.detach().float(), torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach().float(), [torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(leaves, grads)]
 
 
 def trainer_drill(mods, seed: int, arch: str) -> dict:
@@ -2651,7 +2764,9 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     tokens, so that 4 key tiles add into most query tiles' dq in its fixed
     order; granite's K3 and its gradients at 640 rows an expert; gemma3 at
     DRILL_OVER's head dim 256, the column-split kernel, under a window of
-    128 on its local layers): an
+    128 on its local layers; deepseek's dense layer and two MoE layers at
+    its published latent attention's head dims, K1's backward at (192,
+    128) on the kv-split kernel beside K3 and its gradients): an
     uninterrupted run of 6 steps; a run that fails at step 3 after its
     emergency checkpoint; a restart whose restored parameters and moments
     must equal the saved ones bit for bit, and whose losses must equal the
@@ -2663,7 +2778,10 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     from repro_torch.training.trainer import TrainConfig, Trainer
     from repro_torch.training.tree import tree_paths
     steps, opt = mods["steps"], mods["opt"]
-    cfg = dataclasses.replace(SMOKE[arch], **DRILL_OVER.get(arch, {}))
+    cfg = SMOKE[arch]
+    cfg = dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in DRILL_OVER.get(arch, {}).items()})
     step_fn, model = steps.make_train_step(
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
@@ -2705,7 +2823,8 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
 
 
 def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
-                       num_layers: int = 0, f32_layers: int = 0) -> dict:
+                       num_layers: int = 0, f32_layers: int = 0,
+                       seq: int = 0, seq_reason: str = "") -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
     log-sum-exp and its backward; for an MoE model K3 and its dX and dW
     kernels) against the plain versions (``plain_versions`` of
@@ -2717,7 +2836,9 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     gradient leaf within TRAIN_F32_GRAD_REL of its largest magnitude), and
     in bf16 over float32 masters at the train phase's depth (the loss and
     the global gradient norm, relative, and each gradient leaf relative to
-    its largest magnitude, within TRAIN_BARS[phase]).  An MoE model's plain
+    its largest magnitude, within TRAIN_BARS[phase]), on sequences of
+    ``seq`` tokens (train_4k's, but where the plain attention's memory
+    binds: ``seq_reason``).  An MoE model's plain
     run is held to the kernel run's routing (``held_routing``, replayed in
     call order: the forward's, then remat's recompute in the backward);
     the flips a free plain run would make are counted, and the recompute
@@ -2734,9 +2855,11 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.tree import tree_paths
     loss_bar, norm_bar, grad_bar = TRAIN_BARS[phase]
-    is_moe = cfg.moe is not None
+    # MoE layers at the depths run here (deepseek's first layer is dense)
+    is_moe = cfg.moe is not None and (num_layers or cfg.num_layers) > \
+        cfg.moe_layer_start
     names = ["flash_attention"] + (["moe_gemm"] if is_moe else [])
-    seq = train_seq_len()
+    seq = seq or train_seq_len()
     batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
                                        TRAIN_GLOBAL_BATCH, seed=seed)) \
         .batch_at(1)
@@ -2744,6 +2867,8 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     problems = []
     out = {"phase": phase, "model": cfg.name,
            "microbatch": [TRAIN_MICROBATCH, seq], "plain": names}
+    if seq_reason:
+        out["seq_len_reason"] = seq_reason
 
     def both(model, masters, dtype):
         """(kernel loss, grads), (plain loss, grads), launches, routing."""
@@ -2758,7 +2883,7 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
             plain = loss_and_grads(model, masters, micro, dtype)
         routing = None
         if is_moe:
-            n = model.cfg.num_layers
+            n = model.cfg.num_layers - model.cfg.moe_layer_start
             routing = {"route_calls": len(log), **stats,
                        "recompute_chose_the_forwards_experts":
                            len(log) == 2 * n and all(
@@ -2775,7 +2900,8 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         norm = lambda gs: float(torch.sqrt(sum(torch.sum(g.float() ** 2)
                                                for g in gs)))
         nk, np_ = norm(gk), norm(gp)
-        leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)}
+        leaf_rel = {p: rel_err(a, b) for p, a, b in zip(paths, gk, gp)
+                    if b.numel()}
         rec = {"layers": layers, "loss_kernels": float(lk),
                "loss_plain": float(lp),
                "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
@@ -3224,11 +3350,29 @@ def main() -> None:
                            phase="parity_train_gemma3",
                            num_layers=GEMMA_TRAIN_LAYERS,
                            f32_layers=GEMMA_F32_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_deepseek = ARCHS["deepseek-v2-236b"]
+    train_deepseek_out = phase_train(
+        mods, full_deepseek, args.seed, profile=args.profile,
+        phase="train_deepseek", num_layers=DEEPSEEK_TRAIN_LAYERS,
+        depth_note="its first layer is dense; two layers, the second "
+                   "MoE, hold 5.359 B parameters, about 118 GB at 22 bytes "
+                   "a parameter")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_train(
+        mods, full_deepseek, args.seed, phase="parity_train_deepseek",
+        num_layers=DEEPSEEK_TRAIN_LAYERS, f32_layers=DEEPSEEK_TRAIN_LAYERS,
+        seq=DEEPSEEK_PARITY_SEQ,
+        seq_reason="the plain attention's float32 [2, 128, S, S] tensors "
+                   "(scores, masked scores, p, dp, ds) take 17.2 GB each at "
+                   "4096, 86 GB in all; 4.3 GB each at 2048")
     train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
                                       serve4_out, serve5_out, whisper_out,
                                       train_out, train_moe_out,
-                                      train_gemma_out]))
+                                      train_gemma_out, train_deepseek_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "whisper_phases_seconds": whisper_s,
           "train_phases_seconds": train_s})

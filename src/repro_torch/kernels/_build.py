@@ -31,13 +31,11 @@ LIB_NAME = "libfate_kernels.so"
 # conventions of the C interface, shared by the wrappers
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # (query/key head dim, value head dim) pairs that K1's dispatches in
-# csrc/flash_attention.cu instantiate: 80 for zamba2, 256 for gemma3,
-# (192, 128) for deepseek-v2's multi-head latent attention
+# csrc/flash_attention.cu and its backward's in csrc/flash_attention_bwd.cu
+# instantiate: 80 for zamba2, 256 for gemma3, (192, 128) for deepseek-v2's
+# multi-head latent attention
 FLASH_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
                    (256, 256), (192, 128))
-# head dims (D == Dv) that K1's backward (csrc/flash_attention_bwd.cu)
-# dispatches: 256 for gemma3
-FLASH_BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 # head dims of K2's dispatch switches in csrc/decode_attention.cu
 DECODE_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
@@ -176,8 +174,8 @@ ARGTYPES = {
     "fate_flash_attention": [_P] * 5 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
     + [_P],
     # q, k, v, o, dout, lse, delta, dq_accum, counters, dq, dk, dv, B, Sq,
-    # Sk, H, KV, D, causal, window, dtype, stream
-    "fate_flash_attention_bwd": [_P] * 12 + [_I32] * 9 + [_P],
+    # Sk, H, KV, D, Dv, causal, window, dtype, stream
+    "fate_flash_attention_bwd": [_P] * 12 + [_I32] * 10 + [_P],
     # ..., B, H, KV, D, S, cache_len_dev, cache_len, chunk, nsplit, ...
     "fate_decode_attention": [_P] * 8 + [_I32] * 5 + [_P] + [_I32] * 3
     + [_I64] * 10 + [_I32] + [_P],

@@ -12,8 +12,10 @@
 //   dp = dO v^T,   delta = rowsum(dO * o),   ds = p * (dp - delta)
 //   dq = ds k * D^-0.5,   dk = sum over the G heads of ds^T q * D^-0.5
 // with float32 sums, written in the input type.  Inputs and outputs are
-// contiguous [B, S, heads, D] (the wrapper copies anything else); lse is
-// float32 [B, H, Sq].
+// contiguous [B, S, heads, D] for q, k, dq, dk and [B, S, heads, Dv] for
+// v, o, dO, dv (the wrapper copies anything else); Dv == D but for
+// deepseek-v2's latent attention, (D, Dv) = (192, 128), whose dp and
+// delta sum over Dv; lse is float32 [B, H, Sq].
 //
 // What bounds it.  The function needs five products over the attended
 // (query, key) pairs (s, dp, dv, dk, dq: 2 * D flops a pair each) against
@@ -116,12 +118,40 @@
 // landing of the last tile's sum.  The ordered sums and the argument above
 // hold for 64-key tiles unchanged (a block has at most one pending tile).
 //
+// bf16 at (D, Dv) = (192, 128) (deepseek-v2's latent attention, G = 1):
+// flash_bwd_kvsplit_kernel, the same three launches, pre-pass, dq pass,
+// counters and ordered sums, and the column split's 64-key work tiles
+// shared by both warpgroups.  dk and dv are 192 + 128 = 320 columns, five
+// 64-column swizzle lines, which do not split evenly; the split is by
+// accumulator: warpgroup 0 keeps dk (96 floats a thread: 128 columns in
+// one m64n128 accumulator and 64 in one m64n64), warpgroup 1 dv (64), so
+// dk's products run on warpgroup 0 and dv's on warpgroup 1, and the three
+// 64-column dq blocks are dealt one to warpgroup 0 and two to warpgroup
+// 1, four 64 x 64 x 64 products a tile each (180 registers, no spill).
+// Per 64-row query tile, warpgroup w computes s^T over the 192 columns
+// and dp^T over the 128 for queries 32 w .. 32 w + 31, and writes p^T and
+// ds^T to shared memory in bf16, as at D = 256.  Shared memory (KvTile,
+// 190,496 bytes) holds K and V (24 + 16 KB), TWO stages of q and dO (24 +
+// 16 KB each; the next tile's copies land during a whole tile), p^T and
+// ds^T (8 KB each) and ONE 48 KB dq hand-off, freed as at D = 256; one
+// stage with two hand-offs (198,168 bytes) timed 1.5 % slower in an
+// earlier form of this kernel (tools/kernel_probe.py flash-bwd-phases on
+// an H100), and two of each do not fit.  The work tiles are taken key
+// tile major within groups of KS_HEAD_GROUP = 8 (b, KV head) pairs: at
+// 128 heads key tile major over all of them leaves each query tile's q,
+// dO and 48 KB of float32 dq out of L2 between two visits (805 MB of dq
+// accumulators at 2 x 4096 tokens), and one head at a time makes its key
+// tiles wait on each other's admissions (on an H100, 31.3 and 27.8 ms a
+// call against 16.9 in groups of 8).  The ordered sums and the argument
+// above hold: within a (b, KV head) pair the key tiles are still taken in
+// ascending order, and a block has at most one pending tile.
+//
 // float32 at every head dim: FMA on a 16 x 16 thread grid, three launches
 // (delta pre-pass; one block per (b, KV head, 32 keys) streams query
 // tiles, sums dk and dv; one block per (b, head, 32 queries) streams key
 // tiles, sums dq; s and dp computed in both), no atomics, 32 resident and
-// 32 streamed rows per tile, p and ds through shared memory; for the
-// tests' tight bar.
+// 32 streamed rows per tile, p and ds through shared memory, s over D and
+// dp over Dv; for the tests' tight bar.
 #include <cuda.h>   // CUtensorMap (types only: the encoder is fetched at run time)
 
 #include "common.cuh"
@@ -137,16 +167,16 @@ using bf16 = __nv_bfloat16;
 
 __global__ void __launch_bounds__(256)
 bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                 float* __restrict__ delta, int Sq, int H, int D,
+                 float* __restrict__ delta, int Sq, int H, int Dv,
                  int64_t rows) {
   // row = (b * Sq + i) * H + h, the order of o's rows
   const int64_t row = (int64_t)blockIdx.x * 8 + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;       // the same for every lane of the warp
-  const float* orow = o + row * D;
-  const float* drow = dout + row * D;
+  const float* orow = o + row * Dv;
+  const float* drow = dout + row * Dv;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc += orow[c] * drow[c];
+  for (int c = lane; c < Dv; c += 32) acc += orow[c] * drow[c];
   acc = warp_sum(acc);
   if (lane == 0) {
     const int h = (int)(row % H);
@@ -174,7 +204,7 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
-  int B, Sq, Sk, H, KV, D, causal, window;
+  int B, Sq, Sk, H, KV, D, Dv, causal, window;   // q, k: D; v, o: Dv
   int dtype;                // 0 float32 (FMA), 1 bfloat16 (wgmma)
   cudaStream_t stream;
 };
@@ -223,29 +253,35 @@ constexpr int FMA_BX = 32;          // resident rows, 2 per thread row
 constexpr int FMA_BY = 32;          // streamed rows, 2 per thread column
 constexpr int FMA_THREADS = 256;    // 16 x 16
 
-template <int D>
+// A1 and B1 (q, k) are D wide, A2 and B2 (dO, v) DV wide, DV <= D
+template <int D, int DV>
 struct FmaBwdTile {
-  static constexpr int RS = D + 4;          // row stride of the tiles
+  static constexpr int RS = D + 4;          // row stride of A1, B1
+  static constexpr int RSV = DV + 4;        // row stride of A2, B2
   static constexpr int PS = FMA_BY + 4;     // row stride of p and ds
-  static constexpr int SMEM =
-      ((2 * FMA_BX + 2 * FMA_BY) * RS + 2 * FMA_BX * PS + 2 * FMA_BY) * 4;
+  static constexpr int SMEM = ((FMA_BX + FMA_BY) * (RS + RSV) +
+                               2 * FMA_BX * PS + 2 * FMA_BY) * 4;
+  static_assert(DV <= D, "the value head dim is at most the query's");
 };
 
-template <int D, bool KV_SIDE>
+template <int D, int DV, bool KV_SIDE>
 __global__ void __launch_bounds__(FMA_THREADS)
 flash_bwd_fma_kernel(BwdArgs a, float scale) {
-  using Tile = FmaBwdTile<D>;
+  using Tile = FmaBwdTile<D, DV>;
   constexpr int RS = Tile::RS;
+  constexpr int RSV = Tile::RSV;
   constexpr int PS = Tile::PS;
   constexpr int D4 = D / 4;
-  constexpr int DN = D / 16;        // output columns per thread
+  constexpr int DV4 = DV / 4;
+  constexpr int DN = D / 16;        // output columns per thread: dq, dk
+  constexpr int DNV = DV / 16;      // and dv
 
   extern __shared__ __align__(16) float fsmem[];
   float* A1s = fsmem;                   // [BX][RS]
-  float* A2s = A1s + FMA_BX * RS;       // [BX][RS]
-  float* B1s = A2s + FMA_BX * RS;       // [BY][RS]
-  float* B2s = B1s + FMA_BY * RS;       // [BY][RS]
-  float* Ps = B2s + FMA_BY * RS;        // [BX][PS]
+  float* A2s = A1s + FMA_BX * RS;       // [BX][RSV]
+  float* B1s = A2s + FMA_BX * RSV;      // [BY][RS]
+  float* B2s = B1s + FMA_BY * RS;       // [BY][RSV]
+  float* Ps = B2s + FMA_BY * RSV;       // [BX][PS]
   float* DSs = Ps + FMA_BX * PS;        // [BX][PS]
   float* lse_s = DSs + FMA_BX * PS;     // [BY]
   float* delta_s = lse_s + FMA_BY;      // [BY]
@@ -260,26 +296,33 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
   const int b = blockIdx.z;
   const int G = a.H / a.KV;
   const int64_t q_rs = (int64_t)a.H * D, k_rs = (int64_t)a.KV * D;
+  const int64_t o_rs = (int64_t)a.H * DV, v_rs = (int64_t)a.KV * DV;
   const float* q = static_cast<const float*>(a.q) + (int64_t)b * a.Sq * q_rs;
   const float* dO =
-      static_cast<const float*>(a.dout) + (int64_t)b * a.Sq * q_rs;
+      static_cast<const float*>(a.dout) + (int64_t)b * a.Sq * o_rs;
   const float* k = static_cast<const float*>(a.k) + (int64_t)b * a.Sk * k_rs;
-  const float* v = static_cast<const float*>(a.v) + (int64_t)b * a.Sk * k_rs;
+  const float* v = static_cast<const float*>(a.v) + (int64_t)b * a.Sk * v_rs;
   const float* a1 = KV_SIDE ? k + hx * D : q + hx * D;
-  const float* a2 = KV_SIDE ? v + hx * D : dO + hx * D;
-  const int64_t x_rs = KV_SIDE ? k_rs : q_rs;
-  const int64_t y_rs = KV_SIDE ? q_rs : k_rs;
+  const float* a2 = KV_SIDE ? v + hx * DV : dO + hx * DV;
+  const int64_t x_rs = KV_SIDE ? k_rs : q_rs;    // rows of A1 (and B1's
+  const int64_t y_rs = KV_SIDE ? q_rs : k_rs;    // below), then A2, B2
+  const int64_t xv_rs = KV_SIDE ? v_rs : o_rs;
+  const int64_t yv_rs = KV_SIDE ? o_rs : v_rs;
 
   for (int idx = tid; idx < FMA_BX * D4; idx += FMA_THREADS) {
     const int r = idx / D4;
     const int c = (idx % D4) * 4;
-    float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
-    if (x0 + r < plan.nx) {
-      v1 = load4<float>(a1 + (int64_t)(x0 + r) * x_rs + c);
-      v2 = load4<float>(a2 + (int64_t)(x0 + r) * x_rs + c);
-    }
+    float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (x0 + r < plan.nx) v1 = load4<float>(a1 + (int64_t)(x0 + r) * x_rs + c);
     *reinterpret_cast<float4*>(&A1s[r * RS + c]) = v1;
-    *reinterpret_cast<float4*>(&A2s[r * RS + c]) = v2;
+  }
+  for (int idx = tid; idx < FMA_BX * DV4; idx += FMA_THREADS) {
+    const int r = idx / DV4;
+    const int c = (idx % DV4) * 4;
+    float4 v2 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (x0 + r < plan.nx)
+      v2 = load4<float>(a2 + (int64_t)(x0 + r) * xv_rs + c);
+    *reinterpret_cast<float4*>(&A2s[r * RSV + c]) = v2;
   }
   float x_lse[2] = {0.f, 0.f}, x_delta[2] = {0.f, 0.f};
   if (!KV_SIDE) {
@@ -293,13 +336,15 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
       }
     }
   }
-  float acc1[2][DN], acc2[2][KV_SIDE ? DN : 1];
+  float acc1[2][DN], acc2[2][KV_SIDE ? DNV : 1];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
       acc1[i][j] = 0.f;
-      if constexpr (KV_SIDE) acc2[i][j] = 0.f;
+      if constexpr (KV_SIDE) {
+        if (j < DNV) acc2[i][j] = 0.f;
+      }
     }
 
   const int per_head = plan.tiles_per_head(FMA_BY);
@@ -308,18 +353,23 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
     const int h = KV_SIDE ? hx * G + it / per_head : hx;
     const int y0 = plan.y_begin + (it % per_head) * FMA_BY;
     const float* b1 = KV_SIDE ? q + h * D : k + (hx / G) * D;
-    const float* b2 = KV_SIDE ? dO + h * D : v + (hx / G) * D;
+    const float* b2 = KV_SIDE ? dO + h * DV : v + (hx / G) * DV;
     __syncthreads();   // the previous tile's products have read B, P, dS
     for (int idx = tid; idx < FMA_BY * D4; idx += FMA_THREADS) {
       const int r = idx / D4;
       const int c = (idx % D4) * 4;
-      float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f), v2 = v1;
-      if (y0 + r < plan.ny) {
+      float4 v1 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (y0 + r < plan.ny)
         v1 = load4<float>(b1 + (int64_t)(y0 + r) * y_rs + c);
-        v2 = load4<float>(b2 + (int64_t)(y0 + r) * y_rs + c);
-      }
       *reinterpret_cast<float4*>(&B1s[r * RS + c]) = v1;
-      *reinterpret_cast<float4*>(&B2s[r * RS + c]) = v2;
+    }
+    for (int idx = tid; idx < FMA_BY * DV4; idx += FMA_THREADS) {
+      const int r = idx / DV4;
+      const int c = (idx % DV4) * 4;
+      float4 v2 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (y0 + r < plan.ny)
+        v2 = load4<float>(b2 + (int64_t)(y0 + r) * yv_rs + c);
+      *reinterpret_cast<float4*>(&B2s[r * RSV + c]) = v2;
     }
     if (KV_SIDE) {
       const int64_t base = ((int64_t)b * a.H + h) * a.Sq;
@@ -331,7 +381,8 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
     }
     __syncthreads();
 
-    // s and dp for resident rows 2 ty + i, streamed columns tx + 16 c
+    // s (over D) and dp (over DV) for resident rows 2 ty + i, streamed
+    // columns tx + 16 c: both over the first DV columns, then s alone
     float s[2][2], dp[2][2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -341,19 +392,19 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
         dp[i][c] = 0.f;
       }
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DV; d += 4) {
       float4 x1[2], x2[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         x1[i] = *reinterpret_cast<const float4*>(&A1s[(2 * ty + i) * RS + d]);
-        x2[i] = *reinterpret_cast<const float4*>(&A2s[(2 * ty + i) * RS + d]);
+        x2[i] = *reinterpret_cast<const float4*>(&A2s[(2 * ty + i) * RSV + d]);
       }
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float4 y1 =
             *reinterpret_cast<const float4*>(&B1s[(tx + 16 * c) * RS + d]);
         const float4 y2 =
-            *reinterpret_cast<const float4*>(&B2s[(tx + 16 * c) * RS + d]);
+            *reinterpret_cast<const float4*>(&B2s[(tx + 16 * c) * RSV + d]);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           s[i][c] = fmaf(x1[i].x, y1.x, s[i][c]);
@@ -364,6 +415,25 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
           dp[i][c] = fmaf(x2[i].y, y2.y, dp[i][c]);
           dp[i][c] = fmaf(x2[i].z, y2.z, dp[i][c]);
           dp[i][c] = fmaf(x2[i].w, y2.w, dp[i][c]);
+        }
+      }
+    }
+#pragma unroll 4
+    for (int d = DV; d < D; d += 4) {
+      float4 x1[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        x1[i] = *reinterpret_cast<const float4*>(&A1s[(2 * ty + i) * RS + d]);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float4 y1 =
+            *reinterpret_cast<const float4*>(&B1s[(tx + 16 * c) * RS + d]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          s[i][c] = fmaf(x1[i].x, y1.x, s[i][c]);
+          s[i][c] = fmaf(x1[i].y, y1.y, s[i][c]);
+          s[i][c] = fmaf(x1[i].z, y1.z, s[i][c]);
+          s[i][c] = fmaf(x1[i].w, y1.w, s[i][c]);
         }
       }
     }
@@ -395,11 +465,15 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
 #pragma unroll
       for (int j = 0; j < DN; ++j) {
         const float y1 = B1s[n * RS + tx + 16 * j];
-        const float y2 = B2s[n * RS + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          acc1[i][j] = fmaf(ds[i], y1, acc1[i][j]);
-          if constexpr (KV_SIDE) acc2[i][j] = fmaf(p[i], y2, acc2[i][j]);
+        for (int i = 0; i < 2; ++i) acc1[i][j] = fmaf(ds[i], y1, acc1[i][j]);
+        if constexpr (KV_SIDE) {
+          if (j < DNV) {
+            const float y2 = B2s[n * RSV + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              acc2[i][j] = fmaf(p[i], y2, acc2[i][j]);
+          }
         }
       }
     }
@@ -408,7 +482,7 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
   float* o1 = static_cast<float*>(KV_SIDE ? a.dk : a.dq) +
               (int64_t)b * plan.nx * x_rs + hx * D;
   float* o2 = KV_SIDE ? static_cast<float*>(a.dv) +
-                            (int64_t)b * plan.nx * x_rs + hx * D
+                            (int64_t)b * plan.nx * xv_rs + hx * DV
                       : nullptr;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -416,9 +490,10 @@ flash_bwd_fma_kernel(BwdArgs a, float scale) {
     if (r >= plan.nx) continue;
 #pragma unroll
     for (int j = 0; j < DN; ++j) {
-      const int64_t off = (int64_t)r * x_rs + tx + 16 * j;
-      o1[off] = acc1[i][j] * scale;
-      if constexpr (KV_SIDE) o2[off] = acc2[i][j];
+      o1[(int64_t)r * x_rs + tx + 16 * j] = acc1[i][j] * scale;
+      if constexpr (KV_SIDE) {
+        if (j < DNV) o2[(int64_t)r * xv_rs + tx + 16 * j] = acc2[i][j];
+      }
     }
   }
 }
@@ -607,8 +682,8 @@ struct WgArgs {
   float* dq_accum;      // [B, H, n_qt][64 * DP] float32, fragment order
   int* counters;        // [B, H, n_qt] dq admissions, then the work counter
   __nv_bfloat16* dk;    // [B, Sk, KV, D]
-  __nv_bfloat16* dv;
-  int B, Sq, Sk, H, KV, D, causal, window, n_qt, n_items;
+  __nv_bfloat16* dv;    // [B, Sk, KV, Dv]
+  int B, Sq, Sk, H, KV, D, Dv, causal, window, n_qt, n_items;
   float scale, scale_log2;
 };
 
@@ -1390,13 +1465,365 @@ flash_bwd_colsplit_kernel(const __grid_constant__ CUtensorMap tq,
   if (leader) sums.advance(a, 0, sDQ, DQ_BYTES);   // the last sum lands
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at (D, Dv) = (192, 128): the kv-split wgmma kernel
+// ---------------------------------------------------------------------------
+
+// Stages of the kv-split kernel's q / dO ring (KvTile)
+constexpr int KS_STAGES = 2;
+// (b, KV head) pairs whose work tiles the kv-split kernel takes together,
+// key tile major among them (see flash_bwd_kvsplit_kernel)
+constexpr int KS_HEAD_GROUP = 8;
+
+// Shared memory of the kv-split kernel at (D, DV) (D / 64 and DV / 64
+// blocks of 64 columns a row): K and V of the tile's 64 keys (24 + 16 KB
+// at (192, 128)); KS_STAGES stages of q and dO for a 64-row query tile
+// (24 + 16 KB each); p^T and ds^T in bf16 (8 KB each); ONE float32 dq
+// hand-off of the query tile (48 KB); lse and delta per stage: 190,496
+// bytes (two hand-offs and one stage would take 198,168; two of each do
+// not fit).
+template <int D, int DV>
+struct KvTile {
+  static constexpr int NBK = D / 64, NBV = DV / 64;
+  static constexpr int KV_BLOCK = CS_BC * LINE;
+  static constexpr int Q_BLOCK = WG_BR * LINE;
+  static constexpr int K_BYTES = NBK * KV_BLOCK;
+  static constexpr int V_BYTES = NBV * KV_BLOCK;
+  static constexpr int Q_BYTES = NBK * Q_BLOCK;
+  static constexpr int DO_BYTES = NBV * Q_BLOCK;
+  static constexpr int PD_BYTES = CS_BC * LINE;   // 64 keys x 64 queries
+  static constexpr int DQ_FLOATS = WG_BR * D;
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + K_BYTES;
+  static constexpr int Q_OFF = V_OFF + V_BYTES;                  // [STAGES]
+  static constexpr int DO_OFF = Q_OFF + KS_STAGES * Q_BYTES;     // [STAGES]
+  static constexpr int P_OFF = DO_OFF + KS_STAGES * DO_BYTES;
+  static constexpr int DS_OFF = P_OFF + PD_BYTES;
+  static constexpr int DQ_OFF = DS_OFF + PD_BYTES;
+  // [STAGES][lse * log2 e, delta][64]
+  static constexpr int LD_OFF = DQ_OFF + DQ_FLOATS * 4;
+  static constexpr int BAR_OFF = LD_OFF + KS_STAGES * 2 * WG_BR * 4;
+  static constexpr int N_BAR = 1 + KS_STAGES;   // kv_full, q_full[STAGES]
+  static constexpr int SCHED_OFF = BAR_OFF + 8 * N_BAR;          // int [2]
+  static constexpr int SMEM = SCHED_OFF + 8 + 1024;   // + alignment slack
+  static constexpr uint32_t Q_TX = Q_BYTES + DO_BYTES + 2 * WG_BR * 4;
+  // warpgroup 0 keeps dk (D columns: 128 + 64), warpgroup 1 dv (DV: 128)
+  static_assert(D == 192 && DV == 128, "the kv split is the design of "
+                                       "(192, 128)");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_kvsplit_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const WgArgs a) {
+  using Tl = KvTile<D, DV>;
+  constexpr int DQ_BYTES = Tl::DQ_FLOATS * 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // the swizzle atom's size
+  uint8_t* sm = smem_raw + (base - raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + Tl::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;               // [STAGES]
+  volatile int* sched = reinterpret_cast<volatile int*>(sm + Tl::SCHED_OFF);
+
+  const int tid = threadIdx.x;
+  const bool leader = tid == 0;
+  const int cw = __shfl_sync(0xffffffffu, tid >> 7, 0);   // warpgroup
+  const int ct = tid & 127;                               // its thread
+  const int warp = __shfl_sync(0xffffffffu, ct >> 5, 0);
+  const int lane = tid & 31;
+  // as in flash_bwd_wgmma_kernel, every `if (leader)` block before a
+  // barrier or a wgmma ends in __syncwarp()
+  if (leader) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < KS_STAGES; ++i) mbar_init(&q_full[i], 1);
+    mbar_init_fence();
+  }
+  __syncwarp();
+  __syncthreads();
+  const int G = a.H / a.KV;
+  const int BKV = a.B * a.KV;
+  const int n_kt = a.n_items / BKV;
+  const int sq_pad = a.n_qt * WG_BR;
+  const uint32_t sK = base + Tl::K_OFF, sV = base + Tl::V_OFF;
+  const uint32_t sP = base + Tl::P_OFF, sDS = base + Tl::DS_OFF;
+  const uint32_t sDQ = base + Tl::DQ_OFF;
+  uint8_t* pt_s = sm + Tl::P_OFF;
+  uint8_t* dst_s = sm + Tl::DS_OFF;
+  const float* ld_s = reinterpret_cast<const float*>(sm + Tl::LD_OFF);
+  float2* dq_s = reinterpret_cast<float2*>(sm + Tl::DQ_OFF);
+  const int64_t k_rs = (int64_t)a.KV * D, v_rs = (int64_t)a.KV * DV;
+
+  // the leader's copies of streamed tile i of a work tile: head g = i / n,
+  // query tile hi - 1 - i % n (highest first), into stage `st`
+  auto load_tile = [&](int st, int i, int n, const TileRange& qr, int b,
+                       int hk) {
+    const int h = hk * G + i / n;
+    const int qt = qr.hi - 1 - i % n;
+    mbar_expect_tx(&q_full[st], Tl::Q_TX);
+    for (int c = 0; c < Tl::NBK; ++c)
+      tma_load_4d(base + Tl::Q_OFF + st * Tl::Q_BYTES + c * Tl::Q_BLOCK, &tq,
+                  &q_full[st], 64 * c, h, qt * WG_BR, b);
+    for (int c = 0; c < Tl::NBV; ++c)
+      tma_load_4d(base + Tl::DO_OFF + st * Tl::DO_BYTES + c * Tl::Q_BLOCK,
+                  &tdo, &q_full[st], 64 * c, h, qt * WG_BR, b);
+    const int64_t row = ((int64_t)b * a.H + h) * sq_pad + qt * WG_BR;
+    const uint32_t ld = base + Tl::LD_OFF + st * 2 * WG_BR * 4;
+    bulk_load(ld, a.lse2 + row, WG_BR * 4, &q_full[st]);
+    bulk_load(ld + WG_BR * 4, a.delta + row, WG_BR * 4, &q_full[st]);
+  };
+
+  // one hand-off buffer: DqSums on buffer 0 alone, as at D = 256
+  DqSums sums;
+  sums.state[0] = sums.state[1] = DqSums::FREE;
+  int tc = 0;                      // streamed tiles so far: stage, phase
+  for (int n = 0;; ++n) {
+    if (leader) {
+      const int item = atomicAdd(a.counters + (int64_t)a.B * a.H * a.n_qt, 1);
+      sched[n & 1] = item < a.n_items ? item : -1;
+    }
+    __syncwarp();
+    bar_sync(1, WG_THREADS);
+    const int item = __shfl_sync(0xffffffffu, sched[n & 1], 0);
+    if (item < 0) break;
+    // key tile major within groups of KS_HEAD_GROUP (b, KV head) pairs:
+    // the group's q, dO and float32 dq rows stay in L2 while they are
+    // read and summed (all 256 of deepseek's training shape would not
+    // fit), and a head's consecutive key tiles are taken a group apart,
+    // so that each has mostly been admitted to its dq sums before the
+    // next one's wait for it
+    const int group = item / (KS_HEAD_GROUP * n_kt);
+    const int in_group = min(KS_HEAD_GROUP, BKV - group * KS_HEAD_GROUP);
+    const int r = item - group * KS_HEAD_GROUP * n_kt;
+    const int kt = r / in_group;
+    const int bh = group * KS_HEAD_GROUP + r % in_group;
+    const int b = bh / a.KV;
+    const int hk = bh % a.KV;
+    const TileRange qr = key_tile_queries<CS_BC>(a, kt);
+    const int per_head = qr.hi - qr.lo;
+    const int n_tiles = per_head * G;
+    if (leader) {
+      mbar_expect_tx(kv_full, Tl::K_BYTES + Tl::V_BYTES);
+      for (int c = 0; c < Tl::NBK; ++c)
+        tma_load_4d(sK + c * Tl::KV_BLOCK, &tk, kv_full, 64 * c, hk,
+                    kt * CS_BC, b);
+      for (int c = 0; c < Tl::NBV; ++c)
+        tma_load_4d(sV + c * Tl::KV_BLOCK, &tv, kv_full, 64 * c, hk,
+                    kt * CS_BC, b);
+      for (int i = 0; i < KS_STAGES && i < n_tiles; ++i)
+        load_tile((tc + i) % KS_STAGES, i, per_head, qr, b, hk);
+    }
+    __syncwarp();
+    // accumulator layout of m64nNk16: thread (warp w, lane l) holds rows
+    // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1) of every
+    // 8-column group j, as d[4 j + 2 half + e].  Both warpgroups hold the
+    // tile's 64 keys: warpgroup 0 dk's columns 0 .. 127 in acc and
+    // 128 .. 191 in acc2, warpgroup 1 dv's 128 columns in acc.
+    const int k0 = kt * CS_BC;
+    const int key0 = k0 + 16 * warp + (lane >> 2);
+    const int col0 = 2 * (lane & 3);
+    float acc[64], acc2[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc2[i] = 0.f;
+    mbar_wait(kv_full, n & 1);
+    for (int it = 0; it < n_tiles; ++it, ++tc) {
+      const int h = hk * G + it / per_head;
+      const int qt = qr.hi - 1 - it % per_head;
+      const int q0 = qt * WG_BR;
+      const int stage = tc % KS_STAGES;
+      mbar_wait(&q_full[stage], (tc / KS_STAGES) & 1);
+      const uint32_t sQ = base + Tl::Q_OFF + stage * Tl::Q_BYTES;
+      const uint32_t sDO = base + Tl::DO_OFF + stage * Tl::DO_BYTES;
+      const float* lse_s = ld_s + stage * 2 * WG_BR;
+      const float* del_s = lse_s + WG_BR;
+      const bool crossed =
+          q0 + WG_BR > a.Sq || k0 + CS_BC > a.Sk ||
+          (a.causal && q0 < k0 + CS_BC - 1) ||
+          (a.window > 0 && q0 + WG_BR - 1 - k0 >= a.window);
+
+      // s^T = K q^T over the D columns and dp^T = V dO^T over the DV
+      // columns, for this warpgroup's 32 queries (32 w .. + 31 of the
+      // tile): [64 keys x 32 queries], both operands K-major, a k16 step
+      // 32 bytes along a line, the 64-column blocks apart
+      float s[16], dp[16];
+      const uint64_t kd = per_tile(sw128_desc(sK, 16, 1024));
+      const uint64_t vd = per_tile(sw128_desc(sV, 16, 1024));
+      const uint64_t qd = per_tile(sw128_desc(sQ + cw * 32 * LINE, 16, 1024));
+      const uint64_t od =
+          per_tile(sw128_desc(sDO + cw * 32 * LINE, 16, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t ko = (kk >> 2) * Tl::KV_BLOCK + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * Tl::Q_BLOCK + (kk & 3) * 32;
+        wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko), desc_plus(qd, qo), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DV / 16; ++kk) {
+        const uint32_t ko = (kk >> 2) * Tl::KV_BLOCK + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * Tl::Q_BLOCK + (kk & 3) * 32;
+        wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko), desc_plus(od, qo), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+
+      // p^T = 2^(s^T scale log2 e - lse log2 e), ds^T = p^T (dp^T - delta)
+      // (the mask test only where the tile crosses it or a tail), rounded
+      // to bf16 into the shared p^T and ds^T: line = key, the tile's 64
+      // queries along it, 16-byte chunks XORed with the line mod 8 (the
+      // last tile's dq products read ds^T before the barrier that ended it)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * cw + 8 * j + col0;    // query column
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(del_s + c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * j + r;
+          const int qp = q0 + c + (r & 1);
+          const int kp = key0 + 8 * (r >> 1);
+          const float row_lse = (r & 1) ? l2.y : l2.x;
+          const float row_delta = (r & 1) ? dl.y : dl.x;
+          const bool keep =
+              !crossed ||
+              (qp < a.Sq && kp < a.Sk && (!a.causal || qp >= kp) &&
+               (a.window <= 0 || qp - kp < a.window));
+          const float pv =
+              keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f;
+          s[i] = pv;
+          dp[i] = pv * (dp[i] - row_delta);
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int kl = 16 * warp + (lane >> 2) + 8 * half;
+          const int at = kl * LINE + ((((4 * cw + j) ^ kl) & 7) << 4) +
+                         col0 * 2;
+          *reinterpret_cast<uint32_t*>(pt_s + at) =
+              pack_bf16(s[4 * j + 2 * half], s[4 * j + 2 * half + 1]);
+          *reinterpret_cast<uint32_t*>(dst_s + at) =
+              pack_bf16(dp[4 * j + 2 * half], dp[4 * j + 2 * half + 1]);
+        }
+      }
+      fence_proxy_async();
+      bar_sync(1, WG_THREADS);
+
+      // warpgroup 0: dK += ds^T q over the D columns (128 in acc, the last
+      // 64 in acc2); warpgroup 1: dV += p^T dO over the DV columns, over
+      // the tile's 64 queries: A K-major from the shared ds^T / p^T, B
+      // MN-major, 16 query lines a step, 64-column blocks Q_BLOCK apart
+      const uint64_t ad = per_tile(sw128_desc(cw == 0 ? sDS : sP, 16, 1024));
+      const uint64_t bd =
+          per_tile(sw128_desc(cw == 0 ? sQ : sDO, Tl::Q_BLOCK, 1024));
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        wgmma_m64n128k16<0, 1>(acc, desc_plus(ad, t * 32),
+                               desc_plus(bd, t * 16 * LINE));
+      if (cw == 0) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          wgmma_ss<64, 0, 1>(acc2, desc_plus(ad, t * 32),
+                             desc_plus(bd, 2 * Tl::Q_BLOCK + t * 16 * LINE),
+                             1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      fence_acc(acc2);
+      // q, dO, lse and delta of this stage read by both warpgroups: the
+      // leader refills the stage, then frees the hand-off buffer (the last
+      // tile's sum is issued once its counter admits it, and lands)
+      bar_sync(1, WG_THREADS);
+      if (leader) {
+        if (it + KS_STAGES < n_tiles)
+          load_tile(stage, it + KS_STAGES, per_head, qr, b, hk);
+        sums.advance(a, 0, sDQ, DQ_BYTES);
+      }
+      __syncwarp();
+
+      // dq[:, 64 c ..] = ds K[:, 64 c ..] over the 64 keys, block c = 0 on
+      // warpgroup 0 and c = 1, 2 on warpgroup 1 (each then has four
+      // 64-column products a tile): A = ds (MN-major), B = K (MN-major), 16
+      // key lines a step; each block into the hand-off in the fragment
+      // order of a 64 x 64 accumulator (float2 i / 2 of thread ct at
+      // (i / 2 * 128 + ct) * 2), blocks 64 x 64 floats apart
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (cw == 0 && j == 1) break;
+        const int c = cw == 0 ? 0 : 1 + j;
+        float dq[32];
+        const uint64_t am = per_tile(sw128_desc(sDS, Tl::PD_BYTES, 1024));
+        const uint64_t km = per_tile(
+            sw128_desc(sK + c * Tl::KV_BLOCK, Tl::KV_BLOCK, 1024));
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),
+                             desc_plus(km, t * 16 * LINE), t > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dq);
+        if (j == 0) bar_sync(1, WG_THREADS);     // the hand-off is free
+        float2* hand = dq_s + c * (WG_BR * 64 / 2);
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          hand[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);
+      }
+      fence_proxy_async();
+      bar_sync(1, WG_THREADS);
+      if (leader) {
+        sums.state[0] = DqSums::PENDING;
+        sums.want[0] = kt - first_key_tile<CS_BC>(a, qt);
+        sums.tile[0] = ((int64_t)b * a.H + h) * a.n_qt + qt;
+        sums.try_issue(a, 0, sDQ, DQ_BYTES);
+      }
+      __syncwarp();
+    }
+
+    // dk (warpgroup 0) or dv (warpgroup 1) of the tile's keys below Sk
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kp = key0 + 8 * half;
+      if (kp >= a.Sk) continue;
+      if (cw == 0) {
+        __nv_bfloat16* dkp =
+            a.dk + ((int64_t)b * a.Sk + kp) * k_rs + hk * D + col0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          store2(dkp + 8 * j, acc[4 * j + 2 * half] * a.scale,
+                 acc[4 * j + 2 * half + 1] * a.scale);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          store2(dkp + 128 + 8 * j, acc2[4 * j + 2 * half] * a.scale,
+                 acc2[4 * j + 2 * half + 1] * a.scale);
+      } else {
+        __nv_bfloat16* dvp =
+            a.dv + ((int64_t)b * a.Sk + kp) * v_rs + hk * DV + col0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          store2(dvp + 8 * j, acc[4 * j + 2 * half],
+                 acc[4 * j + 2 * half + 1]);
+      }
+    }
+  }
+  if (leader) sums.advance(a, 0, sDQ, DQ_BYTES);   // the last sum lands
+}
+
 // pre-pass of the wgmma kernel, one warp per row (b * H + h) * sq_pad + i
 template <int DP>
 __global__ void __launch_bounds__(256)
 bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, float* __restrict__ lse2,
                 float* __restrict__ delta, float* __restrict__ dq_accum,
-                int* __restrict__ counters, int B, int Sq, int H, int D,
+                int* __restrict__ counters, int B, int Sq, int H, int Dv,
                 int n_qt) {
   const int sq_pad = n_qt * WG_BR;
   const int64_t row = (int64_t)blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -1407,8 +1834,8 @@ bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   float acc = 0.f;
   if (i < Sq) {
     const int h = (int)(bh % H);
-    const int64_t off = (((bh / H) * Sq + i) * H + h) * D;
-    for (int c = lane; c < D; c += 32)
+    const int64_t off = (((bh / H) * Sq + i) * H + h) * Dv;
+    for (int c = lane; c < Dv; c += 32)
       acc += __bfloat162float(o[off + c]) * __bfloat162float(dout[off + c]);
     acc = warp_sum(acc);
   }
@@ -1463,15 +1890,15 @@ int launch_delta(const BwdArgs& a) {
   const unsigned blocks = (unsigned)((rows + 7) / 8);
   bwd_delta_kernel<<<blocks, 256, 0, a.stream>>>(
       static_cast<const float*>(a.o), static_cast<const float*>(a.dout),
-      a.delta, a.Sq, a.H, a.D, rows);
+      a.delta, a.Sq, a.H, a.Dv, rows);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool KV_SIDE>
+template <int D, int DV, bool KV_SIDE>
 int launch_fma_side(const BwdArgs& a) {
-  constexpr int smem_bytes = FmaBwdTile<D>::SMEM;
+  constexpr int smem_bytes = FmaBwdTile<D, DV>::SMEM;
   static unsigned smem_set = 0;
-  auto kern = flash_bwd_fma_kernel<D, KV_SIDE>;
+  auto kern = flash_bwd_fma_kernel<D, DV, KV_SIDE>;
   cudaError_t err = allow_smem(kern, smem_bytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int nx = KV_SIDE ? a.Sk : a.Sq;
@@ -1482,11 +1909,11 @@ int launch_fma_side(const BwdArgs& a) {
 }
 
 // float32: the delta pre-pass, the dk / dv kernel, the dq kernel
-template <int D>
+template <int D, int DV>
 int launch_bwd_fma(const BwdArgs& a) {
   int rc = launch_delta(a);
-  if (rc == 0) rc = launch_fma_side<D, true>(a);
-  if (rc == 0) rc = launch_fma_side<D, false>(a);
+  if (rc == 0) rc = launch_fma_side<D, DV, true>(a);
+  if (rc == 0) rc = launch_fma_side<D, DV, false>(a);
   return rc;
 }
 
@@ -1553,9 +1980,9 @@ int launch_bwd_passes(const BwdArgs& a, Kernel kern, int smem,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
   if (!head_rows_map(&tq, a.q, a.B, a.Sq, a.H, a.D, WG_BR) ||
-      !head_rows_map(&tdo, a.dout, a.B, a.Sq, a.H, a.D, WG_BR) ||
+      !head_rows_map(&tdo, a.dout, a.B, a.Sq, a.H, a.Dv, WG_BR) ||
       !head_rows_map(&tk, a.k, a.B, a.Sk, a.KV, a.D, BC) ||
-      !head_rows_map(&tv, a.v, a.B, a.Sk, a.KV, a.D, BC))
+      !head_rows_map(&tv, a.v, a.B, a.Sk, a.KV, a.Dv, BC))
     return -1;
   const int sms = sm_count();
   if (sms < 1) return -1;
@@ -1565,14 +1992,15 @@ int launch_bwd_passes(const BwdArgs& a, Kernel kern, int smem,
   float* lse2 = a.delta + rows;
   bwd_prep_kernel<DP><<<(unsigned)((rows + 7) / 8), 256, 0, a.stream>>>(
       static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
-      a.lse, lse2, a.delta, a.dq_accum, a.counters, a.B, a.Sq, a.H, a.D,
+      a.lse, lse2, a.delta, a.dq_accum, a.counters, a.B, a.Sq, a.H, a.Dv,
       n_qt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const double scale = 1.0 / sqrt((double)a.D);
   const WgArgs w{lse2, a.delta, a.dq_accum, a.counters,
                  static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-                 a.B, a.Sq, a.Sk, a.H, a.KV, a.D, a.causal, a.window, n_qt,
+                 a.B, a.Sq, a.Sk, a.H, a.KV, a.D, a.Dv, a.causal, a.window,
+                 n_qt,
                  n_kt * a.B * a.KV, (float)scale,
                  (float)(scale * 1.4426950408889634)};
   kern<<<min(sms, w.n_items), WG_THREADS, smem, a.stream>>>(tq, tk, tv, tdo,
@@ -1603,54 +2031,70 @@ int launch_bwd_colsplit(const BwdArgs& a) {
                                       ColTile<DP>::SMEM, smem_set);
 }
 
-// head dims: kernels/_build.py :: FLASH_BWD_HEAD_DIMS lists the same; in
-// bf16 each takes the wgmma kernel at its head dim rounded up to 64, but
-// 256, which takes the column-split kernel
-int dispatch_fma(const BwdArgs& a, int D) {
-  if (D == 16) return launch_bwd_fma<16>(a);
-  if (D == 32) return launch_bwd_fma<32>(a);
-  if (D == 64) return launch_bwd_fma<64>(a);
-  if (D == 80) return launch_bwd_fma<80>(a);
-  if (D == 128) return launch_bwd_fma<128>(a);
-  if (D == 256) return launch_bwd_fma<256>(a);
+// (D, Dv) = (192, 128): work tiles of 64 keys, dk on one warpgroup and
+// dv on the other
+template <int D, int DV>
+int launch_bwd_kvsplit(const BwdArgs& a) {
+  static unsigned smem_set = 0;
+  return launch_bwd_passes<D, CS_BC>(a, flash_bwd_kvsplit_kernel<D, DV>,
+                                     KvTile<D, DV>::SMEM, smem_set);
+}
+
+// (D, Dv) pairs: kernels/_build.py :: FLASH_HEAD_DIMS lists the same; in
+// bf16 each D == Dv takes the wgmma kernel at its head dim rounded up to
+// 64, but 256, which takes the column-split kernel; (192, 128) takes the
+// kv-split kernel
+int dispatch_fma(const BwdArgs& a) {
+  const int D = a.D, Dv = a.Dv;
+  if (D == 16 && Dv == 16) return launch_bwd_fma<16, 16>(a);
+  if (D == 32 && Dv == 32) return launch_bwd_fma<32, 32>(a);
+  if (D == 64 && Dv == 64) return launch_bwd_fma<64, 64>(a);
+  if (D == 80 && Dv == 80) return launch_bwd_fma<80, 80>(a);
+  if (D == 128 && Dv == 128) return launch_bwd_fma<128, 128>(a);
+  if (D == 256 && Dv == 256) return launch_bwd_fma<256, 256>(a);
+  if (D == 192 && Dv == 128) return launch_bwd_fma<192, 128>(a);
   return -1;
 }
 
-int dispatch_bf16(const BwdArgs& a, int D) {
-  if (D == 16) return launch_bwd_wgmma<64>(a);
-  if (D == 32) return launch_bwd_wgmma<64>(a);
-  if (D == 64) return launch_bwd_wgmma<64>(a);
-  if (D == 80) return launch_bwd_wgmma<128>(a);
-  if (D == 128) return launch_bwd_wgmma<128>(a);
-  if (D == 256) return launch_bwd_colsplit<256>(a);
+int dispatch_bf16(const BwdArgs& a) {
+  const int D = a.D, Dv = a.Dv;
+  if (D == 16 && Dv == 16) return launch_bwd_wgmma<64>(a);
+  if (D == 32 && Dv == 32) return launch_bwd_wgmma<64>(a);
+  if (D == 64 && Dv == 64) return launch_bwd_wgmma<64>(a);
+  if (D == 80 && Dv == 80) return launch_bwd_wgmma<128>(a);
+  if (D == 128 && Dv == 128) return launch_bwd_wgmma<128>(a);
+  if (D == 256 && Dv == 256) return launch_bwd_colsplit<256>(a);
+  if (D == 192 && Dv == 128) return launch_bwd_kvsplit<192, 128>(a);
   return -1;
 }
 
 }  // namespace
 
-// q, o, dout, dq: [B, Sq, H, D]; k, v, dk, dv: [B, Sk, KV, D]; all
-// contiguous at 16-byte aligned bases, in float32 (dtype 0) or bfloat16
-// (dtype 1); lse: float32 [B, H, Sq] from the forward.  Scratch, float32
-// `delta` and, for the wgmma kernel (bf16), `dq_accum` and int32
-// `counters` (float32 may pass null for both): with Sq_pad = Sq rounded up
-// to 64 and DP = D rounded up to 64, delta holds [2, B, H, Sq_pad] (delta,
-// then lse * log2 e) in bf16 and [B, H, Sq] in float32; dq_accum
-// [B, H, Sq_pad, DP]; counters B * H * Sq_pad / 64 + 1.  Launches three
-// kernels on `stream`; returns cudaGetLastError() after the launches (0 on
-// success), -1 for an unsupported head dim, dtype, alignment or missing
-// scratch.  Does not synchronise, allocates nothing.
+// q, dq: [B, Sq, H, D]; o, dout: [B, Sq, H, Dv]; k, dk: [B, Sk, KV, D];
+// v, dv: [B, Sk, KV, Dv]; all contiguous at 16-byte aligned bases, in
+// float32 (dtype 0) or bfloat16 (dtype 1); lse: float32 [B, H, Sq] from
+// the forward.  Scratch, float32 `delta` and, for the wgmma kernels
+// (bf16), `dq_accum` and int32 `counters` (float32 may pass null for
+// both): with Sq_pad = Sq rounded up to 64 and DP = D rounded up to 64,
+// delta holds [2, B, H, Sq_pad] (delta, then lse * log2 e) in bf16 and
+// [B, H, Sq] in float32; dq_accum [B, H, Sq_pad, DP]; counters B * H *
+// Sq_pad / 64 + 1.  Launches three kernels on `stream`; returns
+// cudaGetLastError() after the launches (0 on success), -1 for an
+// unsupported (D, Dv) pair, dtype, alignment or missing scratch.  Does not
+// synchronise, allocates nothing.
 extern "C" int fate_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* dq_accum,
     int* counters, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-    int H, int KV, int D, int causal, int window, int dtype, void* stream) {
+    int H, int KV, int D, int Dv, int causal, int window, int dtype,
+    void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   if (H % KV != 0 || B < 1 || Sq < 1 || Sk < 1) return -1;
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
   for (const void* p : ptrs)
     if (!base16(p)) return -1;
   const BwdArgs a{q, k, v, o, dout, lse, delta, dq_accum, counters, dq, dk,
-                  dv, B, Sq, Sk, H, KV, D, causal, window, dtype,
+                  dv, B, Sq, Sk, H, KV, D, Dv, causal, window, dtype,
                   static_cast<cudaStream_t>(stream)};
-  return dtype == 1 ? dispatch_bf16(a, D) : dispatch_fma(a, D);
+  return dtype == 1 ? dispatch_bf16(a) : dispatch_fma(a);
 }

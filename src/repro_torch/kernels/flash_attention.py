@@ -36,13 +36,15 @@ of the G heads that see its keys and computes dk and dv, and each tile's
 dq is summed into a float32 accumulator in ascending key-tile order,
 admitted by a counter per query tile, so two calls give the same bits.
 Up to D = 128 a key tile is 128 keys, 64 a warpgroup; at D = 256
-(gemma3) it is 64 keys whose dk and dv columns the two warpgroups split
-(:func:`bwd_tiles`).  float32 keeps FlashAttention-2's design (a dk / dv
-kernel per key tile, a dq kernel per query tile; no atomics).  The TPU
-kernel has no backward: the JAX models differentiate its XLA twin.  On
-the CPU both directions take their plain versions; on the card there is
-no fallback.  The backward takes D in ``_build.FLASH_BWD_HEAD_DIMS`` with
-Dv == D: (192, 128) raises ``NotImplementedError`` (ROADMAP item 14c).
+(gemma3) it is 64 keys whose dk and dv columns the two warpgroups split;
+at deepseek-v2's (D, Dv) = (192, 128) it is 64 keys too, with dk's 192
+columns on one warpgroup and dv's 128 on the other, each computing s and
+dp for half the queries (:func:`bwd_tiles`).  float32 keeps
+FlashAttention-2's design (a dk / dv kernel per key tile, a dq kernel per
+query tile; no atomics) at D and Dv.  The TPU kernel has no backward: the
+JAX models differentiate its XLA twin.  On the CPU both directions take
+their plain versions; on the card there is no fallback.  The backward
+takes the (D, Dv) pairs of the forward, ``_build.FLASH_HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -53,12 +55,12 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 
 
-def bwd_tiles(d: int) -> tuple[int, int]:
-    """The bf16 backward's tiles at head dim ``d``: keys of a work tile
-    and queries of a streamed tile (csrc/flash_attention_bwd.cu :: WG_BC,
-    WG_BR up to D = 128; CS_BC, WG_BR for the column-split kernel of
-    D = 256)."""
-    return (64, 64) if d > 128 else (128, 64)
+def bwd_tiles(d: int, dv: int) -> tuple[int, int]:
+    """The bf16 backward's tiles at head dims (``d``, ``dv``): keys of a
+    work tile and queries of a streamed tile (csrc/flash_attention_bwd.cu
+    :: WG_BC, WG_BR up to D = Dv = 128; CS_BC, WG_BR for the column-split
+    kernel of D = 256 and the kv-split kernel of (192, 128))."""
+    return (64, 64) if max(d, dv) > 128 else (128, 64)
 
 
 def _scores(q, k, causal, window):
@@ -196,17 +198,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def bwd_scratch(b: int, h: int, sq: int, d: int, dtype, device):
+def bwd_scratch(b: int, h: int, sq: int, d: int, dv: int, dtype, device):
     """The backward kernel's scratch (``fate_flash_attention_bwd``'s
-    ``delta``, ``dq_accum`` and ``counters``): for the wgmma kernel (bf16),
-    with Sq and D rounded up to the query tile and to 64, float32
-    [2, B, H, Sq_pad] (delta, then lse log2 e), the float32 dq accumulator
-    [B, H, Sq_pad, D_pad] and int32 counters (one per query tile and head,
-    then the work counter); in float32 delta [B, H, Sq] alone."""
+    ``delta``, ``dq_accum`` and ``counters``) at head dims (``d``, ``dv``):
+    for the wgmma kernels (bf16), with Sq and D rounded up to the query
+    tile and to 64, float32 [2, B, H, Sq_pad] (delta, then lse log2 e),
+    the float32 dq accumulator [B, H, Sq_pad, D_pad] (dq is D wide) and
+    int32 counters (one per query tile and head, then the work counter); in
+    float32 delta [B, H, Sq] alone."""
     f32 = dict(dtype=torch.float32, device=device)
     if dtype != torch.bfloat16:
         return torch.empty((b, h, sq), **f32), None, None
-    query_tile = bwd_tiles(d)[1]
+    query_tile = bwd_tiles(d, dv)[1]
     n_qt = -(-sq // query_tile)
     sq_pad = n_qt * query_tile
     return (torch.empty((2, b, h, sq_pad), **f32),
@@ -221,28 +224,17 @@ def _dense16(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _check_bwd_dims(d: int, dv: int) -> None:
-    """Raise where the backward kernel has no instantiation for (D, Dv)."""
-    if dv != d:
-        raise NotImplementedError(
-            f"flash_attention_bwd at (D, Dv) = {(d, dv)} (deepseek-v2's "
-            f"latent attention in training) is ROADMAP item 14c")
-    if d not in _build.FLASH_BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {_build.FLASH_BWD_HEAD_DIMS}")
-
-
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
                         window: int = 0):
     """Gradients (dq, dk, dv) of :func:`flash_attention` at ``dout``, from
     the forward's inputs, output ``o`` and log-sum-exp ``lse`` (float32
-    [B, H, Sq]).  D must be one of ``_build.FLASH_BWD_HEAD_DIMS``, with
-    Dv == D.
+    [B, H, Sq]).  (D, Dv) must be one of ``_build.FLASH_HEAD_DIMS``.
 
     A CUDA tensor goes through the kernel (``csrc/flash_attention_bwd.cu``,
     built at first use) or raises; :func:`flash_attention_bwd_ref` is
     taken only for tensors that lie on the CPU.
     ``flash_attention_bwd.launches`` counts kernel calls (each launches
-    three kernels: the pre-pass, then the wgmma pass and the dq pass, or
+    three kernels: the pre-pass, then a wgmma pass and the dq pass, or
     the dk / dv kernel and the dq kernel), and ``.window_launches`` those
     of them under a sliding window.  The scratch
     (:func:`bwd_scratch`) is allocated here.
@@ -260,11 +252,14 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
                                        window=window)
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention_bwd kernel for {q.device}")
-    d, sk, kv = q.shape[3], k.shape[1], k.shape[2]
-    _check_bwd_dims(d, v.shape[3])
+    d, sk, kv, dv = q.shape[3], k.shape[1], k.shape[2], v.shape[3]
+    if (d, dv) not in _build.FLASH_HEAD_DIMS:
+        raise ValueError(f"head dims (D, Dv) = {(d, dv)} not in "
+                         f"{_build.FLASH_HEAD_DIMS}")
     q, k, v, o, dout = (_dense16(x.to(q.dtype)) for x in (q, k, v, o, dout))
     lse = _dense16(lse.float())
-    delta, dq_accum, counters = bwd_scratch(b, h, sq, d, q.dtype, q.device)
+    delta, dq_accum, counters = bwd_scratch(b, h, sq, d, dv, q.dtype,
+                                            q.device)
     dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
     lib = _build.load()
     with torch.cuda.device(q.device):
@@ -275,8 +270,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
             None if dq_accum is None else dq_accum.data_ptr(),
             None if counters is None else counters.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), b, sq, sk, h, kv,
-            d, int(bool(causal)), int(window), _build.DTYPE_CODE[q.dtype],
-            stream)
+            d, dv, int(bool(causal)), int(window),
+            _build.DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed (code {rc}) for q "
@@ -293,8 +288,6 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        if q.device.type == "cuda":     # refuse before the forward's work
-            _check_bwd_dims(q.shape[-1], v.shape[-1])
         out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                        return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

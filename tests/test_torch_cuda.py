@@ -1013,16 +1013,23 @@ BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BWD_SHAPES = [(200, 200, 4, 2), (1500, 1500, 2, 1), (70, 200, 16, 1),
               (2, 250, 190, 8, 4)]
 BWD_MODES = [(True, 0), (False, 0), (True, 64)]
+# (D, Dv) pairs of the backward's dispatch: 16, 32 and 80 padded to 64 and
+# 128, gemma3's 256 on the column-split kernel, deepseek's (192, 128) on
+# the kv-split kernel
+BWD_DIMS = [(16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (256, 256),
+            (192, 128)]
 
 
-def _bwd_case(rng, shape, d, dtype, causal, window, card):
+def _bwd_case(rng, shape, d, dtype, causal, window, card, dv=None):
     """Inputs of a backward call: q, k, v, dO and K1's own o and lse;
-    ``shape`` is (Sq, Sk, H, KV) at B = 1 or (B, Sq, Sk, H, KV)."""
+    ``shape`` is (Sq, Sk, H, KV) at B = 1 or (B, Sq, Sk, H, KV); v and dO
+    are ``dv`` (None: ``d``) wide."""
     b, sq, sk, h, kv = shape if len(shape) == 5 else (1, *shape)
+    dv = dv or d
     q = _randn(rng, (b, sq, h, d), dtype, card)
     k = _randn(rng, (b, sk, kv, d), dtype, card)
-    v = _randn(rng, (b, sk, kv, d), dtype, card)
-    do = _randn(rng, (b, sq, h, d), dtype, card)
+    v = _randn(rng, (b, sk, kv, dv), dtype, card)
+    do = _randn(rng, (b, sq, h, dv), dtype, card)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                  return_lse=True)
     return q, k, v, o, do, lse
@@ -1036,11 +1043,11 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("causal,window", BWD_MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
-def test_flash_attention_bwd_kernel(card, shape, causal, window, dtype, d):
+@pytest.mark.parametrize("dims", BWD_DIMS)
+def test_flash_attention_bwd_kernel(card, shape, causal, window, dtype, dims):
     rng = np.random.default_rng(41)
-    q, k, v, o, do, lse = _bwd_case(rng, shape, d, dtype, causal, window,
-                                    card)
+    q, k, v, o, do, lse = _bwd_case(rng, shape, dims[0], dtype, causal,
+                                    window, card, dims[1])
     before = ops.flash_attention_bwd.launches
     got = ops.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                   window=window)
@@ -1074,8 +1081,9 @@ def test_flash_attention_lse_leaves_output_bits(card, dtype, causal, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 80, 128, 256])
-def test_flash_attention_rows_without_keys(card, dtype, d):
+@pytest.mark.parametrize("dims", [(64, 64), (80, 80), (128, 128),
+                                  (256, 256), (192, 128)])
+def test_flash_attention_rows_without_keys(card, dtype, dims):
     """Sq > Sk + window (ROADMAP H10): K1 gives the rows that attend no
     key 0 and a log-sum-exp of +inf (a 64-row tile where every row has
     none, and rows beside rows that have keys), the plain version's
@@ -1083,8 +1091,8 @@ def test_flash_attention_rows_without_keys(card, dtype, d):
     the plain backward with those rows' dO set to 0, to BWD_TOL."""
     rng = np.random.default_rng(46)
     sq, sk, window = 200, 70, 64
-    q, k, v, o, do, lse = _bwd_case(rng, (sq, sk, 4, 2), d, dtype, True,
-                                    window, card)
+    q, k, v, o, do, lse = _bwd_case(rng, (sq, sk, 4, 2), dims[0], dtype,
+                                    True, window, card, dims[1])
     has = torch.arange(sq, device=card) < sk + window - 1
     assert bool((o[:, ~has] == 0).all())
     assert bool(torch.isposinf(lse[..., ~has]).all())
@@ -1102,33 +1110,34 @@ def test_flash_attention_rows_without_keys(card, dtype, d):
 
 
 @pytest.mark.parametrize("causal,window", BWD_MODES)
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dims", BWD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype, d, causal,
-                                                    window):
+def test_flash_attention_bwd_kernel_repeats_bitwise(card, dtype, dims,
+                                                    causal, window):
     """Two calls give the same bits: in bf16 the wgmma kernels sum each
     query tile's dq in ascending key-tile order (B = 2, G = 2, 24 query
-    tiles a head, every mask, every head dim: 16, 32 and 80 padded to 64
-    and 128, 256 on the column-split kernel), whatever order its blocks
-    run in."""
+    tiles a head, every mask, every pair: 16, 32 and 80 padded to 64 and
+    128, 256 on the column-split kernel, (192, 128) on the kv-split one),
+    whatever order its blocks run in."""
     rng = np.random.default_rng(43)
-    args = _bwd_case(rng, (2, 1500, 1500, 4, 2), d, dtype, causal, window,
-                     card)
+    args = _bwd_case(rng, (2, 1500, 1500, 4, 2), dims[0], dtype, causal,
+                     window, card, dims[1])
     a = ops.flash_attention_bwd(*args, causal=causal, window=window)
     b = ops.flash_attention_bwd(*args, causal=causal, window=window)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dims", [(128, 128), (256, 256), (192, 128)])
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (4096, 4096, True, 0), (300, 700, True, 0), (700, 300, False, 0),
     (1500, 1500, True, 64), (600, 200, True, 100), (333, 1000, False, 200)])
 def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
-                                                       window, d):
-    """After a bf16 call at D = 128 or 256, each (b, head, query tile)
-    counter of the wgmma kernel holds the number of key tiles that added
-    into that tile's dq, which must be the number of key tiles (128 keys,
-    or 64 at D = 256: ``bwd_tiles``) holding a pair the mask keeps with
+                                                       window, dims):
+    """After a bf16 call at (D, Dv) = (128, 128), (256, 256) or (192, 128),
+    each (b, head, query tile) counter of the wgmma kernel holds the number
+    of key tiles that added into that tile's dq, which must be the number
+    of key tiles (128 keys, or 64 at 256 and (192, 128): ``bwd_tiles``)
+    holding a pair the mask keeps with
     one of the tile's queries (the kernel's
     key_tile_queries; tests/test_torch_kernels.py holds its copy to the
     same walk), and the work counter every work tile plus one last take
@@ -1139,19 +1148,22 @@ def test_flash_attention_bwd_counters_follow_tile_plan(card, sq, sk, causal,
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(47)
     b, h, kv = 2, 4, 2
+    d, dv_dim = dims
     q, k, v, o, do, lse = _bwd_case(rng, (b, sq, sk, h, kv), d,
-                                    torch.bfloat16, causal, window, card)
-    delta, acc, counters = fa.bwd_scratch(b, h, sq, d, q.dtype, q.device)
+                                    torch.bfloat16, causal, window, card,
+                                    dv_dim)
+    delta, acc, counters = fa.bwd_scratch(b, h, sq, d, dv_dim, q.dtype,
+                                          q.device)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     rc = _build.load().fate_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), acc.data_ptr(),
         counters.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
-        sq, sk, h, kv, d, int(causal), window, 1,
+        sq, sk, h, kv, d, dv_dim, int(causal), window, 1,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
-    bk, bq = fa.bwd_tiles(d)
+    bk, bq = fa.bwd_tiles(*dims)
     n_qt, n_kt = -(-sq // bq), -(-sk // bk)
     qi, ki = np.arange(sq)[:, None], np.arange(sk)[None, :]
     mask = np.ones((sq, sk), bool)
@@ -1192,19 +1204,29 @@ def test_flash_attention_autograd_on_card(card, dtype):
 
 
 def test_flash_attention_bwd_refuses_unported_head_dims(card):
-    """deepseek's (192, 128) has no backward kernel yet: under grad the
-    forward raises and names its ROADMAP item, and so does a direct
-    backward call; without grad K1 serves it.  (gemma3's 256 has its
-    kernel: test_flash_attention_bwd_gemma3_training_shape.)"""
-    for d, dv, item in ((192, 128, "14c"),):
-        q = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
-        k = torch.randn(1, 64, 2, d, device=card, dtype=torch.bfloat16)
-        v = torch.randn(1, 64, 2, dv, device=card, dtype=torch.bfloat16)
-        out, lse = flash_attention_fwd(q, k, v, return_lse=True)
-        with pytest.raises(NotImplementedError, match=item):
-            ops.flash_attention(q.requires_grad_(), k, v)
-        with pytest.raises(NotImplementedError, match=item):
-            ops.flash_attention_bwd(q, k, v, out, out, lse)
+    """A (D, Dv) pair outside ``_build.FLASH_HEAD_DIMS`` has no kernel:
+    under grad the forward raises ValueError before any work, and so does a
+    direct backward call.  deepseek's (192, 128) trains: under grad K1 and
+    its backward launch once each."""
+    from repro_torch.kernels import _build
+    assert (256, 128) not in _build.FLASH_HEAD_DIMS
+    q = torch.randn(1, 64, 2, 256, device=card, dtype=torch.bfloat16)
+    v = torch.randn(1, 64, 2, 128, device=card, dtype=torch.bfloat16)
+    before = ops.counts()
+    with pytest.raises(ValueError, match="not in"):
+        ops.flash_attention(q.clone().requires_grad_(), q, v)
+    with pytest.raises(ValueError, match="not in"):
+        ops.flash_attention_bwd(q, q, v, v, v, torch.zeros(
+            1, 2, 64, device=card))
+    assert ops.counts() == before
+    q = torch.randn(1, 64, 2, 192, device=card, dtype=torch.bfloat16)
+    x = q.clone().requires_grad_()
+    ops.flash_attention(x, q, v).sum().backward()
+    after = ops.counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert x.grad.shape == q.shape and bool(torch.isfinite(
+        x.grad.float()).all())
 
 
 def test_wrappers_without_backward_refuse_grad_on_card(card):
@@ -1436,6 +1458,95 @@ def test_flash_attention_bwd_gemma3_training_shape(card, window):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) < BWD_TOL[torch.bfloat16], errs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_deepseek_training_shape(card, dtype):
+    """K1's backward at deepseek-v2's training shape (q, k [2, 4096, 128,
+    192], v [2, 4096, 128, 128], causal, G = 1: the kv-split kernel in
+    bf16) against the plain version 16 heads at a time (with G = 1 a
+    head's gradients depend on its own head alone, so the slices together
+    are the whole check; the whole plain backward would need about 70 GB),
+    and repeated bit for bit; in float32 on 8 of the heads."""
+    rng = np.random.default_rng(57)
+    heads = 128 if dtype == torch.bfloat16 else 8
+    args = _bwd_case(rng, (2, 4096, 4096, heads, heads), 192, dtype, True,
+                     0, card, 128)
+    got = ops.flash_attention_bwd(*args, causal=True)
+    again = ops.flash_attention_bwd(*args, causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    q, k, v, o, do, lse = args
+    errs = []
+    for h0 in range(0, heads, 16):
+        sl = slice(h0, h0 + 16)
+        want = ref.flash_attention_bwd_ref(
+            q[:, :, sl], k[:, :, sl], v[:, :, sl], o[:, :, sl], do[:, :, sl],
+            lse[:, sl], causal=True)
+        errs.append(max(_rel_err(a[:, :, sl], b) for a, b in zip(got, want)))
+        del want
+    assert max(errs) < BWD_TOL[dtype], errs
+
+
+def _deepseek_smoke_grads(card, remat=False, dtype="bfloat16"):
+    """SMOKE deepseek (one dense layer, two MoE layers of 4 experts) at its
+    published latent attention's head dims (query / key 128 + 64, value
+    128) over 256 tokens: one microbatch's loss and gradients on the card
+    from seeded float32 masters, as ``make_train_step`` takes them."""
+    from repro_torch.configs.archs import ARCHS, SMOKE
+    from repro_torch.launch import steps
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    ml = ARCHS["deepseek-v2-236b"].mla
+    cfg = dataclasses.replace(SMOKE["deepseek-v2-236b"], remat=remat,
+                              dtype=dtype, mla=dataclasses.replace(
+                                  SMOKE["deepseek-v2-236b"].mla,
+                                  qk_nope_head_dim=ml.qk_nope_head_dim,
+                                  qk_rope_head_dim=ml.qk_rope_head_dim,
+                                  v_head_dim=ml.v_head_dim))
+    _, model = steps.make_train_step(cfg, dp_size=1, global_batch=2,
+                                     device=card)
+    params = tree_map(lambda p: p.float(), model.init(
+        torch.Generator(device=card).manual_seed(0)))
+    batch = SyntheticTokens(DataConfig(cfg.vocab_size, 256, 2)).batch_at(
+        0, device=card)
+    dt = getattr(torch, dtype)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    cast = tree_map(lambda p: p.to(dt) if p.dim() > 1 else p,
+                    tree_unflatten(params, leaves))
+    loss = model.train_loss(cast, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_deepseek_smoke_gradients_at_published_head_dims(card, monkeypatch):
+    """SMOKE deepseek at (D, Dv) = (192, 128): in float32 the kernels' loss
+    and gradients against autograd through K1's plain version with the
+    routing of the kernel run (1e-5 relative on the loss, 1e-3 of each
+    leaf's largest magnitude, chip_smoke's float32 training bars), one K1
+    backward a layer; in bf16 two calls give the same bits, and remat gives
+    the bits of no remat."""
+    import chip_smoke
+    from repro_torch.models import moe as moe_mod
+    log = []
+    before = ops.counts()
+    with chip_smoke.held_routing(moe_mod, log):
+        loss, grads = _deepseek_smoke_grads(card, dtype="float32")
+    assert ops.counts()["flash_attention_bwd"] - \
+        before["flash_attention_bwd"] == 3
+    stats = {"decisions": 0, "flipped": 0}
+    with monkeypatch.context() as m, \
+            chip_smoke.held_routing(moe_mod, log, stats):
+        m.setattr(ops, "flash_attention", ref.flash_attention_ref)
+        ploss, pgrads = _deepseek_smoke_grads(card, dtype="float32")
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    assert max(_rel_err(a, b) for a, b in zip(grads, pgrads)) < 1e-3
+    a = _deepseek_smoke_grads(card)
+    b = _deepseek_smoke_grads(card)
+    c = _deepseek_smoke_grads(card, remat=True)
+    for x in (b, c):
+        assert torch.equal(a[0], x[0])
+        assert all(torch.equal(g, h) for g, h in zip(a[1], x[1]))
 
 
 def _gemma3_smoke_grads(card, remat=False, dtype="bfloat16"):

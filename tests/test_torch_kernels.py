@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro.models import attention as jax_attention
 from repro.models import rwkv as jax_rwkv
 from repro.models import ssm as jax_ssm
 from repro_torch.kernels import decode_attention as torch_decode_mod
@@ -73,35 +74,45 @@ def test_flash_attention_plain_vs_jax(b, sq, sk, h, kv, d, dtype, causal,
     assert ops.flash_attention.launches == before
 
 
-# K1's backward: (B, Sq, Sk, H, KV, D) over causal, windowed and
+# K1's backward: (B, Sq, Sk, H, KV, D, Dv) over causal, windowed and
 # bidirectional masks; Sq != Sk both ways, G in {1, 2, 4}, ragged tiles;
-# gemma3's head dim 256 at G = 2 (the window of 24 binds in both)
-BWD_CASES = [(1, 64, 64, 4, 2, 32), (2, 100, 100, 4, 1, 16),
-             (1, 70, 130, 2, 2, 16), (1, 130, 70, 4, 4, 32),
-             (1, 70, 70, 2, 1, 256), (1, 130, 100, 4, 2, 256)]
+# gemma3's head dim 256 at G = 2 (the window of 24 binds in both); value
+# head dims unlike the query's: SMOKE deepseek's (24, 16) and the
+# published (192, 128) of its latent attention
+BWD_CASES = [(1, 64, 64, 4, 2, 32, 32), (2, 100, 100, 4, 1, 16, 16),
+             (1, 70, 130, 2, 2, 16, 16), (1, 130, 70, 4, 4, 32, 32),
+             (1, 70, 70, 2, 1, 256, 256), (1, 130, 100, 4, 2, 256, 256),
+             (2, 70, 90, 4, 4, 24, 16), (1, 100, 70, 4, 2, 24, 16),
+             (1, 130, 100, 2, 2, 192, 128)]
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kv,d", BWD_CASES)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv", BWD_CASES)
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 24)])
-def test_flash_attention_bwd_plain_vs_jax_vjp(b, sq, sk, h, kv, d, causal,
-                                              window):
+def test_flash_attention_bwd_plain_vs_jax_vjp(b, sq, sk, h, kv, d, dv,
+                                              causal, window):
     """The plain backward against ``jax.vjp`` of the reference's oracle
-    and against torch autograd of the plain forward, in float32 (1e-5 of
-    each gradient's largest magnitude: sums in another order); the
-    plain forward's log-sum-exp against the oracle's masked scores, and
-    the public wrapper's gradient on CPU tensors (the Function's plain
-    directions) equal to the plain backward's."""
+    (of its XLA twin ``repro.models.attention.flash_attention`` where
+    Dv != D, which the oracle does not take; deepseek's ``train_loss``
+    differentiates the twin) and against torch autograd of the plain
+    forward, in float32 (1e-5 of each gradient's largest magnitude: sums
+    in another order); the plain forward's log-sum-exp against the
+    oracle's masked scores, and the public wrapper's gradient on CPU
+    tensors (the Function's plain directions) equal to the plain
+    backward's."""
     rng = np.random.default_rng(11)
     qj, qt = _pair(rng, (b, sq, h, d), "float32")
     kj, kt = _pair(rng, (b, sk, kv, d), "float32")
-    vj, vt = _pair(rng, (b, sk, kv, d), "float32")
-    doj, dot = _pair(rng, (b, sq, h, d), "float32")
+    vj, vt = _pair(rng, (b, sk, kv, dv), "float32")
+    doj, dot = _pair(rng, (b, sq, h, dv), "float32")
     out, lse = ref.flash_attention_ref(qt, kt, vt, causal=causal,
                                        window=window, return_lse=True)
+    assert out.shape == (b, sq, h, dv)
     got = ref.flash_attention_bwd_ref(qt, kt, vt, out, dot, lse,
                                       causal=causal, window=window)
-    _, vjp = jax.vjp(lambda q, k, v: jax_ref.flash_attention_ref(
+    oracle = jax_ref.flash_attention_ref if dv == d else \
+        jax_attention.flash_attention
+    _, vjp = jax.vjp(lambda q, k, v: oracle(
         q, k, v, causal=causal, window=window), qj, kj, vj)
     for g, w in zip(got, vjp(doj)):
         scale = float(jnp.max(jnp.abs(w)))
@@ -290,12 +301,12 @@ def test_wrappers_reject_bad_arguments(bad):
 # against a walk over the mask here; the card test
 # test_flash_attention_bwd_counters_follow_tile_plan reads the kernel's
 # own counts.
-def bwd_key_tile_queries(kt, sq, sk, causal, window, d=128):
+def bwd_key_tile_queries(kt, sq, sk, causal, window, dims=(128, 128)):
     """The query tiles that key tile ``kt`` visits (the key tile of head
-    dim ``d``): those holding a query that sees a key of the tile.  Both
-    ends never decrease as ``kt`` grows."""
+    dims ``dims``, (D, Dv)): those holding a query that sees a key of the
+    tile.  Both ends never decrease as ``kt`` grows."""
     from repro_torch.kernels.flash_attention import bwd_tiles
-    bk, bq = bwd_tiles(d)
+    bk, bq = bwd_tiles(*dims)
     k0 = kt * bk
     k_last = min(k0 + bk, sk) - 1
     q_begin = k0 if causal else 0
@@ -305,23 +316,43 @@ def bwd_key_tile_queries(kt, sq, sk, causal, window, d=128):
     return range(lo, hi)
 
 
-def bwd_work_tiles(b, kv, sk, d=128):
+def ks_head_group() -> int:
+    """KS_HEAD_GROUP of csrc/flash_attention_bwd.cu."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    src = (Path(_build.CSRC) / "flash_attention_bwd.cu").read_text()
+    return int(re.search(r"constexpr int KS_HEAD_GROUP = (\d+);",
+                         src).group(1))
+
+
+def bwd_work_tiles(b, kv, sk, dims=(128, 128), group=None):
     """The work tiles (key tile, batch, KV head) in the order the blocks
-    take them from the work counter: key tile major."""
+    take them from the work counter: key tile major, but in the kv-split
+    kernel of (192, 128) key tile major within groups of ``group``
+    (None: the kernel's KS_HEAD_GROUP) (batch, KV head) pairs, the last
+    group holding the rest."""
     from repro_torch.kernels.flash_attention import bwd_tiles
-    n = b * kv
-    return [(item // n, item % n // kv, item % kv)
-            for item in range(-(-sk // bwd_tiles(d)[0]) * n)]
+    n, n_kt = b * kv, -(-sk // bwd_tiles(*dims)[0])
+    group = n if dims != (192, 128) else group or ks_head_group()
+    tiles = []
+    for item in range(n_kt * n):
+        g = item // (group * n_kt)
+        size = min(group, n - g * group)
+        r = item - g * group * n_kt
+        bh = g * group + r % size
+        tiles.append((r // size, bh // kv, bh % kv))
+    return tiles
 
 
-def bwd_first_key_tile(qt, sq, sk, causal, window, d=128):
+def bwd_first_key_tile(qt, sq, sk, causal, window, dims=(128, 128)):
     """The first key tile that visits query tile ``qt``: a key tile ``kt``
     that visits it has ``kt - bwd_first_key_tile(qt)`` predecessors in its
     dq sum.  Without a window every key tile's range reaches the last
     query tile; with one, the first key tile whose last key is within the
     window of the tile's first query."""
     from repro_torch.kernels.flash_attention import bwd_tiles
-    bk, bq = bwd_tiles(d)
+    bk, bq = bwd_tiles(*dims)
     if window <= 0:
         return 0
     return max(0, qt * bq - window + 1) // bk
@@ -337,16 +368,17 @@ def _bwd_plan_case(seed):
     return sq, sk, causal, window
 
 
-@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("dims", [(128, 128), (256, 256), (192, 128)])
 @pytest.mark.parametrize("seed", range(8))
-def test_flash_attention_bwd_tile_plan_matches_mask(seed, d):
+def test_flash_attention_bwd_tile_plan_matches_mask(seed, dims):
     """The wgmma backward's tile plan against a brute-force walk over the
     mask, for the 128-key tiles of D <= 128 and the 64-key tiles of
-    D = 256: key tile kt visits exactly the query tiles that hold a pair
-    the mask keeps with one of its keys, the key tiles that visit a query
-    tile are a run that starts at bwd_first_key_tile, and every
-    predecessor in a query tile's dq sum is taken from the work counter
-    (key tile major) before its successor."""
+    D = 256 and (D, Dv) = (192, 128): key tile kt visits exactly the
+    query tiles that hold a pair the mask keeps with one of its keys, the
+    key tiles that visit a query tile are a run that starts at
+    bwd_first_key_tile, and every predecessor in a query tile's dq sum is
+    taken from the work counter (key tile major, within groups of heads
+    at (192, 128)) before its successor."""
     from repro_torch.kernels import flash_attention as fa
     for sq, sk, causal, window in [_bwd_plan_case(seed),
                                    _bwd_plan_case(100 + seed)]:
@@ -357,53 +389,60 @@ def test_flash_attention_bwd_tile_plan_matches_mask(seed, d):
             mask &= qi >= ki
         if window:
             mask &= qi - ki < window
-        bk, bq = fa.bwd_tiles(d)
+        bk, bq = fa.bwd_tiles(*dims)
         n_qt, n_kt = -(-sq // bq), -(-sk // bk)
         visits = {}
         for kt in range(n_kt):
             want = [qt for qt in range(n_qt)
                     if mask[qt * bq:(qt + 1) * bq, kt * bk:(kt + 1) * bk].any()]
-            got = list(bwd_key_tile_queries(kt, sq, sk, causal, window, d))
+            got = list(bwd_key_tile_queries(kt, sq, sk, causal, window,
+                                            dims))
             assert got == want, (sq, sk, causal, window, kt)
             for qt in got:
                 visits.setdefault(qt, []).append(kt)
-        taken = {t: i for i, t in enumerate(bwd_work_tiles(2, 3, sk, d))}
-        assert len(taken) == n_kt * 6
-        for qt, kts in visits.items():
-            first = bwd_first_key_tile(qt, sq, sk, causal, window, d)
-            assert kts == list(range(first, first + len(kts)))
-            for b in range(2):
-                for hk in range(3):
-                    order = [taken[(kt, b, hk)] for kt in kts]
-                    assert order == sorted(order)
+        # the kv-split kernel's groups of heads: its own, and groups of 4
+        # and of one head (6 heads: a partial group)
+        for group in ([None, 4, 1] if dims == (192, 128) else [None]):
+            taken = {t: i for i, t in enumerate(
+                bwd_work_tiles(2, 3, sk, dims, group))}
+            assert len(taken) == n_kt * 6
+            for qt, kts in visits.items():
+                first = bwd_first_key_tile(qt, sq, sk, causal, window, dims)
+                assert kts == list(range(first, first + len(kts)))
+                for b in range(2):
+                    for hk in range(3):
+                        order = [taken[(kt, b, hk)] for kt in kts]
+                        assert order == sorted(order)
         # query tiles no key tile visits hold only rows without keys
         for qt in set(range(n_qt)) - set(visits):
             assert not mask[qt * bq:(qt + 1) * bq].any()
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
-                                     (torch.bfloat16, 64),
-                                     (torch.bfloat16, 80),
-                                     (torch.bfloat16, 256),
-                                     (torch.float32, 128)])
-def test_flash_attention_bwd_scratch_layout(dtype, d):
+@pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 128, 128),
+                                        (torch.bfloat16, 64, 64),
+                                        (torch.bfloat16, 80, 80),
+                                        (torch.bfloat16, 256, 256),
+                                        (torch.bfloat16, 192, 128),
+                                        (torch.float32, 128, 128)])
+def test_flash_attention_bwd_scratch_layout(dtype, d, dv):
     """The wrapper's scratch for the backward kernel: the wgmma kernels
     (bf16) take delta and lse log2 e over Sq rounded up to the query tile,
-    a float32 dq accumulator of whole query tiles and of the head dim
-    rounded up to 64 (128 at D = 80, 256 at gemma3's 256) and one counter
-    per (batch, head, query tile) plus the work counter; float32 takes
-    delta [B, H, Sq] alone."""
+    a float32 dq accumulator of whole query tiles and of the query head
+    dim rounded up to 64 (128 at D = 80, 256 at gemma3's 256, 192 at
+    deepseek's (192, 128): dq is D wide) and one counter per (batch, head,
+    query tile) plus the work counter; float32 takes delta [B, H, Sq]
+    alone."""
     from repro_torch.kernels import flash_attention as fa
     b, h, sq = 2, 4, 130
-    delta, acc, cnt = fa.bwd_scratch(b, h, sq, d, dtype, "cpu")
+    delta, acc, cnt = fa.bwd_scratch(b, h, sq, d, dv, dtype, "cpu")
     assert delta.dtype == torch.float32
     if dtype == torch.bfloat16:
-        bq = fa.bwd_tiles(d)[1]
+        bq = fa.bwd_tiles(d, dv)[1]
         n_qt = -(-sq // bq)
         pad = n_qt * bq
         assert pad >= sq > pad - bq
         assert delta.shape == (2, b, h, pad)
-        d_pad = {64: 64, 80: 128, 128: 128, 256: 256}[d]
+        d_pad = {64: 64, 80: 128, 128: 128, 256: 256, 192: 192}[d]
         assert acc.shape == (b, h, pad, d_pad) and acc.dtype == torch.float32
         assert cnt.shape == (b * h * n_qt + 1,) and cnt.dtype == torch.int32
     else:
@@ -497,7 +536,8 @@ def test_wrapper_dims_match_kernel_instantiations(name):
     instantiates (a dim outside them would reach the kernel and come
     back as -1): 80 for both attention kernels (zamba2), not for the
     RWKV6 scan; K1's (D, Dv) pairs, (192, 128) among them (deepseek-v2's
-    latent attention), in both of its dispatches; K4's (P, N) pairs."""
+    latent attention), in both of its dispatches and both of its
+    backward's; K4's (P, N) pairs."""
     import re
     from pathlib import Path
     from repro_torch.kernels import _build
@@ -506,24 +546,28 @@ def test_wrapper_dims_match_kernel_instantiations(name):
 
     src = (Path(_build.CSRC) / f"{name}.cu").read_text()
     if name == "flash_attention_bwd":
-        # one `if (D == .) return launch_bwd_...<.>(a);` per dim in each
-        # dispatch: float32 (FMA at D) and bf16 (wgmma at D rounded up to
-        # 64, the columns past D zero; the column-split kernel at 256)
-        got = re.findall(r"if \(D == (\d+)\) return (launch_bwd_\w+)<(\d+)>"
-                         r"\(a\);", src)
-        fma = [int(d) for d, fn, d2 in got if fn == "launch_bwd_fma"
-               and d == d2]
-        bf16 = {int(d): (fn, int(d2)) for d, fn, d2 in got
-                if fn in ("launch_bwd_wgmma", "launch_bwd_colsplit")}
-        assert sorted(fma) == sorted(set(fma)) == \
-            sorted(_build.FLASH_BWD_HEAD_DIMS)
-        assert sorted(bf16) == sorted(_build.FLASH_BWD_HEAD_DIMS)
+        # one `if (D == . && Dv == .) return launch_bwd_...<...>(a);` per
+        # pair in each dispatch: float32 (FMA at (D, Dv)) and bf16 (wgmma
+        # at D == Dv rounded up to 64, the columns past D zero; the
+        # column-split kernel at 256, the kv-split kernel at (192, 128))
+        got = re.findall(r"if \(D == (\d+) && Dv == (\d+)\) return "
+                         r"(launch_bwd_\w+)<([\d, ]+)>\(a\);", src)
+        pairs = lambda fns: {(int(d), int(dv)): (
+            fn, tuple(int(x) for x in args.split(",")))
+            for d, dv, fn, args in got if fn in fns}
+        fma = pairs(("launch_bwd_fma",))
+        bf16 = pairs(("launch_bwd_wgmma", "launch_bwd_colsplit",
+                      "launch_bwd_kvsplit"))
+        want = sorted(_build.FLASH_HEAD_DIMS)
+        assert sorted(fma) == want and sorted(bf16) == want
         assert len(fma) + len(bf16) == len(got)
-        assert all(dp == -(-d // 64) * 64 for d, (_, dp) in bf16.items())
-        assert {bf16[64][1], bf16[128][1]} == {64, 128}
-        assert bf16[256] == ("launch_bwd_colsplit", 256)
-        assert all(fn == "launch_bwd_wgmma" for d, (fn, _) in bf16.items()
-                   if d <= 128)
+        assert all(args == pair for pair, (_, args) in fma.items())
+        assert all(fn == "launch_bwd_wgmma" and args == (-(-d // 64) * 64,)
+                   for (d, dv), (fn, args) in bf16.items()
+                   if max(d, dv) <= 128)
+        assert {bf16[(64, 64)][1], bf16[(128, 128)][1]} == {(64,), (128,)}
+        assert bf16[(256, 256)] == ("launch_bwd_colsplit", (256,))
+        assert bf16[(192, 128)] == ("launch_bwd_kvsplit", (192, 128))
         return
     if name == "mamba2_scan":
         got = {(int(p), int(n)) for p, n in

@@ -52,12 +52,14 @@ layer (``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), causal.
 K1 backward in turns (this tree, the other, the other, this tree; CUDA
 events, back to back) in bf16 at qwen3-1.7b's training shape
 (``q [2,4096,16,128]``, ``k, v [2,4096,8,128]``, causal) and its served
-prefill (``q [8,512,16,128]``), on the same inputs and K1's own output and
+prefill (``q [8,512,16,128]``), gemma3's and, where the other tree
+instantiates it, deepseek-v2's (``q, k [2,4096,128,192]``,
+``v [2,4096,128,128]``), on the same inputs and K1's own output and
 log-sum-exp; it prints both times and the largest difference of each
 gradient between the two, relative to its largest magnitude (the two
 designs need not give the same bits).  It reads the other tree's C entry
 point from its source: the one of the first backward (one scratch, delta
-[B, H, Sq]) or this one.
+[B, H, Sq]), the one with one head dim, or this one (D and Dv).
 
 ``flash-bwd-phases`` builds variants of ``csrc/flash_attention_bwd.cu`` with
 one step of the bf16 wgmma kernel cut out (``FLASH_BWD_CUTS``: the counter
@@ -67,8 +69,13 @@ dq products; the dq hand-off) and times each at qwen3's training shape in
 turns with the full kernel, as ``mamba2-phases`` does; then the same for
 the column-split kernel of D = 256 (``FLASH_BWD_COLS_CUTS``, the score
 products among them) at gemma3-4b's global training shape (``q [2, 4096,
-8, 256]``, ``k, v [2, 4096, 4, 256]``, causal).  A variant computes wrong numbers; only
-its time is read.
+8, 256]``, ``k, v [2, 4096, 4, 256]``, causal), and for the kv-split
+kernel of (D, Dv) = (192, 128) (``FLASH_BWD_KV_CUTS``: each warpgroup's
+dk / dv products and dq blocks apart, which shows their imbalance, and
+other sizes of the groups of heads whose work tiles it takes together,
+priced whole) at deepseek-v2's training shape (``q, k [2, 4096, 128,
+192]``, ``v [2, 4096, 128, 128]``, causal).  A variant computes wrong
+numbers; only its time is read.
 
 ``moe-dw-phases`` does the same for K3's weight gradient
 (``csrc/moe_gemm_bwd.cu``, the bf16 wgmma kernel on its vector loader;
@@ -160,8 +167,10 @@ FLASH_BWD_CUTS = {
     "admission": [
         ("      wait_counter(a.counters + tile[next], want[next]);\n", ""),
         ("ld_acquire(a.counters + tile[b]) == want[b])", "true)")],
-    "dq_sum": [("        sums.state[hb] = DqSums::PENDING;",
-                "        sums.state[hb] = DqSums::FREE;")],
+    "dq_sum": [("        sums.state[hb] = DqSums::PENDING;\n"
+                "        sums.want[hb] = kt - first_key_tile<WG_BC>(a, qt);",
+                "        sums.state[hb] = DqSums::FREE;\n"
+                "        sums.want[hb] = kt - first_key_tile<WG_BC>(a, qt);")],
     "mask": [("      const bool edge =\n", "      const bool edge = false &&\n")],
     "exp2": [("ok ? fast_exp2(s[i] * a.scale_log2 - ((r & 1) ? l2.y : l2.x))",
               "ok ? s[i]")],
@@ -178,33 +187,118 @@ FLASH_BWD_CUTS = {
                  "          ;")],
 }
 
+# lines that the column-split and the kv-split kernels share, which make
+# a cut of one of them unique
+_SCORE_OFFSETS = ("        const uint32_t ko = (kk >> 2) * Tl::KV_BLOCK + (kk & 3) * 32;\n"
+                  "        const uint32_t qo = (kk >> 2) * Tl::Q_BLOCK + (kk & 3) * 32;\n")
+_DQ_TAIL = ("                             desc_plus(km, t * 16 * LINE), t > 0);\n"
+            "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_acc(dq);\n")
+_HANDOFF_END = ("[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);\n      }\n"
+                "      fence_proxy_async();\n      bar_sync(1, WG_THREADS);\n"
+                "      if (leader) {\n")
+
 # step of the column-split kernel of D = 256 -> [(text in
 # flash_attention_bwd.cu, its replacement), ...]: the same steps, with the
 # shared p^T / ds^T stores and the score products (s^T, dp^T) beside them
 FLASH_BWD_COLS_CUTS = {
     "admission": FLASH_BWD_CUTS["admission"],
-    "dq_sum": [("        sums.state[0] = DqSums::PENDING;",
-                "        sums.state[0] = DqSums::FREE;")],
+    "dq_sum": [(f"blk{_HANDOFF_END}        sums.state[0] = DqSums::PENDING;",
+                f"blk{_HANDOFF_END}        sums.state[0] = DqSums::FREE;")],
     "mask": [("      const bool masked =\n",
               "      const bool masked = false &&\n")],
-    "exp2": [("keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f",
-              "keep ? s[i] : 0.f")],
+    "exp2": [("keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f;\n"
+              "          s[i] = p;",
+              "keep ? s[i] : 0.f;\n          s[i] = p;")],
     "pds_store": [("          *reinterpret_cast<uint32_t*>(p_s + at) =",
                    "          if (false) *reinterpret_cast<uint32_t*>(p_s + at) ="),
                   ("          *reinterpret_cast<uint32_t*>(ds_s + at) =",
                    "          if (false) *reinterpret_cast<uint32_t*>(ds_s + at) =")],
-    "score_mma": [("        wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko),",
+    "score_mma": [(f"kk < DP / 16; ++kk) {{\n{_SCORE_OFFSETS}"
+                   "        wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko),",
+                   f"kk < DP / 16; ++kk) {{\n{_SCORE_OFFSETS}"
                    "        if (false) wgmma_ss<32, 0, 0>(s, desc_plus(kd, ko),"),
-                  ("        wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko),",
+                  (f"kk < DP / 16; ++kk) {{\n{_SCORE_OFFSETS}"
+                   "        wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko),",
+                   f"kk < DP / 16; ++kk) {{\n{_SCORE_OFFSETS}"
                    "        if (false) wgmma_ss<32, 0, 0>(dp, desc_plus(vd, ko),")],
     "dkdv_mma": [("        wgmma_m64n128k16<0, 1>(dv, desc_plus(pd, t * 32),",
                   "        if (false) wgmma_m64n128k16<0, 1>(dv, desc_plus(pd, t * 32),"),
                  ("        wgmma_m64n128k16<0, 1>(dk, desc_plus(sd, t * 32),",
                   "        if (false) wgmma_m64n128k16<0, 1>(dk, desc_plus(sd, t * 32),")],
-    "dq_mma": [("          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),",
-                "          if (false) wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),")],
+    "dq_mma": [("          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                f"{_DQ_TAIL}        if (j == 0) bar_sync(1, WG_THREADS);     // the buffer",
+                "          if (false) wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                f"{_DQ_TAIL}        if (j == 0) bar_sync(1, WG_THREADS);     // the buffer")],
     "handoff": [("          blk[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);",
                  "          ;")],
+}
+
+
+# step of the kv-split kernel of (192, 128) -> [(text in
+# flash_attention_bwd.cu, its replacement), ...]: the steps of the
+# column-split kernel, with each warpgroup's products cut apart (warpgroup
+# 0 keeps dk and one dq block, warpgroup 1 dv and two), and other sizes
+# of its groups of heads built whole
+FLASH_BWD_KV_CUTS = {
+    "admission": FLASH_BWD_CUTS["admission"],
+    "dq_sum": [(f"hand{_HANDOFF_END}        sums.state[0] = DqSums::PENDING;",
+                f"hand{_HANDOFF_END}        sums.state[0] = DqSums::FREE;")],
+    "mask": [("      const bool crossed =\n",
+              "      const bool crossed = false &&\n")],
+    "exp2": [("keep ? fast_exp2(s[i] * a.scale_log2 - row_lse) : 0.f;\n"
+              "          s[i] = pv;",
+              "keep ? s[i] : 0.f;\n          s[i] = pv;")],
+    "pds_store": [("          *reinterpret_cast<uint32_t*>(pt_s + at) =",
+                   "          if (false) *reinterpret_cast<uint32_t*>(pt_s + at) ="),
+                  ("          *reinterpret_cast<uint32_t*>(dst_s + at) =",
+                   "          if (false) *reinterpret_cast<uint32_t*>(dst_s + at) =")],
+    "score_mma": [("for (int kk = 0; kk < D / 16; ++kk) {",
+                   "for (int kk = 0; kk < 0; ++kk) {"),
+                  ("for (int kk = 0; kk < DV / 16; ++kk) {",
+                   "for (int kk = 0; kk < 0; ++kk) {")],
+    "dk_mma_wg0": [("        wgmma_m64n128k16<0, 1>(acc, desc_plus(ad, t * 32),",
+                    "        if (cw != 0) wgmma_m64n128k16<0, 1>(acc, desc_plus(ad, t * 32),"),
+                   ("      if (cw == 0) {\n#pragma unroll\n        for (int t = 0; t < 4; ++t)\n"
+                    "          wgmma_ss<64, 0, 1>(acc2,",
+                    "      if (false) {\n#pragma unroll\n        for (int t = 0; t < 4; ++t)\n"
+                    "          wgmma_ss<64, 0, 1>(acc2,")],
+    "dv_mma_wg1": [("        wgmma_m64n128k16<0, 1>(acc, desc_plus(ad, t * 32),",
+                    "        if (cw == 0) wgmma_m64n128k16<0, 1>(acc, desc_plus(ad, t * 32),")],
+    "dq_mma_wg0": [("        if (cw == 0 && j == 1) break;\n",
+                    "        if (cw == 0 && j == 1) break;\n"
+                    "        const bool skip = cw == 0;\n"),
+                   ("          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                    "                             desc_plus(km, t * 16 * LINE), t > 0);\n"
+                    "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_acc(dq);\n"
+                    "        if (j == 0) bar_sync(1, WG_THREADS);     // the hand-off",
+                    "          if (!skip) wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                    "                             desc_plus(km, t * 16 * LINE), t > 0);\n"
+                    "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_acc(dq);\n"
+                    "        if (j == 0) bar_sync(1, WG_THREADS);     // the hand-off")],
+    "dq_mma_wg1": [("        if (cw == 0 && j == 1) break;\n",
+                    "        if (cw == 0 && j == 1) break;\n"
+                    "        const bool skip = cw == 1;\n"),
+                   ("          wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                    "                             desc_plus(km, t * 16 * LINE), t > 0);\n"
+                    "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_acc(dq);\n"
+                    "        if (j == 0) bar_sync(1, WG_THREADS);     // the hand-off",
+                    "          if (!skip) wgmma_ss<64, 1, 1>(dq, desc_plus(am, t * 16 * LINE),\n"
+                    "                             desc_plus(km, t * 16 * LINE), t > 0);\n"
+                    "        wgmma_commit();\n        wgmma_wait<0>();\n        fence_acc(dq);\n"
+                    "        if (j == 0) bar_sync(1, WG_THREADS);     // the hand-off")],
+    "handoff": [("          hand[(i >> 1) * 128 + ct] = make_float2(dq[i], dq[i + 1]);",
+                 "          ;")],
+    # not cuts: other sizes of the groups of heads whose work tiles are
+    # taken together (one head; all of them, key tile major, as the other
+    # kernels take them), each priced whole
+    "head_group_1": [("constexpr int KS_HEAD_GROUP = 8;",
+                      "constexpr int KS_HEAD_GROUP = 1;")],
+    "head_group_4": [("constexpr int KS_HEAD_GROUP = 8;",
+                      "constexpr int KS_HEAD_GROUP = 4;")],
+    "head_group_16": [("constexpr int KS_HEAD_GROUP = 8;",
+                       "constexpr int KS_HEAD_GROUP = 16;")],
+    "key_tile_major": [("constexpr int KS_HEAD_GROUP = 8;",
+                        "constexpr int KS_HEAD_GROUP = 4096;")],
 }
 
 
@@ -492,32 +586,37 @@ def flash_bits(against: Path) -> None:
                           "against_ms": times["against"]}), flush=True)
 
 
-def bwd_inputs(b: int, s: int, h: int, kv: int, d: int, gen):
-    """bf16 q, k, v, dO at ``[b, s, h | kv, d]`` and K1's causal output and
-    log-sum-exp on them."""
+def bwd_inputs(b: int, s: int, h: int, kv: int, d: int, gen, dv: int = 0):
+    """bf16 q, k at ``[b, s, h | kv, d]``, v, dO at ``dv`` (0: ``d``) and
+    K1's causal output and log-sum-exp on them."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn(b, s, kv, d, device="cuda", generator=gen).bfloat16()
-            for _ in range(2))
+    dv = dv or d
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
+    do = torch.randn(b, s, h, dv, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(b, s, kv, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(b, s, kv, dv, device="cuda", generator=gen).bfloat16()
     o, lse = flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     return q, k, v, o, do, lse
 
 
-def bwd_call(fn, new_entry: bool, q, k, v, o, do, lse, outs=None):
+def bwd_call(fn, entry: str, q, k, v, o, do, lse, outs=None):
     """One call of a library's ``fate_flash_attention_bwd`` (causal, bf16)
-    with the scratch its entry point takes; returns (dq, dk, dv)."""
+    with the scratch and head dims its ``entry`` point takes: ``"pair"``
+    (D and Dv, this tree's), ``"scratch"`` (one head dim and the wgmma
+    kernel's scratch, PR 22-24) or ``"first"`` (delta [B, H, Sq] alone);
+    returns (dq, dk, dv)."""
     from repro_torch.kernels.flash_attention import bwd_scratch
     b, sq, h, d = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    sk, kv, d_v = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = outs or (torch.empty_like(x) for x in (q, k, v))
     stream = torch.cuda.current_stream().cuda_stream
-    if new_entry:
-        delta, acc, cnt = bwd_scratch(b, h, sq, d, q.dtype, q.device)
+    if entry != "first":
+        delta, acc, cnt = bwd_scratch(b, h, sq, d, d_v, q.dtype, q.device)
+        dims = (d, d_v) if entry == "pair" else (d,)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 acc.data_ptr(), cnt.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), b, sq, sk, h, kv, d, 1, 0, 1, stream)
+                dv.data_ptr(), b, sq, sk, h, kv, *dims, 1, 0, 1, stream)
     else:
         delta = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -529,9 +628,11 @@ def bwd_call(fn, new_entry: bool, q, k, v, o, do, lse, outs=None):
     return dq, dk, dv
 
 
-BWD_SHAPES = {"qwen3_train": (2, 4096, 16, 8, 128),
-              "qwen3_served": (8, 512, 16, 8, 128),
-              "gemma3_train": (2, 4096, 8, 4, 256)}
+# (B, S, H, KV, D, Dv)
+BWD_SHAPES = {"qwen3_train": (2, 4096, 16, 8, 128, 128),
+              "qwen3_served": (8, 512, 16, 8, 128, 128),
+              "gemma3_train": (2, 4096, 8, 4, 256, 256),
+              "deepseek_train": (2, 4096, 128, 128, 192, 128)}
 
 
 def flash_bwd(against: Path) -> None:
@@ -546,15 +647,19 @@ def flash_bwd(against: Path) -> None:
                     str(csrc / "flash_attention_bwd.cu")],
                    check=True, capture_output=True, text=True)
     other = ctypes.CDLL(str(lib)).fate_flash_attention_bwd
-    new_entry = "float* dq_accum" in src
+    entry = ("pair" if "int D, int Dv" in src else
+             "scratch" if "float* dq_accum" in src else "first")
     p, i32 = ctypes.c_void_p, ctypes.c_int
     other.restype = i32
-    other.argtypes = [p] * (12 if new_entry else 10) + [i32] * 9 + [p]
+    other.argtypes = [p] * (10 if entry == "first" else 12) + \
+        [i32] * (10 if entry == "pair" else 9) + [p]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, (b, s, h, kv, d) in BWD_SHAPES.items():
-        args = bwd_inputs(b, s, h, kv, d, gen)
+    for name, (b, s, h, kv, d, dv) in BWD_SHAPES.items():
+        if dv != d and entry != "pair":
+            continue            # the other tree has no such instantiation
+        args = bwd_inputs(b, s, h, kv, d, gen, dv)
         mine = ops.flash_attention_bwd(*args)
-        theirs = bwd_call(other, new_entry, *args)
+        theirs = bwd_call(other, entry, *args)
         rel = [float((x.float() - y.float()).abs().max()
                      / y.float().abs().max()) for x, y in zip(mine, theirs)]
         outs = [torch.empty_like(x) for x in mine]
@@ -562,11 +667,12 @@ def flash_bwd(against: Path) -> None:
         def call(which):
             if which == "this":
                 return ops.flash_attention_bwd(*args)
-            return bwd_call(other, new_entry, *args, outs=outs)
+            return bwd_call(other, entry, *args, outs=outs)
         times = in_turns(call, {"this": "this", "against": "against"})
         print(json.dumps({"probe": "flash-bwd", "against": str(against),
                           "shape": name, "q": [b, s, h, d],
-                          "kv": [b, s, kv, d], "causal": True,
+                          "kv": [b, s, kv, d], "v_head_dim": dv,
+                          "causal": True,
                           "this_ms": times["this"],
                           "against_ms": times["against"],
                           "rel_diff_dq_dk_dv": rel}), flush=True)
@@ -575,13 +681,15 @@ def flash_bwd(against: Path) -> None:
 def flash_bwd_phases() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, cuts, tag in (("qwen3_train", FLASH_BWD_CUTS, ""),
-                             ("gemma3_train", FLASH_BWD_COLS_CUTS, "cols_")):
+                             ("gemma3_train", FLASH_BWD_COLS_CUTS, "cols_"),
+                             ("deepseek_train", FLASH_BWD_KV_CUTS, "kv_")):
         libs = build_variants("flash_attention_bwd", cuts, tag=tag)
-        args = bwd_inputs(*BWD_SHAPES[shape], gen)
+        b, s, h, kv, d, dv = BWD_SHAPES[shape]
+        args = bwd_inputs(b, s, h, kv, d, gen, dv)
         outs = [torch.empty_like(x) for x in args[:3]]
 
         def call(lib):
-            return bwd_call(lib.fate_flash_attention_bwd, True, *args,
+            return bwd_call(lib.fate_flash_attention_bwd, "pair", *args,
                             outs=outs)
         times = in_turns(call, libs)
         full = sum(times["full"]) / 2
