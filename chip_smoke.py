@@ -14,7 +14,8 @@ ends the run with a non-zero exit code and no result line:
    K2's, K4's and K5's mma.sync kernels its tensor-core instructions in
    the SASS (cuobjdump; it fails
    without them, or if an instantiation the sources launch is missing)
-   and its registers and spills (ptxas -v).
+   and its registers and spills (ptxas -v); the registers and spills of
+   K5b's kernels (FMA code) and its per-chunk kernel's shared memory.
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
    CARD: flash_attention and decode_attention over the sweep of
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
@@ -188,6 +189,20 @@ ends the run with a non-zero exit code and no result line:
    with the published latent attention's head dims (its dense layer and
    two MoE layers: K1's backward at (192, 128) beside K3 and its
    gradients).
+23. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
+   65536, untied; 3.07 B parameters) at full width and depth (32 layers,
+   under expandable segments; the line prints the depth and the peak),
+   after deepseek's are freed, trained as ``train``: per step K5 256 (32
+   layers x 4 microbatches, twice under remat) and K5b 384 (its three
+   kernels once a layer and microbatch), nothing else; model FLOPs count
+   the WKV scan at three times ``rwkv_flops`` a layer.
+24. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
+   against the plain forward with the plain backward (``TRAIN_PLAIN``),
+   on sequences of 1024 tokens (the plain scan runs one step per token):
+   float32 at the train depth, 32 layers; bf16 at 32 layers reported
+   against TRAIN_BARS and held to them at RWKV_BF16_GATE_LAYERS (ROADMAP
+   H30); a second kernel run bitwise at 32 layers; the Trainer drill at
+   SMOKE rwkv6 (K5b at D = 16, chunk 4).
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -226,7 +241,15 @@ batched ``torch.matmul`` on contiguous [E, B*C, .] operands and called
 twice for the same bits, at granite's training shapes: dX of the gate /
 up projection (dy [2, 40, 1024, 512], w [40, 1536, 512]) and of the down
 (dy [2, 40, 1024, 1536], w [40, 512, 1536]), dW of both (x [2, 40, 1024,
-1536] with dy [.., 512]; x [.., 512] with dy [.., 1536]).
+1536] with dy [.., 512]; x [.., 512] with dy [.., 1536]).  And K5 at
+rwkv6-3b's training microbatch ([2, 4096, 40, 64], float32 out, timed),
+and K5's backward, K5b (``csrc/rwkv6_scan_bwd.cu``), against
+``rwkv6_scan_bwd_ref``, each gradient relative to its largest magnitude
+(1e-4, dw 1e-3, bf16 dr / dk / dv 1e-2): at that shape as the model
+calls it (bf16, no initial state, no final cotangent), timed and called
+twice for the same bits, and at the served prefill's shape ([8, 512, 40,
+64], with both), timed; each also in float32 and under strong decay (w =
+1e-6) with an initial state and a final cotangent.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's, its gradients' and K1's backward's and
@@ -234,7 +257,8 @@ Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 path takes; K3's decode shape beside its
 prefill row, K2's wrapper host time, K2's and K5's device kernels per
 call), a ``total`` line (with the seconds of the two whisper phases and
-of the eight train phases), the nvidia-smi line, and last ``{"ok": true,
+of the train phases, the rwkv6 pair's apart), the nvidia-smi line, and
+last ``{"ok": true,
 "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
 """
@@ -310,10 +334,16 @@ TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
 # at (192, 128) rounds p^T and ds^T to bf16 over 2.5x qwen3's columns a
 # pair, with 128 heads summed into wo's gradient, and its one layer keeps
 # the MLA projections' roundings beside K1's
+# rwkv6's, stated before its first run: granite's, since K5's bf16
+# forward splits its float32 factors into two bf16 terms (16 bits) where
+# the plain forward keeps float32, in each of 32 layers, while K5b works in
+# float32 and rounds dr, dk, dv to bf16 as the plain backward does.  At 32
+# layers they did not hold (RWKV_BF16_GATE_LAYERS says where they gate)
 TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
               "parity_train_moe": (1e-4, 1e-3, 5e-2),
               "parity_train_gemma3": (1e-4, 1e-3, 5e-2),
-              "parity_train_deepseek": (1e-4, 1e-3, 5e-2)}
+              "parity_train_deepseek": (1e-4, 1e-3, 5e-2),
+              "parity_train_rwkv": (1e-4, 1e-3, 5e-2)}
 # train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
 # 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
 # copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
@@ -336,6 +366,27 @@ GEMMA_TRAIN_LAYERS = 18
 # tensors (scores, masked scores, p, and dp, ds in the backward: 17.2 GB
 # each at 4096, 86 GB, more than the card), 4.3 GB each at 2048
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_PARITY_SEQ = 1, 2048
+# train_rwkv: rwkv6-3b at full width and depth (32 layers, 3.07 B
+# parameters counted from the tree; about 22 bytes a parameter, 67.6 GB, was
+# the estimate beside a microbatch's [2, 4096, 65536] logits and their
+# gradient, 32 remat checkpoints of 42 MB and K5b's two [2, 40, 128, 64,
+# 64] float32 buffers of 168 MB; 64.6 GB measured).  Its parity on a
+# microbatch of RWKV_PARITY_SEQ tokens a sequence: the plain forward is a
+# loop of one step per token and the plain backward two more (about 150
+# thousand launches a layer at 4096 tokens, 32 layers and remat's
+# recompute in the bf16 run)
+RWKV_PARITY_SEQ = 1024
+# rwkv6's parity in float32 at the train depth, and its bf16 bars gated at
+# RWKV_BF16_GATE_LAYERS (ROADMAP H30): at the reference init the two bf16
+# runs drift apart with depth.  On an NVIDIA H100 80GB HBM3 at 700 W
+# (parity_train_rwkv, seed 0): float32 at 32 layers 2.8e-5 of the worst
+# leaf; bf16 at 2 layers 2.2e-2, at 32 layers 0.172 with the losses 1.46e-4
+# apart, which the bars stated before the first run (TRAIN_BARS) do not
+# hold.  tools/kernel_probe.py rwkv6-parity-split puts that on K5's bf16
+# forward (its two-term products beside the plain float32 forward): at 32
+# layers K5 alone 0.247 of the worst leaf, K5b alone 0.032 (on another
+# microbatch).  The train depth's reading is reported beside the gate
+RWKV_BF16_GATE_LAYERS = 2
 # the Trainer drill's SMOKE config changed where the card path needs it:
 # gemma3 at its published head dim, so that the drill runs K1's backward
 # at D = 256, with a window shorter than its 512 tokens; deepseek at its
@@ -348,6 +399,12 @@ DRILL_OVER = {"gemma3-4b": dict(head_dim=256, sliding_window=128),
 MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}      # relative
 SCAN_TOL = 5e-4          # absolute, float32 outputs of the scans
 SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
+# K5b against its plain version, each gradient relative to its largest
+# magnitude: float32 sums in another order, and the chunked form's
+# exponentials of summed log decays against the plain version's products
+# of decays; dw, a quotient by w, 1e-3; bf16 dr, dk, dv rounded once
+SCAN_BWD_REL, SCAN_BWD_DW_REL, SCAN_BWD_BF16_REL = 1e-4, 1e-3, 1e-2
+SCAN_BWD_LEAVES = ("dr", "dk", "dv", "dw", "dbonus", "dstate0")
 # float32 parity at full width, cut to this many layers (the hybrid to
 # one attention site, after 6 layers, plus a tail layer)
 PARITY_F32_LAYERS, PARITY_F32_REL = 4, 1e-3
@@ -434,6 +491,8 @@ REPLACES = {
     "moe_gemm_dw": "src/repro/models/moe.py:104",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:66",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
+    # no TPU kernel: the reference differentiates K5's XLA twin
+    "rwkv6_scan_bwd": "src/repro/models/rwkv.py:56",
 }
 # the source of each kernel (K3's input gradient is K3's own kernel reading
 # w K-major)
@@ -447,7 +506,13 @@ NO_TPU_KERNEL = {
     "moe_gemm_dx": "no TPU kernel: the reference differentiates "
                    "src/repro/models/moe.py:104-109",
     "moe_gemm_dw": "no TPU kernel: the reference differentiates "
-                   "src/repro/models/moe.py:104-109"}
+                   "src/repro/models/moe.py:104-109",
+    "rwkv6_scan_bwd": "no TPU kernel: the Pallas scan has no backward and "
+                      "the reference differentiates its XLA twin, "
+                      "src/repro/models/rwkv.py:56 (_wkv_chunked)"}
+# the plain version a train parity run swaps in for a wrapper, where it is
+# not ``<name>_ref``: K5's plain forward with K5b's plain backward
+TRAIN_PLAIN = {"rwkv6_scan": "rwkv6_scan_plain"}
 
 
 def emit(obj: dict) -> None:
@@ -578,6 +643,7 @@ def phase_device(build_mod) -> tuple[dict, str]:
         "build_seconds": round(build_mod.build_seconds, 2),
         "load_seconds": round(time.perf_counter() - t0, 2),
         "tensor_core_sass": tensor_core_check(build_mod),
+        "rwkv6_scan_bwd_ptxas": ptxas_info(build_mod, BWD_SCAN_KERNELS),
         "kernel_sources": [str(p.relative_to(Path(__file__).parent))
                            for p in build_mod.sources()],
     }
@@ -585,19 +651,48 @@ def phase_device(build_mod) -> tuple[dict, str]:
     return info, smi_line
 
 
-def short_kernel_name(mangled: str):
+def short_kernel_name(mangled: str, kernels=TENSOR_CORE_SASS):
     """``moe_gemm_wgmma_kernel<128,1>`` (``rwkv6_mma_kernel<64,float>``
     where a template argument is a type) for a mangled instantiation of
-    one of TENSOR_CORE_SASS's kernels, None for any other function."""
+    one of ``kernels``, None for any other function."""
     import re
     token = re.compile(r"L[ib](\d+)E|(f)|\d+(__nv_bfloat16)")
-    for kern in TENSOR_CORE_SASS:
+    for kern in kernels:
         m = re.search(kern + r"I(.+?)EEv", mangled)
         if m:
             args = [n or ("float" if f else "bf16")
                     for n, f, _ in token.findall(m.group(1))]
             return f"{kern}<{','.join(args)}>"
     return None
+
+
+# K5b's templated kernels (FMA code: no tensor-core instruction to find)
+BWD_SCAN_KERNELS = ("rwkv6_bwd_states_kernel", "rwkv6_bwd_chunk_kernel")
+
+
+def ptxas_info(build_mod, kernels) -> dict:
+    """Registers and spill bytes (the build's ptxas -v log) of every
+    instantiation of ``kernels``, and the dynamic shared memory of K5b's
+    per-chunk kernel at rwkv6-3b's head dim and chunk."""
+    import re
+    from repro_torch.kernels import rwkv6_scan as rs_mod
+    log = (build_mod.build().parent / "build.log").read_text()
+    out, cur = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            cur = short_kernel_name(line, kernels)
+            if cur:
+                out[cur] = {}
+        elif cur and "spill stores" in line:
+            out[cur]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif cur and "registers" in line:
+            out[cur]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    if len(out) != 2 * 2 * len(rs_mod.HEAD_DIMS):
+        fail(f"K5b's instantiations in the ptxas log: {sorted(out)}")
+    return {"kernels": out, "chunk_kernel_smem_bytes_d64_l32":
+            rs_mod.bwd_smem_bytes(64, 32)}
 
 
 def expected_instantiations(build_mod) -> int:
@@ -1117,6 +1212,79 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
     return rec
 
 
+def rwkv_bwd_flops(b, s, h, d, chunk) -> float:
+    """Operations of K5b's chunked backward (exp counted as one): the two
+    state passes' products and factors; per chunk the products with S0,
+    dE and k exp(tot - ci) ([L, D] by [D, D] each), P = do v^T and the
+    scores over the pairs and the diagonal, the pair terms of dr, of dk
+    and of the decays' gradient (exp, product, sum each), dv's pair sum."""
+    pairs = chunk * (chunk - 1) / 2
+    per_chunk = (2 * (2 * chunk * d * d + 2 * chunk * d)
+                 + 3 * 2 * chunk * d * d
+                 + 2 * (pairs + chunk) * d
+                 + 5 * pairs * d + 3 * chunk * d
+                 + 3 * 4 * pairs * d
+                 + 2 * (pairs + chunk) * d)
+    return b * h * (s // chunk) * per_chunk
+
+
+def rwkv_bwd_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
+                  state=False, dstate=False, timed=False, repeat=False):
+    """K5b on ``dtype`` r, k, v (float32 w and d out, as the model's float32
+    output hands it back) against ``rwkv6_scan_bwd_ref``, each gradient
+    relative to its largest magnitude; ``state``: an initial state,
+    ``dstate``: a final state's cotangent (the model passes neither);
+    ``repeat``: a second call must give the same bits."""
+    b, s, h, d = shape
+    r = randn(rng, shape, dtype) * 0.5
+    k = randn(rng, shape, dtype) * 0.5
+    v = randn(rng, shape, dtype)
+    w = (torch.full(shape, 1e-6, device="cuda") if strong_decay
+         else torch.sigmoid(randn(rng, shape, torch.float32)))
+    bonus = randn(rng, (h, d), torch.float32) * 0.1
+    dout = randn(rng, shape, torch.float32)
+    st0 = randn(rng, (b, h, d, d), torch.float32) if state else None
+    dst = randn(rng, (b, h, d, d), torch.float32) if dstate else None
+    call = lambda: ops.rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=chunk,
+                                      state0=st0, dstate=dst)
+    got = call()
+    torch.cuda.synchronize()
+    plain = lambda: ref.rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout,
+                                           state0=st0, dstate=dst)
+    want = plain()
+    bars = dict(zip(SCAN_BWD_LEAVES, (
+        (SCAN_BWD_REL if dtype == torch.float32 else SCAN_BWD_BF16_REL,) * 3
+        + (SCAN_BWD_DW_REL, SCAN_BWD_REL, SCAN_BWD_REL))))
+    rel = {n: rel_err(g, x) for n, g, x in zip(SCAN_BWD_LEAVES, got, want)}
+    rec = {"shape": list(shape), "chunk": chunk,
+           "dtype": str(dtype).split(".")[-1],
+           "strong_decay": strong_decay, "initial_state": state,
+           "final_cotangent": dstate,
+           "max_abs_err": max(max_abs_err(g, x) for g, x in zip(got, want)),
+           "rel_err": rel, "tol": bars,
+           "ok": all(rel[n] <= bars[n] for n in rel)
+           and all(bool(torch.isfinite(g.float()).all()) for g in got)}
+    del want
+    if repeat:
+        again = call()
+        rec["repeat_bitwise"] = all(torch.equal(a, c)
+                                    for a, c in zip(got, again))
+        rec["ok"] = rec["ok"] and rec["repeat_bitwise"]
+        del again
+    if timed:
+        b_ms, by = bound(nbytes(r, k, v, w, bonus, dout, *got,
+                                *(x for x in (st0, dst) if x is not None)),
+                         rwkv_bwd_flops(b, s, h, d, chunk), dtype)
+        dev_ms, per_call = device_ms(call, "rwkv6_bwd", count=True)
+        rec.update(
+            ms=time_ms(call), device_ms=dev_ms,
+            device_kernels_per_call=per_call,
+            plain_ms=time_ms(plain, iters=1, warmup=0),
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=by)
+    return rec
+
+
 def mamba_flops(b, s, h, p, n, chunk) -> float:
     """Operations of the chunked Mamba2 scan, pairs on and below
     the diagonal only (exp counted as one): the scores c . b once per
@@ -1430,6 +1598,30 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         ops, ref, rng, rshape, rwkv_cfg.rwkv.chunk,
         getattr(torch, rwkv_cfg.dtype), out_dtype=torch.float32,
         timed=True)}
+    # K5b: the train_rwkv phase's microbatch ([2, 4096, 40, 64], chunk 32)
+    # as the model calls it (bf16 r, k, v, no initial state, no final
+    # cotangent), timed and called twice for the same bits; the served
+    # prefill's shape with both ends, timed; each also in float32 and
+    # under strong decay (w = 1e-6) with both ends
+    rdt, chunk = getattr(torch, rwkv_cfg.dtype), rwkv_cfg.rwkv.chunk
+    tshape = (TRAIN_MICROBATCH, train_seq_len()) + rshape[2:]
+    rwkv_main[f"{rwkv_cfg.name}/train"] = rwkv_case(
+        ops, ref, rng, tshape, chunk, rdt, out_dtype=torch.float32,
+        timed=True)
+    rwkv_bwd_main = {}
+    for tag, shape in ((f"{rwkv_cfg.name}/train", tshape),
+                       (f"prefill/nq{NUM_QUERIES}", rshape)):
+        train = shape == tshape
+        rwkv_bwd_main[tag] = rwkv_bwd_case(
+            ops, ref, rng, shape, chunk, rdt, state=not train,
+            dstate=not train, timed=True, repeat=train)
+        rwkv_bwd_main[tag + "/float32"] = rwkv_bwd_case(
+            ops, ref, rng, shape, chunk, torch.float32, state=True,
+            dstate=True)
+        rwkv_bwd_main[tag + "/strong_decay"] = rwkv_bwd_case(
+            ops, ref, rng, shape, chunk, rdt, strong_decay=True, state=True,
+            dstate=True)
+        torch.cuda.empty_cache()
     # K4: the sweep, an initial state, bf16 inputs, the serving shape (in
     # the model's dtype with a float32 y, as the model calls it, timed; and
     # in float32 against the 5e-4 bar) on column-slice operands and a
@@ -1458,7 +1650,8 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
              + list(moe_main.values()) + grad_sweep
              + list(grad_main["moe_gemm_dx"].values())
              + list(grad_main["moe_gemm_dw"].values()) + rwkv_sweep
-             + list(rwkv_main.values()) + mamba_sweep
+             + list(rwkv_main.values()) + list(rwkv_bwd_main.values())
+             + mamba_sweep
              + list(mamba_main.values()))
     bad = [c for c in cases if not c["ok"]]
     out = {
@@ -1496,6 +1689,11 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             "sweep_state_max_abs_err": sweep_err(rwkv_sweep,
                                                  "state_max_abs_err"),
             "main_path": rwkv_main},
+        "rwkv6_scan_bwd": {
+            "max_rel_err": {n: max(c["rel_err"][n]
+                                   for c in rwkv_bwd_main.values())
+                            for n in SCAN_BWD_LEAVES},
+            "main_path": rwkv_bwd_main},
         "mamba2_scan": {
             "sweep_cases": len(mamba_sweep),
             "sweep_max_abs_err": sweep_err(mamba_sweep),
@@ -1731,12 +1929,13 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
 
 
 @contextlib.contextmanager
-def plain_versions(ops, ref, names=None):
+def plain_versions(ops, ref, names=None, plain=None):
     """Swap the plain versions in for the kernels' wrappers (all of them,
-    or those ``names``)."""
+    or those ``names``): ``ref.<name>_ref``, or ``ref.<plain[name]>``."""
     saved = {name: getattr(ops, name) for name in (names or ops.KERNELS)}
     for name in saved:
-        setattr(ops, name, getattr(ref, name + "_ref"))
+        setattr(ops, name, getattr(ref, (plain or {}).get(name,
+                                                          name + "_ref")))
     try:
         yield
     finally:
@@ -2497,9 +2696,11 @@ def active_params(cfg, n_params: int) -> float:
 
 
 def layer_kinds(cfg) -> list[str]:
-    """The model's layer kinds in execution order ('L' local, under the
-    sliding window; 'G' global)."""
+    """The model's attention layer kinds in execution order ('L' local,
+    under the sliding window; 'G' global); none for RWKV6."""
     from repro_torch.models.transformer import DecoderLM
+    if cfg.rwkv is not None:
+        return []
     return DecoderLM(cfg, device="cpu").layer_kinds()
 
 
@@ -2519,8 +2720,15 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     Dv: 2 (D + Dv) flops a head and attended pair forward, twice that
     backward, so 6 (D + Dv)) over the pairs each layer's mask keeps: the
     causal pairs on a global layer, those within the sliding window on a
-    local one (gemma3's).  The forward that remat repeats is not
-    counted."""
+    local one (gemma3's).  For RWKV6, 6 x parameters x tokens and the
+    WKV scan's operations (``rwkv_flops``) three times a layer: once
+    forward, twice that backward, as the matrix products' 6 is 2 + 4.
+    The forward that remat repeats is not counted."""
+    if cfg.rwkv is not None:
+        hd = cfg.rwkv.head_dim
+        scan = 3.0 * cfg.num_layers * rwkv_flops(
+            batch, seq, cfg.d_model // hd, hd, cfg.rwkv.chunk)
+        return 6.0 * n_params * batch * seq + scan
     pairs = {"G": attended_pairs(seq, seq, True, 0)}
     if cfg.sliding_window:
         pairs["L"] = attended_pairs(seq, seq, True, cfg.sliding_window)
@@ -2535,10 +2743,19 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
     in the backward's recompute; its backward once; in an MoE layer K3's
     forward three times (gate, up, down), again in the recompute, and its
     dX and dW kernels three times each (every rows count of these calls
-    takes the 128-row tile)."""
+    takes the 128-row tile).  For RWKV6 per layer and microbatch K5
+    once, and again in the recompute, and K5b's kernels once each
+    (``rwkv6_scan.bwd_launches`` of the passes that r, k, v, w and bonus
+    call for: no initial state), nothing else."""
+    from repro_torch.kernels import rwkv6_scan as rs_mod
     exp = dict.fromkeys(REPLACES, 0)
     exp["moe_gemm_decode_tile"] = 0
     runs, fwd = n_accum * steps, 2 if cfg.remat else 1
+    if cfg.rwkv is not None:
+        exp["rwkv6_scan"] = cfg.num_layers * runs * fwd
+        exp["rwkv6_scan_bwd"] = cfg.num_layers * runs * rs_mod.bwd_launches(
+            rs_mod.bwd_passes((True,) * 5 + (False,)))
+        return exp
     exp["flash_attention"] = cfg.num_layers * runs * fwd
     exp["flash_attention_bwd"] = cfg.num_layers * runs
     if cfg.moe is not None:
@@ -2561,7 +2778,7 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
     share of its wall, the device time by kind of kernel (K1's forward,
     its backward, K3's forward, dX and dW, the matrix products,
     elementwise kernels and copies, the rest) and K1's and K3's shares of
-    the step's device time."""
+    the step's device time (K5's and K5b's for RWKV6)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2574,7 +2791,9 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
     rows = kernel_rows(prof)
     dev = sum(r[0] for r in rows) / 1e6
     # K3's dX is K3's kernel with a K-major w: its last template argument
-    kinds = {"k1_forward": ("flash_mma_kernel",),
+    kinds = {"k5_forward": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
+             "k5_backward": ("rwkv6_bwd_",),
+             "k1_forward": ("flash_mma_kernel",),
              "k1_backward": ("bwd_",),
              "k3_dx": tuple(f"moe_gemm_wgmma_kernel<{m}, {v}, true>"
                             for m in (64, 128) for v in ("true", "false")),
@@ -2595,6 +2814,7 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
             "k1_backward_share": share["k1_backward"] / dev,
             "k3_share": (share["k3_forward"] + share["k3_dx"]
                          + share["k3_dw"]) / dev,
+            "k5_share": (share["k5_forward"] + share["k5_backward"]) / dev,
             "top_device_time": [
                 {"name": k[:80], "calls": n, "ms": us / 1e3}
                 for us, n, k in rows[:10]]}
@@ -2606,7 +2826,8 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     """``cfg`` at full width (qwen3-1.7b; granite-moe-3b-a800m as
     ``train_moe``, gemma3-4b as ``train_gemma3`` and deepseek-v2-236b as
     ``train_deepseek``, their depth cut to ``num_layers``, ``depth_note``
-    saying why beside the measured peak) trained through the
+    saying why beside the measured peak; rwkv6-3b as ``train_rwkv``, at
+    its full depth, the peak printed) trained through the
     port's ``make_train_step`` with the reference's ``AdamWConfig()``:
     bf16 compute over float32 masters, bf16 moments, remat,
     TRAIN_GLOBAL_BATCH sequences of train_4k's length per step in
@@ -2699,6 +2920,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         "model_tflops_per_s": flops / step_s / 1e12,
         "mfu_of_989_tflops": flops / step_s / PEAK_FLOPS[torch.bfloat16],
         "peak_gb": peak / 1e9,
+        "depth": f"{cfg.num_layers} of {full.num_layers} layers",
         "launches": counts, "launches_expected": expect,
         "flash_attention_bwd_windowed": {"launches": windowed,
                                          "expected": expect_windowed},
@@ -2707,6 +2929,8 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if cfg.sliding_window:
         out["shape"].update(sliding_window=cfg.sliding_window,
                             layer_kinds="".join(layer_kinds(cfg)))
+    if cfg.rwkv is not None:
+        out["shape"].update(chunk=cfg.rwkv.chunk)
     if cfg.mla is not None:
         out["shape"].update(head_dims_qk_v=list(attention_head_dims(cfg)),
                             q_lora_rank=cfg.mla.q_lora_rank,
@@ -2824,11 +3048,14 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
 
 def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
                        num_layers: int = 0, f32_layers: int = 0,
-                       seq: int = 0, seq_reason: str = "") -> dict:
+                       seq: int = 0, seq_reason: str = "",
+                       bf16_gate_layers: int = 0) -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
     log-sum-exp and its backward; for an MoE model K3 and its dX and dW
-    kernels) against the plain versions (``plain_versions`` of
-    flash_attention, and moe_gemm: autograd through the plain forwards),
+    kernels; for RWKV6 K5 and K5b) against the plain versions
+    (``plain_versions`` of flash_attention, and moe_gemm: autograd through
+    the plain forwards; of rwkv6_scan: the plain forward with the plain
+    backward, TRAIN_PLAIN),
     on the train phase's first microbatch: in float32 at full width with
     ``f32_layers`` layers (TRAIN_F32_LAYERS; gemma3 GEMMA_F32_LAYERS, five
     local layers and its first global one) (the loss within
@@ -2847,9 +3074,12 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     amplify the kernels' rounding chaotically (ROADMAP H25): there its bf16
     reading is reported, and the bars hold the same weights with the
     attention projections drawn at 1 / sqrt(d)
-    (``attention_at_input_width``), as parity_whisper does.  Then a second
-    kernel run on the same microbatch, whose loss and gradients must equal
-    the first's bit for bit, and the Trainer drill at SMOKE size."""
+    (``attention_at_input_width``), as parity_whisper does.  With
+    ``bf16_gate_layers`` (rwkv6: RWKV_BF16_GATE_LAYERS, H30) the bf16
+    reading at the train depth is reported and the bars hold the model cut
+    to that many layers.  Then a second kernel run on the same microbatch,
+    whose loss and gradients must equal the first's bit for bit, and the
+    Trainer drill at SMOKE size."""
     ops, ref, moe_mod = mods["ops"], mods["ref"], mods["moe"]
     from repro_torch.models.families import build_model
     from repro_torch.training.data import DataConfig, SyntheticTokens
@@ -2858,7 +3088,8 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     # MoE layers at the depths run here (deepseek's first layer is dense)
     is_moe = cfg.moe is not None and (num_layers or cfg.num_layers) > \
         cfg.moe_layer_start
-    names = ["flash_attention"] + (["moe_gemm"] if is_moe else [])
+    names = (["rwkv6_scan"] if cfg.rwkv is not None else
+             ["flash_attention"] + (["moe_gemm"] if is_moe else []))
     seq = seq or train_seq_len()
     batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
                                        TRAIN_GLOBAL_BATCH, seed=seed)) \
@@ -2879,7 +3110,7 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         with hold():
             kern = loss_and_grads(model, masters, micro, dtype)
         counts = ops.counts()
-        with plain_versions(ops, ref, names), hold(stats):
+        with plain_versions(ops, ref, names, TRAIN_PLAIN), hold(stats):
             plain = loss_and_grads(model, masters, micro, dtype)
         routing = None
         if is_moe:
@@ -2950,6 +3181,19 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         attention_at_input_width(masters)
         bf16, _, _ = compare(model, masters, torch.bfloat16, cfg.num_layers)
         bf16["init"] = "attention projections at 1 / sqrt(d)"
+    elif bf16_gate_layers:
+        out["bf16_train_depth_reported"] = {
+            **bf16, "repeat_bitwise": repeat,
+            "within_the_bars": bf16["loss_rel_diff"] <= loss_bar
+            and bf16["grad_norm_rel_diff"] <= norm_bar
+            and bf16["grad_rel_diff_max"] <= grad_bar}
+        del model, masters
+        torch.cuda.empty_cache()
+        model = build_model(dataclasses.replace(
+            cfg, num_layers=bf16_gate_layers), "cuda")
+        masters = master_params(model, seed)
+        bf16, _, _ = compare(model, masters, torch.bfloat16,
+                             bf16_gate_layers)
     else:
         bf16["repeat_bitwise"] = repeat
     bf16["tol"] = {"loss": loss_bar, "grad_norm": norm_bar,
@@ -3150,7 +3394,8 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                 "moe_gemm": "prefill_up",
                 "moe_gemm_dx": "granite-moe-3b-a800m/train_gate_up",
                 "moe_gemm_dw": "granite-moe-3b-a800m/train_gate_up",
-                "mamba2_scan": "prefill", "rwkv6_scan": "prefill"}
+                "mamba2_scan": "prefill", "rwkv6_scan": "prefill",
+                "rwkv6_scan_bwd": "rwkv6-3b/train"}
     rows = []
     for name in REPLACES:
         main = kernels_out[name]["main_path"]
@@ -3187,6 +3432,8 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                                      for x in main.values())
         if name in ("moe_gemm_dx", "moe_gemm_dw"):
             row["max_rel_err"] = max(x["rel_err"] for x in main.values())
+        if name == "rwkv6_scan_bwd":
+            row["max_rel_err"] = kernels_out[name]["max_rel_err"]
         if name == "moe_gemm":
             dkey = next(k for k in timed if k.startswith("decode_up"))
             row["decode"] = {
@@ -3201,7 +3448,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             row["cache_len_on_device"] = c["cache_len_on_device"]
         if name in ("mamba2_scan", "rwkv6_scan"):
             row["out_dtype"] = c["out_dtype"]
-        if name in ("decode_attention", "rwkv6_scan"):
+        if name in ("decode_attention", "rwkv6_scan", "rwkv6_scan_bwd"):
             row["device_kernels_per_call"] = {
                 k: x["device_kernels_per_call"] for k, x in timed.items()}
         rows.append(row)
@@ -3368,14 +3615,32 @@ def main() -> None:
         seq_reason="the plain attention's float32 [2, 128, S, S] tensors "
                    "(scores, masked scores, p, dp, ds) take 17.2 GB each at "
                    "4096, 86 GB in all; 4.3 GB each at 2048")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_rwkv = time.perf_counter()
+    with expandable_segments():
+        train_rwkv_out = phase_train(
+            mods, rwkv, args.seed, profile=args.profile, phase="train_rwkv")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_parity_train(
+            mods, rwkv, args.seed, phase="parity_train_rwkv",
+            f32_layers=rwkv.num_layers,
+            bf16_gate_layers=RWKV_BF16_GATE_LAYERS, seq=RWKV_PARITY_SEQ,
+            seq_reason="the plain scan runs one step per token forward and "
+                       "two backward, about 150 thousand launches a layer "
+                       "at 4096")
+    rwkv_s = time.perf_counter() - t_rwkv
     train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
                                       serve4_out, serve5_out, whisper_out,
                                       train_out, train_moe_out,
-                                      train_gemma_out, train_deepseek_out]))
+                                      train_gemma_out, train_deepseek_out,
+                                      train_rwkv_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "whisper_phases_seconds": whisper_s,
-          "train_phases_seconds": train_s})
+          "train_phases_seconds": train_s,
+          "rwkv_train_phases_seconds": rwkv_s})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,14 @@ H21).  At rwkv6-3b's prefill bytes bound it (about 157 MB, 0.047 ms at
 ``w`` is clipped to ``[1e-8, 1]`` here, as in the TPU kernel; the RWKV
 model clips to its own ``[1e-6, 1 - 1e-6]`` before calling (ROADMAP
 queue 3, H4).
+
+The backward, K5b (``csrc/rwkv6_scan_bwd.cu``, no TPU counterpart: the
+reference differentiates ``_wkv_chunked``), is :func:`rwkv6_scan_bwd`;
+under grad :func:`rwkv6_scan` goes through ``_RWKV6Scan``, on the card and
+on the CPU.  Its kernels recompute the chunk-end states by value column,
+take the chunk-end cotangents the same way in reverse, then every chunk's
+gradients in parallel, all in float32 on the CUDA cores; the decay's
+gradient is taken chunk by chunk (see the source note).
 """
 from __future__ import annotations
 
@@ -33,6 +41,11 @@ from repro_torch.kernels import _build
 MAX_CHUNK = 64
 HEAD_DIMS = (16, 32, 64, 128)    # D the kernels are instantiated for
 SMEM_LIMIT = 232448          # shared memory one block may use on sm_90
+# K5b's passes, a mask of the C entry's ``passes`` (csrc/rwkv6_scan_bwd.cu):
+# the chunk-end states, the chunk-end cotangents (and dstate0), the
+# per-chunk gradients, the ordered sum of dbonus; each is one kernel
+# launch but the first two, which share one
+PASS_STATES, PASS_COTANGENTS, PASS_CHUNKS, PASS_BONUS = 1, 2, 4, 8
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,6 +75,56 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         st = st * wf[:, t][..., None] + kt[..., :, None] * vt[..., None, :]
         outs.append(o)
     return torch.stack(outs, dim=1).to(out_dtype or r.dtype), st
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, bonus: torch.Tensor,
+                       dout: torch.Tensor, *, chunk: int = 32,
+                       state0: Optional[torch.Tensor] = None,
+                       dstate: Optional[torch.Tensor] = None):
+    """Plain backward of :func:`rwkv6_scan_ref`: the reverse recurrence,
+    step by step in float32 (``chunk`` is accepted for the wrapper's
+    signature and not used).  With ``dS`` the gradient of the state after
+    step t (``dstate``, the final state's cotangent, or zeros at the end)
+    and ``S_{t-1}`` the state before it, kept from a forward pass:
+
+        dr_t = S_{t-1} do_t + u k_t (do_t . v_t)
+        dk_t = dS v_t + u r_t (do_t . v_t)
+        dv_t = dS^T k_t + (r_t . (u k_t)) do_t
+        dw_t = rowsum(dS * S_{t-1}) where w_t lies in [1e-8, 1], else 0
+        dbonus += sum over the batch of r_t k_t (do_t . v_t)
+        dS <- diag(w_t) dS + r_t do_t^T
+
+    and dstate0 the last ``dS``.  Returns (dr, dk, dv in ``r.dtype``; dw
+    [B, S, H, D], dbonus [H, D], dstate0 [B, H, D, D] in float32)."""
+    b, s, h, d = r.shape
+    wf = w.float()
+    wc = wf.clamp(1e-8, 1.0)
+    inside = ((wf >= 1e-8) & (wf <= 1.0)).float()
+    bon = bonus.float()
+    st = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+          if state0 is None else state0.float())
+    before = []                          # S_{t-1} of every step
+    for t in range(s):
+        before.append(st)
+        kt, vt = k[:, t].float(), v[:, t].float()
+        st = st * wc[:, t][..., None] + kt[..., :, None] * vt[..., None, :]
+    ds = (torch.zeros_like(st) if dstate is None else dstate.float())
+    dr, dk, dv, dw = ([None] * s for _ in range(4))
+    dbonus = torch.zeros((h, d), dtype=torch.float32, device=r.device)
+    for t in reversed(range(s)):
+        rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        dot = dout[:, t].float()
+        pv = (dot * vt).sum(-1, keepdim=True)             # do_t . v_t
+        dr[t] = torch.einsum("bhkc,bhc->bhk", before[t], dot) + bon * kt * pv
+        dk[t] = torch.einsum("bhkc,bhc->bhk", ds, vt) + bon * rt * pv
+        dv[t] = (torch.einsum("bhkc,bhk->bhc", ds, kt)
+                 + (rt * bon * kt).sum(-1, keepdim=True) * dot)
+        dw[t] = (ds * before[t]).sum(-1) * inside[:, t]
+        dbonus += (rt * kt * pv).sum(0)
+        ds = ds * wc[:, t][..., None] + rt[..., :, None] * dot[..., None, :]
+    grads = [torch.stack(g, dim=1) for g in (dr, dk, dv, dw)]
+    return (*(g.to(r.dtype) for g in grads[:3]), grads[3], dbonus, ds)
 
 
 def smem_bytes(d: int, chunk: int, dtype: torch.dtype = torch.float32) -> int:
@@ -121,6 +184,26 @@ def _check(r, k, v, w, bonus, state0, out_dtype):
                          "device")
 
 
+def _chunk(s: int, chunk: int) -> int:
+    chunk = min(int(chunk), s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {chunk}: pad it first")
+    return chunk
+
+
+def _reach(d: int, chunk: int, smem: int) -> None:
+    """Raise ``ValueError`` for a head dim, chunk or shared memory beyond
+    the kernels."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} exceeds the kernels' {MAX_CHUNK}")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"chunk {chunk} at head dim {d} needs {smem} bytes "
+                         f"of shared memory, above {SMEM_LIMIT}")
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, bonus: torch.Tensor, *, chunk: int = 32,
                state0: Optional[torch.Tensor] = None,
@@ -134,41 +217,56 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor goes through a kernel (which is built at first use) or
     raises; the plain version is taken only for tensors that lie on the
-    CPU.  With grad enabled and an input that requires it, a CUDA call
-    raises ``NotImplementedError``: there is no backward kernel (autograd
-    runs through the plain version on the CPU).  bf16 r, k, v go to the
-    mma.sync kernel, float32 ones to the FMA kernel; a shape outside the
-    kernel's reach raises ``ValueError``. ``rwkv6_scan.launches`` counts
-    kernel launches.
+    CPU.  Where grad is enabled and an input requires it, the call is
+    differentiable: its backward is :func:`rwkv6_scan_bwd` (K5b on the
+    card, the plain reverse recurrence on the CPU).  bf16 r, k, v go to
+    the mma.sync kernel, float32 ones to the FMA kernel; a shape outside
+    the kernel's reach raises ``ValueError``. ``rwkv6_scan.launches``
+    counts kernel launches of the forward.
     """
+    return _scan(r, k, v, w, bonus, chunk, state0, out_dtype, plain=False)
+
+
+def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     w: torch.Tensor, bonus: torch.Tensor, *,
+                     chunk: int = 32, state0: Optional[torch.Tensor] = None,
+                     out_dtype: Optional[torch.dtype] = None):
+    """:func:`rwkv6_scan` with the plain versions on any device: the
+    forward :func:`rwkv6_scan_ref` and, under grad, the backward
+    :func:`rwkv6_scan_bwd_ref` (not autograd through the forward's steps).
+    What a parity run on the card holds K5 and K5b to."""
+    return _scan(r, k, v, w, bonus, chunk, state0, out_dtype, plain=True)
+
+
+def _scan(r, k, v, w, bonus, chunk, state0, out_dtype, plain):
+    """The arguments checked, then the autograd function where grad is
+    enabled and an input requires it, else the forward alone."""
     _check(r, k, v, w, bonus, state0, out_dtype)
     out_dtype = out_dtype or r.dtype
+    chunk = _chunk(r.shape[1], chunk)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (r, k, v, w, bonus, state0)):
+        return _RWKV6Scan.apply(r, k, v, w, bonus, state0, chunk, out_dtype,
+                                plain)
+    return _scan_fwd(r, k, v, w, bonus, chunk, state0, out_dtype, plain)
+
+
+def _scan_fwd(r, k, v, w, bonus, chunk, state0, out_dtype, plain):
+    """The forward on checked arguments: the plain version where
+    ``plain`` or on the CPU, else a kernel on the card."""
     b, s, h, d = r.shape
-    chunk = min(int(chunk), s)
-    if chunk < 1 or s % chunk:
-        raise ValueError(f"sequence length {s} is not a multiple of the "
-                         f"chunk {chunk}: pad it first")
-    if r.device.type == "cpu":
+    if plain or r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, w, bonus, chunk=chunk, state0=state0,
                               out_dtype=out_dtype)
     if r.device.type != "cuda":
         raise RuntimeError(f"no rwkv6_scan kernel for {r.device}")
-    _build.refuse_grad("rwkv6_scan; RWKV6 training (a K5 backward scan) is "
-                       "ROADMAP item 14d", r, k, v, w, bonus, state0)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} exceeds the kernels' {MAX_CHUNK}")
-    if smem_bytes(d, chunk, r.dtype) > SMEM_LIMIT:
-        raise ValueError(f"chunk {chunk} at head dim {d} needs "
-                         f"{smem_bytes(d, chunk, r.dtype)} bytes of shared "
-                         f"memory, above {SMEM_LIMIT}")
+    _reach(d, chunk, smem_bytes(d, chunk, r.dtype))
     w = w.float()
     if r.dtype == torch.bfloat16:      # the 16-byte copies' rule
         r, k, v, w = (_build.kernel_operand(x) for x in (r, k, v, w))
     else:
-        r, k, v, w = (x if x.stride(-1) == 1 else x.contiguous()
-                      for x in (r, k, v, w))
+        r, k, v, w = (_unit_last(x) for x in (r, k, v, w))
     bonus = bonus.float().contiguous()
     state0 = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
               if state0 is None else state0.float().contiguous())
@@ -192,4 +290,180 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, fin
 
 
+def _unit_last(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def bwd_smem_bytes(d: int, chunk: int) -> int:
+    """Shared memory of one block of K5b's per-chunk kernel, as
+    ``csrc/rwkv6_scan_bwd.cu :: chunk_smem`` lays it out: six [L, D+4]
+    float tiles (r, k, v, d out, dr, dk), the cumulative log decays
+    [L+1, D+4], S0 / dE [D, D+4], P and the scores [L, L+1] each, the
+    bonus and the rowsums [D] each."""
+    dp = d + 4
+    return 4 * (6 * chunk * dp + (chunk + 1) * dp + d * dp
+                + 2 * chunk * (chunk + 1) + 2 * d)
+
+
+def bwd_passes(needs) -> int:
+    """The mask of K5b's passes that the gradients ``needs`` (of r, k, v,
+    w, bonus, state0) call for: the per-chunk pass (with both state
+    passes) for any of the first five, the ordered sum for bonus, the
+    cotangents alone for state0 alone."""
+    passes = 0
+    if any(needs[:5]):
+        passes |= PASS_STATES | PASS_COTANGENTS | PASS_CHUNKS
+    if needs[4]:
+        passes |= PASS_BONUS
+    if needs[5]:
+        passes |= PASS_COTANGENTS
+    return passes
+
+
+def bwd_launches(passes: int) -> int:
+    """Kernel launches of one K5b call with ``passes``: the two state
+    passes share one."""
+    return (bool(passes & (PASS_STATES | PASS_COTANGENTS))
+            + bool(passes & PASS_CHUNKS) + bool(passes & PASS_BONUS))
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, bonus: torch.Tensor, dout: torch.Tensor,
+                   *, chunk: int = 32,
+                   state0: Optional[torch.Tensor] = None,
+                   dstate: Optional[torch.Tensor] = None,
+                   needs=(True,) * 6):
+    """K5b: the gradients of :func:`rwkv6_scan` (same arguments) from
+    ``dout`` [B, S, H, D] and ``dstate``, the final state's cotangent
+    [B, H, D, D] (None: zeros).  Returns (dr, dk, dv, dw, dbonus,
+    dstate0), None where ``needs`` (flags for r, k, v, w, bonus, state0)
+    is false; dr, dk, dv in ``r.dtype``, the others float32.
+
+    A CUDA tensor goes through the kernels (``csrc/rwkv6_scan_bwd.cu``,
+    built at first use), launching only the passes ``needs`` calls for
+    (:func:`bwd_passes`), or raises; the plain version is taken only for
+    tensors that lie on the CPU.  Sums run in a fixed order: two calls
+    give the same bits.  A shape outside the kernels' reach raises
+    ``ValueError``. ``rwkv6_scan_bwd.launches`` counts every kernel it
+    starts."""
+    _check(r, k, v, w, bonus, state0, None)
+    b, s, h, d = r.shape
+    if tuple(dout.shape) != (b, s, h, d) or dout.device != r.device:
+        raise ValueError(f"dout {tuple(dout.shape)} on {dout.device} is not "
+                         f"[B, S, H, D] = {(b, s, h, d)} on {r.device}")
+    if dstate is not None and (tuple(dstate.shape) != (b, h, d, d)
+                               or dstate.device != r.device):
+        raise ValueError(f"dstate {tuple(dstate.shape)} is not [B, H, D, D]"
+                         f" = {(b, h, d, d)} on {r.device}")
+    chunk = _chunk(s, chunk)
+    needs = tuple(bool(n) for n in needs)
+    if r.device.type == "cpu":
+        grads = rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout, chunk=chunk,
+                                   state0=state0, dstate=dstate)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    if r.device.type != "cuda":
+        raise RuntimeError(f"no rwkv6_scan_bwd kernel for {r.device}")
+    _reach(d, chunk, bwd_smem_bytes(d, chunk))
+    passes = bwd_passes(needs)
+    if not passes:
+        return (None,) * 6
+    bufs = bwd_buffers(r, chunk, passes, needs[5])
+    launch_bwd(r, k, v, w, bonus, dout, chunk, state0, dstate, bufs, passes)
+    grads = (bufs["dr"], bufs["dk"], bufs["dv"], bufs["dw"], bufs["dbonus"],
+             bufs["dstate0"])
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def bwd_buffers(r: torch.Tensor, chunk: int, passes: int,
+                dstate0: bool) -> dict:
+    """K5b's outputs and scratch for ``passes`` (None where a pass does
+    not need it): dr, dk, dv in ``r.dtype`` and dw float32 [B, S, H, D];
+    the chunk-end states and cotangents [B, H, S / L, D, D] float32; the
+    partial dbonus [B, S / L, H, D]; dbonus [H, D]; dstate0 [B, H, D, D]
+    where ``dstate0``."""
+    b, s, h, d = r.shape
+    nc = s // chunk
+    f32 = dict(dtype=torch.float32, device=r.device)
+    chunks = bool(passes & PASS_CHUNKS)
+    grid = lambda: torch.empty((b, h, nc, d, d), **f32)
+    return {
+        "states": grid() if passes & (PASS_STATES | PASS_CHUNKS) else None,
+        "dstates": (grid() if passes & (PASS_COTANGENTS | PASS_CHUNKS)
+                    else None),
+        **{g: (torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
+               if chunks else None) for g in ("dr", "dk", "dv")},
+        "dw": torch.empty((b, s, h, d), **f32) if chunks else None,
+        "dbonus_part": (torch.empty((b, nc, h, d), **f32)
+                        if passes & (PASS_CHUNKS | PASS_BONUS) else None),
+        "dbonus": (torch.empty((h, d), **f32) if passes & PASS_BONUS
+                   else None),
+        "dstate0": torch.empty((b, h, d, d), **f32) if dstate0 else None,
+    }
+
+
+def launch_bwd(r, k, v, w, bonus, dout, chunk, state0, dstate, bufs,
+               passes) -> None:
+    """Launch K5b's ``passes`` on checked CUDA arguments into ``bufs``
+    (:func:`bwd_buffers`); raises on a failed launch.  A pass reads what
+    an earlier one wrote into ``bufs``."""
+    b, s, h, d = r.shape
+    r, k, v = (_unit_last(x) for x in (r, k, v))
+    w, dout = (_unit_last(x.float()) for x in (w, dout))
+    bonus = bonus.float().contiguous()
+    state0, dstate = (None if x is None else x.float().contiguous()
+                      for x in (state0, dstate))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    lib = _build.load()
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fate_rwkv6_scan_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            bonus.data_ptr(), ptr(state0), dout.data_ptr(), ptr(dstate),
+            *(ptr(bufs[n]) for n in ("states", "dstates", "dr", "dk", "dv",
+                                      "dw", "dbonus_part", "dbonus",
+                                      "dstate0")),
+            b, s, h, d, chunk,
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *w.stride()[:3], *dout.stride()[:3],
+            _build.DTYPE_CODE[r.dtype], passes, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"rwkv6_scan_bwd kernel launch failed (code {rc}) for r "
+            f"{tuple(r.shape)}, chunk {chunk}, {r.dtype}, passes {passes}")
+    rwkv6_scan_bwd.launches += bwd_launches(passes)
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """K5 with a gradient: the forward saves its inputs; the backward
+    calls :func:`rwkv6_scan_bwd` for the gradients autograd needs, with
+    the final state's cotangent where the caller used that state (None
+    skips its term: the grads are not materialised).  ``plain``: the
+    plain forward and backward on any device (:func:`rwkv6_scan_plain`)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, bonus, state0, chunk, out_dtype, plain):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, bonus, state0)
+        ctx.chunk, ctx.plain = chunk, plain
+        return _scan_fwd(r, k, v, w, bonus, chunk, state0, out_dtype, plain)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, bonus, state0 = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        needs = ctx.needs_input_grad[:6]
+        if ctx.plain:
+            grads = [g if n else None for g, n in zip(rwkv6_scan_bwd_ref(
+                r, k, v, w, bonus, dout, state0=state0, dstate=dstate),
+                needs)]
+        else:
+            grads = rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=ctx.chunk,
+                                   state0=state0, dstate=dstate, needs=needs)
+        like = (r, k, v, w, bonus, state0)
+        return (*(None if g is None else g.to(x.dtype)
+                  for g, x in zip(grads, like)), None, None, None)
+
+
 rwkv6_scan.launches = 0
+rwkv6_scan_bwd.launches = 0

@@ -24,21 +24,32 @@ class DataConfig:
 
 
 class SyntheticTokens:
-    """Zipf-ish synthetic LM stream; labels are next-token shifted."""
+    """Zipf-ish synthetic LM stream; labels are next-token shifted.
+    ``device``: where iterating the stream puts its batches."""
 
-    def __init__(self, cfg: DataConfig):
+    def __init__(self, cfg: DataConfig, device="cuda"):
         self.cfg = cfg
+        self.device = device
         ranks = np.arange(1, cfg.vocab_size + 1, dtype=np.float64)
         probs = 1.0 / ranks
         self._probs = probs / probs.sum()
 
-    def batch_at(self, step: int, device="cuda") -> dict[str, torch.Tensor]:
+    def batch_at(self, step: int, device=None) -> dict[str, torch.Tensor]:
         """``{"tokens", "labels"}``, int64 [global_batch, seq_len] on
-        ``device``: the reference's int32 draw, widened."""
+        ``device`` (the stream's if None): the reference's int32 draw,
+        widened."""
         cfg = self.cfg
+        device = self.device if device is None else device
         rng = np.random.default_rng((cfg.seed, step))
         toks = rng.choice(cfg.vocab_size, p=self._probs,
                           size=(cfg.global_batch, cfg.seq_len + 1))
         toks = torch.from_numpy(toks.astype(np.int32)).to(
             resolve_device(device), torch.int64)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self):
+        """The batches of steps 0, 1, 2, ... on the stream's device."""
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1

@@ -1230,9 +1230,10 @@ def test_flash_attention_bwd_refuses_unported_head_dims(card):
 
 
 def test_wrappers_without_backward_refuse_grad_on_card(card):
-    """K2, K4 and K5 have no backward kernel: under grad on the card they
+    """K2 and K4 have no backward kernel: under grad on the card they
     raise and name the ROADMAP item; without grad they launch as before
-    (K3 has its gradients since ROADMAP item 14a)."""
+    (K3 has its gradients since ROADMAP item 14a, K5 since 14d:
+    test_rwkv6_scan_autograd_on_card)."""
     rng = np.random.default_rng(45)
     bf = torch.bfloat16
     calls = {
@@ -1242,19 +1243,149 @@ def test_wrappers_without_backward_refuse_grad_on_card(card):
             t(1, 64, 2, 64), t(1, 64, 64), t(1, 64, 64),
             torch.rand(1, 64, 2, device=card, dtype=bf), t(2),
             chunk=32),
-        "rwkv6_scan": lambda t: ops.rwkv6_scan(
-            t(1, 32, 2, 64), t(1, 32, 2, 64), t(1, 32, 2, 64),
-            torch.rand(1, 32, 2, 64, device=card, dtype=bf) * 0.5 + 0.4,
-            t(2, 64), chunk=16),
     }
-    items = {"decode_attention": "item 14", "mamba2_scan": "14e",
-             "rwkv6_scan": "14d"}
+    items = {"decode_attention": "item 14", "mamba2_scan": "14e"}
     for name, call in calls.items():
         plain = lambda *s: _randn(rng, s, bf, card)
         graded = lambda *s: _randn(rng, s, bf, card).requires_grad_()
         call(plain)
         with pytest.raises(NotImplementedError, match=items[name]):
             call(graded)
+
+
+# --- K5's backward, K5b (ROADMAP item 14d) ---------------------------------
+
+# K5b against its plain version, each gradient relative to its largest
+# magnitude: float32 sums in another order, and the chunked form's
+# exponentials of summed log decays against the plain version's products
+# of decays (SCAN_BWD_REL); dw, a quotient by w, SCAN_BWD_DW_REL; bf16 dr,
+# dk, dv rounded once (SCAN_BWD_BF16_REL)
+SCAN_BWD_REL, SCAN_BWD_DW_REL, SCAN_BWD_BF16_REL = 1e-4, 1e-3, 1e-2
+
+
+def _scan_bwd_bars(dtype):
+    """The bars of (dr, dk, dv, dw, dbonus, dstate0)."""
+    rkv = SCAN_BWD_REL if dtype == torch.float32 else SCAN_BWD_BF16_REL
+    return (rkv, rkv, rkv, SCAN_BWD_DW_REL, SCAN_BWD_REL, SCAN_BWD_REL)
+
+
+def _scan_bwd_operands(rng, b, s, h, d, dtype, card, strong_decay=False,
+                       state0=False, dstate=False):
+    r, k, v, w, bonus = _rwkv(rng, b, s, h, d, dtype, card, strong_decay)
+    st0 = _randn(rng, (b, h, d, d), torch.float32, card) if state0 else None
+    dout = _randn(rng, (b, s, h, d), torch.float32, card)
+    dst = _randn(rng, (b, h, d, d), torch.float32, card) if dstate else None
+    return (r, k, v, w, bonus, dout), dict(state0=st0, dstate=dst)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("chunk", [4, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strong_decay", [False, True])
+@pytest.mark.parametrize("state0,dstate", [(False, False), (True, False),
+                                           (True, True)])
+def test_rwkv6_scan_bwd_kernel(card, d, chunk, dtype, strong_decay, state0,
+                               dstate):
+    """K5b against its plain version over every head dim, chunks from the
+    SMOKE config's 4 to 64, both input types, strong decay (w = 1e-6), an
+    initial state and a final state's cotangent; a chunk whose per-chunk
+    kernel does not fit in shared memory raises before any work."""
+    from repro_torch.kernels import rwkv6_scan as rs_mod
+    rng = np.random.default_rng(61)
+    args, kw = _scan_bwd_operands(rng, 2, 128, 3, d, dtype, card,
+                                  strong_decay, state0, dstate)
+    before = ops.rwkv6_scan_bwd.launches
+    if rs_mod.bwd_smem_bytes(d, chunk) > rs_mod.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.rwkv6_scan_bwd(*args, chunk=chunk, **kw)
+        assert ops.rwkv6_scan_bwd.launches == before
+        return
+    got = ops.rwkv6_scan_bwd(*args, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan_bwd.launches == before + 3
+    want = ref.rwkv6_scan_bwd_ref(*args, **kw)
+    for g, x, bar in zip(got, want, _scan_bwd_bars(dtype)):
+        assert g.dtype == x.dtype and bool(torch.isfinite(g.float()).all())
+        assert _rel(g, x) <= bar
+
+
+def test_rwkv6_scan_bwd_kernel_repeats_bitwise(card):
+    """rwkv6-3b's head dim and chunk over 1024 steps, strided bf16 views of
+    one fused buffer: two calls give the same bits, with a call of another
+    shape in between."""
+    rng = np.random.default_rng(62)
+    b, s, h, d = 2, 1024, 8, 64
+    fused = _randn(rng, (b, s, 3, h, d), torch.bfloat16, card)
+    (_, _, _, w, bonus, dout), _ = _scan_bwd_operands(
+        rng, b, s, h, d, torch.bfloat16, card)
+    r, k, v = (fused[:, :, i] for i in range(3))
+    g1 = ops.rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=32)
+    other, kw = _scan_bwd_operands(rng, 1, 80, 2, 16, torch.bfloat16, card,
+                                   state0=True, dstate=True)
+    ops.rwkv6_scan_bwd(*other, chunk=40, **kw)
+    g2 = ops.rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=32)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    want = ref.rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout)
+    for g, x, bar in zip(g1, want, _scan_bwd_bars(torch.bfloat16)):
+        if g is not None:
+            assert _rel(g, x) <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_autograd_on_card(card, dtype, monkeypatch):
+    """Under grad on the card ``rwkv6_scan`` launches K5 once and K5b's
+    three kernels, never a plain version; the gradients, with an initial
+    state and the final state used, equal those of the plain backward; a
+    call whose only differentiable input is state0 launches the
+    cotangents' pass alone, one without bonus no ordered sum."""
+    from repro_torch.kernels import rwkv6_scan as rs_mod
+    rng = np.random.default_rng(63)
+    (r, k, v, w, bonus, dout), kw = _scan_bwd_operands(
+        rng, 2, 96, 4, 64, dtype, card, state0=True, dstate=True)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (r, k, v, w, bonus, kw["state0"])]
+    with monkeypatch.context() as m:
+        m.setattr(rs_mod, "rwkv6_scan_ref", None)
+        m.setattr(rs_mod, "rwkv6_scan_bwd_ref", None)
+        before = ops.counts()
+        out, fin = ops.rwkv6_scan(*leaves[:5], chunk=32, state0=leaves[5],
+                                  out_dtype=torch.float32)
+        grads = torch.autograd.grad([out, fin], leaves, [dout, kw["dstate"]])
+        after = ops.counts()
+        assert after["rwkv6_scan"] - before["rwkv6_scan"] == 1
+        assert after["rwkv6_scan_bwd"] - before["rwkv6_scan_bwd"] == 3
+        for needs, launches in ((5, 1), (0, 2)):
+            xs = [x.detach() for x in leaves]
+            xs[needs] = xs[needs].clone().requires_grad_()
+            o, _ = ops.rwkv6_scan(*xs[:5], chunk=32, state0=xs[5],
+                                  out_dtype=torch.float32)
+            n0 = ops.rwkv6_scan_bwd.launches
+            g, = torch.autograd.grad(o, [xs[needs]], dout)
+            assert ops.rwkv6_scan_bwd.launches - n0 == launches
+            assert g.shape == xs[needs].shape
+    want = ref.rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout, **kw)
+    for g, x, bar in zip(grads, want, _scan_bwd_bars(dtype)):
+        assert g.dtype == x.dtype
+        assert _rel(g, x) <= bar
+
+
+def test_rwkv6_wkv_prefill_gradient_on_card(card):
+    """The model's call under grad, a sequence that is not a chunk multiple
+    (the state-neutral padding, then the clamp): the gradients of r, k, v,
+    w and bonus through K5 and K5b on the card equal autograd through the
+    plain versions on the CPU."""
+    from repro_torch.models import rwkv as rwkv_mod
+    rng = np.random.default_rng(64)
+    (r, k, v, w, bonus, dout), _ = _scan_bwd_operands(
+        rng, 2, 50, 3, 64, torch.bfloat16, card)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        xs = [x.detach().to(dev).requires_grad_()
+              for x in (r, k, v, w, bonus)]
+        y, _ = rwkv_mod._wkv_prefill(*xs, 16, None)
+        grads.append(torch.autograd.grad(y, xs, dout.to(dev)))
+    for g, x, bar in zip(*grads, _scan_bwd_bars(torch.bfloat16)):
+        assert _rel(g, x.to(card)) <= bar
 
 
 # --- K3's gradients (ROADMAP item 14a) -------------------------------------

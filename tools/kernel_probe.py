@@ -8,6 +8,8 @@
     python3 tools/kernel_probe.py flash-bwd --against DIR    # K1's backward, the same
     python3 tools/kernel_probe.py flash-bwd-phases # K1's backward with one step removed
     python3 tools/kernel_probe.py moe-dw-phases    # K3's weight gradient, the same
+    python3 tools/kernel_probe.py rwkv6-bwd-phases # K5's backward, pass by pass
+    python3 tools/kernel_probe.py rwkv6-parity-split  # rwkv6's train parity, K5 / K5b apart
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -86,6 +88,24 @@ version of the kernel made) at granite-moe's training shape (x the dispatch view
 1024, 1536], dy [2, 40, 1024, 512]), in turns with the full kernel, and
 times K3's forward on the same bytes (``x [2, 40, 1024, 1536] @ w [40,
 1536, 512]``) beside them.
+
+``rwkv6-bwd-phases`` times K5's backward (K5b, ``csrc/rwkv6_scan_bwd.cu``)
+pass by pass, through the C entry's ``passes`` mask on buffers a full
+call filled: the chunk-end states (by value column), the chunk-end
+cotangents, both (the one kernel a call launches for them), the per-chunk
+gradients, the ordered sum of dbonus, and the full call, at rwkv6-3b's
+training microbatch (``[2, 4096, 40, 64]``, chunk 32, bf16 r, k, v, float32
+w and d out) and its served prefill (``[8, 512, 40, 64]``), CUDA events;
+with K5's forward at the same shapes beside them.
+
+``rwkv6-parity-split`` splits ``chip_smoke.py``'s ``parity_train_rwkv``
+reading between the two kernels: rwkv6-3b at full width on one microbatch
+of 2 x 1024 tokens, bf16 over float32 masters at 2, 8 and 32 layers and
+float32 at 32, the loss and gradients of the plain forward with the
+plain backward against three runs: the kernels (K5, K5b), K5 with the
+plain backward, and the plain forward with K5b; for each the loss's and
+the gradient norm's relative difference and the worst leaf's (relative
+to its largest magnitude).
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -733,12 +753,122 @@ def moe_dw_phases() -> None:
                       "forward_same_bytes_ms": fwd}), flush=True)
 
 
+def rwkv6_bwd_phases() -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as rs
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    passes = {"states": rs.PASS_STATES, "cotangents": rs.PASS_COTANGENTS,
+              "state_passes": rs.PASS_STATES | rs.PASS_COTANGENTS,
+              "chunks": rs.PASS_CHUNKS, "bonus_sum": rs.PASS_BONUS,
+              "full": rs.bwd_passes((True,) * 5 + (False,))}
+    for tag, b, s in (("train", 2, 4096), ("prefill", 8, 512)):
+        shape = (b, s, 40, 64)
+        rand = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
+        r, k, v = (rand(*shape).mul_(0.5).bfloat16() for _ in range(3))
+        w, dout = torch.sigmoid(rand(*shape)), rand(*shape)
+        bonus = rand(40, 64) * 0.1
+        bufs = rs.bwd_buffers(r, 32, passes["full"], False)
+        call = lambda p: rs.launch_bwd(r, k, v, w, bonus, dout, 32, None,
+                                       None, bufs, p)
+        call(passes["full"])
+        times = {name: events_ms(lambda _, p=p: call(p), None)
+                 for name, p in passes.items()}
+        fwd = events_ms(lambda _: ops.rwkv6_scan(
+            r, k, v, w, bonus, chunk=32, out_dtype=torch.float32), None)
+        print(json.dumps({"probe": "rwkv6-bwd-phases", "shape": list(shape),
+                          "chunk": 32, "ms": times,
+                          "share_of_full": {n: t / times["full"]
+                                            for n, t in times.items()},
+                          "forward_ms": fwd}), flush=True)
+        del r, k, v, w, dout, bufs
+        torch.cuda.empty_cache()
+
+
+def rwkv6_parity_split() -> None:
+    import dataclasses
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as rs
+    from repro_torch.models.families import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import tree_paths
+
+    class Mixed(torch.autograd.Function):
+        """K5's forward or the plain one, K5b or the plain backward."""
+
+        @staticmethod
+        def forward(ctx, r, k, v, w, bonus, chunk, out_dtype, fwd_plain,
+                    bwd_plain):
+            ctx.save_for_backward(r, k, v, w, bonus)
+            ctx.chunk, ctx.bwd_plain = chunk, bwd_plain
+            return rs._scan_fwd(r, k, v, w, bonus, chunk, None, out_dtype,
+                                fwd_plain)
+
+        @staticmethod
+        def backward(ctx, dout, _):
+            r, k, v, w, bonus = ctx.saved_tensors
+            g = (rs.rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout)
+                 if ctx.bwd_plain else
+                 rs.rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=ctx.chunk))
+            return (*(x.to(y.dtype) for x, y in zip(g, (r, k, v, w, bonus))),
+                    None, None, None, None)
+
+    def scan(fwd_plain, bwd_plain):
+        return lambda r, k, v, w, bonus, *, chunk, state0=None, \
+            out_dtype=None: Mixed.apply(r, k, v, w, bonus, chunk, out_dtype,
+                                        fwd_plain, bwd_plain)
+
+    rwkv = ARCHS["rwkv6-3b"]
+    batch = SyntheticTokens(DataConfig(rwkv.vocab_size, 1024, 8)).batch_at(1)
+    micro = {k: v[:2] for k, v in batch.items()}
+    kernel_scan = ops.rwkv6_scan
+    runs = {"kernels": (False, False), "k5_forward_only": (False, True),
+            "k5b_backward_only": (True, False)}
+    with cs.expandable_segments():
+        for layers, dtype in ((2, torch.bfloat16), (8, torch.bfloat16),
+                              (32, torch.bfloat16), (32, torch.float32)):
+            cfg = dataclasses.replace(rwkv, num_layers=layers, dtype=str(
+                dtype).split(".")[-1])
+            model = build_model(cfg, "cuda")
+            masters = cs.master_params(model, 0)
+            paths = [p for p, _ in tree_paths(masters)]
+            out = {}
+            try:
+                ops.rwkv6_scan = scan(True, True)
+                lp, gp = cs.loss_and_grads(model, masters, micro, dtype)
+                norm = lambda gs: float(torch.sqrt(sum(
+                    (g.float() ** 2).sum() for g in gs)))
+                for name, (fp, bp) in runs.items():
+                    ops.rwkv6_scan = scan(fp, bp)
+                    lk, gk = cs.loss_and_grads(model, masters, micro, dtype)
+                    rel = {p: cs.rel_err(a, b)
+                           for p, a, b in zip(paths, gk, gp)}
+                    worst = max(rel, key=rel.get)
+                    out[name] = {
+                        "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
+                        "grad_norm_rel_diff": abs(norm(gk) - norm(gp))
+                        / norm(gp),
+                        "grad_rel_diff_max": rel[worst],
+                        "worst_leaf": worst}
+                    del gk
+            finally:
+                ops.rwkv6_scan = kernel_scan
+            print(json.dumps({"probe": "rwkv6-parity-split",
+                              "layers": layers, "dtype": str(dtype),
+                              "microbatch": [2, 1024], **out}), flush=True)
+            del model, masters, gp
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
                                       "rwkv6-phases", "flash-bits",
                                       "flash-bwd", "flash-bwd-phases",
-                                      "moe-dw-phases"])
+                                      "moe-dw-phases", "rwkv6-bwd-phases",
+                                      "rwkv6-parity-split"])
     ap.add_argument("--against", type=Path,
                     help="flash-bits, flash-bwd: the root of the other "
                          "checkout")
@@ -765,6 +895,10 @@ def main() -> None:
         flash_bwd(args.against.resolve())
     elif args.probe == "moe-dw-phases":
         moe_dw_phases()
+    elif args.probe == "rwkv6-bwd-phases":
+        rwkv6_bwd_phases()
+    elif args.probe == "rwkv6-parity-split":
+        rwkv6_parity_split()
     else:
         flash_bwd_phases()
 
