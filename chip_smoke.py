@@ -430,6 +430,7 @@ MAMBA_SWEEP = [(64, 16), (128, 32), (32, 32)]     # tests/test_kernels.py
 # the bf16 redesigns and the tensor-core instruction each must compile to
 TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "moe_dw_wgmma_kernel": "HGMMA",
+                    "moe_grad_tma_kernel": "HGMMA",
                     "flash_mma_kernel": "HMMA",
                     "flash_bwd_wgmma_kernel": "HGMMA",
                     "flash_bwd_colsplit_kernel": "HGMMA",
@@ -440,19 +441,26 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
 # gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
 # backward at qwen3's, granite's, gemma3's and deepseek's head dims, and
 # K3's gradients
-# at granite's training shapes (dX: the 128-row tile, vector loader, w
-# K-major; dW: the vector loader): these instantiations must be among them
+# (their first design, which operands a tensor map cannot take still run:
+# dX on the 128-row tile, vector loader, w K-major; dW on the vector
+# loader) and the persistent kernel that takes them at granite's training
+# shapes (layout 0 dX, 1 dW; 2, K3's forward, for tools/kernel_probe.py):
+# these instantiations must be among them
 REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_mma_kernel<192,128>", "flash_bwd_wgmma_kernel<128>",
                  "flash_bwd_wgmma_kernel<64>",
                  "flash_bwd_colsplit_kernel<256>",
                  "flash_bwd_kvsplit_kernel<192,128>",
-                 "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>")
+                 "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>",
+                 "moe_grad_tma_kernel<0>", "moe_grad_tma_kernel<1>")
+# the kernels fed by TMA, and the bulk-copy instructions each must hold
+TMA_SASS = {"moe_grad_tma_kernel": ("UTMALDG", "UTMASTG")}
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
 # its instantiations, and how many instantiations one such call makes
 TENSOR_CORE_LAUNCHERS = {
     "moe_gemm_wgmma_kernel": ("moe_gemm.cu", "launch_wgmma", 1),
     "moe_dw_wgmma_kernel": ("moe_gemm_bwd.cu", "launch_dw_wgmma", 1),
+    "moe_grad_tma_kernel": ("moe_gemm_grad.cu", "launch_grad", 1),
     "flash_mma_kernel": ("flash_attention.cu", "launch_flash_mma", 1),
     "flash_bwd_wgmma_kernel": ("flash_attention_bwd.cu", "launch_bwd_wgmma",
                                1),
@@ -468,7 +476,8 @@ TENSOR_CORE_LAUNCHERS = {
 # (the float32 paths of K1-K5 are FMA code)
 BF16_DESIGN = {"flash_attention": "mma.sync",
                "flash_attention_bwd": "wgmma", "moe_gemm": "wgmma",
-               "moe_gemm_dx": "wgmma", "moe_gemm_dw": "wgmma",
+               "moe_gemm_dx": "wgmma+tma persistent",
+               "moe_gemm_dw": "wgmma+tma persistent",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
                "rwkv6_scan": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
@@ -494,12 +503,12 @@ REPLACES = {
     # no TPU kernel: the reference differentiates K5's XLA twin
     "rwkv6_scan_bwd": "src/repro/models/rwkv.py:56",
 }
-# the source of each kernel (K3's input gradient is K3's own kernel reading
-# w K-major)
+# the source of each kernel (K3's gradients: the persistent kernel that
+# takes them on the main path)
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
            for name in REPLACES}
-SOURCES["moe_gemm_dx"] = "src/repro_torch/kernels/csrc/moe_gemm.cu"
-SOURCES["moe_gemm_dw"] = "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu"
+SOURCES["moe_gemm_dx"] = SOURCES["moe_gemm_dw"] = \
+    "src/repro_torch/kernels/csrc/moe_gemm_grad.cu"
 NO_TPU_KERNEL = {
     "flash_attention_bwd": "no TPU kernel: the reference differentiates "
                            "K1's XLA twin",
@@ -709,8 +718,10 @@ def expected_instantiations(build_mod) -> int:
 
 def tensor_core_check(build_mod) -> dict:
     """Per instantiation of the bf16 redesigns: the count of its
-    tensor-core instruction in the library's SASS and one such line, and
-    its registers and spill bytes from the build's ptxas -v log.  Every
+    tensor-core instruction in the library's SASS and one such line (and,
+    for TMA_SASS's kernels, the count of each of their bulk copies, none
+    of which may be missing), and its registers and spill bytes from the
+    build's ptxas -v log.  Every
     bulk reduce in the SASS must add float32 (K1's backward sums dq with
     ``cp.reduce.async.bulk .add.f32``; ptxas 12.9 compiled it to a 64-bit
     integer add in one instantiation where it sat in an out-of-line
@@ -729,6 +740,8 @@ def tensor_core_check(build_mod) -> dict:
             if cur:
                 found[cur] = {"instruction": TENSOR_CORE_SASS[
                     cur.split("<")[0]], "count": 0, "example": None}
+                for ins in TMA_SASS.get(cur.split("<")[0], ()):
+                    found[cur][ins] = 0
         elif "UBLKRED" in line:
             if "UBLKRED.G.S.ADD.F32" not in line:
                 bad_reduce.append(
@@ -742,6 +755,9 @@ def tensor_core_check(build_mod) -> dict:
                 # "/*0a30*/  HGMMA.64x128x16.F32.BF16 ... ;  /* 0x... */"
                 text = line.split("*/", 1)[-1].split("/*")[0]
                 found[cur]["example"] = " ".join(text.split())
+        elif cur:
+            for ins in TMA_SASS.get(cur.split("<")[0], ()):
+                found[cur][ins] += ins in line
     log = (lib.parent / "build.log").read_text()
     cur = None
     for line in log.splitlines():
@@ -763,6 +779,8 @@ def tensor_core_check(build_mod) -> dict:
     if no_sum:
         fail(f"no float32 bulk reduce (the dq sums) in {no_sum}")
     missing = [k for k, v in found.items() if not v["count"]]
+    missing += [f"{k} ({ins})" for k, v in found.items()
+                for ins in TMA_SASS.get(k.split("<")[0], ()) if not v[ins]]
     missing += [k for k in REQUIRED_SASS if k not in found]
     if len(found) != expected_instantiations(build_mod) or missing:
         fail(f"tensor-core instructions missing: found {sorted(found)}, "
@@ -1107,12 +1125,15 @@ def moe_grad_case(ops, ref, kind, a, b, timed=False):
     must give the same bits, the times, the bound (2 E rows D F
     operations; the operands read and the output written once) and the
     library's batched ``torch.matmul`` on contiguous [E, B*C, .] operands
-    (yardstick only)."""
+    (yardstick only), and the call must take the persistent kernel
+    (``tma``)."""
     name = "moe_gemm_" + kind
     call = lambda: getattr(ops, name)(a, b)
     plain = lambda: getattr(ref, name + "_ref")(a, b)
+    tma0 = getattr(ops, name).tma_launches
     out = call()
     torch.cuda.synchronize()
+    tma = getattr(ops, name).tma_launches - tma0 == 1
     want = plain()
     err = max_abs_err(out, want)
     rel = err / max(1e-6, float(want.float().abs().max()))
@@ -1123,9 +1144,10 @@ def moe_grad_case(ops, ref, kind, a, b, timed=False):
            "ok": bool(rel < MOE_TOL[dt])
            and bool(torch.isfinite(out.float()).all())}
     del want
+    rec["tma"] = tma
     if timed:
         rec["repeat_bitwise"] = bool(torch.equal(out, call()))
-        rec["ok"] = rec["ok"] and rec["repeat_bitwise"]
+        rec["ok"] = rec["ok"] and rec["repeat_bitwise"] and tma
         rows4 = (lambda t: t if t.dim() == 4 else t.unsqueeze(0))
         lead = rows4(a)
         e, rows = lead.shape[1], lead.shape[0] * lead.shape[2]
@@ -1134,11 +1156,11 @@ def moe_grad_case(ops, ref, kind, a, b, timed=False):
         if kind == "dx":
             dyc, w = flat(a), b
             lib = lambda: torch.matmul(dyc, w.transpose(1, 2))
-            d, f, marker = w.shape[1], w.shape[2], "moe_gemm_wgmma"
+            d, f, marker = w.shape[1], w.shape[2], "moe_grad_tma_kernel<0>"
         else:
             xc, dyc = flat(a), flat(b)
             lib = lambda: torch.matmul(xc.transpose(1, 2), dyc)
-            d, f, marker = a.shape[-1], b.shape[-1], "moe_dw_"
+            d, f, marker = a.shape[-1], b.shape[-1], "moe_grad_tma_kernel<1>"
         b_ms, by = bound(nbytes(a, b, out), 2.0 * e * rows * d * f, dt)
         rec.update(
             ms=time_ms(call), device_ms=device_ms(call, marker),
@@ -2790,15 +2812,18 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
         torch.cuda.synchronize()
     rows = kernel_rows(prof)
     dev = sum(r[0] for r in rows) / 1e6
-    # K3's dX is K3's kernel with a K-major w: its last template argument
+    # K3's gradients: the persistent kernel's layouts 0 (dX) and 1 (dW); on
+    # their first design dX is K3's kernel with a K-major w (its last
+    # template argument)
     kinds = {"k5_forward": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
              "k5_backward": ("rwkv6_bwd_",),
              "k1_forward": ("flash_mma_kernel",),
              "k1_backward": ("bwd_",),
-             "k3_dx": tuple(f"moe_gemm_wgmma_kernel<{m}, {v}, true>"
-                            for m in (64, 128) for v in ("true", "false")),
+             "k3_dx": ("moe_grad_tma_kernel<0>",) + tuple(
+                 f"moe_gemm_wgmma_kernel<{m}, {v}, true>"
+                 for m in (64, 128) for v in ("true", "false")),
              "k3_forward": ("moe_gemm_wgmma_kernel",),
-             "k3_dw": ("moe_dw_",),
+             "k3_dw": ("moe_grad_tma_kernel<1>", "moe_dw_"),
              "gemm": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
              "elementwise_and_copies": ("elementwise", "copy", "reduce")}
     share = dict.fromkeys(kinds, 0.0)
@@ -2836,7 +2861,8 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     with the launch counts zeroed just before: the losses must be finite
     and the last below the first, and the kernels must launch as
     ``train_launches`` predicts, nothing else, K1's backward under the
-    sliding window once per local layer and microbatch.  Step seconds,
+    sliding window once per local layer and microbatch, and every launch
+    of K3's gradients on their persistent kernel.  Step seconds,
     tokens/s,
     model FLOPs (on active parameters) per second against 989 TFLOP/s,
     peak memory; ``profile``: one more step traced."""
@@ -2876,6 +2902,8 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         times.append(time.perf_counter() - t)
     counts = ops.counts()
     windowed = ops.flash_attention_bwd.window_launches
+    tma = {n: getattr(ops, n).tma_launches
+           for n in ("moe_gemm_dx", "moe_gemm_dw")}
     peak = torch.cuda.max_memory_allocated()
     expect = train_launches(cfg, n_accum, TRAIN_STEPS)
     # K1's backward under the window: once per local layer and microbatch
@@ -2888,6 +2916,10 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if windowed != expect_windowed:
         problems.append(f"{windowed} windowed backward launches, expected "
                         f"{expect_windowed}")
+    # every K3 gradient of the step on the persistent kernel
+    if any(tma[n] != expect[n] for n in tma):
+        problems.append(f"K3 gradients on the persistent kernel {tma}, "
+                        f"expected all of {expect}")
     step_s = sum(times) / len(times)
     flops = train_flops(cfg, n_params, TRAIN_GLOBAL_BATCH, seq)
     reduced = {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
@@ -2924,6 +2956,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         "launches": counts, "launches_expected": expect,
         "flash_attention_bwd_windowed": {"launches": windowed,
                                          "expected": expect_windowed},
+        "moe_gemm_grad_persistent": tma,
         "ok": not problems, "problems": problems,
     }
     if cfg.sliding_window:

@@ -183,6 +183,10 @@ ARGTYPES = {
     # x, dy, dw, B, E, C, D, F, x strides, dy strides, dtype, vector, stream
     "fate_moe_gemm_dw": [_P] * 3 + [_I32] * 5 + [_I64] * 8 + [_I32] * 2
     + [_P],
+    # a, b, out, B, E, C, D, F, a strides, b strides, layout, grid,
+    # row_tiles, col_tiles, k_stages, stream
+    "fate_moe_gemm_grad": [_P] * 3 + [_I32] * 5 + [_I64] * 6 + [_I32] * 5
+    + [_P],
     # ..., dtype, out_dtype, stream
     "fate_rwkv6_scan": [_P] * 8 + [_I32] * 5 + [_I64] * 15 + [_I32] * 2
     + [_P],

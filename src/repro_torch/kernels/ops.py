@@ -47,10 +47,12 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Set every wrapper's launch count to 0 (K3's count of 64-row tile
-    launches and K1's backward's count of windowed calls too)."""
+    launches, its gradients' counts of persistent-kernel launches and K1's
+    backward's count of windowed calls too)."""
     for fn in KERNELS.values():
         fn.launches = 0
     moe_gemm.decode_tile_launches = 0
+    moe_gemm_dx.tma_launches = moe_gemm_dw.tma_launches = 0
     flash_attention_bwd.window_launches = 0
 
 

@@ -1428,6 +1428,11 @@ def test_moe_gemm_dx_kernel(card, shape, dtype):
         plan = mg_mod.gemm_plan(b or 1, e, c, f, d, dy4.stride(), w.stride(),
                                 dy4.data_ptr(), w.data_ptr(), kmajor=True)
         assert plan.kmajor and plan.vector == (f % 8 == 0)
+        grad = mg_mod.grad_plan("dx", b or 1, e, c, d, f, dy4.shape,
+                                dy4.stride(), dy4.data_ptr(), w.shape,
+                                w.stride(), w.data_ptr(), 132)
+        assert grad.route == ("tma" if d % 8 == 0 and f % 8 == 0
+                              else "cp_async")
     counts = ops.counts()
     got = ops.moe_gemm_dx(dy, w)
     torch.cuda.synchronize()
@@ -1507,6 +1512,112 @@ def test_moe_gemm_autograd_on_card(card, dtype, monkeypatch):
     ref.moe_gemm_ref(xp, wp).backward(dy)
     assert _rel(x.grad, xp.grad) < MOE_TOL[dtype]
     assert _rel(w.grad, wp.grad) < MOE_TOL[dtype]
+
+
+# --- K3's gradients on the persistent kernel (csrc/moe_gemm_grad.cu) --------
+
+# (B, E, C, D, F): C of 1, 63, 64, 100 and 1024 (row tiles and dW's stages
+# ending inside a sample), D and F among 64, 128, 200, 512 and 1536 (column
+# tiles clipped at the edge), E of 1, 3 and 40, B of 1 and 2; granite's
+# training shapes among them
+TMA_SWEEP = [(1, 1, 1, 64, 64), (2, 3, 63, 200, 128), (1, 3, 64, 128, 200),
+             (2, 3, 100, 512, 64), (2, 40, 1024, 1536, 512),
+             (2, 40, 1024, 512, 1536), (1, 40, 100, 200, 1536),
+             (2, 1, 1024, 64, 200), (1, 3, 63, 1536, 64),
+             (2, 1, 64, 200, 512), (1, 40, 1, 128, 128),
+             (2, 3, 1, 1536, 200), (1, 1, 100, 64, 1536),
+             (2, 40, 63, 64, 64), (1, 3, 1024, 128, 512)]
+
+
+def _first_design(monkeypatch, mg_mod):
+    """Send every bf16 gradient call to the first design (the route the plan
+    keeps for operands a tensor map cannot take)."""
+    real = mg_mod.grad_plan
+    monkeypatch.setattr(mg_mod, "grad_plan", lambda *a: dataclasses.replace(
+        real(*a), route="cp_async"))
+
+
+def _tma_calls(kind, a, b):
+    """One call of ``moe_gemm_<kind>`` that must take the persistent
+    kernel, its output."""
+    fn = getattr(ops, "moe_gemm_" + kind)
+    before = (fn.launches, fn.tma_launches)
+    out = fn(a, b)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tma_launches) == (before[0] + 1, before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("shape", TMA_SWEEP)
+@pytest.mark.parametrize("kind", ["dx", "dw"])
+def test_moe_gemm_grad_persistent_kernel(card, kind, shape, monkeypatch,
+                                         record_property):
+    """The persistent kernel against the plain version (``MOE_TOL``, x the
+    dispatch view with its NaN row), twice for the same bits, and against
+    the first design within ``MOE_TOL``; whether the two designs agree
+    bitwise is recorded (they sum the same k16 groups in the same order
+    except where dW's stages of the first design cross a sample)."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    b, e, c, d, f = shape
+    x, w, dy = _grad_operands(np.random.default_rng(60), b, e, c, d, f,
+                              torch.bfloat16, card)
+    a, bb = (dy, w) if kind == "dx" else (x, dy)
+    got = _tma_calls(kind, a, bb)
+    want = getattr(ref, f"moe_gemm_{kind}_ref")(a, bb)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, want) < MOE_TOL[torch.bfloat16]
+    assert torch.equal(got, _tma_calls(kind, a, bb))
+    with monkeypatch.context() as m:
+        _first_design(m, mg_mod)
+        fn = getattr(ops, "moe_gemm_" + kind)
+        n = fn.tma_launches
+        first = fn(a, bb)
+        assert fn.tma_launches == n
+    assert _rel(got, first) < MOE_TOL[torch.bfloat16]
+    record_property("first_design_bitwise", bool(torch.equal(got, first)))
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("shape", [(2, 3, 100, 200, 64),
+                                   (1, 3, 300, 1536, 264),
+                                   (2, 5, 1024, 512, 1536)])
+def test_moe_gemm_grad_small_grid(card, shape, grid, monkeypatch):
+    """The grid forced down to 1 and 3 blocks through the plan (its SM
+    count), so that each block walks many tiles and the ring's mbarrier
+    phases run on across them: the same bits as one block per SM."""
+    from repro_torch.kernels import moe_gemm as mg_mod
+    b, e, c, d, f = shape
+    x, w, dy = _grad_operands(np.random.default_rng(61), b, e, c, d, f,
+                              torch.bfloat16, card)
+    full = [_tma_calls("dx", dy, w), _tma_calls("dw", x, dy)]
+    monkeypatch.setattr(mg_mod, "_sm_count", lambda index: grid)
+    plan = mg_mod.grad_plan("dw", b, e, c, d, f, x.shape, x.stride(),
+                            x.data_ptr(), dy.shape, dy.stride(),
+                            dy.data_ptr(), mg_mod._sm_count(0))
+    assert plan.grid == grid and plan.tiles >= 2 * grid
+    small = [_tma_calls("dx", dy, w), _tma_calls("dw", x, dy)]
+    assert all(torch.equal(p, q) for p, q in zip(full, small))
+    assert _rel(small[1], ref.moe_gemm_dw_ref(x, dy)) < \
+        MOE_TOL[torch.bfloat16]
+
+
+def test_moe_gemm_grad_routes(card):
+    """An odd width or a transposed weight takes the first design; the
+    aligned call beside it the persistent kernel."""
+    rng = np.random.default_rng(62)
+    x, w, dy = _grad_operands(rng, 2, 3, 40, 72, 100, torch.bfloat16, card)
+    n = (ops.moe_gemm_dx.tma_launches, ops.moe_gemm_dw.tma_launches)
+    ops.moe_gemm_dx(dy, w)                       # F = 100: not 8 | F
+    ops.moe_gemm_dw(x, dy)
+    assert (ops.moe_gemm_dx.tma_launches,
+            ops.moe_gemm_dw.tma_launches) == n
+    wt = _randn(rng, (3, 64, 72), torch.bfloat16, card).transpose(1, 2)
+    dy2 = _randn(rng, (2, 3, 40, 64), torch.bfloat16, card)
+    got = ops.moe_gemm_dx(dy2, wt)               # w's last stride not 1
+    assert ops.moe_gemm_dx.tma_launches == n[0]
+    assert _rel(got, ref.moe_gemm_dx_ref(dy2, wt)) < MOE_TOL[torch.bfloat16]
+    _tma_calls("dw", x[..., :64].contiguous(), dy2)
 
 
 def _granite_smoke_grads(card, remat=False, dtype="bfloat16"):

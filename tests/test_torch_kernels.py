@@ -461,6 +461,8 @@ def test_launch_counts_reset():
     ops.rwkv6_scan_bwd.launches = 3
     ops.moe_gemm.decode_tile_launches = 1
     ops.flash_attention_bwd.window_launches = 2
+    ops.moe_gemm_dx.tma_launches = 4
+    ops.moe_gemm_dw.tma_launches = 5
     assert ops.launch_counts() == {"flash_attention": 5,
                                    "flash_attention_bwd": 6,
                                    "decode_attention": 7, "moe_gemm": 3,
@@ -476,6 +478,7 @@ def test_launch_counts_reset():
                                    "rwkv6_scan_bwd": 0}
     assert ops.moe_gemm.decode_tile_launches == 0
     assert ops.flash_attention_bwd.window_launches == 0
+    assert ops.moe_gemm_dx.tma_launches == ops.moe_gemm_dw.tma_launches == 0
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):

@@ -8,6 +8,7 @@
     python3 tools/kernel_probe.py flash-bwd --against DIR    # K1's backward, the same
     python3 tools/kernel_probe.py flash-bwd-phases # K1's backward with one step removed
     python3 tools/kernel_probe.py moe-dw-phases    # K3's weight gradient, the same
+    python3 tools/kernel_probe.py moe-grad-phases  # K3's gradients' persistent kernel
     python3 tools/kernel_probe.py rwkv6-bwd-phases # K5's backward, pass by pass
     python3 tools/kernel_probe.py rwkv6-parity-split  # rwkv6's train parity, K5 / K5b apart
 
@@ -89,6 +90,25 @@ version of the kernel made) at granite-moe's training shape (x the dispatch view
 times K3's forward on the same bytes (``x [2, 40, 1024, 1536] @ w [40,
 1536, 512]``) beside them.
 
+``moe-grad-phases`` prices the persistent kernel of K3's gradients
+(``csrc/moe_gemm_grad.cu``) at granite-moe's four training shapes (dX and
+dW of the gate / up and the down projection; x the dispatch view) by
+cuts, ``MOE_GRAD_CUTS``: the TMA loads (the producer arrives on each
+stage's barrier without loading), the wgmma products, the epilogue (no
+store), and within it the TMA stores, the stmatrix writes and the waits
+for a store buffer; and, priced whole, a ring of 3 stages with 2 or 4
+store buffers a warpgroup.  Each in turns with the full kernel (CUDA
+events, back to back), beside the first design of the same gradient (K3's
+kernel reading w K-major, ``csrc/moe_gemm_bwd.cu``) and the batched
+``torch.matmul`` on contiguous ``[E, B*C, .]`` operands; then the card's
+SM clock and power draw (nvidia-smi samples) while the full kernel, the
+epilogue cut and the library call each run for 1.5 s.  For information it also times the
+kernel's forward layout (layout 2, which the port does not call) at
+granite's training forward shapes (``[2,40,1024,1536] @ [40,1536,512]``
+and ``[2,40,1024,512] @ [40,512,1536]``) beside K3's own forward and
+``torch.bmm`` (each also in device time, torch.profiler) and K3's plain
+version.
+
 ``rwkv6-bwd-phases`` times K5's backward (K5b, ``csrc/rwkv6_scan_bwd.cu``)
 pass by pass, through the C entry's ``passes`` mask on buffers a full
 call filled: the chunk-end states (by value column), the chunk-end
@@ -114,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -344,10 +365,41 @@ MOE_DW_CUTS = {
 }
 
 
+# step of the gradients' persistent kernel -> [(text in moe_gemm_grad.cu,
+# its replacement), ...]
+MOE_GRAD_CUTS = {
+    "loads": [("          mbar_expect_tx(&full[stage], STAGE_BYTES);\n"
+               "          load_stage<L>(",
+               "          mbar_arrive(&full[stage]);\n"
+               "          if (false) load_stage<L>(")],
+    "wgmma": [("        mma_stage<L>(acc, base + stage * STAGE_BYTES, wg);",
+               "        if (false) mma_stage<L>(acc, base + stage * "
+               "STAGE_BYTES, wg);")],
+    "epilogue": [("      store_tile<L>(acc, &tout, bufs, w, x, wg, warp, "
+                  "lane, n_st);",
+                  "      if (false) store_tile<L>(acc, &tout, bufs, w, x, "
+                  "wg, warp, lane, n_st);")],
+    "tma_store": [("    if (leader) {\n      if (L == DW)",
+                   "    if (false) {\n      if (L == DW)")],
+    "stmatrix": [("      stsm_x4(buf + line * 128", "      if (false) "
+                  "stsm_x4(buf + line * 128")],
+    "store_waits": [("    if (leader) bulk_wait_read<EPI_BUFS - 1>();",
+                     "    if (false) bulk_wait_read<EPI_BUFS - 1>();")],
+    # not cuts: other ring and store-buffer sizes, priced whole
+    "stages3": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
+    "stages3_bufs4": [("constexpr int STAGES = 4;",
+                       "constexpr int STAGES = 3;"),
+                      ("constexpr int EPI_BUFS = 2;",
+                       "constexpr int EPI_BUFS = 4;")],
+}
+
+
 def device_ms(fn, marker: str, iters: int = 20):
     """Mean device milliseconds per call in kernels whose name holds
-    ``marker`` (torch.profiler; up to three traces, as one now and then
-    comes back without device activity)."""
+    ``marker`` ("" for every kernel of the call; torch.profiler; up to
+    three traces, as one now and then comes back without device
+    activity)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -357,7 +409,9 @@ def device_ms(fn, marker: str, iters: int = 20):
                 fn()
             torch.cuda.synchronize()
         us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages() if marker in e.key)
+                 for e in prof.key_averages() if marker in e.key
+                 and getattr(e, "device_type", DeviceType.CUDA)
+                 == DeviceType.CUDA)
         if us:
             return us / 1e3 / iters
     return None
@@ -753,6 +807,123 @@ def moe_dw_phases() -> None:
                       "forward_same_bytes_ms": fwd}), flush=True)
 
 
+def grad_call(lib, layout: str, a, b, out):
+    """The persistent kernel of ``lib`` on a [B, E, C, .] and b (dy, or w
+    [E, D, F]) into out, planned as the wrapper plans it."""
+    from repro_torch.kernels import moe_gemm as mg
+    bb, e, c = a.shape[:3]
+    if layout == "dx":
+        d, f = b.shape[1], a.shape[3]
+    else:
+        d, f = a.shape[3], b.shape[-1]
+    plan = mg.grad_plan(layout, bb, e, c, d, f, a.shape, a.stride(),
+                        a.data_ptr(), b.shape, b.stride(), b.data_ptr(),
+                        mg._sm_count(a.device.index))
+    b_strides = b.stride()[:3] if layout == "dw" else (0,) + b.stride()[:2]
+    rc = lib.fate_moe_gemm_grad(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), bb, e, c, d, f,
+        *a.stride()[:3], *b_strides, mg.GRAD_LAYOUT[layout], plan.grid,
+        plan.row_tiles, plan.col_tiles, plan.k_stages,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        sys.exit(f"kernel_probe: launch failed with code {rc}")
+
+
+def first_design(mg, kind: str, a, b):
+    """The first design of a gradient (the route ``grad_plan`` keeps for
+    operands a tensor map cannot take), through the wrapper."""
+    real = mg.grad_plan
+    mg.grad_plan = lambda *args: dataclasses.replace(real(*args),
+                                                     route="cp_async")
+    try:
+        return getattr(mg, "moe_gemm_" + kind)(a, b)
+    finally:
+        mg.grad_plan = real
+
+
+def clocks_under(call, lib, seconds: float = 1.5) -> dict:
+    """The card's SM clock (MHz) and power draw (W), medians of
+    nvidia-smi samples every 100 ms while ``call(lib)`` runs back to back
+    for ``seconds``."""
+    import time
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+        for _ in range(20):
+            call(lib)
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines()
+            if line.count(",") == 1]
+    mid = lambda xs: sorted(xs)[len(xs) // 2] if xs else None
+    return {"sm_mhz": mid([float(a) for a, _ in rows[2:]]),
+            "power_w": mid([float(b) for _, b in rows[2:]])}
+
+
+def moe_grad_phases() -> None:
+    from repro_torch.kernels import moe_gemm as mg
+    libs = build_variants("moe_gemm_grad", MOE_GRAD_CUTS,
+                          "fate_moe_gemm_grad", tag="grad_")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, e, c = 2, 40, 1024
+    for proj, d, f in (("gate_up", 1536, 512), ("down", 512, 1536)):
+        buf = torch.randn(b, e * c + 1, d, device="cuda", generator=gen)
+        x = buf.bfloat16()[:, :-1].view(b, e, c, d)
+        del buf
+        w = (torch.randn(e, d, f, device="cuda", generator=gen)
+             * d ** -0.5).bfloat16()
+        dy = torch.randn(b, e, c, f, device="cuda", generator=gen).bfloat16()
+        flat = lambda t: t.transpose(0, 1).reshape(e, b * c,
+                                                   t.shape[-1]).contiguous()
+        xc, dyc = flat(x), flat(dy)
+        for kind, a, bb, shape, lib_fn, first in (
+                ("dx", dy, w, (b, e, c, d),
+                 lambda _: torch.matmul(dyc, w.transpose(1, 2)),
+                 lambda _: first_design(mg, "dx", dy, w)),
+                ("dw", x, dy, (e, d, f),
+                 lambda _: torch.matmul(xc.transpose(1, 2), dyc),
+                 lambda _: first_design(mg, "dw", x, dy))):
+            out = torch.empty(shape, device="cuda", dtype=torch.bfloat16)
+
+            def call(lib):
+                grad_call(lib, kind, a, bb, out)
+            times = in_turns(call, libs)
+            full = sum(times["full"]) / 2
+            print(json.dumps({
+                "probe": "moe-grad-phases", "kind": kind, "projection": proj,
+                "shape": [list(a.shape), list(bb.shape)], "ms": times,
+                "full_ms": full,
+                "saved_ms": {k: full - sum(t) / 2 for k, t in times.items()
+                             if k != "full"},
+                "first_design_ms": events_ms(first, None),
+                "library_ms": events_ms(lib_fn, None),
+                "clocks": {"full": clocks_under(call, libs["full"]),
+                           "epilogue_cut": clocks_under(call,
+                                                        libs["epilogue"]),
+                           "library": clocks_under(lib_fn, None)}}),
+                flush=True)
+        # for information: the forward layout beside K3's forward
+        out = torch.empty(b, e, c, f, device="cuda", dtype=torch.bfloat16)
+        print(json.dumps({
+            "probe": "moe-grad-phases", "kind": "forward_layout",
+            "projection": proj, "shape": [list(x.shape), list(w.shape)],
+            "persistent_ms": events_ms(
+                lambda lib: grad_call(lib, "fwd", x, w, out), libs["full"]),
+            "k3_forward_ms": events_ms(lambda _: mg.moe_gemm(x, w), None),
+            "k3_forward_device_ms": device_ms(lambda: mg.moe_gemm(x, w),
+                                              "moe_gemm_wgmma_kernel"),
+            "plain_ms": events_ms(lambda _: mg.moe_gemm_ref(x, w), None,
+                                  iters=5),
+            "bmm_ms": events_ms(lambda _: torch.bmm(xc, w), None),
+            "bmm_device_ms": device_ms(lambda: torch.bmm(xc, w), "")}),
+            flush=True)
+        del x, w, dy, xc, dyc, out
+        torch.cuda.empty_cache()
+
+
 def rwkv6_bwd_phases() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as rs
@@ -867,7 +1038,8 @@ def main() -> None:
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
                                       "rwkv6-phases", "flash-bits",
                                       "flash-bwd", "flash-bwd-phases",
-                                      "moe-dw-phases", "rwkv6-bwd-phases",
+                                      "moe-dw-phases", "moe-grad-phases",
+                                      "rwkv6-bwd-phases",
                                       "rwkv6-parity-split"])
     ap.add_argument("--against", type=Path,
                     help="flash-bits, flash-bwd: the root of the other "
@@ -895,6 +1067,8 @@ def main() -> None:
         flash_bwd(args.against.resolve())
     elif args.probe == "moe-dw-phases":
         moe_dw_phases()
+    elif args.probe == "moe-grad-phases":
+        moe_grad_phases()
     elif args.probe == "rwkv6-bwd-phases":
         rwkv6_bwd_phases()
     elif args.probe == "rwkv6-parity-split":
