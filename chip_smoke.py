@@ -11,11 +11,13 @@ ends the run with a non-zero exit code and no result line:
    nvcc versions, seconds the kernels took to build; for every
    instantiation of K3's (its input gradient's among them), K3's weight
    gradient's and K1's backward's wgmma kernels and of K1's,
-   K2's, K4's and K5's mma.sync kernels its tensor-core instructions in
-   the SASS (cuobjdump; it fails
+   K2's, K4's, K5's and K5b's bf16 per-chunk mma.sync kernels its
+   tensor-core instructions in the SASS (cuobjdump; it fails
    without them, or if an instantiation the sources launch is missing)
    and its registers and spills (ptxas -v); the registers and spills of
-   K5b's kernels (FMA code) and its per-chunk kernel's shared memory.
+   every K5b kernel (the chunks' contributions to the chunk-end states,
+   their scan, the per-chunk kernels) and the per-chunk kernels' shared
+   memory; it fails on an atomic or a reduce in any K5b kernel.
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
    CARD: flash_attention and decode_attention over the sweep of
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
@@ -193,8 +195,8 @@ ends the run with a non-zero exit code and no result line:
    65536, untied; 3.07 B parameters) at full width and depth (32 layers,
    under expandable segments; the line prints the depth and the peak),
    after deepseek's are freed, trained as ``train``: per step K5 256 (32
-   layers x 4 microbatches, twice under remat) and K5b 384 (its three
-   kernels once a layer and microbatch), nothing else; model FLOPs count
+   layers x 4 microbatches, twice under remat) and K5b 512 (its four
+   launches once a layer and microbatch), nothing else; model FLOPs count
    the WKV scan at three times ``rwkv_flops`` a layer.
 24. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
    against the plain forward with the plain backward (``TRAIN_PLAIN``),
@@ -336,9 +338,11 @@ TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
 # the MLA projections' roundings beside K1's
 # rwkv6's, stated before its first run: granite's, since K5's bf16
 # forward splits its float32 factors into two bf16 terms (16 bits) where
-# the plain forward keeps float32, in each of 32 layers, while K5b works in
-# float32 and rounds dr, dk, dv to bf16 as the plain backward does.  At 32
-# layers they did not hold (RWKV_BF16_GATE_LAYERS says where they gate)
+# the plain forward keeps float32, in each of 32 layers, while K5b's first
+# design worked in float32 and rounded dr, dk, dv to bf16 as the plain
+# backward does (its bf16 per-chunk products now split their float32
+# factors as K5's forward does; the bars are unchanged).  At 32 layers
+# they did not hold (RWKV_BF16_GATE_LAYERS says where they gate)
 TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
               "parity_train_moe": (1e-4, 1e-3, 5e-2),
               "parity_train_gemma3": (1e-4, 1e-3, 5e-2),
@@ -370,7 +374,8 @@ DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_PARITY_SEQ = 1, 2048
 # parameters counted from the tree; about 22 bytes a parameter, 67.6 GB, was
 # the estimate beside a microbatch's [2, 4096, 65536] logits and their
 # gradient, 32 remat checkpoints of 42 MB and K5b's two [2, 40, 128, 64,
-# 64] float32 buffers of 168 MB; 64.6 GB measured).  Its parity on a
+# 64] float32 buffers of 168 MB and its decay factors' [2, 40, 128, 64]
+# of 2.6 MB; 64.6 GB measured).  Its parity on a
 # microbatch of RWKV_PARITY_SEQ tokens a sequence: the plain forward is a
 # loop of one step per token and the plain backward two more (about 150
 # thousand launches a layer at 4096 tokens, 32 layers and remat's
@@ -437,7 +442,8 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "flash_bwd_kvsplit_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
-                    "rwkv6_mma_kernel": "HMMA"}
+                    "rwkv6_mma_kernel": "HMMA",
+                    "rwkv6_bwd_mma_kernel": "HMMA"}
 # gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
 # backward at qwen3's, granite's, gemma3's and deepseek's head dims, and
 # K3's gradients
@@ -452,7 +458,8 @@ REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_bwd_colsplit_kernel<256>",
                  "flash_bwd_kvsplit_kernel<192,128>",
                  "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>",
-                 "moe_grad_tma_kernel<0>", "moe_grad_tma_kernel<1>")
+                 "moe_grad_tma_kernel<0>", "moe_grad_tma_kernel<1>",
+                 "rwkv6_bwd_mma_kernel<64>")
 # the kernels fed by TMA, and the bulk-copy instructions each must hold
 TMA_SASS = {"moe_grad_tma_kernel": ("UTMALDG", "UTMASTG")}
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
@@ -471,6 +478,7 @@ TENSOR_CORE_LAUNCHERS = {
     "decode_mma_kernel": ("decode_attention.cu", "launch_decode_mma", 1),
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
     "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
+    "rwkv6_bwd_mma_kernel": ("rwkv6_scan_bwd.cu", "launch_chunk_mma", 1),
 }
 # the kernel design each wrapper takes in bf16 at the main path's shape
 # (the float32 paths of K1-K5 are FMA code)
@@ -479,7 +487,7 @@ BF16_DESIGN = {"flash_attention": "mma.sync",
                "moe_gemm_dx": "wgmma+tma persistent",
                "moe_gemm_dw": "wgmma+tma persistent",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
-               "rwkv6_scan": "mma.sync"}
+               "rwkv6_scan": "mma.sync", "rwkv6_scan_bwd": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
 # dtype), the chunk of the SMOKE config (4, one padded sub-chunk) to 64
 RWKV_BF16_SWEEP = [(d, chunk, strong, state, out)
@@ -675,14 +683,61 @@ def short_kernel_name(mangled: str, kernels=TENSOR_CORE_SASS):
     return None
 
 
-# K5b's templated kernels (FMA code: no tensor-core instruction to find)
-BWD_SCAN_KERNELS = ("rwkv6_bwd_states_kernel", "rwkv6_bwd_chunk_kernel")
+# K5b's templated kernels: the chunks' contributions to the chunk-end
+# states <D, T>, their scan <D>, the float32 per-chunk kernel <D> (FMA
+# code) and the bf16 one <D> (mma.sync, also in TENSOR_CORE_SASS)
+BWD_SCAN_KERNELS = ("rwkv6_bwd_local_kernel", "rwkv6_bwd_scan_kernel",
+                    "rwkv6_bwd_chunk_kernel", "rwkv6_bwd_mma_kernel")
+
+
+def sass_text(build_mod) -> str:
+    """The library's SASS (cuobjdump -sass), read once a process."""
+    global _SASS
+    if _SASS is None:
+        lib = build_mod.build()
+        cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+        _SASS = sass.stdout
+    return _SASS
+
+
+_SASS = None
+
+
+def atomic_instructions(sass: str, kernels) -> dict:
+    """Per instantiation of ``kernels``, its atomic and reduce
+    instructions in the SASS (ATOM*, RED, REDG, REDAS, bulk reduces; not
+    REDUX, a warp's own sum): none is expected, as K5b sums in fixed
+    orders."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = short_kernel_name(line, kernels)
+            continue
+        if cur is None or "*/" not in line:
+            continue
+        text = line.split("*/", 1)[1].split(";")[0].strip()
+        if not text:
+            continue
+        words = text.split()
+        op = words[1] if words[0].startswith("@") and len(words) > 1 \
+            else words[0]
+        base = op.split(".")[0]
+        if base.startswith("ATOM") or base in ("RED", "REDG", "REDAS") \
+                or "BLKRED" in base:
+            out.setdefault(cur, []).append(" ".join(words))
+    return out
 
 
 def ptxas_info(build_mod, kernels) -> dict:
     """Registers and spill bytes (the build's ptxas -v log) of every
-    instantiation of ``kernels``, and the dynamic shared memory of K5b's
-    per-chunk kernel at rwkv6-3b's head dim and chunk."""
+    instantiation of ``kernels`` (K5b's), the dynamic shared memory of
+    K5b's per-chunk kernels (bf16 and float32) at rwkv6-3b's head dim and
+    chunk, and the atomic or reduce instructions in their SASS, none of
+    which may be there."""
     import re
     from repro_torch.kernels import rwkv6_scan as rs_mod
     log = (build_mod.build().parent / "build.log").read_text()
@@ -698,10 +753,18 @@ def ptxas_info(build_mod, kernels) -> dict:
         elif cur and "registers" in line:
             out[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
-    if len(out) != 2 * 2 * len(rs_mod.HEAD_DIMS):
+    # the contributions in both types, the scan and both per-chunk kernels
+    # at every head dim
+    if len(out) != 5 * len(rs_mod.HEAD_DIMS):
         fail(f"K5b's instantiations in the ptxas log: {sorted(out)}")
-    return {"kernels": out, "chunk_kernel_smem_bytes_d64_l32":
-            rs_mod.bwd_smem_bytes(64, 32)}
+    atomics = atomic_instructions(sass_text(build_mod), kernels)
+    if atomics:
+        fail(f"atomic or reduce instructions in K5b's kernels: "
+             f"{ {k: v[:3] for k, v in atomics.items()} }")
+    return {"kernels": out, "atomic_instructions": 0,
+            "mma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(64, 32),
+            "fma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(
+                64, 32, torch.float32)}
 
 
 def expected_instantiations(build_mod) -> int:
@@ -728,13 +791,8 @@ def tensor_core_check(build_mod) -> dict:
     function), and each instantiation of K1's backward must hold one."""
     import re
     lib = build_mod.build()
-    cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, timeout=300)
-    if sass.returncode != 0:
-        fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
     found, cur, bad_reduce = {}, None, []
-    for line in sass.stdout.splitlines():
+    for line in sass_text(build_mod).splitlines():
         if "Function :" in line:
             cur = short_kernel_name(line)
             if cur:
@@ -1235,18 +1293,22 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
 
 
 def rwkv_bwd_flops(b, s, h, d, chunk) -> float:
-    """Operations of K5b's chunked backward (exp counted as one): the two
-    state passes' products and factors; per chunk the products with S0,
-    dE and k exp(tot - ci) ([L, D] by [D, D] each), P = do v^T and the
-    scores over the pairs and the diagonal, the pair terms of dr, of dk
-    and of the decays' gradient (exp, product, sum each), dv's pair sum."""
+    """Operations of K5b's chunked backward (exp counted as one), as the
+    design takes them, each product counted once (not its split terms):
+    per chunk the two contributions to the chunk-end state and cotangent
+    ([L, D]^T by [L, D], with their cumulative sums and factors) and the
+    scan's step in each direction; the per-chunk products with S0, dE and
+    k exp(tot - ci) ([L, D] by [D, D] each); P = do v^T, the scores (their
+    exponentials), X and Y over the pairs and the diagonal; dv's pair sum;
+    the factors, scalings and the decays' gradient per element."""
     pairs = chunk * (chunk - 1) / 2
-    per_chunk = (2 * (2 * chunk * d * d + 2 * chunk * d)
+    per_chunk = (2 * (2 * chunk * d * d + 3 * chunk * d) + 2 * 2 * d * d
                  + 3 * 2 * chunk * d * d
                  + 2 * (pairs + chunk) * d
-                 + 5 * pairs * d + 3 * chunk * d
-                 + 3 * 4 * pairs * d
-                 + 2 * (pairs + chunk) * d)
+                 + (3 * pairs + 2 * chunk) * d
+                 + 2 * 2 * pairs * d
+                 + 2 * (pairs + chunk) * d
+                 + 12 * chunk * d)
     return b * h * (s // chunk) * per_chunk
 
 

@@ -190,10 +190,10 @@ ARGTYPES = {
     # ..., dtype, out_dtype, stream
     "fate_rwkv6_scan": [_P] * 8 + [_I32] * 5 + [_I64] * 15 + [_I32] * 2
     + [_P],
-    # r, k, v, w, bonus, state0, dout, dstate, states, dstates, dr, dk,
-    # dv, dw, dbonus_part, dbonus, dstate0, B, S, H, D, L, strides, dtype,
-    # passes, stream
-    "fate_rwkv6_scan_bwd": [_P] * 17 + [_I32] * 5 + [_I64] * 15
+    # r, k, v, w, bonus, state0, dout, dstate, states, dstates, factors,
+    # dr, dk, dv, dw, dbonus_part, dbonus, dstate0, B, S, H, D, L, strides,
+    # dtype, passes, stream
+    "fate_rwkv6_scan_bwd": [_P] * 18 + [_I32] * 5 + [_I64] * 15
     + [_I32] * 2 + [_P],
     "fate_mamba2_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 13 + [_I32] * 2
     + [_P],

@@ -25,10 +25,15 @@ queue 3, H4).
 The backward, K5b (``csrc/rwkv6_scan_bwd.cu``, no TPU counterpart: the
 reference differentiates ``_wkv_chunked``), is :func:`rwkv6_scan_bwd`;
 under grad :func:`rwkv6_scan` goes through ``_RWKV6Scan``, on the card and
-on the CPU.  Its kernels recompute the chunk-end states by value column,
-take the chunk-end cotangents the same way in reverse, then every chunk's
-gradients in parallel, all in float32 on the CUDA cores; the decay's
-gradient is taken chunk by chunk (see the source note).
+on the CPU.  Its chunk-end states and cotangents are chunk-parallel: one
+launch takes every chunk's contribution to its end state (and cotangent)
+and its decay factors, a second joins them by an elementwise scan over the
+chunks; then every chunk's gradients in parallel, for bf16 r, k, v on the
+tensor cores (mma.sync, float32 factors as two bf16 terms), for float32
+on the CUDA cores; the decay's gradient is taken chunk by chunk, term by
+term (see the source note).  At rwkv6-3b's training microbatch
+``[2, 4096, 40, 64]`` the function's bytes bound it at 0.1506 ms (about
+503 MB at 3.35 TB/s); its times on an NVIDIA H100 are in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -43,8 +48,9 @@ HEAD_DIMS = (16, 32, 64, 128)    # D the kernels are instantiated for
 SMEM_LIMIT = 232448          # shared memory one block may use on sm_90
 # K5b's passes, a mask of the C entry's ``passes`` (csrc/rwkv6_scan_bwd.cu):
 # the chunk-end states, the chunk-end cotangents (and dstate0), the
-# per-chunk gradients, the ordered sum of dbonus; each is one kernel
-# launch but the first two, which share one
+# per-chunk gradients, the ordered sum of dbonus.  The two state passes
+# share two launches (the chunks' contributions, then the scan that joins
+# them); the others are one launch each
 PASS_STATES, PASS_COTANGENTS, PASS_CHUNKS, PASS_BONUS = 1, 2, 4, 8
 
 
@@ -294,15 +300,31 @@ def _unit_last(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def bwd_smem_bytes(d: int, chunk: int) -> int:
-    """Shared memory of one block of K5b's per-chunk kernel, as
-    ``csrc/rwkv6_scan_bwd.cu :: chunk_smem`` lays it out: six [L, D+4]
-    float tiles (r, k, v, d out, dr, dk), the cumulative log decays
-    [L+1, D+4], S0 / dE [D, D+4], P and the scores [L, L+1] each, the
-    bonus and the rowsums [D] each."""
-    dp = d + 4
-    return 4 * (6 * chunk * dp + (chunk + 1) * dp + d * dp
-                + 2 * chunk * (chunk + 1) + 2 * d)
+def bwd_smem_bytes(d: int, chunk: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of one block of K5b's per-chunk kernel for r, k, v of
+    ``dtype``, as ``csrc/rwkv6_scan_bwd.cu`` lays it out.
+
+    bfloat16, the mma.sync kernel (``bwd_layout``), with Lp = L rounded up
+    to 16 and rows of D+8: r, k, v and d out's two bf16 terms as [Lp, D+8]
+    bf16 tiles, S0's (then dE's) two terms [D, D+8] bf16, the cumulative
+    log decays [Lp+1, D+8], P and the scores [Lp, Lp+4], four [Lp, D+8]
+    float sums (dr's and dk's state terms, X, Y), the bonus and the
+    rowsums [D], per 8-row block and group of 32 channels 40 partial sums,
+    and three sums of each of the block's 256 threads.  float32, the FMA
+    kernel (``chunk_smem``): six [L, D+4] float tiles (r, k, v, d out, dr,
+    dk), the cumulative log decays [L+1, D+4], S0 / dE [D, D+4], P and the
+    scores [L, L+1] each, the bonus and the rowsums [D] each."""
+    if dtype != torch.bfloat16:
+        dp = d + 4
+        return 4 * (6 * chunk * dp + (chunk + 1) * dp + d * dp
+                    + 2 * chunk * (chunk + 1) + 2 * d)
+    lp = -(-chunk // 16) * 16
+    rs = d + 8
+    groups = max(1, d // 32)
+    return (2 * (3 * lp * rs + 2 * lp * rs + 2 * d * rs)
+            + 4 * ((lp + 1) * rs + 2 * lp * (lp + 4) + 4 * lp * rs + 2 * d
+                   + (lp // 8) * groups * 40 + 3 * 256))
 
 
 def bwd_passes(needs) -> int:
@@ -322,8 +344,8 @@ def bwd_passes(needs) -> int:
 
 def bwd_launches(passes: int) -> int:
     """Kernel launches of one K5b call with ``passes``: the two state
-    passes share one."""
-    return (bool(passes & (PASS_STATES | PASS_COTANGENTS))
+    passes share two (the chunks' contributions, then the scan)."""
+    return (2 * bool(passes & (PASS_STATES | PASS_COTANGENTS))
             + bool(passes & PASS_CHUNKS) + bool(passes & PASS_BONUS))
 
 
@@ -363,7 +385,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return tuple(g if n else None for g, n in zip(grads, needs))
     if r.device.type != "cuda":
         raise RuntimeError(f"no rwkv6_scan_bwd kernel for {r.device}")
-    _reach(d, chunk, bwd_smem_bytes(d, chunk))
+    _reach(d, chunk, bwd_smem_bytes(d, chunk, r.dtype))
     passes = bwd_passes(needs)
     if not passes:
         return (None,) * 6
@@ -379,8 +401,9 @@ def bwd_buffers(r: torch.Tensor, chunk: int, passes: int,
     """K5b's outputs and scratch for ``passes`` (None where a pass does
     not need it): dr, dk, dv in ``r.dtype`` and dw float32 [B, S, H, D];
     the chunk-end states and cotangents [B, H, S / L, D, D] float32; the
-    partial dbonus [B, S / L, H, D]; dbonus [H, D]; dstate0 [B, H, D, D]
-    where ``dstate0``."""
+    chunks' decay factors [B, H, S / L, D] float32, which the state passes
+    write and read; the partial dbonus [B, S / L, H, D]; dbonus [H, D];
+    dstate0 [B, H, D, D] where ``dstate0``."""
     b, s, h, d = r.shape
     nc = s // chunk
     f32 = dict(dtype=torch.float32, device=r.device)
@@ -390,6 +413,8 @@ def bwd_buffers(r: torch.Tensor, chunk: int, passes: int,
         "states": grid() if passes & (PASS_STATES | PASS_CHUNKS) else None,
         "dstates": (grid() if passes & (PASS_COTANGENTS | PASS_CHUNKS)
                     else None),
+        "factors": (torch.empty((b, h, nc, d), **f32)
+                    if passes & (PASS_STATES | PASS_COTANGENTS) else None),
         **{g: (torch.empty((b, s, h, d), dtype=r.dtype, device=r.device)
                if chunks else None) for g in ("dr", "dk", "dv")},
         "dw": torch.empty((b, s, h, d), **f32) if chunks else None,
@@ -402,26 +427,29 @@ def bwd_buffers(r: torch.Tensor, chunk: int, passes: int,
 
 
 def launch_bwd(r, k, v, w, bonus, dout, chunk, state0, dstate, bufs,
-               passes) -> None:
+               passes, lib=None) -> None:
     """Launch K5b's ``passes`` on checked CUDA arguments into ``bufs``
     (:func:`bwd_buffers`); raises on a failed launch.  A pass reads what
-    an earlier one wrote into ``bufs``."""
+    an earlier one wrote into ``bufs``.  ``lib``: the library whose entry
+    to call (the built one if None; a probe passes a variant's)."""
     b, s, h, d = r.shape
-    r, k, v = (_unit_last(x) for x in (r, k, v))
-    w, dout = (_unit_last(x.float()) for x in (w, dout))
+    # the 16-byte loads of the state passes and of the mma kernel
+    r, k, v, w, dout = (_build.kernel_operand(x) for x in
+                        (r, k, v, w.float(), dout.float()))
     bonus = bonus.float().contiguous()
-    state0, dstate = (None if x is None else x.float().contiguous()
+    state0, dstate = (None if x is None else
+                      _build.kernel_operand(x.float().contiguous())
                       for x in (state0, dstate))
     ptr = lambda x: None if x is None else x.data_ptr()
-    lib = _build.load()
+    lib = lib or _build.load()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fate_rwkv6_scan_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             bonus.data_ptr(), ptr(state0), dout.data_ptr(), ptr(dstate),
-            *(ptr(bufs[n]) for n in ("states", "dstates", "dr", "dk", "dv",
-                                      "dw", "dbonus_part", "dbonus",
-                                      "dstate0")),
+            *(ptr(bufs[n]) for n in ("states", "dstates", "factors", "dr",
+                                      "dk", "dv", "dw", "dbonus_part",
+                                      "dbonus", "dstate0")),
             b, s, h, d, chunk,
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *w.stride()[:3], *dout.stride()[:3],

@@ -1295,18 +1295,57 @@ def test_rwkv6_scan_bwd_kernel(card, d, chunk, dtype, strong_decay, state0,
     args, kw = _scan_bwd_operands(rng, 2, 128, 3, d, dtype, card,
                                   strong_decay, state0, dstate)
     before = ops.rwkv6_scan_bwd.launches
-    if rs_mod.bwd_smem_bytes(d, chunk) > rs_mod.SMEM_LIMIT:
+    if rs_mod.bwd_smem_bytes(d, chunk, dtype) > rs_mod.SMEM_LIMIT:
         with pytest.raises(ValueError, match="shared memory"):
             ops.rwkv6_scan_bwd(*args, chunk=chunk, **kw)
         assert ops.rwkv6_scan_bwd.launches == before
         return
     got = ops.rwkv6_scan_bwd(*args, chunk=chunk, **kw)
     torch.cuda.synchronize()
-    assert ops.rwkv6_scan_bwd.launches == before + 3
+    assert ops.rwkv6_scan_bwd.launches == before + rs_mod.bwd_launches(
+        rs_mod.bwd_passes((True,) * 6))
     want = ref.rwkv6_scan_bwd_ref(*args, **kw)
     for g, x, bar in zip(got, want, _scan_bwd_bars(dtype)):
         assert g.dtype == x.dtype and bool(torch.isfinite(g.float()).all())
         assert _rel(g, x) <= bar
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+def test_rwkv6_scan_bwd_kernel_long_scan(card, dtype, d):
+    """A scan over 128 chunks (S 2048, chunk 16) under strong decay (w =
+    1e-6) with an initial state and a final state's cotangent: the
+    chunk-end states' and cotangents' elementwise scan against the plain
+    version, dstate0 among the gradients."""
+    rng = np.random.default_rng(65)
+    args, kw = _scan_bwd_operands(rng, 1, 2048, 2, d, dtype, card,
+                                  strong_decay=True, state0=True,
+                                  dstate=True)
+    got = ops.rwkv6_scan_bwd(*args, chunk=16, **kw)
+    want = ref.rwkv6_scan_bwd_ref(*args, **kw)
+    for g, x, bar in zip(got, want, _scan_bwd_bars(dtype)):
+        assert g.dtype == x.dtype and bool(torch.isfinite(g.float()).all())
+        assert _rel(g, x) <= bar
+
+
+@pytest.mark.parametrize("d,chunk", [(64, 32), (16, 4), (128, 32), (32, 64)])
+@pytest.mark.parametrize("strong_decay", [False, True])
+def test_rwkv6_scan_bwd_mma_against_fma(card, d, chunk, strong_decay):
+    """The same bf16-representable r, k, v through the bf16 tensor-core
+    per-chunk kernel and, as float32, through the FMA kernel, with an
+    initial state and a final state's cotangent: every gradient within the
+    bf16 bars of the other, which keeps the new products apart from the
+    rounding to bf16."""
+    rng = np.random.default_rng(66)
+    (r, k, v, w, bonus, dout), kw = _scan_bwd_operands(
+        rng, 2, 192, 3, d, torch.bfloat16, card, strong_decay,
+        state0=True, dstate=True)
+    tc = ops.rwkv6_scan_bwd(r, k, v, w, bonus, dout, chunk=chunk, **kw)
+    fma = ops.rwkv6_scan_bwd(r.float(), k.float(), v.float(), w, bonus,
+                             dout, chunk=chunk, **kw)
+    for g, x, bar in zip(tc, fma, _scan_bwd_bars(torch.bfloat16)):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g.float(), x.float()) <= bar
 
 
 def test_rwkv6_scan_bwd_kernel_repeats_bitwise(card):
@@ -1334,10 +1373,11 @@ def test_rwkv6_scan_bwd_kernel_repeats_bitwise(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_scan_autograd_on_card(card, dtype, monkeypatch):
     """Under grad on the card ``rwkv6_scan`` launches K5 once and K5b's
-    three kernels, never a plain version; the gradients, with an initial
-    state and the final state used, equal those of the plain backward; a
-    call whose only differentiable input is state0 launches the
-    cotangents' pass alone, one without bonus no ordered sum."""
+    four kernels (``bwd_launches``), never a plain version; the gradients,
+    with an initial state and the final state used, equal those of the
+    plain backward; a call whose only differentiable input is state0
+    launches the cotangents' pass alone (its two launches), one without
+    bonus no ordered sum."""
     from repro_torch.kernels import rwkv6_scan as rs_mod
     rng = np.random.default_rng(63)
     (r, k, v, w, bonus, dout), kw = _scan_bwd_operands(
@@ -1353,8 +1393,9 @@ def test_rwkv6_scan_autograd_on_card(card, dtype, monkeypatch):
         grads = torch.autograd.grad([out, fin], leaves, [dout, kw["dstate"]])
         after = ops.counts()
         assert after["rwkv6_scan"] - before["rwkv6_scan"] == 1
-        assert after["rwkv6_scan_bwd"] - before["rwkv6_scan_bwd"] == 3
-        for needs, launches in ((5, 1), (0, 2)):
+        assert after["rwkv6_scan_bwd"] - before["rwkv6_scan_bwd"] == \
+            rs_mod.bwd_launches(rs_mod.bwd_passes((True,) * 6))
+        for needs, launches in ((5, 2), (0, 3)):
             xs = [x.detach() for x in leaves]
             xs[needs] = xs[needs].clone().requires_grad_()
             o, _ = ops.rwkv6_scan(*xs[:5], chunk=32, state0=xs[5],

@@ -200,15 +200,15 @@ def test_autograd_path_matches_autograd_through_the_plain_forward(dtype):
 
 
 @pytest.mark.parametrize("needs,passes,launches", [
-    ((True,) * 6, 15, 3), ((True,) * 5 + (False,), 15, 3),
-    ((True, False, False, False, False, False), 7, 2),
-    ((False,) * 4 + (True, False), 15, 3),
-    ((False,) * 5 + (True,), 2, 1), ((False,) * 6, 0, 0)])
+    ((True,) * 6, 15, 4), ((True,) * 5 + (False,), 15, 4),
+    ((True, False, False, False, False, False), 7, 3),
+    ((False,) * 4 + (True, False), 15, 4),
+    ((False,) * 5 + (True,), 2, 2), ((False,) * 6, 0, 0)])
 def test_only_the_gradients_asked_for(monkeypatch, needs, passes, launches):
     """``needs_input_grad`` decides which gradients K5b returns and which of
-    its passes it launches (``bwd_passes``; the two state passes share a
-    kernel, ``bwd_launches``); autograd asks only for the inputs that
-    require grad."""
+    its passes it launches (``bwd_passes``; the two state passes share two
+    launches, the chunks' contributions and the scan, ``bwd_launches``);
+    autograd asks only for the inputs that require grad."""
     assert rs_mod.bwd_passes(needs) == passes
     assert rs_mod.bwd_launches(passes) == launches
     ts = [torch.from_numpy(a) for a in _scan_arrays(16, seed=3)]
@@ -237,18 +237,68 @@ def test_only_the_gradients_asked_for(monkeypatch, needs, passes, launches):
 
 
 def test_the_kernels_reach():
-    """K5b's per-chunk kernel keeps six [L, D+4] float tiles, the summed
-    log decays, one [D, D+4] state and two [L, L+1] pair tiles in shared
-    memory: D = 64 takes every chunk up to 64, D = 128 up to 40."""
+    """K5b's bf16 per-chunk kernel (mma.sync) keeps r, k, v, d out's two
+    bf16 terms and S0's (then dE's) two terms as bf16 rows of D+8, the
+    summed log decays, P and the scores, four [Lp, D+8] float sums, the
+    scores' partials and three sums a thread in shared memory: D up to 64
+    takes every chunk up to 64, D = 128 up to 32; each head dim's kernel
+    is instantiated."""
     fits = lambda d, c: rs_mod.bwd_smem_bytes(d, c) <= rs_mod.SMEM_LIMIT
     assert all(fits(d, 64) for d in (16, 32, 64))
-    assert fits(128, 40) and not fits(128, 41)
+    assert fits(128, 32) and not fits(128, 33)
     src = (Path(_build.CSRC) / "rwkv6_scan_bwd.cu").read_text()
-    assert {int(d) for d in re.findall(r"case (\d+): return launch_bwd<",
-                                       src)} == set(rs_mod.HEAD_DIMS)
-    assert rs_mod.bwd_smem_bytes(64, 32) == 4 * (6 * 32 * 68 + 33 * 68
-                                                 + 64 * 68 + 2 * 32 * 33
-                                                 + 128)
+    for launcher in ("launch_states", "launch_chunk_mma", "launch_chunk_fma"):
+        assert {int(d) for d in re.findall(
+            r"case (\d+): return " + launcher + r"<", src)} == \
+            set(rs_mod.HEAD_DIMS), launcher
+    lp, rs = 32, 64 + 8
+    assert rs_mod.bwd_smem_bytes(64, 32) == (
+        2 * (3 * lp * rs + 2 * lp * rs + 2 * 64 * rs)
+        + 4 * (33 * rs + 2 * 32 * 36 + 4 * 32 * rs + 128 + 4 * 2 * 40
+               + 3 * 256))
+    assert rs_mod.bwd_smem_bytes(64, 32) == rs_mod.bwd_smem_bytes(
+        64, 32, torch.bfloat16)
+
+
+def test_the_float32_kernels_reach():
+    """K5b's float32 per-chunk kernel (FMA) keeps six [L, D+4] float
+    tiles, the summed log decays, one [D, D+4] state and two [L, L+1] pair
+    tiles in shared memory: D = 64 takes every chunk up to 64, D = 128 up
+    to 40; the wrapper refuses a chunk beyond it before any work."""
+    fits = lambda d, c: (rs_mod.bwd_smem_bytes(d, c, torch.float32)
+                         <= rs_mod.SMEM_LIMIT)
+    assert all(fits(d, 64) for d in (16, 32, 64))
+    assert fits(128, 40) and not fits(128, 41)
+    assert rs_mod.bwd_smem_bytes(64, 32, torch.float32) == 4 * (
+        6 * 32 * 68 + 33 * 68 + 64 * 68 + 2 * 32 * 33 + 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        rs_mod._reach(128, 41, rs_mod.bwd_smem_bytes(128, 41, torch.float32))
+
+
+@pytest.mark.parametrize("needs,with_factors", [
+    ((True,) * 5 + (False,), True), ((False,) * 5 + (True,), True),
+    ((False,) * 4 + (True, False), True)])
+def test_bwd_buffers(needs, with_factors):
+    """K5b's scratch: the chunk-end states and cotangents [B, H, NC, D, D]
+    and the chunks' decay factors [B, H, NC, D] in float32, the factors
+    only where a state pass runs; the gradients only where the per-chunk
+    pass runs; dstate0 where asked."""
+    r = torch.zeros((2, 96, 3, 16), dtype=torch.bfloat16)
+    passes = rs_mod.bwd_passes(needs)
+    bufs = rs_mod.bwd_buffers(r, 32, passes, needs[5])
+    assert (bufs["factors"] is not None) == with_factors
+    assert bufs["factors"].shape == (2, 3, 3, 16)
+    assert bufs["factors"].dtype == torch.float32
+    chunks = bool(passes & rs_mod.PASS_CHUNKS)
+    assert (bufs["dr"] is not None) == chunks
+    assert (bufs["states"] is not None) == bool(
+        passes & (rs_mod.PASS_STATES | rs_mod.PASS_CHUNKS))
+    if bufs["dstates"] is not None:
+        assert bufs["dstates"].shape == (2, 3, 3, 16, 16)
+    assert (bufs["dstate0"] is not None) == needs[5]
+    # the per-chunk or bonus pass alone takes no factors
+    for alone in (rs_mod.PASS_CHUNKS, rs_mod.PASS_BONUS):
+        assert rs_mod.bwd_buffers(r, 32, alone, False)["factors"] is None
 
 
 # --- the model and its train step -------------------------------------------
@@ -341,7 +391,7 @@ def test_train_phase_counts_for_rwkv6():
     """``train_flops`` at the train phase's shape (8 x 4096 tokens, 32
     layers): 6 x parameters x tokens plus the scan's operations three times
     a layer; ``train_launches`` over 4 accumulation steps and 4 steps: K5
-    twice a layer and microbatch (remat), K5b's three kernels once,
+    twice a layer and microbatch (remat), K5b's four launches once,
     nothing else."""
     from repro_torch.configs.archs import ARCHS
     from test_torch_deepseek_training import _chip_smoke, _n_params
@@ -354,5 +404,5 @@ def test_train_phase_counts_for_rwkv6():
         6.0 * n * 8 * 4096 + 3 * 32 * scan)
     exp = cs.train_launches(cfg, 4, 4)
     assert {k: v for k, v in exp.items() if v} == {
-        "rwkv6_scan": 32 * 4 * 4 * 2, "rwkv6_scan_bwd": 32 * 4 * 4 * 3}
+        "rwkv6_scan": 32 * 4 * 4 * 2, "rwkv6_scan_bwd": 32 * 4 * 4 * 4}
     assert set(exp) == set(ops.counts())

@@ -9,8 +9,9 @@
     python3 tools/kernel_probe.py flash-bwd-phases # K1's backward with one step removed
     python3 tools/kernel_probe.py moe-dw-phases    # K3's weight gradient, the same
     python3 tools/kernel_probe.py moe-grad-phases  # K3's gradients' persistent kernel
-    python3 tools/kernel_probe.py rwkv6-bwd-phases # K5's backward, pass by pass
+    python3 tools/kernel_probe.py rwkv6-bwd-phases # K5's backward, launch by launch
     python3 tools/kernel_probe.py rwkv6-parity-split  # rwkv6's train parity, K5 / K5b apart
+    python3 tools/kernel_probe.py train-rwkv-turns --against DIR  # train_rwkv, this tree and another
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -110,13 +111,20 @@ and ``[2,40,1024,512] @ [40,512,1536]``) beside K3's own forward and
 version.
 
 ``rwkv6-bwd-phases`` times K5's backward (K5b, ``csrc/rwkv6_scan_bwd.cu``)
-pass by pass, through the C entry's ``passes`` mask on buffers a full
-call filled: the chunk-end states (by value column), the chunk-end
-cotangents, both (the one kernel a call launches for them), the per-chunk
-gradients, the ordered sum of dbonus, and the full call, at rwkv6-3b's
-training microbatch (``[2, 4096, 40, 64]``, chunk 32, bf16 r, k, v, float32
-w and d out) and its served prefill (``[8, 512, 40, 64]``), CUDA events;
-with K5's forward at the same shapes beside them.
+launch by launch, through the C entry's ``passes`` mask on buffers a full
+call filled: the chunk-end states, the chunk-end cotangents, both (the two
+launches a call makes for them), and within those two launches the
+chunks' contributions alone and the scan alone (variants of the source
+with the other launch cut out, ``RWKV6_BWD_CUTS``, built as
+``mamba2-phases`` builds its variants), the per-chunk gradients, whole
+and with one step of the bf16 kernel cut out at a time
+(``RWKV6_BWD_MMA_CUTS``: the products with S0, X and Y, the diagonal
+blocks' pairs, dv, and the last step: dr, dk, dw and dbonus's partial),
+the ordered sum of dbonus, and the full call, at rwkv6-3b's training
+microbatch (``[2, 4096, 40, 64]``, chunk 32, bf16 r, k, v, float32 w and d
+out) and its served prefill (``[8, 512, 40, 64]``), CUDA events; with K5's
+forward at the same shapes beside them, and the full call's device time
+by kernel (torch.profiler).
 
 ``rwkv6-parity-split`` splits ``chip_smoke.py``'s ``parity_train_rwkv``
 reading between the two kernels: rwkv6-3b at full width on one microbatch
@@ -126,6 +134,14 @@ plain backward against three runs: the kernels (K5, K5b), K5 with the
 plain backward, and the plain forward with K5b; for each the loss's and
 the gradient norm's relative difference and the worst leaf's (relative
 to its largest magnitude).
+
+``train-rwkv-turns`` runs ``chip_smoke.py``'s ``train_rwkv`` phase (rwkv6-3b
+at full width and depth, 8 x 4096 tokens a step, one warm-up and four
+measured steps, one more traced) in turns from this tree and from another
+checkout (``--against DIR``): the other, this, this, the other, each in a
+process of its own that builds its tree's kernels; per run the step
+seconds, tokens per second, peak memory, launches and the traced step's
+device seconds by kind, K5b's among them.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -367,6 +383,30 @@ MOE_DW_CUTS = {
 
 # step of the gradients' persistent kernel -> [(text in moe_gemm_grad.cu,
 # its replacement), ...]
+# K5b's state launches apart: the chunks' contributions alone (the scan's
+# launch cut), the scan alone (the contributions' launch cut)
+RWKV6_BWD_CUTS = {
+    "local_only": [("  rwkv6_bwd_scan_kernel<D><<<",
+                    "  if (false) rwkv6_bwd_scan_kernel<D><<<")],
+    "scan_only": [("  local<<<dim3(nc, a.B * a.H)",
+                   "  if (false) local<<<dim3(nc, a.B * a.H)")],
+}
+# the bf16 per-chunk kernel with one step cut out: the products with S0,
+# P and the scores (2); X and Y (4); the diagonal blocks' pairs (5); dv
+# (7); dr, dk, dw and dbonus (8)
+RWKV6_BWD_MMA_CUTS = {
+    "no_s0_products": [("    for (int u = warp; u < nDR + nP + nSF + NSUB; u += MW) {",
+                        "    for (int u = warp; u < 0; u += MW) {")],
+    "no_xy": [("      const bool is_x = kind == 1;",
+               "      if (kind) continue;\n      const bool is_x = kind == 1;")],
+    "no_pairs": [("  for (int base = 32 * warp; base < NB8 * D; base += MT) {",
+                  "  for (int base = 32 * warp; base < 0; base += MT) {")],
+    "no_dv": [("  for (int u = warp; u < NSUB * CU; u += MW) {",
+               "  for (int u = warp; u < 0; u += MW) {")],
+    "no_step8": [("    constexpr int NP = MT / D;",
+                  "    return;\n    constexpr int NP = MT / D;")],
+}
+
 MOE_GRAD_CUTS = {
     "loads": [("          mbar_expect_tx(&full[stage], STAGE_BYTES);\n"
                "          load_stage<L>(",
@@ -927,10 +967,13 @@ def moe_grad_phases() -> None:
 def rwkv6_bwd_phases() -> None:
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as rs
+    libs = build_variants("rwkv6_scan_bwd",
+                          {**RWKV6_BWD_CUTS, **RWKV6_BWD_MMA_CUTS})
     gen = torch.Generator(device="cuda").manual_seed(0)
+    both = rs.PASS_STATES | rs.PASS_COTANGENTS
     passes = {"states": rs.PASS_STATES, "cotangents": rs.PASS_COTANGENTS,
-              "state_passes": rs.PASS_STATES | rs.PASS_COTANGENTS,
-              "chunks": rs.PASS_CHUNKS, "bonus_sum": rs.PASS_BONUS,
+              "state_passes": both, "chunks": rs.PASS_CHUNKS,
+              "bonus_sum": rs.PASS_BONUS,
               "full": rs.bwd_passes((True,) * 5 + (False,))}
     for tag, b, s in (("train", 2, 4096), ("prefill", 8, 512)):
         shape = (b, s, 40, 64)
@@ -939,17 +982,30 @@ def rwkv6_bwd_phases() -> None:
         w, dout = torch.sigmoid(rand(*shape)), rand(*shape)
         bonus = rand(40, 64) * 0.1
         bufs = rs.bwd_buffers(r, 32, passes["full"], False)
-        call = lambda p: rs.launch_bwd(r, k, v, w, bonus, dout, 32, None,
-                                       None, bufs, p)
-        call(passes["full"])
-        times = {name: events_ms(lambda _, p=p: call(p), None)
+        call = lambda p, lib: rs.launch_bwd(r, k, v, w, bonus, dout, 32,
+                                            None, None, bufs, p, lib=lib)
+        call(passes["full"], libs["full"])
+        times = {name: events_ms(lambda lib, p=p: call(p, lib),
+                                 libs["full"])
                  for name, p in passes.items()}
+        for name in RWKV6_BWD_CUTS:      # within the two state launches
+            times[name] = events_ms(lambda lib: call(both, lib), libs[name])
+        for name in RWKV6_BWD_MMA_CUTS:  # the per-chunk pass, a step cut
+            times["chunks_" + name] = events_ms(
+                lambda lib: call(rs.PASS_CHUNKS, lib), libs[name])
         fwd = events_ms(lambda _: ops.rwkv6_scan(
             r, k, v, w, bonus, chunk=32, out_dtype=torch.float32), None)
+        by_kernel = {}
+        for kern in ("rwkv6_bwd_local", "rwkv6_bwd_scan", "rwkv6_bwd_mma",
+                     "rwkv6_bwd_bonus"):
+            by_kernel[kern] = device_ms(
+                lambda: call(passes["full"], libs["full"]),
+                kern)
         print(json.dumps({"probe": "rwkv6-bwd-phases", "shape": list(shape),
                           "chunk": 32, "ms": times,
                           "share_of_full": {n: t / times["full"]
                                             for n, t in times.items()},
+                          "device_ms_by_kernel": by_kernel,
                           "forward_ms": fwd}), flush=True)
         del r, k, v, w, dout, bufs
         torch.cuda.empty_cache()
@@ -1033,6 +1089,49 @@ def rwkv6_parity_split() -> None:
             torch.cuda.empty_cache()
 
 
+TRAIN_RWKV_RUN = """
+import sys
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {root!r} + "/src")
+import chip_smoke as cs
+from repro_torch.configs.archs import ARCHS
+from repro_torch.kernels import ops
+from repro_torch.launch import steps
+from repro_torch.training import optimizer as opt
+with cs.expandable_segments():
+    cs.phase_train(dict(ops=ops, steps=steps, opt=opt), ARCHS["rwkv6-3b"], 0,
+                   profile=True, phase="train_rwkv")
+"""
+
+
+def train_rwkv_turns(against: Path) -> None:
+    trees = {"this": ROOT, "against": against}
+    for turn, name in enumerate(("against", "this", "this", "against")):
+        root = str(trees[name])
+        run = subprocess.run([sys.executable, "-c",
+                              TRAIN_RWKV_RUN.format(root=root)],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=1500)
+        line = next((json.loads(x) for x in reversed(run.stdout.splitlines())
+                     if x.startswith("{") and '"train_rwkv"' in x), None)
+        if run.returncode != 0 or line is None:
+            sys.exit(f"kernel_probe: train_rwkv in {root} failed "
+                     f"(exit {run.returncode}):\n{run.stderr[-3000:]}")
+        prof = line.get("profile", {})
+        print(json.dumps({
+            "probe": "train-rwkv-turns", "turn": turn, "tree": name,
+            "root": root, "ok": line["ok"],
+            "step_s": line["step_s"], "step_s_mean": line["step_s_mean"],
+            "tokens_per_s": line["tokens_per_s"],
+            "peak_gb": line["peak_gb"],
+            "launches": {k: v for k, v in line["launches"].items() if v},
+            "launches_expected": {k: v for k, v in
+                                  line["launches_expected"].items() if v},
+            "traced_device_s": prof.get("device_s"),
+            "traced_busy_share": prof.get("device_busy_share"),
+            "device_s_by_kind": prof.get("device_s_by_kind")}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
@@ -1040,12 +1139,14 @@ def main() -> None:
                                       "flash-bwd", "flash-bwd-phases",
                                       "moe-dw-phases", "moe-grad-phases",
                                       "rwkv6-bwd-phases",
-                                      "rwkv6-parity-split"])
+                                      "rwkv6-parity-split",
+                                      "train-rwkv-turns"])
     ap.add_argument("--against", type=Path,
-                    help="flash-bits, flash-bwd: the root of the other "
-                         "checkout")
+                    help="flash-bits, flash-bwd, train-rwkv-turns: the "
+                         "root of the other checkout")
     args = ap.parse_args()
-    if args.probe in ("flash-bits", "flash-bwd") and args.against is None:
+    if args.probe in ("flash-bits", "flash-bwd", "train-rwkv-turns") \
+            and args.against is None:
         ap.error(f"{args.probe} needs --against DIR")
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -1073,6 +1174,8 @@ def main() -> None:
         rwkv6_bwd_phases()
     elif args.probe == "rwkv6-parity-split":
         rwkv6_parity_split()
+    elif args.probe == "train-rwkv-turns":
+        train_rwkv_turns(args.against.resolve())
     else:
         flash_bwd_phases()
 
