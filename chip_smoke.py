@@ -17,7 +17,8 @@ ends the run with a non-zero exit code and no result line:
    and its registers and spills (ptxas -v); the registers and spills of
    every K5b kernel (the chunks' contributions to the chunk-end states,
    their scan, the per-chunk kernels) and the per-chunk kernels' shared
-   memory; it fails on an atomic or a reduce in any K5b kernel.
+   memory, and the same of every K4b kernel (with its ordered sums); it
+   fails on an atomic or a reduce in any K5b or K4b kernel.
 2. ``kernels`` – every kernel against its plain PyTorch version ON THE
    CARD: flash_attention and decode_attention over the sweep of
    tests/test_kernels.py (2e-5 float32, 2e-2 bfloat16), moe_gemm over its
@@ -35,7 +36,8 @@ ends the run with a non-zero exit code and no result line:
    the port never calls it) and the least time the card could take:
    ``ms`` per back-to-back wrapper call (CUDA events, host gaps
    included) and ``device_ms``, the kernel's own device time per call
-   (torch.profiler).
+   (torch.profiler; for a call of several kernels the sum of each one's,
+   null where every trace lost a launch of one).
 3. ``serve``   – the retrieve -> work_a, work_b -> merge workflow of
    examples/serve_workflow_torch.py: 8 queries, 2 virtual devices, FATE
    placements, qwen3-1.7b (28 layers) and glm4-9b (40 layers) at full
@@ -205,6 +207,28 @@ ends the run with a non-zero exit code and no result line:
    against TRAIN_BARS and held to them at RWKV_BF16_GATE_LAYERS (ROADMAP
    H30); a second kernel run bitwise at 32 layers; the Trainer drill at
    SMOKE rwkv6 (K5b at D = 16, chunk 4).
+25. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
+   state 64, chunk 128; one shared attention block of 32 heads of 80 at 9
+   sites; d 2560, vocab 32000, untied) at full width and depth, under
+   expandable segments, after rwkv6's are freed, trained as ``train``:
+   per step K4 432 (54 layers x 4 microbatches, twice under remat), K4b
+   864 (its four launches once a layer and microbatch), K1 36 and its
+   backward 36 (the shared block, once a site and microbatch: remat does
+   not recompute it), nothing else; model FLOPs count attention at the 9
+   sites and the SSD scan at three times ``mamba_flops`` a layer; the
+   parameters are counted from the tree.
+26. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
+   and its backward against the plain forward with the plain backward of
+   the scan (``TRAIN_PLAIN``) and autograd through the plain attention, on
+   sequences of 512 tokens, with the attention projections at 1 / sqrt(d)
+   (at the reference init the saturated shared attention makes the model
+   chaotic at depth: ROADMAP H32): float32 at 54 layers; bf16 held to
+   TRAIN_BARS at ZAMBA2_BF16_GATE_LAYERS (the first attention site), the
+   reference init's bf16 reading there reported; bf16 at 54 layers run
+   twice through the kernels, bitwise; the Trainer drill at SMOKE zamba2
+   (K4b at (P, N) = (16, 8), chunk 4).  ``tools/kernel_probe.py
+   mamba2-parity-split`` splits the reference init's bf16 reading between
+   K4 and K4b.
 
 The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
@@ -251,15 +275,28 @@ and K5's backward, K5b (``csrc/rwkv6_scan_bwd.cu``), against
 calls it (bf16, no initial state, no final cotangent), timed and called
 twice for the same bits, and at the served prefill's shape ([8, 512, 40,
 64], with both), timed; each also in float32 and under strong decay (w =
-1e-6) with an initial state and a final cotangent.
+1e-6) with an initial state and a final cotangent.  And K4 at zamba2-2.7b's
+training microbatch ([2, 4096, 80, 64], bf16 column slices, float32 out,
+timed), and K4's backward, K4b (``csrc/mamba2_scan_bwd.cu``), against
+``mamba2_scan_bwd_ref``, each gradient relative to its largest magnitude
+(1e-4, ddt and da_log 1e-3, bf16 dxh / db / dc 1e-2): at that shape as
+the model calls it (bf16 column slices, no initial state, no final
+cotangent), timed and called twice for the same bits, and at the served
+prefill's shape ([8, 512, 80, 64], with both), timed; each also in float32
+and under strong decay (dt a = -148 a step) with both.  And K1's backward
+at zamba2's shared attention block's training shape (q, k, v [2, 4096,
+32, 80], causal), timed in bf16 beside SDPA's backward and called twice
+for the same bits.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
-``design``: ``wgmma`` for K3's, its gradients' and K1's backward's and
-``mma.sync`` for K1's, K2's, K4's and K5's bf16 paths, which the main
-path takes; K3's decode shape beside its
-prefill row, K2's wrapper host time, K2's and K5's device kernels per
-call), a ``total`` line (with the seconds of the two whisper phases and
-of the train phases, the rwkv6 pair's apart), the nvidia-smi line, and
+``design``: ``wgmma`` for K3's, its gradients' and K1's backward's,
+``mma.sync`` for K1's, K2's, K4's, K4b's, K5's and K5b's bf16 paths, which
+the main path takes; K3's decode shape beside its prefill row, K2's
+wrapper host time, K2's and K5's device kernels per call, and the device
+time of each of the scans' backwards' four kernels), a ``total`` line
+(with the seconds of the two whisper phases and of the train phases, the
+rwkv6 pair's and the zamba2 pair's apart, and the seconds from the start
+at which each phase line was printed), the nvidia-smi line, and
 last ``{"ok": true,
 "device": {...}}``.  There is no
 CPU mode: without a CUDA device the script exits with code 1.
@@ -347,7 +384,8 @@ TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
               "parity_train_moe": (1e-4, 1e-3, 5e-2),
               "parity_train_gemma3": (1e-4, 1e-3, 5e-2),
               "parity_train_deepseek": (1e-4, 1e-3, 5e-2),
-              "parity_train_rwkv": (1e-4, 1e-3, 5e-2)}
+              "parity_train_rwkv": (1e-4, 1e-3, 5e-2),
+              "parity_train_zamba2": (1e-4, 1e-3, 5e-2)}
 # train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
 # 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
 # copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
@@ -392,6 +430,29 @@ RWKV_PARITY_SEQ = 1024
 # layers K5 alone 0.247 of the worst leaf, K5b alone 0.032 (on another
 # microbatch).  The train depth's reading is reported beside the gate
 RWKV_BF16_GATE_LAYERS = 2
+# train_zamba2: zamba2-2.7b at full width and depth (54 Mamba2 layers, the
+# shared attention block at 9 sites; about 2.42 B parameters counted from
+# the tree, at about 22 bytes a parameter 53 GB, beside a microbatch's
+# [2, 4096, 32000] logits, 54 remat checkpoints of 42 MB and the shared
+# block's activations at its 9 sites, which remat does not recompute: 60-65
+# GB predicted; PERF.md has the measured peak).  Its parity, stated before
+# its first run: float32 at the full depth of 54 layers; bf16 held to
+# TRAIN_BARS at ZAMBA2_BF16_GATE_LAYERS, the first attention site: K4's
+# bf16 forward splits its float32 factors into two bf16 terms where the
+# plain forward keeps float32 (H21), the form that made rwkv6's 32-layer
+# bf16 reading drift beyond these bars (H30), and parity_hybrid already
+# gates zamba2's bf16 served model block by block.  At the reference init
+# neither held (ROADMAP H32): its shared attention has no q / k norm and
+# saturates, as granite's does (H25), and the model amplifies any
+# difference with depth.  tools/kernel_probe.py mamba2-parity-split puts
+# the bf16 reading at 6 layers on K4's bf16 forward; K4b's share alone
+# holds the bar.  With the attention projections at 1 / sqrt(d) both gates
+# hold, so they take that init, as parity_train_moe's does, and the
+# reference init is read in bf16 at the gate depth and reported; bf16 at
+# 54 layers runs through the kernels alone (twice, bitwise).  Sequences of
+# ZAMBA2_PARITY_SEQ tokens: the plain scan runs one step a token forward,
+# again in remat's recompute, and back
+ZAMBA2_PARITY_SEQ, ZAMBA2_BF16_GATE_LAYERS = 512, 6
 # the Trainer drill's SMOKE config changed where the card path needs it:
 # gemma3 at its published head dim, so that the drill runs K1's backward
 # at D = 256, with a window shorter than its 512 tokens; deepseek at its
@@ -410,6 +471,21 @@ SCAN_BF16_REL = 1e-2     # bf16 outputs: one rounding of the output
 # of decays; dw, a quotient by w, 1e-3; bf16 dr, dk, dv rounded once
 SCAN_BWD_REL, SCAN_BWD_DW_REL, SCAN_BWD_BF16_REL = 1e-4, 1e-3, 1e-2
 SCAN_BWD_LEAVES = ("dr", "dk", "dv", "dw", "dbonus", "dstate0")
+# K4b against its plain version, on the same bars: dxh, db, dc and dstate0
+# at SCAN_BWD_REL (bf16 dxh, db, dc at SCAN_BWD_BF16_REL, one rounding);
+# ddt and da_log, sums over the pairs and the steps, at SCAN_BWD_DW_REL
+MAMBA_BWD_LEAVES = ("dxh", "db", "dc", "ddt", "da_log", "dstate0")
+# the kernels of one K5b and one K4b call, each launched once, by input
+# type: the chunks' contributions, their scan, the per-chunk gradients
+# (tensor cores for bf16, FMA for float32), the ordered sums
+RWKV_BWD_CALL_KERNELS = {
+    dt: ("rwkv6_bwd_local", "rwkv6_bwd_scan", chunk, "rwkv6_bwd_bonus")
+    for dt, chunk in ((torch.bfloat16, "rwkv6_bwd_mma"),
+                      (torch.float32, "rwkv6_bwd_chunk"))}
+MAMBA_BWD_CALL_KERNELS = {
+    dt: ("mamba2_bwd_local", "mamba2_bwd_scan", chunk, "mamba2_bwd_sum")
+    for dt, chunk in ((torch.bfloat16, "mamba2_bwd_mma"),
+                      (torch.float32, "mamba2_bwd_chunk"))}
 # float32 parity at full width, cut to this many layers (the hybrid to
 # one attention site, after 6 layers, plus a tail layer)
 PARITY_F32_LAYERS, PARITY_F32_REL = 4, 1e-3
@@ -443,7 +519,9 @@ TENSOR_CORE_SASS = {"moe_gemm_wgmma_kernel": "HGMMA",
                     "decode_mma_kernel": "HMMA",
                     "mamba2_mma_kernel": "HMMA",
                     "rwkv6_mma_kernel": "HMMA",
-                    "rwkv6_bwd_mma_kernel": "HMMA"}
+                    "rwkv6_bwd_mma_kernel": "HMMA",
+                    "mamba2_bwd_mma_kernel": "HMMA",
+                    "mamba2_bwd_local_mma_kernel": "HMMA"}
 # gemma3's head dim, deepseek-v2's (query/key, value) pair, K1's
 # backward at qwen3's, granite's, gemma3's and deepseek's head dims, and
 # K3's gradients
@@ -459,7 +537,8 @@ REQUIRED_SASS = ("flash_mma_kernel<256,256>", "decode_mma_kernel<256>",
                  "flash_bwd_kvsplit_kernel<192,128>",
                  "moe_gemm_wgmma_kernel<128,1,1>", "moe_dw_wgmma_kernel<1>",
                  "moe_grad_tma_kernel<0>", "moe_grad_tma_kernel<1>",
-                 "rwkv6_bwd_mma_kernel<64>")
+                 "rwkv6_bwd_mma_kernel<64>", "mamba2_bwd_mma_kernel<64,64>",
+                 "mamba2_bwd_local_mma_kernel<64,64>")
 # the kernels fed by TMA, and the bulk-copy instructions each must hold
 TMA_SASS = {"moe_grad_tma_kernel": ("UTMALDG", "UTMASTG")}
 # the source and the launcher of each, whose calls `launcher<...>(a)` are
@@ -479,6 +558,9 @@ TENSOR_CORE_LAUNCHERS = {
     "mamba2_mma_kernel": ("mamba2_scan.cu", "launch_scan_mma", 1),
     "rwkv6_mma_kernel": ("rwkv6_scan.cu", "launch_scan_mma", 1),
     "rwkv6_bwd_mma_kernel": ("rwkv6_scan_bwd.cu", "launch_chunk_mma", 1),
+    "mamba2_bwd_mma_kernel": ("mamba2_scan_bwd.cu", "launch_chunks_mma", 1),
+    "mamba2_bwd_local_mma_kernel": ("mamba2_scan_bwd.cu", "launch_states_mma",
+                                    1),
 }
 # the kernel design each wrapper takes in bf16 at the main path's shape
 # (the float32 paths of K1-K5 are FMA code)
@@ -487,6 +569,7 @@ BF16_DESIGN = {"flash_attention": "mma.sync",
                "moe_gemm_dx": "wgmma+tma persistent",
                "moe_gemm_dw": "wgmma+tma persistent",
                "decode_attention": "mma.sync", "mamba2_scan": "mma.sync",
+               "mamba2_scan_bwd": "mma.sync",
                "rwkv6_scan": "mma.sync", "rwkv6_scan_bwd": "mma.sync"}
 # K5's bf16 sweep: (head dim, chunk, strong decay, initial state, output
 # dtype), the chunk of the SMOKE config (4, one padded sub-chunk) to 64
@@ -507,6 +590,8 @@ REPLACES = {
     "moe_gemm_dx": "src/repro/models/moe.py:104",
     "moe_gemm_dw": "src/repro/models/moe.py:104",
     "mamba2_scan": "src/repro/kernels/mamba2_scan.py:66",
+    # no TPU kernel: the reference differentiates K4's XLA twin
+    "mamba2_scan_bwd": "src/repro/models/ssm.py:62",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:66",
     # no TPU kernel: the reference differentiates K5's XLA twin
     "rwkv6_scan_bwd": "src/repro/models/rwkv.py:56",
@@ -524,15 +609,27 @@ NO_TPU_KERNEL = {
                    "src/repro/models/moe.py:104-109",
     "moe_gemm_dw": "no TPU kernel: the reference differentiates "
                    "src/repro/models/moe.py:104-109",
+    "mamba2_scan_bwd": "no TPU kernel: the Pallas scan has no backward "
+                       "and the reference differentiates its XLA twin, "
+                       "src/repro/models/ssm.py:62 (_ssd_chunked)",
     "rwkv6_scan_bwd": "no TPU kernel: the Pallas scan has no backward and "
                       "the reference differentiates its XLA twin, "
                       "src/repro/models/rwkv.py:56 (_wkv_chunked)"}
 # the plain version a train parity run swaps in for a wrapper, where it is
-# not ``<name>_ref``: K5's plain forward with K5b's plain backward
-TRAIN_PLAIN = {"rwkv6_scan": "rwkv6_scan_plain"}
+# not ``<name>_ref``: K5's plain forward with K5b's plain backward, K4's
+# with K4b's
+TRAIN_PLAIN = {"rwkv6_scan": "rwkv6_scan_plain",
+               "mamba2_scan": "mamba2_scan_plain"}
+
+
+# seconds from the start of the run at which each phase line was printed
+PHASE_END_S: dict = {}
+T_START = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        PHASE_END_S[obj["phase"]] = time.perf_counter() - T_START
     print(json.dumps(obj), flush=True)
 
 
@@ -570,21 +667,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, marker: str | None = None, iters: int = 10,
-              count: bool = False):
+              count: bool = False, tries: int = 3):
     """Mean device milliseconds per call of ``fn`` spent in kernels whose
     name holds ``marker``, or in every kernel (and copy) it runs on the
     card when ``marker`` is None, as for a library call (torch.profiler,
     CUDA activity): the device's own time without the host's gaps
-    between calls; None if the trace shows no such kernel.  ``count``:
-    also the number of such kernels run per call."""
+    between calls.  A marked kernel must appear a whole number of times a
+    call: the first of ``tries`` traces in which it does is read, and None
+    is returned if none does (traces late in a long run have lost
+    launches; such a trace gives no number).  ``count``: also the number
+    of such kernels run per call, in the last trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without its device activity, or
-    # with a kernel of a marked call missing (a count that is not a whole
-    # number per call): take the first of three that has it all
-    for _ in range(3):
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -598,16 +695,21 @@ def device_ms(fn, marker: str | None = None, iters: int = 10,
                               getattr(e, "self_cuda_time_total", 0.0))
                 n += e.count
         if n and (marker is None or n % iters == 0):
-            break
-    if not n:
-        ms = None
-    elif marker is None:
-        ms = us / 1e3 / iters
-    else:
-        # a call's whole number of marked kernels at the mean time of
-        # those traced, should all three traces have missed one
-        ms = us / 1e3 / n * max(1, round(n / iters))
-    return (ms, n / iters) if count else ms
+            ms = us / 1e3 / iters
+            return (ms, n / iters) if count else ms
+    return (None, n / iters) if count else None
+
+
+def kernels_device_ms(fn, names) -> tuple:
+    """Device milliseconds per call of ``fn`` that launches each kernel of
+    ``names`` once: each kernel's own (``device_ms`` with its name, which
+    must appear once a call in one of five traces of five calls), and
+    their sum, None where a kernel's traces all lost a launch."""
+    each = {}
+    for name in names:
+        ms, per_call = device_ms(fn, name, iters=5, count=True, tries=5)
+        each[name] = ms if per_call == 1 else None
+    return (None if None in each.values() else sum(each.values())), each
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -661,6 +763,7 @@ def phase_device(build_mod) -> tuple[dict, str]:
         "load_seconds": round(time.perf_counter() - t0, 2),
         "tensor_core_sass": tensor_core_check(build_mod),
         "rwkv6_scan_bwd_ptxas": ptxas_info(build_mod, BWD_SCAN_KERNELS),
+        "mamba2_scan_bwd_ptxas": mamba_bwd_ptxas(build_mod),
         "kernel_sources": [str(p.relative_to(Path(__file__).parent))
                            for p in build_mod.sources()],
     }
@@ -738,8 +841,26 @@ def ptxas_info(build_mod, kernels) -> dict:
     K5b's per-chunk kernels (bf16 and float32) at rwkv6-3b's head dim and
     chunk, and the atomic or reduce instructions in their SASS, none of
     which may be there."""
-    import re
     from repro_torch.kernels import rwkv6_scan as rs_mod
+    out = ptxas_table(build_mod, kernels)
+    # the contributions in both types, the scan and both per-chunk kernels
+    # at every head dim
+    if len(out) != 5 * len(rs_mod.HEAD_DIMS):
+        fail(f"K5b's instantiations in the ptxas log: {sorted(out)}")
+    atomics = atomic_instructions(sass_text(build_mod), kernels)
+    if atomics:
+        fail(f"atomic or reduce instructions in K5b's kernels: "
+             f"{ {k: v[:3] for k, v in atomics.items()} }")
+    return {"kernels": out, "atomic_instructions": 0,
+            "mma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(64, 32),
+            "fma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(
+                64, 32, torch.float32)}
+
+
+def ptxas_table(build_mod, kernels) -> dict:
+    """Registers and spill bytes of every instantiation of ``kernels`` in
+    the build's ptxas -v log."""
+    import re
     log = (build_mod.build().parent / "build.log").read_text()
     out, cur = {}, None
     for line in log.splitlines():
@@ -753,18 +874,42 @@ def ptxas_info(build_mod, kernels) -> dict:
         elif cur and "registers" in line:
             out[cur]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
-    # the contributions in both types, the scan and both per-chunk kernels
-    # at every head dim
-    if len(out) != 5 * len(rs_mod.HEAD_DIMS):
-        fail(f"K5b's instantiations in the ptxas log: {sorted(out)}")
-    atomics = atomic_instructions(sass_text(build_mod), kernels)
+    return out
+
+
+# K4b's templated kernels: the chunks' contributions to the chunk-end
+# states (FMA <T, P, N> for float32 and for bf16 at (16, 8); mma.sync <P, N>
+# for bf16 at (64, 64)), their scan <P, N>, the per-chunk kernels (FMA
+# <T, P, N>; mma.sync <P, N> for bf16 at (64, 64)) and the ordered sums <T>;
+# the mma.sync ones are also in TENSOR_CORE_SASS
+MAMBA_BWD_KERNELS = ("mamba2_bwd_local_kernel", "mamba2_bwd_local_mma_kernel",
+                     "mamba2_bwd_scan_kernel", "mamba2_bwd_chunk_kernel",
+                     "mamba2_bwd_mma_kernel", "mamba2_bwd_sum_kernel")
+# their instantiations: the FMA contributions in float32 at both (P, N)
+# pairs and in bf16 at (16, 8), the mma.sync ones at (64, 64), the scan at
+# both pairs, the FMA per-chunk kernel in both types at both pairs, the
+# mma.sync one at (64, 64), the sums in both types
+MAMBA_BWD_INSTANTIATIONS = 3 + 1 + 2 + 4 + 1 + 2
+
+
+def mamba_bwd_ptxas(build_mod) -> dict:
+    """Registers and spill bytes of every instantiation of K4b's kernels
+    (MAMBA_BWD_INSTANTIATIONS), the per-chunk kernels' dynamic shared
+    memory at zamba2's dims, and the
+    atomic or reduce instructions in their SASS, none of which may be
+    there."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    out = ptxas_table(build_mod, MAMBA_BWD_KERNELS)
+    if len(out) != MAMBA_BWD_INSTANTIATIONS:
+        fail(f"K4b's instantiations in the ptxas log: {sorted(out)}")
+    atomics = atomic_instructions(sass_text(build_mod), MAMBA_BWD_KERNELS)
     if atomics:
-        fail(f"atomic or reduce instructions in K5b's kernels: "
+        fail(f"atomic or reduce instructions in K4b's kernels: "
              f"{ {k: v[:3] for k, v in atomics.items()} }")
     return {"kernels": out, "atomic_instructions": 0,
-            "mma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(64, 32),
-            "fma_kernel_smem_bytes_d64_l32": rs_mod.bwd_smem_bytes(
-                64, 32, torch.float32)}
+            "mma_kernel_smem_bytes_p64_n64": ms_mod.bwd_smem_bytes(64, 64),
+            "fma_kernel_smem_bytes_p64_n64": ms_mod.bwd_smem_bytes(
+                64, 64, torch.float32)}
 
 
 def expected_instantiations(build_mod) -> int:
@@ -901,14 +1046,21 @@ def err_by_band(out: torch.Tensor, want: torch.Tensor) -> dict:
     return {"out_abs_max": float(mag.max()), "err_by_band": bands}
 
 
-def sdpa_backend(fn) -> str:
+def sdpa_backend(fn) -> str | None:
     """Which of SDPA's backends a call took, read from the names of the
-    kernels it ran (torch.profiler)."""
+    kernels five calls ran (torch.profiler); None where the trace holds no
+    kernel (a trace can lose launches, so one call's could be missed)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(5):
+            fn()
         torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages()).lower()
+    names = " ".join(e.key for e in prof.key_averages()
+                     if getattr(e, "device_type", DeviceType.CUDA)
+                     == DeviceType.CUDA).lower()
+    if not names:
+        return None
     for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
                            ("efficient", ("fmha", "cutlass", "efficient"))):
         if any(m in names for m in marks):
@@ -1359,10 +1511,9 @@ def rwkv_bwd_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
         b_ms, by = bound(nbytes(r, k, v, w, bonus, dout, *got,
                                 *(x for x in (st0, dst) if x is not None)),
                          rwkv_bwd_flops(b, s, h, d, chunk), dtype)
-        dev_ms, per_call = device_ms(call, "rwkv6_bwd", count=True)
+        dev_ms, each = kernels_device_ms(call, RWKV_BWD_CALL_KERNELS[dtype])
         rec.update(
-            ms=time_ms(call), device_ms=dev_ms,
-            device_kernels_per_call=per_call,
+            ms=time_ms(call), device_ms=dev_ms, device_ms_by_kernel=each,
             plain_ms=time_ms(plain, iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
@@ -1423,6 +1574,94 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
             plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
                 xh, bm, cm, dt, a_log, state0=st0, out_dtype=out_dtype),
                 iters=2, warmup=1),
+            library_ms=None, library_device_ms=None, bound_ms=b_ms,
+            bound_by=by)
+    return rec
+
+
+def mamba_bwd_flops(b, s, h, p, n, chunk) -> float:
+    """Operations of K4b's chunked backward at sub-chunks of ``chunk``
+    steps (exp counted as one), as the design takes them, each product
+    counted once: per chunk and head the two contributions to the
+    chunk-end state and cotangent ([L, P]^T by [L, N]) and the scan's step
+    in each direction; the state terms S0^T dy, dE^T x and dE b ([L, P] by
+    [P, N] each); over the pairs on and below the diagonal dy . x, then
+    dx, dc and db's pair sums, their decays and the gradient of dt a; the
+    scores c . b once per (batch, chunk), shared by the heads."""
+    pairs = chunk * (chunk + 1) / 2
+    per_head = (2 * 2 * chunk * p * n + 2 * 2 * p * n
+                + 3 * 2 * chunk * p * n
+                + pairs * (2 * p + 2 * p + 2 * n + 2 * n + 10)
+                + 12 * chunk)
+    return b * (s // chunk) * (h * per_head + pairs * 2 * n)
+
+
+def mamba_bwd_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
+                   dstate=False, sliced=False, strong_decay=False,
+                   timed=False, repeat=False):
+    """K4b on ``dtype`` xh, b, c (``sliced``: column slices of one
+    [B, S, H*P + 2N] tensor, as ``mamba2_forward`` hands them over; float32
+    dt and dy, as the model's float32 output hands it back) against
+    ``mamba2_scan_bwd_ref``, each gradient relative to its largest
+    magnitude; ``state``: an initial state, ``dstate``: a final state's
+    cotangent (the model passes neither); ``strong_decay``: dt a = -148 a
+    step; ``repeat``: a second call must give the same bits."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    b, s, h, p, n = shape
+    if sliced:
+        xbc = randn(rng, (b, s, h * p + 2 * n), dtype)
+        xh = xbc[..., :h * p].view(b, s, h, p)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    else:
+        xh = randn(rng, (b, s, h, p), dtype)
+        bm = randn(rng, (b, s, n), dtype)
+        cm = randn(rng, (b, s, n), dtype)
+    if strong_decay:
+        dt = torch.full((b, s, h), 20.0, device="cuda")
+        a_log = torch.full((h,), 2.0, device="cuda")
+    else:
+        dt = torch.nn.functional.softplus(randn(rng, (b, s, h),
+                                                torch.float32))
+        a_log = randn(rng, (h,), torch.float32) * 0.5
+    dy = randn(rng, (b, s, h, p), torch.float32)
+    st0 = randn(rng, (b, h, p, n), torch.float32) if state else None
+    dst = randn(rng, (b, h, p, n), torch.float32) if dstate else None
+    call = lambda: ops.mamba2_scan_bwd(xh, bm, cm, dt, a_log, dy,
+                                       chunk=chunk, state0=st0, dstate=dst)
+    got = call()
+    torch.cuda.synchronize()
+    plain = lambda: ref.mamba2_scan_bwd_ref(xh, bm, cm, dt, a_log, dy,
+                                            state0=st0, dstate=dst)
+    want = plain()
+    xbc_bar = SCAN_BWD_REL if dtype == torch.float32 else SCAN_BWD_BF16_REL
+    bars = dict(zip(MAMBA_BWD_LEAVES, (xbc_bar,) * 3 + (
+        SCAN_BWD_DW_REL, SCAN_BWD_DW_REL, SCAN_BWD_REL)))
+    rel = {k: rel_err(g, x) for k, g, x in zip(MAMBA_BWD_LEAVES, got, want)}
+    rec = {"shape": [list(xh.shape), list(bm.shape)], "chunk": chunk,
+           "sub_chunk": ms_mod.bwd_chunk(chunk),
+           "dtype": str(dtype).split(".")[-1], "column_slices": sliced,
+           "strong_decay": strong_decay, "initial_state": state,
+           "final_cotangent": dstate,
+           "max_abs_err": max(max_abs_err(g, x) for g, x in zip(got, want)),
+           "rel_err": rel, "tol": bars,
+           "ok": all(rel[k] <= bars[k] for k in rel)
+           and all(bool(torch.isfinite(g.float()).all()) for g in got)}
+    del want
+    if repeat:
+        again = call()
+        rec["repeat_bitwise"] = all(torch.equal(x, y)
+                                    for x, y in zip(got, again))
+        rec["ok"] = rec["ok"] and rec["repeat_bitwise"]
+        del again
+    if timed:
+        b_ms, by = bound(nbytes(xh, bm, cm, dt, a_log, dy, *got,
+                                *(x for x in (st0, dst) if x is not None)),
+                         mamba_bwd_flops(b, s, h, p, n,
+                                         ms_mod.bwd_chunk(chunk)), dtype)
+        dev_ms, each = kernels_device_ms(call, MAMBA_BWD_CALL_KERNELS[dtype])
+        rec.update(
+            ms=time_ms(call), device_ms=dev_ms, device_ms_by_kernel=each,
+            plain_ms=time_ms(plain, iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
     return rec
@@ -1727,6 +1966,40 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         f"prefill_float32/nq{NUM_QUERIES}": mamba_case(
             ops, ref, rng, mshape, sc.chunk, torch.float32, state=True,
             sliced=True)}
+    # K4 at the train_zamba2 phase's microbatch ([2, 4096, 80, 64], chunk
+    # 128) as the model calls it, timed; K4b there as the model calls it
+    # (bf16 column slices, no initial state, no final cotangent), timed and
+    # called twice for the same bits; at the served prefill's shape with
+    # both ends, timed; each also in float32 and under strong decay with
+    # both ends
+    mdt = getattr(torch, mamba_cfg.dtype)
+    tshape = (TRAIN_MICROBATCH, train_seq_len()) + mshape[2:]
+    mamba_main[f"{mamba_cfg.name}/train"] = mamba_case(
+        ops, ref, rng, tshape, sc.chunk, mdt, sliced=True,
+        out_dtype=torch.float32, timed=True)
+    mamba_bwd_main = {}
+    for tag, shape in ((f"{mamba_cfg.name}/train", tshape),
+                       (f"prefill/nq{NUM_QUERIES}", mshape)):
+        train = shape == tshape
+        mamba_bwd_main[tag] = mamba_bwd_case(
+            ops, ref, rng, shape, sc.chunk, mdt, state=not train,
+            dstate=not train, sliced=True, timed=True, repeat=train)
+        mamba_bwd_main[tag + "/float32"] = mamba_bwd_case(
+            ops, ref, rng, shape, sc.chunk, torch.float32, state=True,
+            dstate=True)
+        mamba_bwd_main[tag + "/strong_decay"] = mamba_bwd_case(
+            ops, ref, rng, shape, sc.chunk, mdt, state=True, dstate=True,
+            sliced=True, strong_decay=True)
+        torch.cuda.empty_cache()
+    # K1's backward at the shared attention block's training shape (32
+    # heads of 80, G = 1, padded to 128 in the wgmma kernel), timed in bf16
+    # beside SDPA's backward, the plain version 16 heads at a time
+    h, kv = mamba_cfg.num_heads, mamba_cfg.num_kv_heads
+    bwd_main[f"{mamba_cfg.name}/train"] = flash_bwd_case(
+        ops, ref, rng, (TRAIN_MICROBATCH, train_seq_len(), train_seq_len(),
+                        h, kv, mamba_cfg.resolved_head_dim), mdt, True, 0,
+        timed=True, head_slice=16)
+    torch.cuda.empty_cache()
 
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
              + list(decode_main.values()) + bwd_sweep
@@ -1736,7 +2009,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
              + list(grad_main["moe_gemm_dw"].values()) + rwkv_sweep
              + list(rwkv_main.values()) + list(rwkv_bwd_main.values())
              + mamba_sweep
-             + list(mamba_main.values()))
+             + list(mamba_main.values()) + list(mamba_bwd_main.values()))
     bad = [c for c in cases if not c["ok"]]
     out = {
         "phase": "kernels", "ok": not bad, "n_cases": len(cases),
@@ -1784,6 +2057,11 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             "sweep_state_max_abs_err": sweep_err(mamba_sweep,
                                                  "state_max_abs_err"),
             "main_path": mamba_main},
+        "mamba2_scan_bwd": {
+            "max_rel_err": {k: max(c["rel_err"][k]
+                                   for c in mamba_bwd_main.values())
+                            for k in MAMBA_BWD_LEAVES},
+            "main_path": mamba_bwd_main},
         "failed": bad,
     }
     emit(out)
@@ -1987,7 +2265,8 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
         "models": {name: {"arch": b.cfg.name, "layers": b.cfg.num_layers,
                           "d_model": b.cfg.d_model, "dtype": b.cfg.dtype,
                           "vocab": b.cfg.vocab_size,
-                          "params": b.cfg.param_count()}
+                          "params": sum(p.numel() for p in
+                                        _tree_leaves(b.params))}
                    for name, b in bundles.items()},
         **({"reduced": reduced} if reduced else {}),
         "queries": NUM_QUERIES, "virtual_devices": N_DEVICES,
@@ -2687,6 +2966,12 @@ def attention_at_input_width(params) -> None:
             attention_at_input_width(sub)
 
 
+# what a parity record says of its init (master_params' ``init``)
+INIT_LABEL = {None: "the reference's",
+              attention_at_input_width: "attention projections at "
+                                        "1 / sqrt(d)"}
+
+
 @torch.inference_mode()
 def phase_parity_whisper(mods, bundle, prompts, frames, served,
                          seed: int) -> dict:
@@ -2781,10 +3066,15 @@ def active_params(cfg, n_params: int) -> float:
 
 def layer_kinds(cfg) -> list[str]:
     """The model's attention layer kinds in execution order ('L' local,
-    under the sliding window; 'G' global); none for RWKV6."""
+    under the sliding window; 'G' global); none for RWKV6; for the Mamba2
+    hybrid one global layer per site of its shared attention block (after
+    every ``attn_every``-th Mamba2 layer)."""
+    from repro_torch.models.families import Mamba2Hybrid
     from repro_torch.models.transformer import DecoderLM
     if cfg.rwkv is not None:
         return []
+    if cfg.ssm is not None:
+        return ["G"] * Mamba2Hybrid(cfg, device="cpu").n_attn
     return DecoderLM(cfg, device="cpu").layer_kinds()
 
 
@@ -2807,7 +3097,11 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     local one (gemma3's).  For RWKV6, 6 x parameters x tokens and the
     WKV scan's operations (``rwkv_flops``) three times a layer: once
     forward, twice that backward, as the matrix products' 6 is 2 + 4.
-    The forward that remat repeats is not counted."""
+    For the Mamba2 hybrid, 6 x parameters x tokens (the shared attention
+    block's parameters once, as the tree holds them, although each of its
+    sites runs them), attention over the causal pairs at each site of the
+    shared block, and the SSD scan's operations (``mamba_flops``) three
+    times a layer.  The forward that remat repeats is not counted."""
     if cfg.rwkv is not None:
         hd = cfg.rwkv.head_dim
         scan = 3.0 * cfg.num_layers * rwkv_flops(
@@ -2818,7 +3112,13 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
         pairs["L"] = attended_pairs(seq, seq, True, cfg.sliding_window)
     attn = 6.0 * sum(attention_head_dims(cfg)) * batch * cfg.num_heads * sum(
         pairs[kind] for kind in layer_kinds(cfg))
-    return 6.0 * active_params(cfg, n_params) * batch * seq + attn
+    scan = 0.0
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        scan = 3.0 * cfg.num_layers * mamba_flops(
+            batch, seq, sc.expand * cfg.d_model // sc.head_dim, sc.head_dim,
+            sc.state_dim, sc.chunk)
+    return 6.0 * active_params(cfg, n_params) * batch * seq + attn + scan
 
 
 def train_launches(cfg, n_accum: int, steps: int) -> dict:
@@ -2830,7 +3130,13 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
     takes the 128-row tile).  For RWKV6 per layer and microbatch K5
     once, and again in the recompute, and K5b's kernels once each
     (``rwkv6_scan.bwd_launches`` of the passes that r, k, v, w and bonus
-    call for: no initial state), nothing else."""
+    call for: no initial state), nothing else.  For the Mamba2 hybrid per
+    Mamba2 layer and microbatch K4 once, and again in the recompute, and
+    K4b's kernels once each (``mamba2_scan.bwd_launches`` of the passes
+    that xh, b, c, dt and a_log call for: no initial state); per site of
+    the shared attention block, which remat does not recompute, K1 and
+    its backward once; nothing else."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
     from repro_torch.kernels import rwkv6_scan as rs_mod
     exp = dict.fromkeys(REPLACES, 0)
     exp["moe_gemm_decode_tile"] = 0
@@ -2839,6 +3145,13 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
         exp["rwkv6_scan"] = cfg.num_layers * runs * fwd
         exp["rwkv6_scan_bwd"] = cfg.num_layers * runs * rs_mod.bwd_launches(
             rs_mod.bwd_passes((True,) * 5 + (False,)))
+        return exp
+    if cfg.ssm is not None:
+        sites = len(layer_kinds(cfg))
+        exp["mamba2_scan"] = cfg.num_layers * runs * fwd
+        exp["mamba2_scan_bwd"] = cfg.num_layers * runs * ms_mod.bwd_launches(
+            ms_mod.bwd_passes((True,) * 5 + (False,)))
+        exp["flash_attention"] = exp["flash_attention_bwd"] = sites * runs
         return exp
     exp["flash_attention"] = cfg.num_layers * runs * fwd
     exp["flash_attention_bwd"] = cfg.num_layers * runs
@@ -2849,12 +3162,16 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
     return exp
 
 
-def master_params(model, seed: int) -> dict:
+def master_params(model, seed: int, init=None) -> dict:
     """The model's random init (a seeded generator on the card) as float32
-    master parameters."""
+    master parameters; ``init``, where given, changes them in place
+    (``attention_at_input_width``)."""
     from repro_torch.training.tree import tree_map
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return tree_map(lambda p: p.float(), model.init(gen))
+    masters = tree_map(lambda p: p.float(), model.init(gen))
+    if init is not None:
+        init(masters)
+    return masters
 
 
 def profile_train_step(step_fn, params, state, batch) -> dict:
@@ -2862,7 +3179,8 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
     share of its wall, the device time by kind of kernel (K1's forward,
     its backward, K3's forward, dX and dW, the matrix products,
     elementwise kernels and copies, the rest) and K1's and K3's shares of
-    the step's device time (K5's and K5b's for RWKV6)."""
+    the step's device time (K5's and K5b's for RWKV6, K4's and K4b's for
+    the Mamba2 hybrid)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2879,6 +3197,8 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
     # template argument)
     kinds = {"k5_forward": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
              "k5_backward": ("rwkv6_bwd_",),
+             "k4_forward": ("mamba2_mma_kernel", "mamba2_scan_kernel"),
+             "k4_backward": ("mamba2_bwd_",),
              "k1_forward": ("flash_mma_kernel",),
              "k1_backward": ("bwd_",),
              "k3_dx": ("moe_grad_tma_kernel<0>",) + tuple(
@@ -2902,6 +3222,7 @@ def profile_train_step(step_fn, params, state, batch) -> dict:
             "k3_share": (share["k3_forward"] + share["k3_dx"]
                          + share["k3_dw"]) / dev,
             "k5_share": (share["k5_forward"] + share["k5_backward"]) / dev,
+            "k4_share": (share["k4_forward"] + share["k4_backward"]) / dev,
             "top_device_time": [
                 {"name": k[:80], "calls": n, "ms": us / 1e3}
                 for us, n, k in rows[:10]]}
@@ -2913,8 +3234,9 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     """``cfg`` at full width (qwen3-1.7b; granite-moe-3b-a800m as
     ``train_moe``, gemma3-4b as ``train_gemma3`` and deepseek-v2-236b as
     ``train_deepseek``, their depth cut to ``num_layers``, ``depth_note``
-    saying why beside the measured peak; rwkv6-3b as ``train_rwkv``, at
-    its full depth, the peak printed) trained through the
+    saying why beside the measured peak; rwkv6-3b as ``train_rwkv`` and
+    zamba2-2.7b as ``train_zamba2``, at their full depth, the peak
+    printed) trained through the
     port's ``make_train_step`` with the reference's ``AdamWConfig()``:
     bf16 compute over float32 masters, bf16 moments, remat,
     TRAIN_GLOBAL_BATCH sequences of train_4k's length per step in
@@ -3026,6 +3348,12 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
                             layer_kinds="".join(layer_kinds(cfg)))
     if cfg.rwkv is not None:
         out["shape"].update(chunk=cfg.rwkv.chunk)
+    if cfg.ssm is not None:
+        sc = cfg.ssm
+        out["shape"].update(
+            ssm_heads=sc.expand * cfg.d_model // sc.head_dim,
+            ssm_head_dim=sc.head_dim, state_dim=sc.state_dim, chunk=sc.chunk,
+            attention_sites=len(layer_kinds(cfg)))
     if cfg.mla is not None:
         out["shape"].update(head_dims_qk_v=list(attention_head_dims(cfg)),
                             q_lora_rank=cfg.mla.q_lora_rank,
@@ -3144,13 +3472,15 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
 def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
                        num_layers: int = 0, f32_layers: int = 0,
                        seq: int = 0, seq_reason: str = "",
-                       bf16_gate_layers: int = 0) -> dict:
+                       bf16_gate_layers: int = 0,
+                       gate_init: dict | None = None) -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
     log-sum-exp and its backward; for an MoE model K3 and its dX and dW
-    kernels; for RWKV6 K5 and K5b) against the plain versions
+    kernels; for RWKV6 K5 and K5b; for the Mamba2 hybrid K4 and K4b beside
+    K1 and its backward) against the plain versions
     (``plain_versions`` of flash_attention, and moe_gemm: autograd through
-    the plain forwards; of rwkv6_scan: the plain forward with the plain
-    backward, TRAIN_PLAIN),
+    the plain forwards; of rwkv6_scan and mamba2_scan: the plain forward
+    with the plain backward, TRAIN_PLAIN),
     on the train phase's first microbatch: in float32 at full width with
     ``f32_layers`` layers (TRAIN_F32_LAYERS; gemma3 GEMMA_F32_LAYERS, five
     local layers and its first global one) (the loss within
@@ -3164,17 +3494,23 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     run is held to the kernel run's routing (``held_routing``, replayed in
     call order: the forward's, then remat's recompute in the backward);
     the flips a free plain run would make are counted, and the recompute
-    must have chosen the forward's experts.  granite has no q / k norm, so
-    at the reference's init its attention saturates and 24 bf16 layers
-    amplify the kernels' rounding chaotically (ROADMAP H25): there its bf16
-    reading is reported, and the bars hold the same weights with the
-    attention projections drawn at 1 / sqrt(d)
-    (``attention_at_input_width``), as parity_whisper does.  With
-    ``bf16_gate_layers`` (rwkv6: RWKV_BF16_GATE_LAYERS, H30) the bf16
-    reading at the train depth is reported and the bars hold the model cut
-    to that many layers.  Then a second kernel run on the same microbatch,
-    whose loss and gradients must equal the first's bit for bit, and the
-    Trainer drill at SMOKE size."""
+    must have chosen the forward's experts.  With ``bf16_gate_layers``
+    (rwkv6: RWKV_BF16_GATE_LAYERS, H30) the bf16 reading at the train
+    depth is reported and the bars hold the model cut to that many layers.
+    ``gate_init`` maps a dtype to the init its gate takes instead of the
+    reference's (``master_params`` applies it; each record names its
+    init): granite has no q / k norm, so at the reference's init its
+    attention saturates and 24 bf16 layers amplify the kernels' rounding
+    chaotically (ROADMAP H25), and zamba2's shared attention at 9 sites
+    does the same at depth (H32); their gates hold the attention
+    projections drawn at 1 / sqrt(d) (``attention_at_input_width``), as
+    parity_whisper does, and the reference init is read in bf16 at the
+    gate depth and reported beside them (zamba2's bf16 gate depth is cut,
+    ZAMBA2_BF16_GATE_LAYERS, so there the train depth is run through the
+    kernels alone).  The bf16 run at the train depth is repeated through
+    the kernels on the same microbatch, and the loss and gradients must
+    equal the first's bit for bit.  Then the Trainer drill at SMOKE
+    size."""
     ops, ref, moe_mod = mods["ops"], mods["ref"], mods["moe"]
     from repro_torch.models.families import build_model
     from repro_torch.training.data import DataConfig, SyntheticTokens
@@ -3184,6 +3520,7 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     is_moe = cfg.moe is not None and (num_layers or cfg.num_layers) > \
         cfg.moe_layer_start
     names = (["rwkv6_scan"] if cfg.rwkv is not None else
+             ["mamba2_scan", "flash_attention"] if cfg.ssm is not None else
              ["flash_attention"] + (["moe_gemm"] if is_moe else []))
     seq = seq or train_seq_len()
     batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
@@ -3242,11 +3579,28 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         del gp
         return rec, lk, gk
 
-    f32_layers = f32_layers or TRAIN_F32_LAYERS
-    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=f32_layers)
-    model = build_model(cfg32, "cuda")
-    masters = master_params(model, seed)
-    f32, _, gk = compare(model, masters, torch.float32, f32_layers)
+    gate_init = gate_init or {}
+    train_layers = num_layers or cfg.num_layers
+    gate_layers = bf16_gate_layers or train_layers
+    within = lambda r: (r["finite"] and r["loss_rel_diff"] <= loss_bar
+                        and r["grad_norm_rel_diff"] <= norm_bar
+                        and r["grad_rel_diff_max"] <= grad_bar)
+
+    def reading(layers, dtype, init=None, model=None):
+        """``compare`` at ``layers`` from ``init`` (None: the reference's),
+        with its model (``model``, where one of that depth is at hand)."""
+        if model is None:
+            model = build_model(dataclasses.replace(
+                cfg, num_layers=layers, **({"dtype": "float32"}
+                                           if dtype == torch.float32
+                                           else {})), "cuda")
+        rec, _, _ = compare(model, master_params(model, seed, init), dtype,
+                            layers)
+        torch.cuda.empty_cache()
+        return {**rec, "init": INIT_LABEL[init]}, model
+
+    f32, model = reading(f32_layers or TRAIN_F32_LAYERS, torch.float32,
+                         gate_init.get(torch.float32))
     f32["tol"] = {"loss": TRAIN_F32_LOSS_REL, "grad": TRAIN_F32_GRAD_REL}
     if not (f32["loss_rel_diff"] <= TRAIN_F32_LOSS_REL
             and f32["grad_rel_diff_max"] <= TRAIN_F32_GRAD_REL):
@@ -3254,54 +3608,57 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
                         f"({f32['loss_rel_diff']}, "
                         f"{f32['grad_rel_diff_max']})")
     out["float32_cut_depth"] = f32
-    del model, masters, gk
+    del model
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers)
+    # bf16 at the train depth from the reference init, then the same
+    # microbatch again through the kernels: the same bits
+    init16 = gate_init.get(torch.bfloat16)
+    cut_gate = gate_layers != train_layers
+    cfg = dataclasses.replace(cfg, num_layers=train_layers)
     model = build_model(cfg, "cuda")
     masters = master_params(model, seed)
-    bf16, lk, gk = compare(model, masters, torch.bfloat16, cfg.num_layers)
-    # the same microbatch again through the kernels: the same bits
+    if init16 is not None and cut_gate:
+        bf16 = None              # the reference init is read at the gate
+        lk, gk = loss_and_grads(model, masters, micro, torch.bfloat16)
+    else:
+        bf16, lk, gk = compare(model, masters, torch.bfloat16, train_layers)
+        bf16["init"] = INIT_LABEL[None]
     torch.cuda.empty_cache()
     l2, g2 = loss_and_grads(model, masters, micro, torch.bfloat16)
     repeat = bool(torch.equal(lk, l2)) and all(
         torch.equal(a, b) for a, b in zip(gk, g2))
     if not repeat:
         problems.append("bf16: a second gradient call gave other bits")
-    del lk, gk, l2, g2
+    del lk, gk, l2, g2, masters
     torch.cuda.empty_cache()
-    if is_moe:
-        out["bf16_train_depth_reference_init"] = {**bf16,
-                                                  "repeat_bitwise": repeat}
-        attention_at_input_width(masters)
-        bf16, _, _ = compare(model, masters, torch.bfloat16, cfg.num_layers)
-        bf16["init"] = "attention projections at 1 / sqrt(d)"
-    elif bf16_gate_layers:
-        out["bf16_train_depth_reported"] = {
-            **bf16, "repeat_bitwise": repeat,
-            "within_the_bars": bf16["loss_rel_diff"] <= loss_bar
-            and bf16["grad_norm_rel_diff"] <= norm_bar
-            and bf16["grad_rel_diff_max"] <= grad_bar}
-        del model, masters
-        torch.cuda.empty_cache()
-        model = build_model(dataclasses.replace(
-            cfg, num_layers=bf16_gate_layers), "cuda")
-        masters = master_params(model, seed)
-        bf16, _, _ = compare(model, masters, torch.bfloat16,
-                             bf16_gate_layers)
+    if bf16 is None:
+        out["bf16_train_depth_repeat"] = {"layers": train_layers,
+                                          "repeat_bitwise": repeat}
     else:
         bf16["repeat_bitwise"] = repeat
+    if init16 is not None or cut_gate:
+        if bf16 is not None:
+            out["bf16_train_depth_reported" if init16 is None else
+                "bf16_train_depth_reference_init"] = {
+                **bf16, "within_the_bars": within(bf16)}
+        if cut_gate:
+            del model
+            torch.cuda.empty_cache()
+            model = None
+            if init16 is not None:
+                out["bf16_gate_depth_reference_init"], model = reading(
+                    gate_layers, torch.bfloat16)
+        bf16, model = reading(gate_layers, torch.bfloat16, init16, model)
     bf16["tol"] = {"loss": loss_bar, "grad_norm": norm_bar,
                    "grad": grad_bar}
-    if not (bf16["finite"] and bf16["loss_rel_diff"] <= loss_bar
-            and bf16["grad_norm_rel_diff"] <= norm_bar
-            and bf16["grad_rel_diff_max"] <= grad_bar):
+    if not within(bf16):
         problems.append(f"bf16: loss, gradient norm or a gradient leaf "
                         f"beyond its bar ({bf16['loss_rel_diff']}, "
                         f"{bf16['grad_norm_rel_diff']}, "
                         f"{bf16['grad_rel_diff_max']})")
     out["bf16_train_depth"] = bf16
-    del model, masters
+    del model
     torch.cuda.empty_cache()
 
     out["trainer_drill"] = trainer_drill(mods, seed, cfg.name)
@@ -3475,7 +3832,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     one: qwen3's for K1 and K2, qwen3's training shape for K1's backward,
     the gate/up projection at prefill for K3 and at granite's training
     microbatch for its gradients, zamba2's prefill for K4, rwkv6's prefill
-    for K5) and its launches summed over the serve phases and the train
+    for K5, the training microbatches for K4b and K5b) and its launches summed over the serve phases and the train
     phases (``serve_outs``), with the other timed shapes and
     the launches per phase; for K3 also its decode gate/up shape with the
     launches of the 64-row tile that the serve phases counted, and the
@@ -3490,6 +3847,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                 "moe_gemm_dx": "granite-moe-3b-a800m/train_gate_up",
                 "moe_gemm_dw": "granite-moe-3b-a800m/train_gate_up",
                 "mamba2_scan": "prefill", "rwkv6_scan": "prefill",
+                "mamba2_scan_bwd": "zamba2-2.7b/train",
                 "rwkv6_scan_bwd": "rwkv6-3b/train"}
     rows = []
     for name in REPLACES:
@@ -3527,7 +3885,7 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                                      for x in main.values())
         if name in ("moe_gemm_dx", "moe_gemm_dw"):
             row["max_rel_err"] = max(x["rel_err"] for x in main.values())
-        if name == "rwkv6_scan_bwd":
+        if name in ("rwkv6_scan_bwd", "mamba2_scan_bwd"):
             row["max_rel_err"] = kernels_out[name]["max_rel_err"]
         if name == "moe_gemm":
             dkey = next(k for k in timed if k.startswith("decode_up"))
@@ -3543,9 +3901,12 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             row["cache_len_on_device"] = c["cache_len_on_device"]
         if name in ("mamba2_scan", "rwkv6_scan"):
             row["out_dtype"] = c["out_dtype"]
-        if name in ("decode_attention", "rwkv6_scan", "rwkv6_scan_bwd"):
+        if name in ("decode_attention", "rwkv6_scan"):
             row["device_kernels_per_call"] = {
                 k: x["device_kernels_per_call"] for k, x in timed.items()}
+        if name in ("rwkv6_scan_bwd", "mamba2_scan_bwd"):
+            row["device_ms_by_kernel"] = {
+                k: x["device_ms_by_kernel"] for k, x in timed.items()}
         rows.append(row)
     return {"kernels": rows}
 
@@ -3595,7 +3956,7 @@ def main() -> None:
                  "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
 
-    t_all = time.perf_counter()
+    t_all = T_START
     _, smi_line = phase_device(_build)
     kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
                                 gemma, deepseek, whisper, args.seed)
@@ -3679,7 +4040,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_train(mods, granite, args.seed, phase="parity_train_moe",
-                       num_layers=MOE_TRAIN_LAYERS)
+                       num_layers=MOE_TRAIN_LAYERS,
+                       gate_init={torch.bfloat16: attention_at_input_width})
     gc.collect()
     torch.cuda.empty_cache()
     with expandable_segments():
@@ -3726,16 +4088,37 @@ def main() -> None:
                        "two backward, about 150 thousand launches a layer "
                        "at 4096")
     rwkv_s = time.perf_counter() - t_rwkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_zamba = time.perf_counter()
+    with expandable_segments():
+        train_zamba_out = phase_train(
+            mods, zamba, args.seed, profile=args.profile,
+            phase="train_zamba2")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_parity_train(
+            mods, zamba, args.seed, phase="parity_train_zamba2",
+            f32_layers=zamba.num_layers,
+            bf16_gate_layers=ZAMBA2_BF16_GATE_LAYERS, seq=ZAMBA2_PARITY_SEQ,
+            seq_reason="the plain scan runs one step per token forward, "
+                       "again in remat's recompute, and back, at 54 "
+                       "layers in float32",
+            gate_init=dict.fromkeys((torch.float32, torch.bfloat16),
+                                    attention_at_input_width))
+    zamba_s = time.perf_counter() - t_zamba
     train_s = time.perf_counter() - t_train
     emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
                                       serve4_out, serve5_out, whisper_out,
                                       train_out, train_moe_out,
                                       train_gemma_out, train_deepseek_out,
-                                      train_rwkv_out]))
+                                      train_rwkv_out, train_zamba_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "whisper_phases_seconds": whisper_s,
           "train_phases_seconds": train_s,
-          "rwkv_train_phases_seconds": rwkv_s})
+          "rwkv_train_phases_seconds": rwkv_s,
+          "zamba2_train_phases_seconds": zamba_s,
+          "phase_end_seconds": PHASE_END_S})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

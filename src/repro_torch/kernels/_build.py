@@ -197,6 +197,11 @@ ARGTYPES = {
     + [_I32] * 2 + [_P],
     "fate_mamba2_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 13 + [_I32] * 2
     + [_P],
+    # x, b, c, dt, a_log, state0, dy, dstate, states, dstates, factors, dx,
+    # ddt, db_part, dc_part, da_part, db, dc, da_log, dstate0, B, S, H, P,
+    # N, L, strides, dtype, passes, stream
+    "fate_mamba2_scan_bwd": [_P] * 20 + [_I32] * 6 + [_I64] * 13
+    + [_I32] * 2 + [_P],
 }
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                   flash_attention_bwd)
-from repro_torch.kernels.mamba2_scan import mamba2_scan
+from repro_torch.kernels.mamba2_scan import mamba2_scan, mamba2_scan_bwd
 from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_dw, moe_gemm_dx
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 
@@ -29,12 +29,14 @@ KERNELS = {
     "moe_gemm_dx": moe_gemm_dx,
     "moe_gemm_dw": moe_gemm_dw,
     "mamba2_scan": mamba2_scan,
+    "mamba2_scan_bwd": mamba2_scan_bwd,
     "rwkv6_scan": rwkv6_scan,
     "rwkv6_scan_bwd": rwkv6_scan_bwd,
 }
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "mamba2_scan", "moe_gemm", "moe_gemm_dw",
+           "flash_attention_bwd", "mamba2_scan", "mamba2_scan_bwd",
+           "moe_gemm", "moe_gemm_dw",
            "moe_gemm_dx", "rwkv6_scan", "rwkv6_scan_bwd", "add_counts",
            "counts",
            "launch_counts", "reset_launch_counts"]

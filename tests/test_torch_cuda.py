@@ -1230,27 +1230,268 @@ def test_flash_attention_bwd_refuses_unported_head_dims(card):
 
 
 def test_wrappers_without_backward_refuse_grad_on_card(card):
-    """K2 and K4 have no backward kernel: under grad on the card they
-    raise and name the ROADMAP item; without grad they launch as before
-    (K3 has its gradients since ROADMAP item 14a, K5 since 14d:
-    test_rwkv6_scan_autograd_on_card)."""
+    """K2 has no backward kernel: under grad on the card it raises and
+    names the ROADMAP item; without grad it launches as before (K3 has its
+    gradients since ROADMAP item 14a, K5 since 14d:
+    test_rwkv6_scan_autograd_on_card, K4 since 14e:
+    test_mamba2_scan_launches_k4b_under_grad_on_card)."""
     rng = np.random.default_rng(45)
     bf = torch.bfloat16
     calls = {
         "decode_attention": lambda t: ops.decode_attention(
             t(2, 1, 4, 64), t(2, 32, 2, 64), t(2, 32, 2, 64), 20),
-        "mamba2_scan": lambda t: ops.mamba2_scan(
-            t(1, 64, 2, 64), t(1, 64, 64), t(1, 64, 64),
-            torch.rand(1, 64, 2, device=card, dtype=bf), t(2),
-            chunk=32),
     }
-    items = {"decode_attention": "item 14", "mamba2_scan": "14e"}
+    items = {"decode_attention": "item 14"}
     for name, call in calls.items():
         plain = lambda *s: _randn(rng, s, bf, card)
         graded = lambda *s: _randn(rng, s, bf, card).requires_grad_()
         call(plain)
         with pytest.raises(NotImplementedError, match=items[name]):
             call(graded)
+
+
+def test_mamba2_scan_launches_k4b_under_grad_on_card(card, monkeypatch):
+    """bf16 xh, b, c that require grad on the card: ``mamba2_scan`` launches
+    K4 once and, in the backward, K4b's kernels (``bwd_launches``), never
+    a plain version, where it raised before ROADMAP item 14e."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    rng = np.random.default_rng(45)
+    bf = torch.bfloat16
+    xh, bm, cm = (_randn(rng, s, bf, card).requires_grad_()
+                  for s in ((1, 64, 2, 64), (1, 64, 64), (1, 64, 64)))
+    dt = torch.rand(1, 64, 2, device=card)
+    a_log = _randn(rng, (2,), torch.float32, card)
+    monkeypatch.setattr(ms_mod, "mamba2_scan_ref", None)
+    monkeypatch.setattr(ms_mod, "mamba2_scan_bwd_ref", None)
+    before = ops.counts()
+    y, _ = ops.mamba2_scan(xh, bm, cm, dt, a_log, chunk=32,
+                           out_dtype=torch.float32)
+    grads = torch.autograd.grad(y.sum(), [xh, bm, cm])
+    after = ops.counts()
+    assert after["mamba2_scan"] - before["mamba2_scan"] == 1
+    assert after["mamba2_scan_bwd"] - before["mamba2_scan_bwd"] == \
+        ms_mod.bwd_launches(ms_mod.bwd_passes((True,) * 3 + (False,) * 3))
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+
+
+# --- K4's backward, K4b (ROADMAP item 14e) ---------------------------------
+
+# K4b against its plain version, each gradient relative to its largest
+# magnitude: float32 sums in another order and the chunked form's
+# exponentials of summed decays against the plain version's products
+# (1e-4); ddt and da_log, sums of many such terms, 1e-3; bf16 dxh, db, dc
+# rounded once (1e-2)
+MAMBA_BWD_REL, MAMBA_BWD_DT_REL, MAMBA_BWD_BF16_REL = 1e-4, 1e-3, 1e-2
+MAMBA_BWD_CHUNKS = [4, 16, 64, 100, 128]
+
+
+def _mamba_bwd_bars(dtype):
+    """The bars of (dxh, db, dc, ddt, da_log, dstate0)."""
+    xbc = MAMBA_BWD_REL if dtype == torch.float32 else MAMBA_BWD_BF16_REL
+    return (xbc, xbc, xbc, MAMBA_BWD_DT_REL, MAMBA_BWD_DT_REL, MAMBA_BWD_REL)
+
+
+def _mamba_bwd_operands(rng, b, s, h, p, n, dtype, card, state0=False,
+                        dstate=False, strong_decay=False):
+    xh, bm, cm, dt, a_log = _mamba(rng, b, s, h, p, n, dtype, card)
+    if strong_decay:      # |dt a| about 150 a step
+        dt = torch.full((b, s, h), 20.0, device=card)
+        a_log = torch.full((h,), 2.0, device=card)
+    st0 = _randn(rng, (b, h, p, n), torch.float32, card) if state0 else None
+    dy = _randn(rng, (b, s, h, p), torch.float32, card)
+    dst = _randn(rng, (b, h, p, n), torch.float32, card) if dstate else None
+    return (xh, bm, cm, dt, a_log, dy), dict(state0=st0, dstate=dst)
+
+
+def _check_mamba_bwd(got, want, dtype, needs=(True,) * 6):
+    for g, x, bar, need in zip(got, want, _mamba_bwd_bars(dtype), needs):
+        if not need:
+            assert g is None
+            continue
+        assert g.dtype == x.dtype and bool(torch.isfinite(g.float()).all())
+        assert _rel(g, x) <= bar
+
+
+@pytest.mark.parametrize("p,n", [(16, 8), (64, 64)])
+@pytest.mark.parametrize("chunk", MAMBA_BWD_CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state0,dstate", [(False, False), (True, False),
+                                           (True, True)])
+def test_mamba2_scan_bwd_kernel(card, p, n, chunk, dtype, state0, dstate):
+    """K4b against its plain version over both (P, N) pairs, chunks from 4
+    to 128 (sub-chunks of ``bwd_chunk``: 4, 16, 64, 50, 64), both input
+    types, an initial state and a final state's cotangent."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    rng = np.random.default_rng(71)
+    s = chunk * max(2, 192 // chunk)
+    args, kw = _mamba_bwd_operands(rng, 2, s, 3, p, n, dtype, card, state0,
+                                   dstate)
+    before = ops.mamba2_scan_bwd.launches
+    got = ops.mamba2_scan_bwd(*args, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    assert ops.mamba2_scan_bwd.launches == before + ms_mod.bwd_launches(
+        ms_mod.bwd_passes((True,) * 6))
+    _check_mamba_bwd(got, ref.mamba2_scan_bwd_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("mask", range(64))
+def test_mamba2_scan_bwd_kernel_needs(card, mask):
+    """Every subset of the gradients (xh, b, c, dt, a_log, state0): K4b
+    returns those asked for, launches ``bwd_launches(bwd_passes(needs))``
+    kernels, and each gradient equals the whole call's plain version."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    needs = tuple(bool(mask >> k & 1) for k in range(6))
+    rng = np.random.default_rng(72)
+    args, kw = _mamba_bwd_operands(rng, 2, 128, 9, 64, 64, torch.bfloat16,
+                                   card, state0=True, dstate=True)
+    before = ops.mamba2_scan_bwd.launches
+    got = ops.mamba2_scan_bwd(*args, chunk=128, needs=needs, **kw)
+    torch.cuda.synchronize()
+    assert ops.mamba2_scan_bwd.launches - before == ms_mod.bwd_launches(
+        ms_mod.bwd_passes(needs))
+    _check_mamba_bwd(got, ref.mamba2_scan_bwd_ref(*args, **kw),
+                     torch.bfloat16, needs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", [(16, 8), (64, 64)])
+def test_mamba2_scan_bwd_kernel_strong_decay(card, dtype, p, n):
+    """dt a = -150 a step over 256 steps, an initial state and a final
+    state's cotangent: every exponent K4b forms is at most 0, so every
+    gradient is finite and equals the plain version's."""
+    rng = np.random.default_rng(73)
+    args, kw = _mamba_bwd_operands(rng, 2, 256, 3, p, n, dtype, card,
+                                   state0=True, dstate=True,
+                                   strong_decay=True)
+    got = ops.mamba2_scan_bwd(*args, chunk=128, **kw)
+    _check_mamba_bwd(got, ref.mamba2_scan_bwd_ref(*args, **kw), dtype)
+
+
+def test_mamba2_scan_bwd_kernel_long_scan(card):
+    """zamba2's dims over 2048 steps (32 sub-chunks of 64) and 17 heads
+    (three head groups, the last of one head), float32, with both ends:
+    the chunk-end scan, the ordered sums over the groups and da_log over
+    the chunks."""
+    rng = np.random.default_rng(74)
+    args, kw = _mamba_bwd_operands(rng, 1, 2048, 17, 64, 64, torch.float32,
+                                   card, state0=True, dstate=True)
+    got = ops.mamba2_scan_bwd(*args, chunk=128, **kw)
+    _check_mamba_bwd(got, ref.mamba2_scan_bwd_ref(*args, **kw),
+                     torch.float32)
+
+
+@pytest.mark.parametrize("chunk", [4, 64, 100, 128])
+@pytest.mark.parametrize("strong_decay", [False, True])
+def test_mamba2_scan_bwd_mma_against_fma(card, chunk, strong_decay):
+    """The same bf16-representable xh, b, c at zamba2's (P, N) = (64, 64)
+    through the bf16 tensor-core per-chunk kernel and, as float32, through
+    the FMA kernel, with an initial state and a final state's cotangent:
+    every gradient within the bf16 bars of the other, which keeps the
+    products on the tensor cores apart from the rounding to bf16."""
+    rng = np.random.default_rng(78)
+    s = chunk * max(2, 192 // chunk)
+    (xh, bm, cm, dt, a_log, dy), kw = _mamba_bwd_operands(
+        rng, 2, s, 9, 64, 64, torch.bfloat16, card, state0=True,
+        dstate=True, strong_decay=strong_decay)
+    tc = ops.mamba2_scan_bwd(xh, bm, cm, dt, a_log, dy, chunk=chunk, **kw)
+    fma = ops.mamba2_scan_bwd(xh.float(), bm.float(), cm.float(), dt, a_log,
+                              dy, chunk=chunk, **kw)
+    for g, x, bar in zip(tc, fma, _mamba_bwd_bars(torch.bfloat16)):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g.float(), x.float()) <= bar
+
+
+def test_mamba2_scan_bwd_reads_conv_slices_uncopied(card, monkeypatch):
+    """The model's operands: bf16 xh, b, c as column slices of one conv
+    output (row stride H*P + 2N) reach K4b as they lie, no copy; two calls
+    give the same bits, with a call of another shape in between, and each
+    launches ``bwd_launches`` kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    rng = np.random.default_rng(75)
+    b, s, h, p, n = 2, 512, 16, 64, 64
+    fused = _randn(rng, (b, s, h * p + 2 * n), torch.bfloat16, card)
+    xh = fused[..., :h * p].view(b, s, h, p)
+    bm, cm = fused[..., h * p: h * p + n], fused[..., h * p + n:]
+    (_, _, _, dt, a_log, dy), _ = _mamba_bwd_operands(
+        rng, b, s, h, p, n, torch.bfloat16, card)
+    seen = []
+    operand = _build.kernel_operand
+
+    def spying(x):
+        out = operand(x)
+        seen.append((x.data_ptr(), out.data_ptr()))
+        return out
+
+    monkeypatch.setattr(_build, "kernel_operand", spying)
+    n0 = ops.mamba2_scan_bwd.launches
+    g1 = ops.mamba2_scan_bwd(xh, bm, cm, dt, a_log, dy, chunk=128)
+    assert ops.mamba2_scan_bwd.launches - n0 == ms_mod.bwd_launches(
+        ms_mod.bwd_passes((True,) * 6))
+    assert seen[:3] == [(t.data_ptr(),) * 2 for t in (xh, bm, cm)]
+    other, kw = _mamba_bwd_operands(rng, 1, 80, 2, 16, 8, torch.bfloat16,
+                                    card, state0=True, dstate=True)
+    ops.mamba2_scan_bwd(*other, chunk=40, **kw)
+    g2 = ops.mamba2_scan_bwd(xh, bm, cm, dt, a_log, dy, chunk=128)
+    assert all(torch.equal(x, y) for x, y in zip(g1, g2) if x is not None)
+    _check_mamba_bwd(g1[:5], ref.mamba2_scan_bwd_ref(
+        xh, bm, cm, dt, a_log, dy)[:5], torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_scan_autograd_on_card(card, dtype, monkeypatch):
+    """Under grad on the card ``mamba2_scan`` launches K4 once and K4b's
+    kernels, never a plain version; the gradients, with an initial state
+    and the final state used, equal those of the plain backward; a call
+    whose only differentiable input is state0 launches the cotangents'
+    pass alone (its two launches), one with dt alone no ordered sums."""
+    from repro_torch.kernels import mamba2_scan as ms_mod
+    rng = np.random.default_rng(76)
+    args, kw = _mamba_bwd_operands(rng, 2, 256, 4, 64, 64, dtype, card,
+                                   state0=True, dstate=True)
+    xh, bm, cm, dt, a_log, dy = args
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (xh, bm, cm, dt, a_log, kw["state0"])]
+    with monkeypatch.context() as m:
+        m.setattr(ms_mod, "mamba2_scan_ref", None)
+        m.setattr(ms_mod, "mamba2_scan_bwd_ref", None)
+        before = ops.counts()
+        y, fin = ops.mamba2_scan(*leaves[:5], chunk=128, state0=leaves[5],
+                                 out_dtype=torch.float32)
+        grads = torch.autograd.grad([y, fin], leaves, [dy, kw["dstate"]])
+        after = ops.counts()
+        assert after["mamba2_scan"] - before["mamba2_scan"] == 1
+        assert after["mamba2_scan_bwd"] - before["mamba2_scan_bwd"] == \
+            ms_mod.bwd_launches(ms_mod.bwd_passes((True,) * 6))
+        for needs, launches in ((5, 2), (3, 3)):
+            xs = [x.detach() for x in leaves]
+            xs[needs] = xs[needs].clone().requires_grad_()
+            o, _ = ops.mamba2_scan(*xs[:5], chunk=128, state0=xs[5],
+                                   out_dtype=torch.float32)
+            n0 = ops.mamba2_scan_bwd.launches
+            g, = torch.autograd.grad(o, [xs[needs]], dy)
+            assert ops.mamba2_scan_bwd.launches - n0 == launches
+            assert g.shape == xs[needs].shape
+    _check_mamba_bwd(grads, ref.mamba2_scan_bwd_ref(*args, **kw), dtype)
+
+
+def test_mamba2_ssd_prefill_gradient_on_card(card):
+    """The model's call under grad, a sequence that is not a chunk
+    multiple (the state-neutral padding): the gradients of xh, b, c, dt
+    and a_log through K4 and K4b on the card equal autograd through the
+    plain versions on the CPU."""
+    from repro_torch.models import ssm as ssm_mod
+    rng = np.random.default_rng(77)
+    (xh, bm, cm, dt, a_log, dy), _ = _mamba_bwd_operands(
+        rng, 2, 150, 3, 64, 64, torch.bfloat16, card)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        xs = [x.detach().to(dev).requires_grad_()
+              for x in (xh, bm, cm, dt, a_log)]
+        y, _ = ssm_mod._ssd_prefill(*xs, 128, None)
+        grads.append(torch.autograd.grad(y, xs, dy.to(dev)))
+    for g, x, bar in zip(*grads, _mamba_bwd_bars(torch.bfloat16)):
+        assert _rel(g, x.to(card)) <= bar
 
 
 # --- K5's backward, K5b (ROADMAP item 14d) ---------------------------------

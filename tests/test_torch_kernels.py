@@ -457,6 +457,7 @@ def test_launch_counts_reset():
     ops.moe_gemm_dx.launches = 8
     ops.moe_gemm_dw.launches = 9
     ops.mamba2_scan.launches = 4
+    ops.mamba2_scan_bwd.launches = 6
     ops.rwkv6_scan.launches = 2
     ops.rwkv6_scan_bwd.launches = 3
     ops.moe_gemm.decode_tile_launches = 1
@@ -467,15 +468,15 @@ def test_launch_counts_reset():
                                    "flash_attention_bwd": 6,
                                    "decode_attention": 7, "moe_gemm": 3,
                                    "moe_gemm_dx": 8, "moe_gemm_dw": 9,
-                                   "mamba2_scan": 4, "rwkv6_scan": 2,
-                                   "rwkv6_scan_bwd": 3}
+                                   "mamba2_scan": 4, "mamba2_scan_bwd": 6,
+                                   "rwkv6_scan": 2, "rwkv6_scan_bwd": 3}
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0, "moe_gemm": 0,
                                    "moe_gemm_dx": 0, "moe_gemm_dw": 0,
-                                   "mamba2_scan": 0, "rwkv6_scan": 0,
-                                   "rwkv6_scan_bwd": 0}
+                                   "mamba2_scan": 0, "mamba2_scan_bwd": 0,
+                                   "rwkv6_scan": 0, "rwkv6_scan_bwd": 0}
     assert ops.moe_gemm.decode_tile_launches == 0
     assert ops.flash_attention_bwd.window_launches == 0
     assert ops.moe_gemm_dx.tma_launches == ops.moe_gemm_dw.tma_launches == 0
@@ -506,6 +507,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(rs_mod, "rwkv6_scan_ref", no_plain)
     monkeypatch.setattr(rs_mod, "rwkv6_scan_bwd_ref", no_plain)
     monkeypatch.setattr(ms_mod, "mamba2_scan_ref", no_plain)
+    monkeypatch.setattr(ms_mod, "mamba2_scan_bwd_ref", no_plain)
     monkeypatch.setattr(_build, "load", no_build)
     q = torch.zeros(1, 4, 4, 16, device="meta")
     kc = torch.zeros(1, 4, 2, 16, device="meta")
@@ -536,6 +538,9 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError):
         ops.mamba2_scan(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
                         torch.zeros(2, device="meta"), chunk=4)
+    with pytest.raises(RuntimeError):
+        ops.mamba2_scan_bwd(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
+                            torch.zeros(2, device="meta"), x, chunk=4)
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",

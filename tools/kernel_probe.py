@@ -11,6 +11,8 @@
     python3 tools/kernel_probe.py moe-grad-phases  # K3's gradients' persistent kernel
     python3 tools/kernel_probe.py rwkv6-bwd-phases # K5's backward, launch by launch
     python3 tools/kernel_probe.py rwkv6-parity-split  # rwkv6's train parity, K5 / K5b apart
+    python3 tools/kernel_probe.py mamba2-bwd-phases # K4's backward, launch by launch
+    python3 tools/kernel_probe.py mamba2-parity-split # zamba2's train parity, K4 / K4b apart
     python3 tools/kernel_probe.py train-rwkv-turns --against DIR  # train_rwkv, this tree and another
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
@@ -134,6 +136,31 @@ plain backward against three runs: the kernels (K5, K5b), K5 with the
 plain backward, and the plain forward with K5b; for each the loss's and
 the gradient norm's relative difference and the worst leaf's (relative
 to its largest magnitude).
+
+``mamba2-bwd-phases`` times K4's backward (K4b, ``csrc/mamba2_scan_bwd.cu``)
+as ``rwkv6-bwd-phases`` times K5b: launch by launch through the C entry's
+``passes`` mask (the chunk-end states, the cotangents, both, within those
+two launches the contributions alone and the scan alone,
+``MAMBA2_BWD_CUTS``; the per-chunk gradients, whole and with one step cut
+out at a time, ``MAMBA2_BWD_CHUNK_CUTS``, in the bf16 tensor-core kernel:
+the state terms, the pairs' dy . x, dx's pair sum, db's and dc's pair
+sums, the gradient of dt a; the
+ordered sums; the full call) at zamba2-2.7b's training microbatch
+(``[2, 4096, 80, 64]``, chunk 128, bf16 column slices, float32 dt and dy)
+and its served prefill (``[8, 512, 80, 64]``), CUDA events; with K4's
+forward at the same shapes, and the full call's device time by kernel.
+
+``mamba2-parity-split`` splits ``chip_smoke.py``'s ``parity_train_zamba2``
+reading at its bf16 gate depth (``ZAMBA2_BF16_GATE_LAYERS``, 6 layers, the
+first attention site) between the kernels: zamba2-2.7b at full width on
+the phase's microbatch (seed 0, 2 x ``ZAMBA2_PARITY_SEQ`` tokens), bf16 over
+float32 masters and float32 at the reference init, and bf16 with the
+attention projections at 1 / sqrt(d); the loss and gradients of the plain
+versions (the scan's plain forward with its plain backward, autograd
+through the plain attention) against four runs: every kernel (K4, K4b,
+K1, K1b), K4 alone, K4b alone, and K1 with K1b alone; for each the loss's
+and the gradient norm's relative difference and the worst leaf's
+(relative to its largest magnitude).
 
 ``train-rwkv-turns`` runs ``chip_smoke.py``'s ``train_rwkv`` phase (rwkv6-3b
 at full width and depth, 8 x 4096 tokens a step, one warm-up and four
@@ -390,6 +417,43 @@ RWKV6_BWD_CUTS = {
                     "  if (false) rwkv6_bwd_scan_kernel<D><<<")],
     "scan_only": [("  local<<<dim3(nc, a.B * a.H)",
                    "  if (false) local<<<dim3(nc, a.B * a.H)")],
+}
+# K4b's two state launches with the other cut out
+MAMBA2_BWD_CUTS = {
+    "local_only": [("  mamba2_bwd_scan_kernel<P, N>\n      <<<",
+                    "  if (false) mamba2_bwd_scan_kernel<P, N>\n      <<<")],
+    "scan_only": [("    const int rc = launch_states_mma<64, 64>(a);",
+                   "    const int rc = 0;")],
+}
+# K4b's bf16 per-chunk kernel (mma.sync) with one step cut out: the state
+# terms S0^T dy, dE^T x and dE b (1); the pairs' dy . x (2); dx's pair
+# sum (3); db's and dc's pair sums (4); R's suffix scans and F's sums (5, 6)
+MAMBA2_BWD_CHUNK_CUTS = {
+    "no_state_terms": [
+        ("      for (int kk = 0; kk < P / 16; ++kk) {\n        uint32_t ah[4], "
+         "al[4];",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t ah[4], "
+         "al[4];"),
+        ("      for (int kk = 0; kk < P / 16; ++kk) {\n        uint32_t ax[4];",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t ax[4];"),
+        ("      for (int kk = 0; kk < N / 16; ++kk) {\n        uint32_t ab[4];",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        uint32_t ab[4];")],
+    "no_pairs": [("      const bool any = n0 <= r0 + 15;",
+                  "      const bool any = false;")],
+    "no_dx_pairs": [("      if (kk < rb) continue;                 // M_ij",
+                     "      continue;                 // M_ij")],
+    "no_dbdc_pairs": [
+        ("      if (kk <= rb) {                        // E_ij",
+         "      if (false) {                        // E_ij"),
+        ("      if (kk >= rb) {\n        uint32_t ah[4], al[4];\n        "
+         "frag_a_t(ah, xh",
+         "      if (false) {\n        uint32_t ah[4], al[4];\n        "
+         "frag_a_t(ah, xh")],
+    "no_g": [
+        ("      warp_suffix_sums(hi, lane);\n      warp_suffix_sums(lo, lane);",
+         ""),
+        ("          fr[c] += __shfl_xor_sync(0xffffffffu, fr[c], off);",
+         "          ;")],
 }
 # the bf16 per-chunk kernel with one step cut out: the products with S0,
 # P and the scores (2); X and Y (4); the diagonal blocks' pairs (5); dv
@@ -1011,6 +1075,56 @@ def rwkv6_bwd_phases() -> None:
         torch.cuda.empty_cache()
 
 
+def mamba2_bwd_phases() -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import mamba2_scan as ms
+    libs = build_variants("mamba2_scan_bwd",
+                          {**MAMBA2_BWD_CUTS, **MAMBA2_BWD_CHUNK_CUTS})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    both = ms.PASS_STATES | ms.PASS_COTANGENTS
+    passes = {"states": ms.PASS_STATES, "cotangents": ms.PASS_COTANGENTS,
+              "state_passes": both, "chunks": ms.PASS_CHUNKS,
+              "sums": ms.PASS_SUMS,
+              "full": ms.bwd_passes((True,) * 5 + (False,))}
+    h, p, n, chunk = 80, 64, 64, 128
+    sub = ms.bwd_chunk(chunk)
+    for b, s in ((2, 4096), (8, 512)):
+        rand = lambda *sh: torch.randn(sh, device="cuda", generator=gen)
+        xbc = rand(b, s, h * p + 2 * n).bfloat16()
+        xh = xbc[..., :h * p].view(b, s, h, p)
+        bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        dt = torch.nn.functional.softplus(rand(b, s, h))
+        a_log, dy = rand(h) * 0.5, rand(b, s, h, p)
+        bufs = ms.bwd_buffers(xh, bm, sub, passes["full"], False)
+        call = lambda q, lib: ms.launch_bwd(xh, bm, cm, dt, a_log, dy, sub,
+                                            None, None, bufs, q, lib=lib)
+        call(passes["full"], libs["full"])
+        times = {name: events_ms(lambda lib, q=q: call(q, lib),
+                                 libs["full"])
+                 for name, q in passes.items()}
+        for name in MAMBA2_BWD_CUTS:        # within the two state launches
+            times[name] = events_ms(lambda lib: call(both, lib), libs[name])
+        for name in MAMBA2_BWD_CHUNK_CUTS:  # the per-chunk pass, a step cut
+            times["chunks_" + name] = events_ms(
+                lambda lib: call(ms.PASS_CHUNKS, lib), libs[name])
+        fwd = events_ms(lambda _: ops.mamba2_scan(
+            xh, bm, cm, dt, a_log, chunk=chunk, out_dtype=torch.float32),
+            None)
+        by_kernel = {kern: device_ms(
+            lambda: call(passes["full"], libs["full"]), kern)
+            for kern in ("mamba2_bwd_local", "mamba2_bwd_scan",
+                         "mamba2_bwd_mma", "mamba2_bwd_sum")}
+        print(json.dumps({"probe": "mamba2-bwd-phases",
+                          "shape": [b, s, h, p], "state_dim": n,
+                          "chunk": chunk, "sub_chunk": sub, "ms": times,
+                          "share_of_full": {k: t / times["full"]
+                                            for k, t in times.items()},
+                          "device_ms_by_kernel": by_kernel,
+                          "forward_ms": fwd}), flush=True)
+        del xbc, xh, bm, cm, dt, dy, bufs
+        torch.cuda.empty_cache()
+
+
 def rwkv6_parity_split() -> None:
     import dataclasses
     sys.path.insert(0, str(ROOT))
@@ -1089,6 +1203,100 @@ def rwkv6_parity_split() -> None:
             torch.cuda.empty_cache()
 
 
+def mamba2_parity_split() -> None:
+    import dataclasses
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import mamba2_scan as ms
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.families import build_model
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    from repro_torch.training.tree import tree_paths
+
+    class Mixed(torch.autograd.Function):
+        """K4's forward or the plain one, K4b or the plain backward."""
+
+        @staticmethod
+        def forward(ctx, xh, b, c, dt, a_log, chunk, out_dtype, fwd_plain,
+                    bwd_plain):
+            ctx.save_for_backward(xh, b, c, dt, a_log)
+            ctx.chunk, ctx.bwd_plain = chunk, bwd_plain
+            return ms._scan_fwd(xh, b, c, dt, a_log, chunk, None, out_dtype,
+                                fwd_plain)
+
+        @staticmethod
+        def backward(ctx, dy, _):
+            xh, b, c, dt, a_log = ctx.saved_tensors
+            g = (ms.mamba2_scan_bwd_ref(xh, b, c, dt, a_log, dy)
+                 if ctx.bwd_plain else
+                 ms.mamba2_scan_bwd(xh, b, c, dt, a_log, dy,
+                                    chunk=ctx.chunk))
+            return (*g[:5], None, None, None, None)
+
+    def scan(fwd_plain, bwd_plain):
+        return lambda xh, b, c, dt, a_log, *, chunk, state0=None, \
+            out_dtype=None: Mixed.apply(xh, b, c, dt, a_log,
+                                        ms._chunk(xh.shape[1], chunk),
+                                        out_dtype, fwd_plain, bwd_plain)
+
+    zamba = ARCHS["zamba2-2.7b"]
+    seq = cs.ZAMBA2_PARITY_SEQ
+    batch = SyntheticTokens(DataConfig(zamba.vocab_size, seq,
+                                       cs.TRAIN_GLOBAL_BATCH, seed=0)) \
+        .batch_at(1)
+    micro = {k: v[:cs.TRAIN_MICROBATCH] for k, v in batch.items()}
+    kernel_scan, kernel_attn = ops.mamba2_scan, ops.flash_attention
+    # (K4's forward plain, K4b plain, the attention plain)
+    runs = {"kernels": (False, False, False),
+            "k4_forward_only": (False, True, True),
+            "k4b_backward_only": (True, False, True),
+            "attention_only": (True, True, False)}
+    norm = lambda gs: float(torch.sqrt(sum((g.float() ** 2).sum()
+                                           for g in gs)))
+    layers = cs.ZAMBA2_BF16_GATE_LAYERS
+    with cs.expandable_segments():
+        for dtype, init in ((torch.bfloat16, None),
+                            (torch.float32, None),
+                            (torch.bfloat16, cs.attention_at_input_width)):
+            cfg = dataclasses.replace(zamba, num_layers=layers, dtype=str(
+                dtype).split(".")[-1])
+            model = build_model(cfg, "cuda")
+            masters = cs.master_params(model, 0, init)
+            paths = [p for p, _ in tree_paths(masters)]
+            out = {}
+            try:
+                ops.mamba2_scan = scan(True, True)
+                ops.flash_attention = ref.flash_attention_ref
+                lp, gp = cs.loss_and_grads(model, masters, micro, dtype)
+                for name, (fp, bp, ap) in runs.items():
+                    ops.mamba2_scan = scan(fp, bp)
+                    ops.flash_attention = (ref.flash_attention_ref if ap
+                                           else kernel_attn)
+                    lk, gk = cs.loss_and_grads(model, masters, micro, dtype)
+                    rel = {p: cs.rel_err(a, b)
+                           for p, a, b in zip(paths, gk, gp) if b.numel()}
+                    worst = max(rel, key=rel.get)
+                    out[name] = {
+                        "loss_rel_diff": float(abs(lk - lp) / abs(lp)),
+                        "grad_norm_rel_diff": abs(norm(gk) - norm(gp))
+                        / norm(gp),
+                        "grad_rel_diff_max": rel[worst],
+                        "worst_leaf": worst}
+                    del gk
+            finally:
+                ops.mamba2_scan, ops.flash_attention = kernel_scan, \
+                    kernel_attn
+            print(json.dumps({"probe": "mamba2-parity-split",
+                              "layers": layers, "dtype": str(dtype),
+                              "init": cs.INIT_LABEL[init],
+                              "microbatch": [cs.TRAIN_MICROBATCH, seq],
+                              "grad_norm_plain": norm(gp), **out}),
+                  flush=True)
+            del model, masters, gp
+            torch.cuda.empty_cache()
+
+
 TRAIN_RWKV_RUN = """
 import sys
 sys.path.insert(0, {root!r})
@@ -1140,6 +1348,8 @@ def main() -> None:
                                       "moe-dw-phases", "moe-grad-phases",
                                       "rwkv6-bwd-phases",
                                       "rwkv6-parity-split",
+                                      "mamba2-bwd-phases",
+                                      "mamba2-parity-split",
                                       "train-rwkv-turns"])
     ap.add_argument("--against", type=Path,
                     help="flash-bits, flash-bwd, train-rwkv-turns: the "
@@ -1174,6 +1384,10 @@ def main() -> None:
         rwkv6_bwd_phases()
     elif args.probe == "rwkv6-parity-split":
         rwkv6_parity_split()
+    elif args.probe == "mamba2-bwd-phases":
+        mamba2_bwd_phases()
+    elif args.probe == "mamba2-parity-split":
+        mamba2_parity_split()
     elif args.probe == "train-rwkv-turns":
         train_rwkv_turns(args.against.resolve())
     else:
