@@ -35,9 +35,11 @@ ends the run with a non-zero exit code and no result line:
    call computing the same function where there is one (yardstick only;
    the port never calls it) and the least time the card could take:
    ``ms`` per back-to-back wrapper call (CUDA events, host gaps
-   included) and ``device_ms``, the kernel's own device time per call
-   (torch.profiler; for a call of several kernels the sum of each one's,
-   null where every trace lost a launch of one).
+   included) and ``device_ms``, the kernels' own device time per call
+   (torch.profiler), as ``library_device_ms`` the library call's: the
+   mean over the whole ones of WINDOWS fenced one-call windows
+   (``device_time``), ``device_windows`` of them; null where none was
+   whole.
 3. ``serve``   – the retrieve -> work_a, work_b -> merge workflow of
    examples/serve_workflow_torch.py: 8 queries, 2 virtual devices, FATE
    placements, qwen3-1.7b (28 layers) and glm4-9b (40 layers) at full
@@ -54,30 +56,47 @@ ends the run with a non-zero exit code and no result line:
    the plain versions swapped in for them, on the card: max logit
    difference and greedy-token agreement, and the eager kernel path must
    reproduce the tokens the graphs served.
-5. ``serve_moe_rwkv`` – the same workflow with granite-moe-3b-a800m as
+5. ``control_plane`` – measure, fit, schedule, on the first pair's
+   bundles: the same workflow served at each (prompt, generated,
+   queries) of CONTROL_RUNS ((128, 8, 8), (512, 32, 8), (1024, 16, 4))
+   under FATE and under RoundRobin, each run held to the serve phase's
+   checks (launch counts equal to what its placements call for, every
+   decode step a replay, tokens inside the vocabulary); the engines'
+   stage observations fitted into a calibration profile
+   (``fit_profile`` at CONTROL_TIME_SCALE, each family's
+   coefficients with its rmse, defaulted and collinear columns); the
+   ten workflow families (instance 0, 16 queries) and the Poisson
+   serving trace scheduled on this machine's host under FATE and the
+   five baselines with the hand-set and with the fitted profile: FATE's
+   makespan and P95 against RoundRobin per family and as geomeans, its
+   solves' milliseconds, every executor invariant held, every workflow
+   finished, every solve optimal; and a one-replica HTTP gateway on a
+   loopback port fed a trace, whose fingerprint must equal a direct
+   ``Scheduler`` run's.
+6. ``serve_moe_rwkv`` – the same workflow with granite-moe-3b-a800m as
    "qwen-7b" and rwkv6-3b as "llama-8b", both at full width and depth
    with their published vocabularies, after the first phase's weights
    are freed: attention (K1, K2) launches only for granite, the grouped
    GEMM (K3) for its MoE layers, the RWKV6 scan (K5) for rwkv6's
    prefills.
-6. ``parity_moe_rwkv`` – per new model, its first served shard
+7. ``parity_moe_rwkv`` – per new model, its first served shard
    teacher-forced with the kernels and with the plain versions: in bf16
    at full depth (the kernel path must reproduce the served tokens) and
    in float32 at full width with 4 layers (logits within 1e-3 of their
    largest magnitude, every greedy token equal).
-7. ``serve_hybrid`` – the same workflow with zamba2-2.7b (54 Mamba2
+8. ``serve_hybrid`` – the same workflow with zamba2-2.7b (54 Mamba2
    layers, one shared attention block at 9 sites, head dim 80) as
    "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and depth with
    their published vocabularies, after the second pair's weights are
    freed: the Mamba2 scan (K4) launches once per layer at zamba2's
    prefills, K1 and K2 once per attention site.
-8. ``parity_hybrid`` – zamba2's first served shard teacher-forced with
+9. ``parity_hybrid`` – zamba2's first served shard teacher-forced with
    the kernels and with the plain versions: in bf16 at full depth (the
    kernel path must reproduce the served tokens) and in float32 at full
    width with 7 layers, one attention site and one tail layer (logits
    within 1e-3 of their largest magnitude, every greedy token equal);
    every block's own difference reported beside both.
-9. ``serve_gemma3`` – the same workflow with gemma3-4b (34 layers, 29
+10. ``serve_gemma3`` – the same workflow with gemma3-4b (34 layers, 29
    local with a sliding window of 1024 and 5 global, head dim 256, vocab
    262144) as "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and
    depth, at a prompt of 2048 (twice the window), after the third pair's
@@ -85,12 +104,12 @@ ends the run with a non-zero exit code and no result line:
    which keep the last 1024 positions in a ring, and K2 decodes over the
    rings (1024 rows) and the global caches (2080); every cache must hold
    the rows its size calls for.
-10. ``parity_gemma3`` – gemma3's first served shard teacher-forced with
+11. ``parity_gemma3`` – gemma3's first served shard teacher-forced with
    the kernels and with the plain versions: in bf16 at full depth (the
    kernel path must reproduce the served tokens) and in float32 at full
    width with its first six layers (five local, one global; logits
    within 1e-3 of their largest magnitude, every greedy token equal).
-11. ``serve_deepseek`` – the same workflow with deepseek-v2-236b
+12. ``serve_deepseek`` – the same workflow with deepseek-v2-236b
    (multi-head latent attention: 128 heads, query/key head dim 128 + 64,
    value head dim 128, latent rank 512; 160 experts, top 6, and 2 shared
    experts; vocab 102400) as "qwen-7b" at full width, its depth cut from
@@ -101,14 +120,14 @@ ends the run with a non-zero exit code and no result line:
    Dv = 128, K3 three times per MoE layer at its prefill and every decode
    step, K2 never (the absorbed decode step is plain matrix products, as
    in the reference, inside the captured graph).
-12. ``parity_deepseek`` – deepseek's first served shard teacher-forced
+13. ``parity_deepseek`` – deepseek's first served shard teacher-forced
    with the kernels and with the plain versions: in bf16 at the served
    depth with the routing held as for granite (the kernel path must
    reproduce the served tokens), then, with the served weights freed, in
    float32 at full width with the dense layer and one MoE layer (every
    layer's update within 1e-3 of its magnitude, every greedy token equal
    under held routing).
-13. ``whisper`` – whisper-small (12 encoder and 12 decoder layers, d 768,
+14. ``whisper`` – whisper-small (12 encoder and 12 decoder layers, d 768,
    12 heads of 64, vocab 51865, 1500 frames) at full width and depth,
    after deepseek's weights are freed, through the model's own API (the
    serving engine passes no frames, as in the reference: ROADMAP H24):
@@ -121,7 +140,7 @@ ends the run with a non-zero exit code and no result line:
    from the encoder's output as the reference does), every decode step
    a replay, bitwise the eager step; encode and prefill seconds, decode
    ms per replayed step beside the step's bound, tok/s, peak memory.
-14. ``parity_whisper`` – the served batch teacher-forced with the kernels
+15. ``parity_whisper`` – the served batch teacher-forced with the kernels
    and with the plain versions: in bf16 at full depth (the kernel path
    must reproduce the served tokens), in float32 at full width with 2
    encoder and 2 decoder layers (every block's update within 1e-3 of its
@@ -129,7 +148,7 @@ ends the run with a non-zero exit code and no result line:
    see the phase), and the same float32 model with its attention
    projections drawn at 1 / sqrt(d) (logits within 1e-3 of their largest
    magnitude, every greedy token equal).
-15. ``train`` – qwen3-1.7b (28 layers, d 2048, 16 / 8 heads of 128, vocab
+16. ``train`` – qwen3-1.7b (28 layers, d 2048, 16 / 8 heads of 128, vocab
    151936, tied embeddings, 1.72 B parameters) at full width and depth,
    after whisper's weights are freed, trained through the port's
    ``make_train_step`` with the reference's ``AdamWConfig()``: bf16
@@ -140,7 +159,7 @@ ends the run with a non-zero exit code and no result line:
    x 2 and its backward 28 x 4 times per step (remat runs each block's
    forward again in the backward), nothing else launches; step seconds,
    tokens/s, model FLOPs per second against 989 TFLOP/s, peak memory.
-16. ``parity_train`` – one microbatch's loss and gradients with K1 and
+17. ``parity_train`` – one microbatch's loss and gradients with K1 and
    its backward against autograd through the plain version: in float32
    at full width with 2 layers (the loss within 1e-5, every gradient
    leaf within 1e-3 of its largest magnitude) and in bf16 over float32
@@ -150,7 +169,7 @@ ends the run with a non-zero exit code and no result line:
    that fails at step 3, a restart whose restored parameters and moments
    equal the saved ones bit for bit and whose losses equal an
    uninterrupted run's.
-17. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
+18. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
    experts top 8 of d_expert 512, vocab 49155, untied) at full width,
    its depth cut from 32 to 24 layers (``reduced`` says so, with the
    measured peak), after qwen3's are freed, trained as ``train`` (capacity
@@ -159,13 +178,13 @@ ends the run with a non-zero exit code and no result line:
    layer and microbatch, twice under remat), its dX and dW kernels 288
    each, nothing else; model FLOPs counted on the active parameters (the
    routed experts' at top_k / num_experts).
-18. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
+19. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
    gradients among the kernels, the plain run held to the kernel run's
    routing in call order (remat routes twice a layer; the recompute must
    choose the forward's experts): float32 at full width with 2 layers,
    bf16 at 24; a second kernel run bitwise; the Trainer drill at SMOKE
    granite.
-19. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
+20. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
    vocab 262144, tied; a sliding window of 1024 on 5 of every 6 layers)
    at full width, its depth cut from 34 to 18 layers (15 local, 3 global;
    ``reduced`` says so, with the measured peak), after granite's are
@@ -173,11 +192,11 @@ ends the run with a non-zero exit code and no result line:
    column-split kernel at D = 256), 60 of them under the window, nothing
    else; model FLOPs count each local layer's attention over its window's
    pairs.
-20. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
+21. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
    width with its first 6 layers (5 local, 1 global), bf16 at 18; a
    second kernel run bitwise; the Trainer drill at SMOKE gemma3 with head
    dim 256 and a window of 128 over its 512 tokens.
-21. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
+22. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
    latent attention: query rank 1536, latent rank 512, query / key head
    dim 128 + 64, value head dim 128; vocab 102400, untied; dense d_ff
    12288) at full width, its depth cut from 60 to its dense first layer
@@ -186,28 +205,28 @@ ends the run with a non-zero exit code and no result line:
    and its backward 4 (the kv-split kernel at (D, Dv) = (192, 128)),
    nothing else; model FLOPs count attention at 6 (D + Dv) a head and
    pair.
-22. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
+23. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
    layer, float32 and bf16, on sequences of 2048 tokens (the plain
    attention's float32 score tensors over 128 heads would not fit at
    4096); a second kernel run bitwise; the Trainer drill at SMOKE deepseek
    with the published latent attention's head dims (its dense layer and
    two MoE layers: K1's backward at (192, 128) beside K3 and its
    gradients).
-23. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
+24. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
    65536, untied; 3.07 B parameters) at full width and depth (32 layers,
    under expandable segments; the line prints the depth and the peak),
    after deepseek's are freed, trained as ``train``: per step K5 256 (32
    layers x 4 microbatches, twice under remat) and K5b 512 (its four
    launches once a layer and microbatch), nothing else; model FLOPs count
    the WKV scan at three times ``rwkv_flops`` a layer.
-24. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
+25. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
    against the plain forward with the plain backward (``TRAIN_PLAIN``),
    on sequences of 1024 tokens (the plain scan runs one step per token):
    float32 at the train depth, 32 layers; bf16 at 32 layers reported
    against TRAIN_BARS and held to them at RWKV_BF16_GATE_LAYERS (ROADMAP
    H30); a second kernel run bitwise at 32 layers; the Trainer drill at
    SMOKE rwkv6 (K5b at D = 16, chunk 4).
-25. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
+26. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
    state 64, chunk 128; one shared attention block of 32 heads of 80 at 9
    sites; d 2560, vocab 32000, untied) at full width and depth, under
    expandable segments, after rwkv6's are freed, trained as ``train``:
@@ -217,7 +236,7 @@ ends the run with a non-zero exit code and no result line:
    not recompute it), nothing else; model FLOPs count attention at the 9
    sites and the SSD scan at three times ``mamba_flops`` a layer; the
    parameters are counted from the tree.
-26. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
+27. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
    and its backward against the plain forward with the plain backward of
    the scan (``TRAIN_PLAIN``) and autograd through the plain attention, on
    sequences of 512 tokens, with the attention projections at 1 / sqrt(d)
@@ -310,6 +329,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -318,12 +338,38 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# device times (``device_time``): one profiler session of WINDOWS calls,
+# each between two fence kernels of FENCE_CYCLES, then TAIL_FENCES more
+# (a trace can hold back its last records: they fall on these); at most
+# SESSIONS sessions until one holds a whole window
+WINDOWS, TAIL_FENCES, FENCE_CYCLES, SESSIONS = 8, 8, 10_000, 3
+FENCE_KERNEL = "spin_kernel"             # torch.cuda._sleep's
+# the host's runtime and driver calls that queue work on the card: each
+# has a device record of its correlation id
+HOST_QUEUE_CALLS = ("LaunchKernel", "LaunchCooperativeKernel", "Memcpy",
+                    "Memset")
+# device kernels one counted launch of a wrapper runs, where not one: K1's
+# backward in bf16 (the timed rows' type) its prep, main and dq kernels
+# (csrc/flash_attention_bwd.cu, launch_bwd_passes); K4b's and K5b's
+# wrappers count each of their kernels
+KERNELS_A_LAUNCH = {"flash_attention_bwd": 3}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 logits of magnitude ~4 resolve to 2**-6; two runs whose attention
 # outputs round differently drift by a few such steps over the layers.
 # About twice the 0.047 measured on an H100 at these shapes.
 PARITY_LOGIT_TOL = 0.1
 PROMPT_LEN, GEN_LEN, NUM_QUERIES, N_DEVICES = 512, 32, 8, 2
+# control_plane: the measured serves' (prompt, generated, queries), each
+# under FATE and RoundRobin on the first serve phase's bundles; prompt and
+# output lengths and the queries vary, so that the fit can tell base,
+# prefill, decode and switch apart
+CONTROL_RUNS = ((128, 8, 8), (512, 32, 8), (1024, 16, 4))
+CONTROL_POLICIES = ("FATE", "RoundRobin")
+# wall seconds on the card to one proxy second of the planner: the fitted
+# profile prices stages in the card's own measured seconds
+CONTROL_TIME_SCALE = 1.0
+# the gateway's trace (explicit arrivals) and its cluster
+CONTROL_GATEWAY_WORKFLOWS, CONTROL_GATEWAY_DEVICES = 6, 4
 # gemma3's phase serves a prompt of twice its sliding window (1024), so
 # that the window binds in K1 and the local layers' rings wrap
 GEMMA_PROMPT_LEN = 2048
@@ -639,12 +685,14 @@ def fail(msg: str, code: int = 1) -> None:
 
 
 def randn(rng, shape, dtype):
-    """Standard normal values on the card from a numpy generator, or, for
-    operands of gigabytes, from a ``torch.Generator`` on the card."""
-    if isinstance(rng, torch.Generator):
-        return torch.randn(shape, generator=rng, device="cuda").to(dtype)
-    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-    return x.to("cuda", dtype)
+    """Standard normal values drawn on the card by a ``torch.Generator``:
+    ``rng`` itself, or one seeded from the numpy generator ``rng`` (a seed
+    a call; drawing on the host was the ``kernels`` phase's largest
+    cost)."""
+    if not isinstance(rng, torch.Generator):
+        rng = torch.Generator(device="cuda").manual_seed(
+            int(rng.integers(2 ** 62)))
+    return torch.randn(shape, generator=rng, device="cuda").to(dtype)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -666,50 +714,89 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, marker: str | None = None, iters: int = 10,
-              count: bool = False, tries: int = 3):
-    """Mean device milliseconds per call of ``fn`` spent in kernels whose
-    name holds ``marker``, or in every kernel (and copy) it runs on the
-    card when ``marker`` is None, as for a library call (torch.profiler,
-    CUDA activity): the device's own time without the host's gaps
-    between calls.  A marked kernel must appear a whole number of times a
-    call: the first of ``tries`` traces in which it does is read, and None
-    is returned if none does (traces late in a long run have lost
-    launches; such a trace gives no number).  ``count``: also the number
-    of such kernels run per call, in the last trace."""
+def fenced_windows(records, marks=None) -> list:
+    """The windows of one fenced profiler session (``device_time``):
+    ``records`` are its (correlation id, name, on the device,
+    microseconds).  For each pair of consecutive fence kernels on the
+    device, the device records (name, microseconds) whose ids lie between
+    the two fences' and whose name holds one of ``marks`` (each one where
+    ``marks`` is None); None for a window that is not whole, where the
+    host queued a launch, copy or memset between the fences that has no
+    device record (a lost fence leaves its own host record in the merged
+    window).  Records that a trace delivers late from an earlier session
+    have lower ids and fall outside every window.  Every window is None
+    where a fence has no host record: the session's host records cannot
+    be read."""
+    fences = sorted(i for i, name, dev, _ in records
+                    if dev and FENCE_KERNEL in name)
+    host = {i for i, name, dev, _ in records
+            if not dev and any(m in name for m in HOST_QUEUE_CALLS)}
+    device = sorted((i, name, us) for i, name, dev, us in records
+                    if dev and FENCE_KERNEL not in name)
+    if not set(fences) <= host:
+        return [None] * max(len(fences) - 1, 0)
+    have = {i for i, _, _ in device}
+    out = []
+    for lo, hi in zip(fences, fences[1:]):
+        if any(lo < i < hi and i not in have for i in host):
+            out.append(None)
+            continue
+        out.append([(name, us) for i, name, us in device if lo < i < hi
+                    and (marks is None or any(m in name for m in marks))])
+    return out
+
+
+def short_name(kernel: str) -> str:
+    """``name<...>`` of "void (anonymous namespace)::name<...>(args)"."""
+    return kernel.removeprefix("void ").replace(
+        "(anonymous namespace)::", "").split("(")[0].strip()
+
+
+def device_time(fn, marks=None, wrapper=None) -> dict:
+    """Device milliseconds of one call of ``fn`` (torch.profiler, CUDA
+    activity): the device's own time, without the host's gaps.  One
+    session queues a fence kernel (``torch.cuda._sleep``), then WINDOWS
+    times a call and a fence, then TAIL_FENCES more fences; the windows
+    between fences are read by ``fenced_windows`` (the kernels whose name
+    holds one of ``marks``, every kernel and copy of a library call where
+    None).  With ``wrapper`` (the kernel's wrapper in ``ops``) a whole
+    window must also hold as many marked kernels as the wrapper counts
+    launches in one untraced call of ``fn``, times KERNELS_A_LAUNCH.  Up
+    to SESSIONS sessions are run until one holds a whole window.  Returns
+    ``ms``, the mean over the whole windows of their sum (None where none
+    was whole), ``by_kernel`` (each kernel's short name: its mean) and
+    ``windows``, how many were whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    n0 = wrapper.launches if wrapper is not None else 0
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    expect = None if wrapper is None else (
+        (wrapper.launches - n0) * KERNELS_A_LAUNCH.get(wrapper.__name__, 1))
+    whole = []
+    for _ in range(SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            torch.cuda._sleep(FENCE_CYCLES)
+            for _ in range(WINDOWS):
                 fn()
+                torch.cuda._sleep(FENCE_CYCLES)
+            for _ in range(TAIL_FENCES):
+                torch.cuda._sleep(FENCE_CYCLES)
             torch.cuda.synchronize()
-        us, n = 0.0, 0
-        for e in prof.key_averages():
-            if getattr(e, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
-                continue            # the host's runtime calls
-            if marker is None or marker in e.key:
-                us += getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0))
-                n += e.count
-        if n and (marker is None or n % iters == 0):
-            ms = us / 1e3 / iters
-            return (ms, n / iters) if count else ms
-    return (None, n / iters) if count else None
-
-
-def kernels_device_ms(fn, names) -> tuple:
-    """Device milliseconds per call of ``fn`` that launches each kernel of
-    ``names`` once: each kernel's own (``device_ms`` with its name, which
-    must appear once a call in one of five traces of five calls), and
-    their sum, None where a kernel's traces all lost a launch."""
-    each = {}
-    for name in names:
-        ms, per_call = device_ms(fn, name, iters=5, count=True, tries=5)
-        each[name] = ms if per_call == 1 else None
-    return (None if None in each.values() else sum(each.values())), each
+        records = [(e.id, e.name,
+                    getattr(e, "device_type", None) == DeviceType.CUDA,
+                    e.time_range.elapsed_us()) for e in prof.events()]
+        whole = [w for w in fenced_windows(records, marks)
+                 if w and (expect is None or len(w) == expect)]
+        if whole:
+            break
+    each: dict = {}
+    for w in whole:
+        for name, us in w:
+            key = short_name(name)
+            each[key] = each.get(key, 0.0) + us / 1e3 / len(whole)
+    return {"ms": sum(each.values()) if whole else None, "by_kernel": each,
+            "windows": len(whole)}
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -794,16 +881,31 @@ BWD_SCAN_KERNELS = ("rwkv6_bwd_local_kernel", "rwkv6_bwd_scan_kernel",
 
 
 def sass_text(build_mod) -> str:
-    """The library's SASS (cuobjdump -sass), read once a process."""
+    """The library's SASS, read once a process: cuobjdump -sass of each
+    of the build's objects, all started together (a dump of the whole
+    library runs on one core), joined in the objects' order."""
     global _SASS
     if _SASS is None:
         lib = build_mod.build()
         cuobjdump = Path(build_mod.find_nvcc()).with_name("cuobjdump")
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                              capture_output=True, text=True, timeout=300)
-        if sass.returncode != 0:
-            fail(f"cuobjdump failed: {sass.stderr.strip()[:500]}")
-        _SASS = sass.stdout
+        objs = sorted(lib.parent.glob("*.o"))
+        if not objs:
+            fail(f"no objects beside {lib}")
+        # each dump into a file of its own, so that none waits on a pipe
+        outs = [tempfile.TemporaryFile(mode="w+") for _ in objs]
+        procs = [subprocess.Popen([str(cuobjdump), "-sass", str(obj)],
+                                  stdout=out, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for obj, out in zip(objs, outs)]
+        texts = []
+        for proc, out in zip(procs, outs):
+            rc = proc.wait(timeout=300)
+            out.seek(0)
+            texts.append(out.read())
+            out.close()
+            if rc != 0:
+                fail(f"cuobjdump failed: {texts[-1].strip()[:500]}")
+        _SASS = "\n".join(texts)
     return _SASS
 
 
@@ -1046,26 +1148,37 @@ def err_by_band(out: torch.Tensor, want: torch.Tensor) -> dict:
     return {"out_abs_max": float(mag.max()), "err_by_band": bands}
 
 
-def sdpa_backend(fn) -> str | None:
+def sdpa_backend(kernels) -> str | None:
     """Which of SDPA's backends a call took, read from the names of the
-    kernels five calls ran (torch.profiler); None where the trace holds no
-    kernel (a trace can lose launches, so one call's could be missed)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    names = " ".join(e.key for e in prof.key_averages()
-                     if getattr(e, "device_type", DeviceType.CUDA)
-                     == DeviceType.CUDA).lower()
+    ``kernels`` its whole device-time windows held; None where they held
+    none."""
+    names = " ".join(kernels).lower()
     if not names:
         return None
-    for backend, marks in (("flash", ("flash",)), ("cudnn", ("cudnn",)),
+    # cuDNN's kernel names hold "flash" too
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
                            ("efficient", ("fmha", "cutlass", "efficient"))):
         if any(m in names for m in marks):
             return backend
     return "math"
+
+
+def device_fields(call, marks, wrapper, lib=None, sdpa=False) -> dict:
+    """A timed row's device times (``device_time``): ``device_ms`` of
+    ``call`` (its kernels named by ``marks``, counted by ``wrapper``),
+    ``device_windows`` and ``device_ms_by_kernel``; with ``lib``, the
+    library call's ``library_device_ms`` and ``library_windows``, and
+    for an ``sdpa`` call the ``library_backend`` its kernels name."""
+    dev = device_time(call, marks, wrapper)
+    out = {"device_ms": dev["ms"], "device_windows": dev["windows"],
+           "device_ms_by_kernel": dev["by_kernel"]}
+    if lib is not None:
+        got = device_time(lib)
+        out.update(library_device_ms=got["ms"],
+                   library_windows=got["windows"])
+        if sdpa:
+            out["library_backend"] = sdpa_backend(got["by_kernel"])
+    return out
 
 
 def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
@@ -1094,17 +1207,16 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
         pairs = attended_pairs(sq, sk, causal, window)
         b_ms, by = bound(nbytes(q, k, v, out),
                          2.0 * b * h * (d + dv) * pairs, dtype)
+        call = lambda: ops.flash_attention(q, k, v, causal=causal,
+                                           window=window)
+        lib = sdpa(q, k, v, causal, window)
         rec.update(
-            ms=time_ms(lambda: ops.flash_attention(
-                q, k, v, causal=causal, window=window)),
-            device_ms=device_ms(lambda: ops.flash_attention(
-                q, k, v, causal=causal, window=window), "flash_"),
+            ms=time_ms(call),
             plain_ms=time_ms(lambda: ref.flash_attention_ref(
                 q, k, v, causal=causal, window=window), iters=5, warmup=1),
-            library_ms=time_ms(sdpa(q, k, v, causal, window)),
-            library_device_ms=device_ms(sdpa(q, k, v, causal, window)),
-            library_backend=sdpa_backend(sdpa(q, k, v, causal, window)),
-            bound_ms=b_ms, bound_by=by)
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=by,
+            **device_fields(call, ("flash_",), ops.flash_attention, lib,
+                            sdpa=True))
     return rec
 
 
@@ -1209,11 +1321,12 @@ def flash_bwd_case(ops, ref, rng, shape, dtype, causal, window,
         # with head slices, the plain version on one, scaled to the heads
         hs = slice(0, head_slice) if head_slice else slice(None)
         rec.update(
-            ms=time_ms(call), device_ms=device_ms(call, "bwd_"),
+            ms=time_ms(call),
             plain_ms=time_ms(lambda: plain(hs), iters=3, warmup=1)
             * h / (head_slice or h),
-            library_ms=time_ms(lib), library_device_ms=device_ms(lib),
-            library_backend=sdpa_backend(lib), bound_ms=b_ms, bound_by=by)
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=by,
+            **device_fields(call, ("bwd_",), ops.flash_attention_bwd, lib,
+                            sdpa=True))
         if head_slice:
             rec["plain_ms_from"] = f"{head_slice} heads x {h // head_slice}"
     return rec
@@ -1251,18 +1364,14 @@ def decode_case(ops, ref, rng, shape, dtype, cache_len, timed=False,
                          4.0 * b * h * d * cache_len, dtype)
         call = lambda: ops.decode_attention(
             q, kc, vc, length if device_length else cache_len)
-        dev, per_call = device_ms(call, "decode_", count=True)
+        lib = sdpa(q, kc[:, :cache_len], vc[:, :cache_len], False)
         rec.update(
             cache_len_on_device=device_length, ms=time_ms(call, iters=50),
-            device_ms=dev, device_kernels_per_call=per_call,
             host_us=host_us(call),
             plain_ms=time_ms(lambda: ref.decode_attention_ref(
                 q, kc, vc, cache_len), iters=20),
-            library_ms=time_ms(sdpa(q, kc[:, :cache_len], vc[:, :cache_len],
-                                    False), iters=50),
-            library_device_ms=device_ms(sdpa(
-                q, kc[:, :cache_len], vc[:, :cache_len], False)),
-            bound_ms=b_ms, bound_by=by)
+            library_ms=time_ms(lib, iters=50), bound_ms=b_ms, bound_by=by,
+            **device_fields(call, ("decode_",), ops.decode_attention, lib))
     return rec
 
 
@@ -1296,14 +1405,14 @@ def moe_case(ops, ref, x, w, timed=False):
         # torch.bmm wants them (laid out before timing)
         xt = x.transpose(0, 1).reshape(e, rows, d).contiguous() \
             if x.dim() == 4 else x
+        call, lib = lambda: ops.moe_gemm(x, w), lambda: torch.bmm(xt, w)
         rec.update(
-            ms=time_ms(lambda: ops.moe_gemm(x, w)),
-            device_ms=device_ms(lambda: ops.moe_gemm(x, w), "moe_gemm"),
+            ms=time_ms(call),
             plain_ms=time_ms(lambda: ref.moe_gemm_ref(x, w), iters=5,
                              warmup=1),
-            library_ms=time_ms(lambda: torch.bmm(xt, w)),
-            library_device_ms=device_ms(lambda: torch.bmm(xt, w)),
-            bound_ms=b_ms, bound_by=by, **wrapper_host_us(ops, x, w))
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=by,
+            **device_fields(call, ("moe_gemm",), ops.moe_gemm, lib),
+            **wrapper_host_us(ops, x, w))
     return rec
 
 
@@ -1373,10 +1482,9 @@ def moe_grad_case(ops, ref, kind, a, b, timed=False):
             d, f, marker = a.shape[-1], b.shape[-1], "moe_grad_tma_kernel<1>"
         b_ms, by = bound(nbytes(a, b, out), 2.0 * e * rows * d * f, dt)
         rec.update(
-            ms=time_ms(call), device_ms=device_ms(call, marker),
-            plain_ms=time_ms(plain, iters=5, warmup=1),
-            library_ms=time_ms(lib), library_device_ms=device_ms(lib),
-            bound_ms=b_ms, bound_by=by)
+            ms=time_ms(call), plain_ms=time_ms(plain, iters=5, warmup=1),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=by,
+            **device_fields(call, (marker,), getattr(ops, name), lib))
     return rec
 
 
@@ -1432,13 +1540,12 @@ def rwkv_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
     if timed:
         b_ms, by = bound(nbytes(r, k, v, w, bonus, st0, out, fin),
                          rwkv_flops(b, s, h, d, chunk), dtype)
-        dev_ms, per_call = device_ms(call, "rwkv6_", count=True)
         rec.update(
-            ms=time_ms(call), device_ms=dev_ms,
-            device_kernels_per_call=per_call,
+            ms=time_ms(call),
+            **device_fields(call, ("rwkv6_",), ops.rwkv6_scan),
             plain_ms=time_ms(lambda: ref.rwkv6_scan_ref(
                 r, k, v, w, bonus, state0=st0, out_dtype=out_dtype),
-                iters=2, warmup=1),
+                iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
     return rec
@@ -1511,9 +1618,9 @@ def rwkv_bwd_case(ops, ref, rng, shape, chunk, dtype, *, strong_decay=False,
         b_ms, by = bound(nbytes(r, k, v, w, bonus, dout, *got,
                                 *(x for x in (st0, dst) if x is not None)),
                          rwkv_bwd_flops(b, s, h, d, chunk), dtype)
-        dev_ms, each = kernels_device_ms(call, RWKV_BWD_CALL_KERNELS[dtype])
         rec.update(
-            ms=time_ms(call), device_ms=dev_ms, device_ms_by_kernel=each,
+            ms=time_ms(call), **device_fields(
+                call, RWKV_BWD_CALL_KERNELS[dtype], ops.rwkv6_scan_bwd),
             plain_ms=time_ms(plain, iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
@@ -1570,10 +1677,11 @@ def mamba_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
         b_ms, by = bound(nbytes(xh, bm, cm, dt, a_log, y, fin, *given),
                          mamba_flops(b, s, h, p, n, chunk), dtype)
         rec.update(
-            ms=time_ms(call), device_ms=device_ms(call, "mamba2_"),
+            ms=time_ms(call),
+            **device_fields(call, ("mamba2_",), ops.mamba2_scan),
             plain_ms=time_ms(lambda: ref.mamba2_scan_ref(
                 xh, bm, cm, dt, a_log, state0=st0, out_dtype=out_dtype),
-                iters=2, warmup=1),
+                iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
     return rec
@@ -1658,9 +1766,9 @@ def mamba_bwd_case(ops, ref, rng, shape, chunk, dtype, *, state=False,
                                 *(x for x in (st0, dst) if x is not None)),
                          mamba_bwd_flops(b, s, h, p, n,
                                          ms_mod.bwd_chunk(chunk)), dtype)
-        dev_ms, each = kernels_device_ms(call, MAMBA_BWD_CALL_KERNELS[dtype])
         rec.update(
-            ms=time_ms(call), device_ms=dev_ms, device_ms_by_kernel=each,
+            ms=time_ms(call), **device_fields(
+                call, MAMBA_BWD_CALL_KERNELS[dtype], ops.mamba2_scan_bwd),
             plain_ms=time_ms(plain, iters=1, warmup=0),
             library_ms=None, library_device_ms=None, bound_ms=b_ms,
             bound_by=by)
@@ -1676,6 +1784,13 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                   deepseek_cfg, whisper_cfg, seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
+    seconds, t_lap = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_lap
+        seconds[name] = time.perf_counter() - t_lap
+        t_lap = time.perf_counter()
+
     flash_sweep, decode_sweep = [], []
     for shape in FLASH_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1686,6 +1801,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         for dtype in (torch.float32, torch.bfloat16):
             decode_sweep.append(decode_case(ops, ref, rng, (2, 512, 8, 4, 64),
                                             dtype, clen))
+    lap("k1_k2_sweeps")
     # the serving path's own shapes: a whole-batch stage and a 2-way shard
     flash_main, decode_main = {}, {}
     s_max = PROMPT_LEN + GEN_LEN
@@ -1761,6 +1877,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             decode_main[tag.format(kind) + f"/len{rows}"] = decode_case(
                 ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
                 timed=timed, device_length=on_device)
+    lap("k1_k2_served")
     # K1's backward: a sweep over every (D, Dv) pair, both types, the masks
     # and ragged lengths; qwen3-1.7b's training shape (the train phase's
     # microbatch) and its served prefill, timed in bf16
@@ -1816,6 +1933,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         ops, ref, rng, dshape[:3] + (16, 16, dqk), torch.float32, True, 0,
         dv=ml.v_head_dim)
     torch.cuda.empty_cache()
+    lap("k1b")
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
     for e, c, d, f in MOE_SWEEP:
@@ -1867,6 +1985,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                                 ds_dt), w_down, timed=timed)
     del w_up, w_down
     torch.cuda.empty_cache()
+    lap("k3")
     # K3's gradients: the sweep (deepseek's operands drawn on the card),
     # then granite's training shapes (microbatch 2 at capacity 1024: the
     # gate / up and the down projection), timed
@@ -1899,6 +2018,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                                                       timed=True)
         del x, w, dy
     torch.cuda.empty_cache()
+    lap("k3_grads")
     # K5: the sweep, an initial state, bf16 inputs, the serving shape
     rwkv_sweep = []
     for s_len, chunk in RWKV_SWEEP:
@@ -1945,6 +2065,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             ops, ref, rng, shape, chunk, rdt, strong_decay=True, state=True,
             dstate=True)
         torch.cuda.empty_cache()
+    lap("k5_k5b")
     # K4: the sweep, an initial state, bf16 inputs, the serving shape (in
     # the model's dtype with a float32 y, as the model calls it, timed; and
     # in float32 against the 5e-4 bar) on column-slice operands and a
@@ -2000,6 +2121,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                         h, kv, mamba_cfg.resolved_head_dim), mdt, True, 0,
         timed=True, head_slice=16)
     torch.cuda.empty_cache()
+    lap("k4_k4b_zamba2_k1b")
 
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
              + list(decode_main.values()) + bwd_sweep
@@ -2013,6 +2135,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
     bad = [c for c in cases if not c["ok"]]
     out = {
         "phase": "kernels", "ok": not bad, "n_cases": len(cases),
+        "seconds": seconds,
         "flash_attention": {
             "sweep_cases": len(flash_sweep),
             "sweep_max_abs_err": sweep_err(flash_sweep),
@@ -2102,10 +2225,11 @@ def load_example():
 
 
 def expected_launches(bundles, wf, placements,
-                      prompt_len: int = PROMPT_LEN) -> dict:
+                      prompt_len: int = PROMPT_LEN,
+                      gen_len: int = GEN_LEN) -> dict:
     """Kernel launches the recorded placements call for: per shard run, a
     model that attends launches K1 once per layer at prefill and K2 once
-    per layer at each of the GEN_LEN - 1 decode steps (none for MLA, whose
+    per layer at each of the gen_len - 1 decode steps (none for MLA, whose
     absorbed decode step is plain matrix products); an MoE model K3
     three times per MoE layer at prefill and at every decode step; an
     RWKV6 model K5 once per layer at prefill (its decode step is plain);
@@ -2129,19 +2253,19 @@ def expected_launches(bundles, wf, placements,
             sites = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
             exp["mamba2_scan"] += cfg.num_layers * runs
             exp["flash_attention"] += sites * runs
-            exp["decode_attention"] += sites * runs * (GEN_LEN - 1)
+            exp["decode_attention"] += sites * runs * (gen_len - 1)
             continue
         exp["flash_attention"] += cfg.num_layers * runs
         if cfg.attention != "mla":
-            exp["decode_attention"] += cfg.num_layers * runs * (GEN_LEN - 1)
+            exp["decode_attention"] += cfg.num_layers * runs * (gen_len - 1)
         if cfg.moe is not None:
             gemms = 3 * (cfg.num_layers - cfg.moe_layer_start)
-            exp["moe_gemm"] += gemms * runs * GEN_LEN
+            exp["moe_gemm"] += gemms * runs * gen_len
             for n in p.shard_sizes:
                 if n:
                     exp["moe_gemm_decode_tile"] += gemms * (
                         int(n * _capacity(prompt_len, cfg) < PREFILL_MIN_ROWS)
-                        + (GEN_LEN - 1) * int(
+                        + (gen_len - 1) * int(
                             n * _capacity(1, cfg) < PREFILL_MIN_ROWS))
     return exp
 
@@ -2171,40 +2295,33 @@ def ring_and_global_rows(bundle, prompt_len: int) -> tuple[dict, list]:
     return rows, problems
 
 
-def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
-                prompt_len: int = PROMPT_LEN, reduced: dict | None = None):
-    """Serve the example's workflow with ``models`` = {served name:
-    (config, weight seed)} at ``prompt_len``; the launch counts must be
-    what the placements call for, every kernel the models use launched at
-    least once; a local/global model's ring and global caches must hold
-    the rows their sizes call for.  ``reduced`` names what was cut from a
-    published config, printed on the phase's line."""
+def serve_checked(mods, bundles, wf, prompts, policy_name: str = "FATE",
+                  prompt_len: int = PROMPT_LEN,
+                  gen_len: int = GEN_LEN) -> dict:
+    """Serve ``wf`` under ``policy_name`` twice, a warm-up pass (cuBLAS,
+    the allocator, and the decode graphs of the keys the pass meets,
+    captured at their first stage) and the measured pass, with the launch
+    counts zeroed just before it.  Returns that pass's engine, policy,
+    results, wall seconds, launch counts and the placements' expected
+    ones, its stages, its decode graphs' replays and ``problems``: a
+    stage not served, tokens of the wrong shape or outside the model's
+    vocabulary, launch counts other than the placements call for, a
+    decode step that was not a replay but the first of a shard run whose
+    key the pass captured."""
     ops = mods["ops"]
-    t0 = time.perf_counter()
-    bundles = {name: mods["ModelBundle"].create(name, cfg, seed=wseed)
-               for name, (cfg, wseed) in models.items()}
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    # prompts drawn below the smallest vocabulary, so every model reads
-    # them; each model's tokens are checked against its own vocabulary
-    vocab = min(b.cfg.vocab_size for b in bundles.values())
-    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, vocab, (NUM_QUERIES, prompt_len)))
-    wf = mods["make_workflow"](NUM_QUERIES)
+    nq = wf.num_queries
 
     def run_once():
         engine = mods["ServingEngine"](bundles, n_devices=N_DEVICES,
-                                       gen_len=GEN_LEN,
+                                       gen_len=gen_len,
                                        prompt_len=prompt_len)
         state = mods["fresh_state"](mods["homogeneous_cluster"](N_DEVICES))
-        policy = RecordingPolicy(mods["make_policy"]("FATE"))
+        policy = RecordingPolicy(mods["make_policy"](policy_name))
         t = time.perf_counter()
         results = engine.run_workflow(wf, policy, state, prompts)
         torch.cuda.synchronize()
         return engine, policy, results, time.perf_counter() - t
 
-    # warm-up: cuBLAS, the allocator, and the decode graphs of the keys
-    # this pass meets (captured at their first stage)
     run_once()
     decoders = {name: b.decoder for name, b in bundles.items()}
     before = {name: (d.replays, d.eager_steps, d.captures)
@@ -2214,13 +2331,16 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
     engine, policy, results, wall = run_once()
     counts = ops.counts()
 
-    expect = expected_launches(bundles, wf, policy.placements, prompt_len)
+    expect = expected_launches(bundles, wf, policy.placements, prompt_len,
+                               gen_len)
     stages, problems = [], []
     for sid in wf.topo_order:
+        if sid not in results:
+            continue
         r = results[sid]
         toks = r.tokens_out
         v = bundles[r.model].cfg.vocab_size
-        if tuple(toks.shape) != (NUM_QUERIES, GEN_LEN):
+        if tuple(toks.shape) != (nq, gen_len):
             problems.append(f"{sid}: tokens {tuple(toks.shape)}")
         elif int(toks.min()) < 0 or int(toks.max()) >= v:
             problems.append(f"{sid}: token ids outside [0, {v})")
@@ -2244,7 +2364,7 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
         replayed, eager, captured = (
             now - then for now, then in zip(
                 (d.replays, d.eager_steps, d.captures), before[name]))
-        steps = (GEN_LEN - 1) * sum(
+        steps = (gen_len - 1) * sum(
             1 for p in policy.placements if wf.stages[p.sid].model == name
             for n in p.shard_sizes if n)
         graphs[name] = {"keys": sorted(d.slots), "captured": captured,
@@ -2254,6 +2374,34 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
             problems.append(f"{name}: {replayed} decode steps replayed and "
                             f"{eager} eager for {captured} captures, of "
                             f"{steps}")
+    return {"engine": engine, "policy": policy, "results": results,
+            "wall_s": wall, "launches": counts, "launches_expected": expect,
+            "stages": stages, "decode_graphs": graphs, "problems": problems}
+
+
+def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
+                prompt_len: int = PROMPT_LEN, reduced: dict | None = None):
+    """Serve the example's workflow with ``models`` = {served name:
+    (config, weight seed)} at ``prompt_len`` (``serve_checked``); the
+    launch counts must be what the placements call for, every kernel the
+    models use launched at least once; a local/global model's ring and
+    global caches must hold the rows their sizes call for.  ``reduced``
+    names what was cut from a published config, printed on the phase's
+    line."""
+    t0 = time.perf_counter()
+    bundles = {name: mods["ModelBundle"].create(name, cfg, seed=wseed)
+               for name, (cfg, wseed) in models.items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # prompts drawn below the smallest vocabulary, so every model reads
+    # them; each model's tokens are checked against its own vocabulary
+    vocab = min(b.cfg.vocab_size for b in bundles.values())
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (NUM_QUERIES, prompt_len)))
+    wf = mods["make_workflow"](NUM_QUERIES)
+    run = serve_checked(mods, bundles, wf, prompts, prompt_len=prompt_len)
+    policy, results, wall = run["policy"], run["results"], run["wall_s"]
+    problems = run["problems"]
     cache_rows = {}
     for name, b in bundles.items():
         if b.cfg.local_global_pattern:
@@ -2271,11 +2419,12 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
         **({"reduced": reduced} if reduced else {}),
         "queries": NUM_QUERIES, "virtual_devices": N_DEVICES,
         "prompt_len": prompt_len, "gen_len": GEN_LEN,
-        "init_seconds": init_s, "stages": stages,
+        "init_seconds": init_s, "stages": run["stages"],
         "workflow_wall_s": wall,
         "generated_tokens_per_s": gen_tokens / wall,
-        "launches": counts, "launches_expected": expect,
-        "decode_graphs": graphs,
+        "launches": run["launches"],
+        "launches_expected": run["launches_expected"],
+        "decode_graphs": run["decode_graphs"],
         **({"cache_rows": cache_rows} if cache_rows else {}),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "problems": problems,
@@ -2284,6 +2433,112 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
     if problems:
         fail(f"{phase} phase failed: " + "; ".join(problems))
     return out, bundles, prompts, policy, results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: control_plane
+# ---------------------------------------------------------------------------
+
+
+def phase_control_plane(mods, bundles, seed: int) -> dict:
+    """Measure, fit, schedule: the example's workflow served on the card
+    by the first serve phase's bundles at each (prompt, generated,
+    queries) of CONTROL_RUNS under each policy of CONTROL_POLICIES, each
+    run held to ``serve_checked``'s checks; the engines' observations
+    fitted (``fit_profile``, CONTROL_TIME_SCALE); the ten workflow
+    families and the Poisson serving trace scheduled on the card's host
+    under FATE and the five baselines with the hand-set and with the
+    fitted profile (``control_plane.schedule``: every executor invariant
+    held, every workflow finished, every FATE solve optimal); and a
+    one-replica gateway on a loopback port fed a trace over HTTP, whose
+    fingerprint must equal a direct ``Scheduler`` run's.  A non-finite
+    fitted coefficient fails the phase; FATE losing to RoundRobin does
+    not."""
+    cp = mods["control_plane"]
+    t0 = time.perf_counter()
+    vocab = min(b.cfg.vocab_size for b in bundles.values())
+    runs, observations, problems = [], [], []
+    launches = None
+    for prompt_len, gen_len, nq in CONTROL_RUNS:
+        prompts = torch.from_numpy(np.random.default_rng(
+            seed + prompt_len).integers(0, vocab, (nq, prompt_len)))
+        wf = mods["make_workflow"](nq)
+        for pol in CONTROL_POLICIES:
+            run = serve_checked(mods, bundles, wf, prompts, pol, prompt_len,
+                                gen_len)
+            tag = f"{pol} prompt {prompt_len} gen {gen_len} queries {nq}"
+            problems += [f"{tag}: {x}" for x in run["problems"]]
+            launches = {k: (launches or {}).get(k, 0) + n
+                        for k, n in run["launches"].items()}
+            obs = run["engine"].observations()
+            observations += obs
+            runs.append({
+                "policy": pol, "prompt_len": prompt_len, "gen_len": gen_len,
+                "queries": nq, "workflow_wall_s": run["wall_s"],
+                "stages": [{k: st[k] for k in ("sid", "model", "shards",
+                                               "wall_s", "switched",
+                                               "prefix_hit")}
+                           for st in run["stages"]],
+                "observations": [[o.model, o.queries, o.switches,
+                                  o.prefix_fraction, o.wall_s] for o in obs],
+                "launches": {k: n for k, n in run["launches"].items() if n},
+                "launches_expected": {
+                    k: n for k, n in run["launches_expected"].items() if n},
+                "decode_graphs": {
+                    name: [g["decode_steps_replayed"],
+                           g["decode_steps_eager"], g["captured"]]
+                    for name, g in run["decode_graphs"].items()}})
+    measure_s = time.perf_counter() - t0
+    profile = mods["fit_profile"](observations,
+                                  time_scale=CONTROL_TIME_SCALE)
+    fit = cp.fit_summary(profile)
+    problems += [f"fit {fam}: a coefficient is not finite"
+                 for fam, f in fit.items() if not f["finite"]]
+    t1 = time.perf_counter()
+    schedules = {label: cp.schedule(cal)["summary"]
+                 for label, cal in (("hand_set", None), ("fitted", profile))}
+    for label, summary in schedules.items():
+        problems += [f"{label}: {x}" for x in summary["problems"]]
+    schedule_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    trace = mods["suites"].poisson_serving_trace(
+        n_workflows=CONTROL_GATEWAY_WORKFLOWS, rate=6.0, seed=seed,
+        num_queries=4)
+    gateway = cp.gateway_parity(
+        trace, mods["homogeneous_cluster"](CONTROL_GATEWAY_DEVICES),
+        mods["SchedulerConfig"](policy="FATE", calibration=profile))
+    if not gateway["match"]:
+        problems.append(f"gateway fingerprint {gateway['http_fingerprint']}"
+                        f" != direct {gateway['fingerprint']}")
+    gateway_s = time.perf_counter() - t2
+    fate_vs_rr = {label: {
+        "batch_norm_ms": sm["batch"]["FATE"]["norm_ms"],
+        "batch_norm_p95": sm["batch"]["FATE"]["norm_p95"],
+        "serving_norm_ms": sm["serving"]["FATE"]["norm_ms"],
+        "serving_norm_p95": sm["serving"]["FATE"]["norm_p95"],
+        "solve_ms": {k: [v["mean_ms"], v["max_ms"], v["solves"],
+                         v["all_optimal"]]
+                     for k, v in sm["fate_solves"].items()}}
+        for label, sm in schedules.items()}
+    out = {
+        "phase": "control_plane", "ok": not problems,
+        "models": {name: b.cfg.name for name, b in bundles.items()},
+        "runs": runs, "launches": launches,
+        "observations_per_family": {
+            fam: sum(o.family == fam for o in observations)
+            for fam in sorted({o.family for o in observations})},
+        "time_scale": CONTROL_TIME_SCALE, "fit": fit,
+        "fate_vs_round_robin": fate_vs_rr, "schedules": schedules,
+        "gateway": gateway,
+        "seconds": {"measure": measure_s, "schedule": schedule_s,
+                    "gateway": gateway_s,
+                    "total": time.perf_counter() - t0},
+        "problems": problems,
+    }
+    emit(out)
+    if problems:
+        fail("control_plane phase failed: " + "; ".join(problems))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2768,7 +3023,7 @@ def phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
 
 
 # ---------------------------------------------------------------------------
-# phases 13-14: whisper-small's encoder-decoder
+# phases 14-15: whisper-small's encoder-decoder
 # ---------------------------------------------------------------------------
 
 
@@ -3837,9 +4092,10 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
     the launches per phase; for K3 also its decode gate/up shape with the
     launches of the 64-row tile that the serve phases counted, and the
     wrapper's host microseconds per call beside its plan's; for K2 the
-    wrapper's host microseconds and the device kernels per call at each
-    timed shape, timed with its length on the device as the serving path
-    calls it; for K4 and K5 the output type they were timed with."""
+    wrapper's host microseconds at each timed shape, timed with its
+    length on the device as the serving path calls it; for K4 and K5 the
+    output type they were timed with; each time with the number of
+    whole windows it was read from."""
     main_key = {"flash_attention": "qwen3-1.7b",
                 "flash_attention_bwd": "qwen3-1.7b/train",
                 "decode_attention": "qwen3-1.7b",
@@ -3855,8 +4111,9 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
         timed = {k: c for k, c in main.items() if "ms" in c}
         key = next(k for k in timed if k.startswith(main_key[name]))
         c = timed[key]
-        fields = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
-                  "bound_ms", "bound_by", "library_ms", "library_device_ms")
+        fields = ("shape", "max_abs_err", "ms", "device_ms",
+                  "device_windows", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "library_device_ms", "library_windows")
         launches = sum(o["launches"][name] for o in serve_outs)
         row = {
             "name": name, "route": "cuda",
@@ -3869,10 +4126,12 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
                                   for o in serve_outs},
             "max_abs_err": max(x["max_abs_err"] for x in main.values()),
             "ms": c["ms"], "device_ms": c["device_ms"],
+            "device_windows": c["device_windows"],
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
             "library_device_ms": c["library_device_ms"],
+            "library_windows": c.get("library_windows"),
             "shape": c["shape"], "dtype": c["dtype"],
             "other_shapes": {k: {f: x[f] for f in fields + (
                 "value_head_dim", "library_backend") if f in x}
@@ -3901,9 +4160,6 @@ def kernel_summary(kernels_out, serve_outs) -> dict:
             row["cache_len_on_device"] = c["cache_len_on_device"]
         if name in ("mamba2_scan", "rwkv6_scan"):
             row["out_dtype"] = c["out_dtype"]
-        if name in ("decode_attention", "rwkv6_scan"):
-            row["device_kernels_per_call"] = {
-                k: x["device_kernels_per_call"] for k, x in timed.items()}
         if name in ("rwkv6_scan_bwd", "mamba2_scan_bwd"):
             row["device_ms_by_kernel"] = {
                 k: x["device_ms_by_kernel"] for k, x in timed.items()}
@@ -3928,6 +4184,7 @@ def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     try:
         from repro_torch.configs.archs import ARCHS
+        from repro_torch.core.calibration import fit_profile
         from repro_torch.core.devices import homogeneous_cluster
         from repro_torch.core.executor import fresh_state
         from repro_torch.core.policies import make_policy
@@ -3935,7 +4192,10 @@ def main() -> None:
         from repro_torch.launch import steps
         from repro_torch.models import moe
         from repro_torch.training import optimizer as opt
+        from repro_torch.core.scheduler import SchedulerConfig
+        from repro_torch.serving import control_plane
         from repro_torch.serving.engine import ModelBundle, ServingEngine
+        from repro_torch.workflowbench import suites
         make_workflow = load_example().make_workflow
     except (ImportError, OSError) as e:
         fail(f"cannot import the port from {Path(__file__).parent}: {e}")
@@ -3943,7 +4203,9 @@ def main() -> None:
                 ServingEngine=ServingEngine, make_workflow=make_workflow,
                 fresh_state=fresh_state, make_policy=make_policy,
                 homogeneous_cluster=homogeneous_cluster, moe=moe,
-                steps=steps, opt=opt)
+                steps=steps, opt=opt, control_plane=control_plane,
+                suites=suites, SchedulerConfig=SchedulerConfig,
+                fit_profile=fit_profile)
 
     qwen = ARCHS["qwen3-1.7b"]
     glm = dataclasses.replace(ARCHS["glm4-9b"], vocab_size=qwen.vocab_size)
@@ -3966,6 +4228,7 @@ def main() -> None:
     if args.profile:
         phase_profile(bundles, prompts, "qwen-7b")
     phase_parity(mods, bundles, prompts, policy, results, wf)
+    control_out = phase_control_plane(mods, bundles, args.seed)
     # free the first pair's weights: peak memory below is the second's
     del bundles, policy, results
     gc.collect()
@@ -4108,8 +4371,9 @@ def main() -> None:
                                     attention_at_input_width))
     zamba_s = time.perf_counter() - t_zamba
     train_s = time.perf_counter() - t_train
-    emit(kernel_summary(kernels_out, [serve_out, serve2_out, serve3_out,
-                                      serve4_out, serve5_out, whisper_out,
+    emit(kernel_summary(kernels_out, [serve_out, control_out, serve2_out,
+                                      serve3_out, serve4_out, serve5_out,
+                                      whisper_out,
                                       train_out, train_moe_out,
                                       train_gemma_out, train_deepseek_out,
                                       train_rwkv_out, train_zamba_out]))
