@@ -248,8 +248,28 @@ ends the run with a non-zero exit code and no result line:
    (K4b at (P, N) = (16, 8), chunk 4).  ``tools/kernel_probe.py
    mamba2-parity-split`` splits the reference init's bf16 reading between
    K4 and K4b.
+28. ``dryrun`` – the meta-device dry run (``launch/dryrun.py``) held to the
+   card: each train phase's exact configuration (its depth cut, 8 x 4096
+   tokens in microbatches of 2, the whole step with AdamW) priced on a
+   (1, 1) mesh by ``price_dryrun`` through ``launch.dryrun.price_cell``,
+   in a one-thread child process on the CPU started before the first
+   train phase; its float32 masters and AdamW state must equal the state
+   the phase built at every leaf in shape, dtype and bytes, and its
+   priced total (the number the dry run's table prints) must lie within
+   DRYRUN_TOL (10 %) of the phase's ``max_memory_allocated`` above what
+   was allocated before the phase built its state; the same check for
+   one qwen3-1.7b prefill of [8, 512] into a 512-row cache, measured
+   here.  Each case prints both figures and the five largest storages
+   live at the priced peak; the phase names the phases the pricing
+   process overlapped.
 
-The ``kernels`` phase also holds K1 and K2 at gemma3's head dim 256 and
+The ``kernels`` phase also holds K1 with ``q_offset`` (query row i at
+position q_offset + i) against its plain version: q [2, 512, 8, D] over
+k, v [2, 1536, 2, D], at q_offset 0, Sk - Sq and Sq / 2, causal and under
+a window of 1024, in both types, at D 64, 128 and 256 and at (192, 128);
+and ``flash_attention_sp`` at 2 and 4 lanes against one K1 call at
+qwen3's served shape and gemma3's (local and global), which must launch
+once a lane, with whether the two are bitwise equal.  It also holds K1 and K2 at gemma3's head dim 256 and
 prompt 2048 against their plain versions, timed: K1 on a local layer
 (window 1024; the library call with a sliding mask) and a global one, K2
 on a global cache of 2080 rows and a local ring of 1024; and K1 at
@@ -323,10 +343,12 @@ CPU mode: without a CUDA device the script exits with code 1.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -543,6 +565,13 @@ HYBRID_BF16_BLOCK_REL = 2 ** -6
 FLASH_SWEEP = [(1, 128, 128, 4, 2, 64), (2, 256, 256, 4, 4, 32),
                (1, 64, 64, 8, 2, 128), (2, 100, 100, 4, 2, 64)]
 FLASH_MODES = [(True, 0), (False, 0), (True, 64)]
+# K1's q_offset (a sequence-parallel prefill lane, ROADMAP H2): (b, sq, sk,
+# h, kv) with Sq < Sk, at each head-dim pair a model gives K1, causal and
+# under gemma3's window of 1024, at q_offset 0, Sk - Sq and Sq / 2
+OFFSET_SHAPE = (2, 512, 1536, 8, 2)
+OFFSET_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
+OFFSET_MODES = ((True, 0), (True, 1024))
+SP_LANES = (2, 4)           # flash_attention_sp against one K1 call
 DECODE_SWEEP = [512, 300, 17, 1]
 MOE_SWEEP = [(4, 96, 160, 192), (2, 128, 64, 64), (8, 40, 100, 70)]
 # K3's gradients: (B, or None for [E, C, D]; E, C, D, F) in both types, x
@@ -671,6 +700,7 @@ TRAIN_PLAIN = {"rwkv6_scan": "rwkv6_scan_plain",
 # seconds from the start of the run at which each phase line was printed
 PHASE_END_S: dict = {}
 T_START = time.perf_counter()
+T_START_WALL = time.time()
 
 
 def emit(obj: dict) -> None:
@@ -1182,18 +1212,21 @@ def device_fields(call, marks, wrapper, lib=None, sdpa=False) -> dict:
 
 
 def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
-               bands=False, dv=None):
+               bands=False, dv=None, q_offset=0):
     """K1 on q [b, sq, h, d], k [b, sk, kv, d] and v [b, sk, kv, dv] (``dv``
-    None: d) against its plain version; ``timed``: also its times, the
-    library call's and the bound."""
+    None: d), query row i at position ``q_offset + i``, against its plain
+    version; ``timed``: also its times, the library call's and the
+    bound."""
     b, sq, sk, h, kv, d = shape
     dv = dv or d
     q = randn(rng, (b, sq, h, d), dtype)
     k = randn(rng, (b, sk, kv, d), dtype)
     v = randn(rng, (b, sk, kv, dv), dtype)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     torch.cuda.synchronize()
-    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     err = max_abs_err(out, want)
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "causal": causal, "window": window, "max_abs_err": err,
@@ -1201,6 +1234,8 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
            and bool(torch.isfinite(out.float()).all())}
     if dv != d:
         rec["value_head_dim"] = dv
+    if q_offset:
+        rec["q_offset"] = q_offset
     if bands:
         rec.update(err_by_band(out, want))
     if timed:
@@ -1218,6 +1253,29 @@ def flash_case(ops, ref, rng, shape, dtype, causal, window, timed=False,
             **device_fields(call, ("flash_",), ops.flash_attention, lib,
                             sdpa=True))
     return rec
+
+
+def sp_case(ops, attn_mod, rng, shape, dtype, window, n_sp) -> dict:
+    """``flash_attention_sp`` at ``n_sp`` lanes (``n_sp`` K1 calls, lane i
+    at ``q_offset = i * S / n_sp``) against one K1 call over the whole
+    causal sequence: q [b, s, h, d], k and v [b, s, kv, d]; its launches
+    and whether the two are bitwise equal (each 64-row query tile sees
+    the same positions, key tiles and order either way)."""
+    b, s, h, kv, d = shape
+    q = randn(rng, (b, s, h, d), dtype)
+    k, v = (randn(rng, (b, s, kv, d), dtype) for _ in range(2))
+    whole = ops.flash_attention(q, k, v, causal=True, window=window)
+    before = ops.flash_attention.launches
+    lanes = attn_mod.flash_attention_sp(q, k, v, causal=True, window=window,
+                                        n_sp=n_sp)
+    launches = ops.flash_attention.launches - before
+    torch.cuda.synchronize()
+    err = max_abs_err(lanes, whole)
+    return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+            "window": window, "n_sp": n_sp, "launches": launches,
+            "max_abs_err": err, "tol": TOL[dtype],
+            "bitwise_equal": bool(torch.equal(lanes, whole)),
+            "ok": bool(err < TOL[dtype]) and launches == n_sp}
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1878,6 +1936,31 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
                 ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
                 timed=timed, device_length=on_device)
     lap("k1_k2_served")
+    # K1's q_offset against its plain version, and flash_attention_sp at
+    # qwen3's and gemma3's served shapes against one K1 call
+    b, sq, sk, h, kv = OFFSET_SHAPE
+    offset_sweep = [flash_case(ops, ref, rng, (b, sq, sk, h, kv, d), dtype,
+                               causal, window, dv=dv, q_offset=off)
+                    for d, dv in OFFSET_DIMS
+                    for dtype in (torch.float32, torch.bfloat16)
+                    for causal, window in OFFSET_MODES
+                    for off in (0, sk - sq, sq // 2)]
+    from repro_torch.models import attention as attn_mod
+    qcfg = cfgs["qwen3-1.7b"]
+    sp_shapes = {
+        qcfg.name: ((NUM_QUERIES, PROMPT_LEN, qcfg.num_heads,
+                     qcfg.num_kv_heads, qcfg.resolved_head_dim), 0),
+        **{f"{gemma_cfg.name}/{kind}": (
+            (NUM_QUERIES, GEMMA_PROMPT_LEN, gemma_cfg.num_heads,
+             gemma_cfg.num_kv_heads, gemma_cfg.resolved_head_dim), window)
+           for kind, window in (("local", gemma_cfg.sliding_window),
+                                ("global", 0))}}
+    sp_main = {f"{name}/n_sp{n}": sp_case(ops, attn_mod, rng, shape,
+                                          torch.bfloat16, window, n)
+               for name, (shape, window) in sp_shapes.items()
+               for n in SP_LANES}
+    torch.cuda.empty_cache()
+    lap("k1_q_offset")
     # K1's backward: a sweep over every (D, Dv) pair, both types, the masks
     # and ragged lengths; qwen3-1.7b's training shape (the train phase's
     # microbatch) and its served prefill, timed in bf16
@@ -2124,6 +2207,7 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
     lap("k4_k4b_zamba2_k1b")
 
     cases = (flash_sweep + decode_sweep + list(flash_main.values())
+             + offset_sweep + list(sp_main.values())
              + list(decode_main.values()) + bwd_sweep
              + list(bwd_main.values()) + moe_sweep
              + list(moe_main.values()) + grad_sweep
@@ -2139,7 +2223,12 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         "flash_attention": {
             "sweep_cases": len(flash_sweep),
             "sweep_max_abs_err": sweep_err(flash_sweep),
-            "main_path": flash_main},
+            "main_path": flash_main,
+            "q_offset_sweep": {
+                "cases": len(offset_sweep),
+                "max_abs_err": sweep_err(offset_sweep),
+                "all": offset_sweep},
+            "sequence_parallel": sp_main},
         "decode_attention": {
             "sweep_cases": len(decode_sweep),
             "sweep_max_abs_err": sweep_err(decode_sweep),
@@ -3310,13 +3399,9 @@ def train_seq_len() -> int:
 def active_params(cfg, n_params: int) -> float:
     """The parameters a token goes through: all of them, but an MoE
     layer's routed experts only as top_k of num_experts (the capacity's
-    padding is no model work)."""
-    if cfg.moe is None:
-        return float(n_params)
-    m = cfg.moe
-    routed = 3 * m.num_experts * cfg.d_model * m.d_expert * (
-        cfg.num_layers - cfg.moe_layer_start)
-    return n_params - routed * (1.0 - m.top_k / m.num_experts)
+    padding is no model work); ``launch.analysis.active_params``."""
+    from repro_torch.launch.analysis import active_params as of_tree
+    return of_tree(cfg, n_params)
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -3518,9 +3603,11 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         opt_cfg=opt.AdamWConfig(), device="cuda")
     n_accum = TRAIN_GLOBAL_BATCH // steps.resolve_microbatch(
         cfg, TRAIN_GLOBAL_BATCH, 1)
+    resident = torch.cuda.memory_allocated()
     params = master_params(model, seed)
     n_params = sum(p.numel() for p in tree_leaves(params))
     state = opt.init_state(params)
+    built = state_leaves({"params": params, "opt": state})
     data = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
                                       TRAIN_GLOBAL_BATCH, seed=seed))
     torch.cuda.synchronize()
@@ -3591,6 +3678,10 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         "model_tflops_per_s": flops / step_s / 1e12,
         "mfu_of_989_tflops": flops / step_s / PEAK_FLOPS[torch.bfloat16],
         "peak_gb": peak / 1e9,
+        # what the step itself holds: the peak above what other phases
+        # left allocated before this one built its parameters
+        "resident_before_bytes": resident,
+        "step_peak_bytes": peak - resident,
         "depth": f"{cfg.num_layers} of {full.num_layers} layers",
         "launches": counts, "launches_expected": expect,
         "flash_attention_bwd_windowed": {"launches": windowed,
@@ -3620,6 +3711,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     emit(out)
     if problems:
         fail(f"{phase} phase failed: " + "; ".join(problems))
+    out["built_state"] = built       # for the dryrun phase, not printed
     return out
 
 
@@ -3964,6 +4056,236 @@ def kernel_rows(prof) -> list:
     return sorted(rows, reverse=True)
 
 
+# ---------------------------------------------------------------------------
+# dryrun
+# ---------------------------------------------------------------------------
+
+# the train phases' exact configurations, (phase, registry id, layers: 0
+# for the full depth), which the dryrun phase prices on the meta device
+TRAIN_PHASES = (("train", "qwen3-1.7b", 0),
+                ("train_moe", "granite-moe-3b-a800m", MOE_TRAIN_LAYERS),
+                ("train_gemma3", "gemma3-4b", GEMMA_TRAIN_LAYERS),
+                ("train_deepseek", "deepseek-v2-236b", DEEPSEEK_TRAIN_LAYERS),
+                ("train_rwkv", "rwkv6-3b", 0),
+                ("train_zamba2", "zamba2-2.7b", 0))
+DRYRUN_PREFILL = ("qwen3-1.7b", NUM_QUERIES, PROMPT_LEN)   # [8, 512]
+DRYRUN_TOL = 0.10           # priced peak against the measured one
+
+
+def dryrun_specs() -> list:
+    """What the dryrun phase prices: each train phase's step whole
+    (TRAIN_GLOBAL_BATCH sequences of train_4k's length in microbatches of
+    TRAIN_MICROBATCH, its depth cut as the phase cuts it) and one
+    prefill of DRYRUN_PREFILL's model at [NUM_QUERIES, PROMPT_LEN]."""
+    specs = [{"phase": phase, "arch": arch, "kind": "train",
+              "overrides": {"microbatch": TRAIN_MICROBATCH,
+                            **({"num_layers": n} if n else {})},
+              "seq": train_seq_len(), "rows": TRAIN_GLOBAL_BATCH,
+              "microbatch": TRAIN_MICROBATCH}
+             for phase, arch, n in TRAIN_PHASES]
+    arch, rows, seq = DRYRUN_PREFILL
+    specs.append({"phase": "prefill", "arch": arch, "kind": "prefill",
+                  "overrides": {}, "seq": seq, "rows": rows,
+                  "microbatch": rows})
+    return specs
+
+
+def state_leaves(tree, mesh=None, placements=None, prefix=()) -> dict:
+    """path -> [shape, dtype, bytes] of every tensor of ``tree`` (dicts and
+    named tuples); with a ``mesh``, of each leaf's shard under its
+    ``placements`` (a tree of the same structure)."""
+    if isinstance(tree, torch.Tensor):
+        shape = tuple(tree.shape)
+        if mesh is not None:
+            from repro_torch.launch.mesh import local_shape
+            shape = local_shape(mesh, shape, placements)
+        return {"/".join(prefix): [list(shape), str(tree.dtype)[6:],
+                                   math.prod(shape) * tree.element_size()]}
+    named = not isinstance(tree, dict)
+    out = {}
+    for k in (tree._fields if named else tree):
+        sub = getattr(tree, k) if named else tree[k]
+        pl = placements if placements is None else (
+            getattr(placements, k) if named else placements[k])
+        out.update(state_leaves(sub, mesh, pl, prefix + (k,)))
+    return out
+
+
+def price_dryrun(specs: list) -> dict:
+    """The dryrun phase's pricing, run on the CPU in a child process while
+    the card runs the train phases: each spec priced on a (1, 1) mesh by
+    ``launch.dryrun.price_cell``, the figure its per-cell table prints
+    (its total, the weighted peak of the whole step traced on the meta
+    device, and the five largest storages live there) and, for a train
+    phase, its float32 masters and AdamW state leaf by leaf; and its
+    window, ``time.time()`` at its start and end."""
+    window = [time.time()]
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as mesh_mod
+    out = {}
+    with mesh_mod.fake_world(1):
+        mesh = mesh_mod.make_test_mesh((1, 1))
+        for sp in specs:
+            cfg = dataclasses.replace(ARCHS[sp["arch"]], **sp["overrides"])
+            shape = ShapeConfig(f"{sp['kind']}_{sp['seq']}", sp["seq"],
+                                sp["rows"], sp["kind"])
+            rec = dryrun.price_cell(cfg, shape, mesh)
+            if sp["kind"] == "train":
+                params, state, pspecs, sspecs = steps.abstract_train_state(cfg)
+                rec["state"] = state_leaves(
+                    {"params": params, "opt": state}, mesh,
+                    {"params": mesh_mod.shardings_for(mesh, params, pspecs),
+                     "opt": mesh_mod.shardings_for(mesh, state, sspecs)})
+            out[sp["phase"]] = rec
+    window.append(time.time())
+    return {"cells": out, "window": window}
+
+
+def start_pricing(specs: list) -> subprocess.Popen:
+    """:func:`price_dryrun` in a child Python process on the CPU, on one
+    thread (it shares the host with the phases it overlaps); its result
+    is one JSON line on its standard output."""
+    root = Path(__file__).resolve().parent
+    code = ("import json, sys, torch; torch.set_num_threads(1); "
+            "sys.path[:0] = sys.argv[1:3]; "
+            "import chip_smoke; print(json.dumps(chip_smoke.price_dryrun("
+            "json.loads(sys.argv[3]))))")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, str(root), str(root / "src"),
+         json.dumps(specs)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def measured_prefill(steps, seed: int) -> tuple[int, bool]:
+    """DRYRUN_PREFILL's model at full size, its random init in bf16, one
+    prefill of [NUM_QUERIES, PROMPT_LEN] seeded tokens into a cache of
+    PROMPT_LEN rows through ``make_prefill_step``: the peak of
+    ``max_memory_allocated`` above what was allocated before the model's
+    parameters, and whether the logits are finite."""
+    from repro_torch.configs.archs import ARCHS
+    arch, rows, seq = DRYRUN_PREFILL
+    cfg = ARCHS[arch]
+    step_fn, model = steps.make_prefill_step(cfg, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                     device="cuda", generator=gen),
+             "cache": model.init_cache(rows, seq)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, _ = step_fn(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    finite = bool(torch.isfinite(logits.float()).all())
+    del params, batch, logits
+    return peak, finite
+
+
+def dryrun_cases(priced: dict, measured: dict, built: dict):
+    """(cases, problems) of the dryrun phase: per case of ``measured``
+    (bytes), the ``priced`` total (``price_cell``'s record) against it,
+    held to DRYRUN_TOL, and where the case built a state (``built``,
+    ``state_leaves`` of the phase's trees), each priced leaf held to it
+    in shape, dtype and bytes."""
+    cases, problems = {}, []
+    for phase, want in measured.items():
+        pr = priced[phase]
+        ratio = pr["total_bytes"] / want
+        case = {"priced_total_gb": pr["total_bytes"] / 1e9,
+                "measured_peak_gb": want / 1e9,
+                "priced_over_measured": ratio,
+                "within_tol": abs(ratio - 1.0) <= DRYRUN_TOL,
+                "live_at_priced_peak": pr["trace"]["live_at_peak"],
+                "priced_resident_gb": {
+                    k: v / 1e9 for k, v in pr["resident_bytes"].items()},
+                "priced_activation_peak_gb":
+                    pr["activation_peak_bytes"] / 1e9,
+                "trace_s": pr["trace_s"]}
+        if not case["within_tol"]:
+            problems.append(f"{phase}: priced total {ratio:.3f} of "
+                            f"measured peak")
+        if phase in built:
+            have = json.loads(json.dumps(built[phase]))
+            wrong = sorted(k for k in set(have) | set(pr["state"])
+                           if have.get(k) != pr["state"].get(k))
+            case.update(state_leaves=len(have), state_exact=not wrong,
+                        state_mismatches=wrong[:5],
+                        state_gb=sum(v[2] for v in have.values()) / 1e9)
+            if wrong:
+                problems.append(f"{phase}: {len(wrong)} state leaves "
+                                f"priced unlike the built ones")
+        cases[phase] = case
+    return cases, problems
+
+
+def overlapping_phases(window: list, start_wall: float) -> list:
+    """The phases whose span (from the previous phase line to their own,
+    ``PHASE_END_S``) meets ``window``, wall-clock seconds taken in
+    another process, given this run's start ``start_wall``."""
+    lo, hi = (t - start_wall for t in window)
+    out, prev = [], 0.0
+    for phase, end in PHASE_END_S.items():
+        if prev < hi and end > lo:
+            out.append(phase)
+        prev = end
+    return out
+
+
+def phase_dryrun(mods, pricing: subprocess.Popen, train_outs: list,
+                 seed: int) -> dict:
+    """The meta-device dry run held to the card.  Per train phase: the
+    state ``price_cell`` priced on a (1, 1) mesh (float32 masters and
+    AdamW state, leaf by leaf) must equal the state the phase built in
+    shape, dtype and bytes, and the total it priced for the phase's
+    whole step (its microbatches, their accumulation, AdamW), the figure
+    the dry run's table prints, must lie within DRYRUN_TOL of the
+    ``max_memory_allocated`` the phase measured above what was allocated
+    before it; the same check for one prefill of DRYRUN_PREFILL, measured
+    here.  Each case prints both figures and the five largest storages
+    live at the priced peak; the phase names the phases that ran while
+    the pricing process did."""
+    peak, finite = measured_prefill(mods["steps"], seed)
+    torch.cuda.empty_cache()
+    try:
+        stdout, stderr = pricing.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        stop_process(pricing)
+        fail("dryrun phase: the pricing process did not finish in 600 s")
+    if pricing.returncode:
+        fail(f"dryrun phase: the pricing process failed "
+             f"(exit {pricing.returncode}):\n{stderr[-4000:]}")
+    priced = json.loads(stdout.strip().splitlines()[-1])
+    measured = {out["phase"]: out["step_peak_bytes"] for out in train_outs}
+    measured["prefill"] = peak
+    cases, problems = dryrun_cases(
+        priced["cells"], measured,
+        {o["phase"]: o["built_state"] for o in train_outs})
+    if not finite:
+        problems.append("prefill: logits not finite")
+    out = {"phase": "dryrun", "mesh": [1, 1], "tolerance": DRYRUN_TOL,
+           "prefill_shape": list(DRYRUN_PREFILL), "cases": cases,
+           "pricing_window_s": [t - T_START_WALL for t in priced["window"]],
+           "phases_overlapping_pricing": overlapping_phases(
+               priced["window"], T_START_WALL),
+           "ok": not problems, "problems": problems}
+    emit(out)
+    if problems:
+        fail("dryrun phase failed: " + "; ".join(problems))
+    return out
+
+
 @torch.inference_mode()
 def phase_profile(bundles, prompts, name: str, frames=None) -> dict:
     """One stage of model ``name`` (8 queries, one shard) run three ways in
@@ -4291,6 +4613,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
+    # the dryrun phase's meta-device pricing runs on the CPU meanwhile,
+    # beside the train phases, whose step times are the card's
+    pricing = start_pricing(dryrun_specs())
+    atexit.register(stop_process, pricing)
     train_out = phase_train(mods, qwen, args.seed, profile=args.profile)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4371,6 +4697,11 @@ def main() -> None:
                                     attention_at_input_width))
     zamba_s = time.perf_counter() - t_zamba
     train_s = time.perf_counter() - t_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun(mods, pricing, [train_out, train_moe_out, train_gemma_out,
+                                 train_deepseek_out, train_rwkv_out,
+                                 train_zamba_out], args.seed)
     emit(kernel_summary(kernels_out, [serve_out, control_out, serve2_out,
                                       serve3_out, serve4_out, serve5_out,
                                       whisper_out,

@@ -154,12 +154,24 @@ def kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
+def kernel_device(x: torch.Tensor, name: str) -> str:
+    """Where a wrapper's call goes, by the device of ``x``: "cpu" (its
+    plain version), "cuda" (its kernel) or "meta" (its own checks, output
+    and scratch allocations and autograd function, with no launch and no
+    count: what a dry run traces to price the card's memory).  Any other
+    device raises."""
+    kind = x.device.type
+    if kind not in ("cpu", "cuda", "meta"):
+        raise RuntimeError(f"no {name} kernel for {x.device}")
+    return kind
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise ``NotImplementedError`` (naming ``what``: the kernel and the
     ROADMAP item that brings its backward) where autograd would need a
     backward kernel that the port does not have: grad enabled and an input
-    that requires it.  The wrappers call it for CUDA tensors only; on the
-    CPU autograd runs through their plain versions."""
+    that requires it.  The wrappers call it for CUDA (and meta) tensors
+    only; on the CPU autograd runs through their plain versions."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(f"no backward kernel on the card: {what}")
@@ -170,8 +182,8 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointers as 32-bit ints
 ARGTYPES = {
     # q, k, v, out, lse, B, Sq, Sk, H, KV, D, Dv, strides, causal, window,
-    # dtype, stream
-    "fate_flash_attention": [_P] * 5 + [_I32] * 7 + [_I64] * 12 + [_I32] * 3
+    # q_offset, dtype, stream
+    "fate_flash_attention": [_P] * 5 + [_I32] * 7 + [_I64] * 12 + [_I32] * 4
     + [_P],
     # q, k, v, o, dout, lse, delta, dq_accum, counters, dq, dk, dv, B, Sq,
     # Sk, H, KV, D, Dv, causal, window, dtype, stream

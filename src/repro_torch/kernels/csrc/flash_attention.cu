@@ -4,7 +4,10 @@
 //
 // What it computes (per batch b, query head h, KV head h / G):
 //   s = (q . k) * D^-0.5, masked to -1e30 where k_pos >= Sk, or
-//   (causal) q_pos < k_pos, or (window) q_pos - k_pos >= window;
+//   (causal) q_pos < k_pos, or (window) q_pos - k_pos >= window, where
+//   query row i sits at q_pos = q_offset + i (0 but for a lane of a
+//   sequence-parallel prefill, models/attention.py :: flash_attention_sp)
+//   and key row j at k_pos = j;
 //   out = softmax(s) @ v, with float32 scores and a float32 accumulator;
 //   out = acc / max(l, 1e-30) cast to the input type.
 // q and k have head dim D, v and out a value head dim Dv, which is D for
@@ -73,11 +76,11 @@
 // attended no key).  The output's arithmetic is the same with or without
 // it; serving passes none.
 //
-// Rows that have no valid key at all (possible only with a window and
-// Sq > Sk + window) are degenerate in the reference (a uniform average
-// over masked keys); here they give 0 and a log-sum-exp of +inf (their
-// running max never leaves NEG_INF), so that the backward's zero gradient
-// for them is exact.
+// Rows that have no valid key at all (possible only with a window, where
+// q_offset + i >= Sk - 1 + window) are degenerate in the reference (a
+// uniform average over masked keys); here they give 0 and a log-sum-exp
+// of +inf (their running max never leaves NEG_INF), so that the
+// backward's zero gradient for them is exact.
 #include "common.cuh"
 
 namespace {
@@ -101,7 +104,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 int causal, int window, float scale) {
+                 int causal, int window, int q_offset, float scale) {
   constexpr int QS = D + 4;     // row stride of Qs and Ks (floats)
   constexpr int PS = BN + 4;    // row stride of Ps
   constexpr int CN = BN / 16;   // score columns per thread
@@ -145,11 +148,13 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
   }
 
-  // KV tiles that can hold a valid key for some row of this query tile.
+  // KV tiles that can hold a valid key for some row of this query tile,
+  // whose first row sits at position qa0
+  const int qa0 = q_offset + q0;
   int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + BM);
+  if (causal) k_end = min(Sk, qa0 + BM);
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q0 - window + 1) / BN) * BN;
+  if (window > 0) k_begin = (max(0, qa0 - window + 1) / BN) * BN;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BN) {
     __syncthreads();   // the previous tile's PV product has read Ks/Vs/Ps
@@ -215,7 +220,7 @@ flash_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = ty * 4 + i;
-      const int q_pos = q0 + row;
+      const int q_pos = qa0 + row;
       float mx = NEG_INF;
 #pragma unroll
       for (int c = 0; c < CN; ++c) {
@@ -316,7 +321,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
                  int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                 int causal, int window, float scale_log2) {
+                 int causal, int window, int q_offset, float scale_log2) {
   using Tile = MmaTile<D, DV>;
   constexpr int RS = Tile::RS;
   constexpr int RSV = Tile::RSV;
@@ -343,11 +348,13 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const bf16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
 
-  // KV tiles that can hold a valid key for some row of this query tile.
+  // KV tiles that can hold a valid key for some row of this query tile,
+  // whose first row sits at position qa0
+  const int qa0 = q_offset + q0;
   int k_end = Sk;
-  if (causal) k_end = min(Sk, q0 + MMA_BM);
+  if (causal) k_end = min(Sk, qa0 + MMA_BM);
   int k_begin = 0;
-  if (window > 0) k_begin = (max(0, q0 - window + 1) / MMA_BN) * MMA_BN;
+  if (window > 0) k_begin = (max(0, qa0 - window + 1) / MMA_BN) * MMA_BN;
 
   // the Q tile and the first KV tile form the first copy group; rows
   // beyond Sq or Sk are zero-filled
@@ -394,9 +401,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (k_begin < k_end) load_kv(0, k_begin);
   cp_async_commit();
 
-  // m16n8 fragment layout: this thread holds rows row0 and row0 + 8 of the
-  // warp's 16, columns col0 and col0 + 1 of every 8-column tile
-  const int row0 = q0 + warp * 16 + (lane >> 2);
+  // m16n8 fragment layout: this thread holds two of the warp's 16 rows,
+  // at positions pos0 and pos0 + 8 (row pos0 - q_offset of q and the one
+  // 8 below it), and columns col0 and col0 + 1 of every 8-column tile
+  const int pos0 = qa0 + warp * 16 + (lane >> 2);
   const int col0 = 2 * (lane & 3);
   float o[NT][4];
 #pragma unroll
@@ -456,14 +464,14 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale (log2 domain) and mask
     const bool full = k0 + MMA_BN <= Sk &&
-                      (!causal || k0 + MMA_BN - 1 <= q0) &&
-                      (window <= 0 || q0 + MMA_BM - 1 - k0 < window);
+                      (!causal || k0 + MMA_BN - 1 <= qa0) &&
+                      (window <= 0 || qa0 + MMA_BM - 1 - k0 < window);
 #pragma unroll
     for (int j = 0; j < SJ; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int kp = k0 + 8 * j + col0 + (r & 1);
-        const int qp = row0 + 8 * (r >> 1);
+        const int qp = pos0 + 8 * (r >> 1);
         const bool ok = full || (kp < Sk && (!causal || qp >= kp) &&
                                  (window <= 0 || qp - kp < window));
         s[j][r] = ok ? s[j][r] * scale_log2 : NEG_INF;
@@ -527,7 +535,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float denom = fmaxf(l, 1e-30f);
     const bool none = m_r[i] == NEG_INF;   // no valid key: 0, lse +inf
-    const int r = row0 + 8 * i;
+    const int r = pos0 - q_offset + 8 * i;
     if (r >= Sq) continue;
     if (lse != nullptr && (lane & 3) == 0)   // m is in the log2 domain
       lse[((int64_t)b * gridDim.y + h) * Sq + r] =
@@ -550,7 +558,7 @@ struct FlashArgs {
   float* lse;
   int B, Sq, Sk, H, KV;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
-  int causal, window;
+  int causal, window, q_offset;
   cudaStream_t stream;
 };
 
@@ -570,7 +578,8 @@ int launch_flash(const FlashArgs& a) {
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.Sq,
       a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
-      a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window, scale);
+      a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window, a.q_offset,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -588,7 +597,7 @@ int launch_flash_mma(const FlashArgs& a) {
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Sq,
       a.Sk,
       a.H / a.KV, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh, a.v_sb,
-      a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window,
+      a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.window, a.q_offset,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -633,6 +642,7 @@ bool aligned_for_mma(const FlashArgs& a) {
 
 // dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the mma.sync kernel,
 // which needs aligned_for_mma).  q and k have head dim D, v and out Dv.
+// q_offset >= 0: the position of query row 0 (key row 0 is at 0).
 // Strides are in elements; the last dimension of every tensor has stride
 // 1.  Returns cudaGetLastError() after the launch (0 on success), -1 for
 // an unsupported (D, Dv) pair, dtype or alignment.  Launches on `stream`,
@@ -644,10 +654,11 @@ extern "C" int fate_flash_attention(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
-    int causal, int window, int dtype, void* stream) {
+    int causal, int window, int q_offset, int dtype, void* stream) {
+  if (q_offset < 0) return -1;
   FlashArgs a{q, k, v, out, lse, B, Sq, Sk, H, KV,
               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-              o_sb, o_ss, o_sh, causal, window,
+              o_sb, o_ss, o_sh, causal, window, q_offset,
               static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_fma(a, D, Dv);
   if (dtype == 1) return aligned_for_mma(a) ? dispatch_mma(a, D, Dv) : -1;

@@ -164,10 +164,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         cache_len = int(cache_len)
         if not 1 <= cache_len <= s:
             raise ValueError(f"cache_len {cache_len} outside [1, {s}]")
-    if q.device.type == "cpu":
+    dev = _build.kernel_device(q, "decode_attention")
+    if dev == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cache_len)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no decode_attention kernel for {q.device}")
     _build.refuse_grad("decode_attention; a decode step is never trained "
                        "(ROADMAP item 14 trains through flash_attention, "
                        "whose backward is K1's)", q, k_cache, v_cache)
@@ -182,6 +181,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     v_cache = _build.kernel_operand(v_cache)
     chunk, nsplit = split_plan(s, b * kv)
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    if dev == "meta":
+        # the card keeps its scratch for later calls (_scratch_for); on
+        # meta it is made for the call, as the card's first call makes it
+        n_ml = b * kv * nsplit * g
+        part = torch.empty(n_ml * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        tickets = torch.empty(b * kv, dtype=torch.int32, device=q.device)
+        del part, tickets
+        return out
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

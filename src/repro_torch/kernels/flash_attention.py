@@ -25,6 +25,14 @@ float32; ROADMAP H19).  The bf16 kernel reads rows in 16-byte pieces:
 an operand whose strides are not multiples of 8 elements is copied first
 (``_build.kernel_operand``).
 
+``q_offset`` (an int >= 0, default 0) puts query row i at position
+``q_offset + i`` for the causal and window tests, as the XLA twin's
+argument does: a lane of a sequence-parallel prefill
+(``models/attention.py :: flash_attention_sp``) attends the whole
+sequence's keys from its own positions.  The kernel shifts the range of
+key tiles it visits and its mask by the offset; at 0 it computes the
+bits it computed before the argument existed.
+
 Training: where grad is enabled and an input requires it,
 :func:`flash_attention` goes through a ``torch.autograd.Function`` whose
 forward also writes each row's log-sum-exp (float32 [B, H, Sq], from the
@@ -44,7 +52,9 @@ FlashAttention-2's design (a dk / dv kernel per key tile, a dq kernel per
 query tile; no atomics) at D and Dv.  The TPU kernel has no backward: the
 JAX models differentiate its XLA twin.  On the CPU both directions take
 their plain versions; on the card there is no fallback.  The backward
-takes the (D, Dv) pairs of the forward, ``_build.FLASH_HEAD_DIMS``.
+takes the (D, Dv) pairs of the forward, ``_build.FLASH_HEAD_DIMS``, and
+no ``q_offset`` (ROADMAP item 15 part two, H2).  A meta tensor takes the
+card's path up to the launch (``_build.kernel_device``).
 """
 from __future__ import annotations
 
@@ -63,14 +73,15 @@ def bwd_tiles(d: int, dv: int) -> tuple[int, int]:
     return (64, 64) if max(d, dv) > 128 else (128, 64)
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, q_offset=0):
     """Float32 masked scores [B, KV, G, Sq, Sk] of the plain versions, and
-    the mask [Sq, Sk] (True where a query attends a key)."""
+    the mask [Sq, Sk] (True where a query attends a key; query row i at
+    position ``q_offset + i``, key row j at j)."""
     b, sq, h, d = q.shape
     _, sk, kv, _ = k.shape
     qr = q.reshape(b, sq, kv, h // kv, d).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.float()) * d ** -0.5
-    qi = torch.arange(sq, device=q.device)[:, None]
+    qi = q_offset + torch.arange(sq, device=q.device)[:, None]
     ki = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -83,14 +94,15 @@ def _scores(q, k, causal, window):
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        q_offset: int = 0, return_lse: bool = False):
     """Plain version: full float32 score matrix, masked with -1e30,
     softmax, product with ``v``.  q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v:
-    [B, Sk, KV, Dv]; ``H % KV == 0``; returns [B, Sq, H, Dv] in
+    [B, Sk, KV, Dv]; ``H % KV == 0``; query row i at position ``q_offset +
+    i`` for the causal and window tests; returns [B, Sq, H, Dv] in
     ``q.dtype``, and with ``return_lse`` also each row's log-sum-exp of
     its scaled, masked scores, float32 [B, H, Sq]."""
     b, sq, h, _ = q.shape
-    s, _ = _scores(q, k, causal, window)
+    s, _ = _scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     o = o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
@@ -152,20 +164,29 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
+def _offset(q_offset) -> int:
+    """``q_offset`` as a non-negative Python int."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return q_offset
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        return_lse: bool = False):
+                        q_offset: int = 0, return_lse: bool = False):
     """K1's forward without autograd: the output, and with ``return_lse``
     also each row's log-sum-exp (float32 [B, H, Sq], written by the same
     kernel; the output's bits do not change).  The kernel for CUDA
-    tensors, :func:`flash_attention_ref` for CPU ones; counts in
-    ``flash_attention.launches``."""
+    tensors, :func:`flash_attention_ref` for CPU ones, and for meta
+    tensors the wrapper's checks and allocations with no launch; counts
+    kernel launches in ``flash_attention.launches``."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    q_offset = _offset(q_offset)
+    dev = _build.kernel_device(q, "flash_attention")
+    if dev == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no flash_attention kernel for {q.device}")
+                                   q_offset=q_offset, return_lse=return_lse)
     b, sq, h, d = q.shape
     sk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
     if (d, dv) not in _build.FLASH_HEAD_DIMS:
@@ -178,6 +199,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if dev == "meta":
+        return (out, lse) if return_lse else out
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -189,7 +212,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
-            int(bool(causal)), int(window), _build.DTYPE_CODE[q.dtype], stream)
+            int(bool(causal)), int(window), q_offset,
+            _build.DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed (code {rc}) for q "
@@ -247,11 +271,10 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
             f"expected o, dout {(b, sq, h, v.shape[3])} and lse "
             f"{(b, h, sq)}, got {tuple(o.shape)}, {tuple(dout.shape)}, "
             f"{tuple(lse.shape)}")
-    if q.device.type == "cpu":
+    dev = _build.kernel_device(q, "flash_attention_bwd")
+    if dev == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, dout, lse, causal=causal,
                                        window=window)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"no flash_attention_bwd kernel for {q.device}")
     d, sk, kv, dv = q.shape[3], k.shape[1], k.shape[2], v.shape[3]
     if (d, dv) not in _build.FLASH_HEAD_DIMS:
         raise ValueError(f"head dims (D, Dv) = {(d, dv)} not in "
@@ -261,6 +284,8 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
     delta, dq_accum, counters = bwd_scratch(b, h, sq, d, dv, q.dtype,
                                             q.device)
     dq, dk, dvv = (torch.empty_like(x) for x in (q, k, v))
+    if dev == "meta":
+        return dq, dk, dvv
     lib = _build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -303,9 +328,13 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, D]; k: [B, Sk, KV, D]; v: [B, Sk, KV, Dv]; returns
     [B, Sq, H, Dv].  (D, Dv) must be one of ``_build.FLASH_HEAD_DIMS``.
+    Query row i sits at position ``q_offset + i`` (an int >= 0), key row
+    j at j, for the causal test ``q_pos >= k_pos`` and the window's
+    ``q_pos - k_pos < window``.
 
     A CUDA tensor goes through the kernel (which is built at first use)
     or raises; the plain version is taken only for tensors that lie on
@@ -313,13 +342,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     grad is enabled and an input requires it, the call is differentiable:
     the forward also writes the rows' log-sum-exp and the backward is
     :func:`flash_attention_bwd` (its kernel on the card, its plain version
-    on the CPU).
+    on the CPU).  K1's backward takes no ``q_offset``: under grad a
+    ``q_offset != 0`` differentiates the plain version on the CPU and
+    raises ``NotImplementedError`` on the card (and on meta tensors,
+    which stand for the card's).
     """
     _check(q, k, v)
+    q_offset = _offset(q_offset)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)
+        if not q_offset:
+            return _FlashAttention.apply(q, k, v, causal, window)
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+        _build.refuse_grad(
+            "flash_attention with q_offset != 0 (a sequence-parallel "
+            "prefill lane); K1b takes no q_offset yet (ROADMAP item 15 "
+            "part two, H2)", q, k, v)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
 
 flash_attention.launches = 0

@@ -241,11 +241,10 @@ def _scan_fwd(xh, b, c, dt, a_log, chunk, state0, out_dtype, plain):
     ``plain`` or on the CPU, else the kernel on the card."""
     bsz, s, h, p = xh.shape
     n = b.shape[-1]
-    if plain or xh.device.type == "cpu":
+    dev = _build.kernel_device(xh, "mamba2_scan")
+    if plain or dev == "cpu":
         return mamba2_scan_ref(xh, b, c, dt, a_log, chunk=chunk,
                                state0=state0, out_dtype=out_dtype)
-    if xh.device.type != "cuda":
-        raise RuntimeError(f"no mamba2_scan kernel for {xh.device}")
     if (p, n) not in DIMS:
         raise ValueError(f"(head dim, state dim) {(p, n)} not in {DIMS}")
     if chunk > MAX_CHUNK:
@@ -262,6 +261,8 @@ def _scan_fwd(xh, b, c, dt, a_log, chunk, state0, out_dtype, plain):
               if state0 is None else state0.float().contiguous())
     y = torch.empty((bsz, s, h, p), dtype=out_dtype, device=xh.device)
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=xh.device)
+    if dev == "meta":
+        return y, fin
     lib = _build.load()
     with torch.cuda.device(xh.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -367,12 +368,10 @@ def mamba2_scan_bwd(xh: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"[B, H, P, N] = {(bsz, h, p, n)} on {xh.device}")
     chunk = _chunk(s, chunk)
     needs = tuple(bool(x) for x in needs)
-    if xh.device.type == "cpu":
+    if _build.kernel_device(xh, "mamba2_scan_bwd") == "cpu":
         grads = mamba2_scan_bwd_ref(xh, b, c, dt, a_log, dy, state0=state0,
                                     dstate=dstate)
         return tuple(g if x else None for g, x in zip(grads, needs))
-    if xh.device.type != "cuda":
-        raise RuntimeError(f"no mamba2_scan_bwd kernel for {xh.device}")
     if (p, n) not in DIMS:
         raise ValueError(f"(head dim, state dim) {(p, n)} not in {DIMS}")
     if chunk > MAX_CHUNK:
@@ -441,6 +440,9 @@ def launch_bwd(xh, b, c, dt, a_log, dy, sub, state0, dstate, bufs, passes,
     a_log = a_log.float().contiguous()
     state0, dstate = (None if x is None else x.float().contiguous()
                       for x in (state0, dstate))
+    # a meta tensor: the operands above, no launch
+    if _build.kernel_device(xh, "mamba2_scan_bwd") == "meta":
+        return
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = lib or _build.load()
     with torch.cuda.device(xh.device):

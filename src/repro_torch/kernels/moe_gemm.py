@@ -251,15 +251,10 @@ def _gemm_launch(x4, w, out, d: int, f: int, w_strides, plan) -> None:
             f"{tuple(x4.shape)}, w {tuple(w.shape)}, {x4.dtype}")
 
 
-def _cuda_only(name: str, x: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no {name} kernel for {x.device}")
-
-
 def _moe_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
+    dev = _build.kernel_device(x, "moe_gemm")
+    if dev == "cpu":
         return moe_gemm_ref(x, w)
-    _cuda_only("moe_gemm", x)
     x4 = x if x.dim() == 4 else x.unsqueeze(0)
     b, e, c, d = x4.shape
     f = w.shape[2]
@@ -268,6 +263,8 @@ def _moe_gemm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         plan = gemm_plan(b, e, c, d, f, x4.stride(), w.stride(),
                          x4.data_ptr(), w.data_ptr())
     out = torch.empty((b, e, c, f), dtype=x.dtype, device=x.device)
+    if dev == "meta":
+        return out if x.dim() == 4 else out[0]
     _gemm_launch(x4, w, out, d, f, w.stride(), plan)
     moe_gemm.launches += 1
     if plan is not None and plan.block_rows == DECODE_ROWS:
@@ -290,13 +287,15 @@ def moe_gemm_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected dy [..., E, C, F] and w [E, D, F], got "
                          f"{tuple(dy.shape)}, {tuple(w.shape)}")
     _check_pair(dy, w)
-    if dy.device.type == "cpu":
+    dev = _build.kernel_device(dy, "moe_gemm_dx")
+    if dev == "cpu":
         return moe_gemm_dx_ref(dy, w)
-    _cuda_only("moe_gemm_dx", dy)
     dy4 = dy if dy.dim() == 4 else dy.unsqueeze(0)
     b, e, c, f = dy4.shape
     d = w.shape[1]
     out = torch.empty((b, e, c, d), dtype=dy.dtype, device=dy.device)
+    if dev == "meta":
+        return out if dy.dim() == 4 else out[0]
     grad = None
     if dy.dtype == torch.bfloat16:
         grad = grad_plan("dx", b, e, c, d, f, dy4.shape, dy4.stride(),
@@ -329,9 +328,9 @@ def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"expected x [..., E, C, D] and dy [..., E, C, F], "
                          f"got {tuple(x.shape)}, {tuple(dy.shape)}")
     _check_pair(x, dy)
-    if x.device.type == "cpu":
+    dev = _build.kernel_device(x, "moe_gemm_dw")
+    if dev == "cpu":
         return moe_gemm_dw_ref(x, dy)
-    _cuda_only("moe_gemm_dw", x)
     x4 = x if x.dim() == 4 else x.unsqueeze(0)
     dy4 = dy if dy.dim() == 4 else dy.unsqueeze(0)
     b, e, c, d = x4.shape
@@ -339,6 +338,8 @@ def moe_gemm_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if b * c >= 2 ** 31 or e > 65535:
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
     out = torch.empty((e, d, f), dtype=x.dtype, device=x.device)
+    if dev == "meta":
+        return out
     grad = None
     if x.dtype == torch.bfloat16:
         grad = grad_plan("dw", b, e, c, d, f, x4.shape, x4.stride(),

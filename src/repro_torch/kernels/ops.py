@@ -1,10 +1,13 @@
 """Public wrappers for the CUDA kernels (the counterpart of
 ``repro.kernels.ops``).
 
-Each wrapper dispatches on where its tensors lie: a CUDA tensor launches
-the hand-written kernel (built at first use by ``_build``) or raises; a
-CPU tensor takes the plain PyTorch version.  There is no switch that
-forces the plain version on the card.  ``<wrapper>.launches`` counts
+Each wrapper dispatches on where its tensors lie
+(``_build.kernel_device``): a CUDA tensor launches the hand-written kernel
+(built at first use by ``_build``) or raises; a CPU tensor takes the plain
+PyTorch version; a meta tensor runs the wrapper's own checks, output and
+scratch allocations and autograd function with no launch, which is what
+the dry run (``launch/dryrun.py``) traces to price the card's memory.
+There is no switch that forces the plain version on the card.  ``<wrapper>.launches`` counts
 kernel launches; :func:`launch_counts` and :func:`reset_launch_counts`
 read and zero them all.  A wrapper counts where it launches, so a call
 made while a CUDA graph is captured counts a launch that did not run, and

@@ -262,11 +262,10 @@ def _scan_fwd(r, k, v, w, bonus, chunk, state0, out_dtype, plain):
     """The forward on checked arguments: the plain version where
     ``plain`` or on the CPU, else a kernel on the card."""
     b, s, h, d = r.shape
-    if plain or r.device.type == "cpu":
+    dev = _build.kernel_device(r, "rwkv6_scan")
+    if plain or dev == "cpu":
         return rwkv6_scan_ref(r, k, v, w, bonus, chunk=chunk, state0=state0,
                               out_dtype=out_dtype)
-    if r.device.type != "cuda":
-        raise RuntimeError(f"no rwkv6_scan kernel for {r.device}")
     _reach(d, chunk, smem_bytes(d, chunk, r.dtype))
     w = w.float()
     if r.dtype == torch.bfloat16:      # the 16-byte copies' rule
@@ -278,6 +277,8 @@ def _scan_fwd(r, k, v, w, bonus, chunk, state0, out_dtype, plain):
               if state0 is None else state0.float().contiguous())
     out = torch.empty((b, s, h, d), dtype=out_dtype, device=r.device)
     fin = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    if dev == "meta":
+        return out, fin
     lib = _build.load()
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -379,12 +380,10 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" = {(b, h, d, d)} on {r.device}")
     chunk = _chunk(s, chunk)
     needs = tuple(bool(n) for n in needs)
-    if r.device.type == "cpu":
+    if _build.kernel_device(r, "rwkv6_scan_bwd") == "cpu":
         grads = rwkv6_scan_bwd_ref(r, k, v, w, bonus, dout, chunk=chunk,
                                    state0=state0, dstate=dstate)
         return tuple(g if n else None for g, n in zip(grads, needs))
-    if r.device.type != "cuda":
-        raise RuntimeError(f"no rwkv6_scan_bwd kernel for {r.device}")
     _reach(d, chunk, bwd_smem_bytes(d, chunk, r.dtype))
     passes = bwd_passes(needs)
     if not passes:
@@ -440,6 +439,9 @@ def launch_bwd(r, k, v, w, bonus, dout, chunk, state0, dstate, bufs,
     state0, dstate = (None if x is None else
                       _build.kernel_operand(x.float().contiguous())
                       for x in (state0, dstate))
+    # a meta tensor: the operands above, no launch
+    if _build.kernel_device(r, "rwkv6_scan_bwd") == "meta":
+        return
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = lib or _build.load()
     with torch.cuda.device(r.device):

@@ -5,8 +5,11 @@
 ``n_accum`` microbatches; for each, the gradients of the float32 master
 parameters are taken through a loss that casts every leaf of more than
 one dimension to the config's dtype, optionally compressed, and summed in
-float32; their mean goes to AdamW.  The reference's ``input_specs`` and
-``abstract_*`` helpers serve its multi-pod dry run (ROADMAP item 15).
+float32; their mean goes to AdamW.
+
+``input_specs``, ``batch_specs_shardings``, ``abstract_train_state`` and
+``abstract_serve_params`` give the dry run (``launch/dryrun.py``) every
+tree of a cell as meta tensors, which take no memory, with their specs.
 """
 from __future__ import annotations
 
@@ -14,11 +17,82 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.launch.mesh import filter_spec, replicated, shardings_for
 from repro_torch.models.families import build_model
-from repro_torch.models.layers import torch_dtype
+from repro_torch.models.layers import (DP, abstract_params, param_specs,
+                                       spec_placements, torch_dtype)
+from repro_torch.models.transformer import cache_specs
 from repro_torch.training import optimizer as opt
 from repro_torch.training.tree import tree_leaves, tree_map, tree_unflatten
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors; no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _shape(shape) -> ShapeConfig:
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def _token_budget(cfg: ArchConfig, shape: ShapeConfig) -> int:
+    """Decoder token positions (VLM reserves the patch prefix)."""
+    return shape.seq_len
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name) -> dict:
+    """Abstract model inputs of one (arch, shape) cell as meta tensors:
+    ``shape_name`` a key of ``SHAPES`` or a ``ShapeConfig``.  Tokens and
+    labels are int64, as the port's data stream gives them
+    (``SyntheticTokens.batch_at``; the reference's are int32); the
+    frames (whisper) and image embeddings (llava) bf16; a prefill's and a
+    decode step's cache of ``seq_len`` rows; a decode step's ``pos`` a 0-d
+    int64, as the port's decode graphs pass it."""
+    shape = _shape(shape_name)
+    gb, s = shape.global_batch, shape.seq_len
+    model = build_model(cfg, "meta")
+    specs: dict[str, Any] = {}
+    if shape.kind == "decode":
+        specs["token"] = _meta((gb, 1), torch.int64)
+        specs["cache"] = model.init_cache(gb, s, abstract=True)
+        specs["pos"] = _meta((), torch.int64)
+        return specs
+    specs["tokens"] = _meta((gb, _token_budget(cfg, shape)), torch.int64)
+    if shape.kind == "train":
+        specs["labels"] = _meta((gb, s), torch.int64)
+    else:
+        specs["cache"] = model.init_cache(gb, s, abstract=True)
+    if cfg.family == "audio":
+        specs["extra_embeds"] = _meta((gb, cfg.encoder_frames, cfg.d_model),
+                                      torch.bfloat16)
+    elif cfg.family == "vlm":
+        specs["extra_embeds"] = _meta((gb, cfg.num_patches, cfg.d_model),
+                                      torch.bfloat16)
+    return specs
+
+
+def batch_specs_shardings(mesh, cfg: ArchConfig, shape_name) -> dict:
+    """Placements for the :func:`input_specs` tree on ``mesh``: the
+    cache's from its CacheLeaf specs, ``pos`` replicated, every other
+    input's batch dim on DP, each through ``filter_spec``."""
+    shape = _shape(shape_name)
+    model = build_model(cfg, "meta")
+    out = {}
+    for k, v in input_specs(cfg, shape).items():
+        if k == "cache":
+            out[k] = shardings_for(mesh, v, cache_specs(
+                model.cache_defs(shape.global_batch, shape.seq_len)))
+        elif k == "pos":
+            out[k] = replicated(mesh)
+        else:
+            out[k] = spec_placements(mesh, filter_spec(
+                mesh, v.shape, (DP,) + (None,) * (v.dim() - 1)))
+    return out
 
 
 def resolve_microbatch(cfg: ArchConfig, global_batch: int,
@@ -118,3 +192,28 @@ def make_decode_step(cfg: ArchConfig, device="cuda"):
                                  batch["pos"])
 
     return decode_step, model
+
+
+# ---------------------------------------------------------------------------
+# Abstract params / optimizer state for the dry run
+# ---------------------------------------------------------------------------
+
+
+def abstract_train_state(cfg: ArchConfig):
+    """(params, opt_state, param specs, state specs): float32 master
+    parameters and the AdamW state as meta tensors, as the train step
+    holds them (``make_train_step``)."""
+    defs = build_model(cfg, "meta").param_defs()
+    aparams = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                             device="meta"),
+                       abstract_params(defs))
+    specs = param_specs(defs)
+    return aparams, opt.abstract_state(aparams), specs, opt.state_specs(
+        specs)
+
+
+def abstract_serve_params(cfg: ArchConfig):
+    """(params, specs): the served parameters in their own dtypes as meta
+    tensors."""
+    defs = build_model(cfg, "meta").param_defs()
+    return abstract_params(defs), param_specs(defs)

@@ -15,9 +15,10 @@ Sliding windows (gemma3's local layers) keep their cache as a ring of
 (:func:`decode_index`); see :func:`gqa_attend` for how that differs from
 the reference's rolling cache.
 
-Waiting for a later slice (raises ``NotImplementedError``):
-sequence-parallel prefill (``flash_attention_sp``; ROADMAP queue 1,
-"Launch / analysis").
+A prefill goes through :func:`flash_attention_sp`, which splits the
+queries into lanes where a mesh's model axis does not divide the head
+count (:func:`seq_parallel_degree`); with no mesh, as on one card, it is
+one K1 call.
 """
 from __future__ import annotations
 
@@ -28,8 +29,9 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_rope,
-                                       rms_norm)
+from repro_torch.models.layers import (DP, FSDP, TP, ParamDef, apply_rope,
+                                       axis_len, axis_names, get_axis_env,
+                                       rms_norm, shard_activation)
 
 
 def gqa_defs(cfg) -> dict:
@@ -186,7 +188,8 @@ def gqa_attend(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
             v_cache[:, cache_len: cache_len + sq] = v
         new_cache = (k_cache, v_cache)
         # prefill attends over freshly computed k/v (cache == prefix here)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention_sp(q, k, v, causal=causal, window=window,
+                             n_sp=seq_parallel_degree(cfg.num_heads))
     return _proj_out(p, out), new_cache
 
 
@@ -196,10 +199,39 @@ def _proj_out(p: dict, out: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
 
 
-def flash_attention_sp(*args, **kwargs):
-    raise NotImplementedError(
-        "sequence-parallel prefill needs a device mesh and is not ported "
-        "yet (ROADMAP queue 1: Launch / analysis)")
+def seq_parallel_degree(num_heads: int) -> int:
+    """The reference's sequence-parallel degree: with a mesh whose
+    ``model`` axis does not divide the head count, that axis's size (the
+    queries are split into that many lanes instead of the heads); else,
+    and with no mesh, 1."""
+    env = get_axis_env()
+    mesh = None if env is None else env.get("mesh")
+    if mesh is None or "model" not in axis_names(mesh):
+        return 1
+    tp = axis_len(mesh, "model")
+    return 1 if num_heads % tp == 0 else tp
+
+
+def flash_attention_sp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, causal: bool = True, window: int = 0,
+                       n_sp: int = 1) -> torch.Tensor:
+    """Sequence-parallel prefill attention: q [B, Sq, H, D] cut into
+    ``n_sp`` lanes of Sq / n_sp queries (the lane dim placed on the model
+    axis where a mesh is set, ``shard_activation``), each one K1 call
+    over the whole k and v with ``q_offset = lane * Sq / n_sp``, so its
+    causal and window tests see the lane's own positions.  Returns
+    [B, Sq, H, Dv].  With ``n_sp <= 1``, or Sq not a multiple of it,
+    exactly one ``ops.flash_attention`` call, as on one card.  On one
+    device the lanes run one after the other, each a counted launch."""
+    b, sq, h, d = q.shape
+    if n_sp <= 1 or sq % n_sp:
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    lane = sq // n_sp
+    qs = shard_activation(q.reshape(b, n_sp, lane, h, d),
+                          DP, TP, None, None, None)
+    return torch.cat([ops.flash_attention(qs[:, i], k, v, causal=causal,
+                                          window=window, q_offset=i * lane)
+                      for i in range(n_sp)], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,14 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
+from repro_torch.models.layers import (DP, FSDP, TP, ParamDef, apply_ffn,
                                        embed_defs, ffn_defs, init_params,
-                                       norm_defs, rms_norm, stack_defs,
-                                       torch_dtype, unembed_logits)
-from repro_torch.models.transformer import (DecoderLM, _remat, _unstack,
-                                            decode_position, softmax_xent)
+                                       norm_defs, param_specs, rms_norm,
+                                       stack_defs, torch_dtype,
+                                       unembed_logits)
+from repro_torch.models.transformer import (CacheLeaf, DecoderLM, _remat,
+                                            _unstack, decode_position,
+                                            materialize_cache, softmax_xent)
 
 
 def _head_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,6 +72,9 @@ class RWKVLM:
         the model's device."""
         return init_params(self.param_defs(), generator, self.device)
 
+    def specs(self) -> dict:
+        return param_specs(self.param_defs())
+
     def _block(self, p, x, state):
         cfg = self.cfg
         h = rms_norm(x, p["ln_time"], cfg.norm_eps)
@@ -109,14 +114,24 @@ class RWKVLM:
         return softmax_xent(self.forward(params, batch["tokens"]),
                             batch["labels"])
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed recurrent states, each leaf [layers, batch, ...]
-        (``max_len`` is not used: the state does not grow)."""
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        """CacheLeaf tree of the recurrent states, each leaf [layers,
+        batch, ...] (``max_len`` is not used: the state does not grow),
+        with the reference's specs."""
         cfg = self.cfg
-        return {k: torch.zeros((cfg.num_layers,) + shape,
-                               dtype=torch_dtype(dt), device=self.device)
+        spec = {"shift": (None, DP, None, None),
+                "wkv": (None, DP, TP, None, None),
+                "cshift": (None, DP, None, None)}
+        return {k: CacheLeaf((cfg.num_layers,) + shape, dt, spec[k])
                 for k, (shape, dt) in
                 rwkv_mod.rwkv6_state_defs(cfg, batch).items()}
+
+    def init_cache(self, batch: int, max_len: int,
+                   abstract: bool = False) -> dict:
+        """Zeroed states of :meth:`cache_defs` on the model's device (meta
+        tensors where ``abstract``)."""
+        return materialize_cache(self.cache_defs(batch, max_len), abstract,
+                                 self.device)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache,
                 extra_embeds=None):
@@ -176,6 +191,9 @@ class Mamba2Hybrid:
         """Random parameters drawn from ``generator``, which must live on
         the model's device."""
         return init_params(self.param_defs(), generator, self.device)
+
+    def specs(self) -> dict:
+        return param_specs(self.param_defs())
 
     def _ssm_block(self, p, x, state, decode: bool):
         h = rms_norm(x, p["ln"], self.cfg.norm_eps)
@@ -238,22 +256,30 @@ class Mamba2Hybrid:
         return softmax_xent(self.forward(params, batch["tokens"]),
                             batch["labels"])
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed states ``{"ssm": {"ssm", "conv"}}``, each leaf
-        [layers, batch, ...], and a KV cache ``{"kv": {"k", "v"}}``, each
-        leaf [sites, batch, max_len, KV, head_dim] in the config's dtype."""
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        """CacheLeaf tree: the states ``{"ssm": {"ssm", "conv"}}``, each
+        leaf [layers, batch, ...], and a KV cache ``{"kv": {"k", "v"}}``,
+        each leaf [sites, batch, max_len, KV, head_dim] in the config's
+        dtype, with the reference's specs."""
         cfg = self.cfg
-        dt = torch_dtype(cfg.dtype)
-        kv_shape = (self.n_attn, batch, max_len, cfg.num_kv_heads,
-                    cfg.resolved_head_dim)
+        kv = CacheLeaf((self.n_attn, batch, max_len, cfg.num_kv_heads,
+                        cfg.resolved_head_dim), cfg.dtype,
+                       (None, DP, TP, None, None))
         return {
-            "ssm": {k: torch.zeros((cfg.num_layers,) + shape,
-                                   dtype=torch_dtype(sdt), device=self.device)
-                    for k, (shape, sdt) in
+            "ssm": {k: CacheLeaf((cfg.num_layers,) + shape, dt,
+                                 (None, DP, TP, None, None) if k == "ssm"
+                                 else (None, DP, None, TP))
+                    for k, (shape, dt) in
                     ssm_mod.mamba2_state_defs(cfg, batch).items()},
-            "kv": {"k": torch.zeros(kv_shape, dtype=dt, device=self.device),
-                   "v": torch.zeros(kv_shape, dtype=dt, device=self.device)},
+            "kv": {"k": kv, "v": kv},
         }
+
+    def init_cache(self, batch: int, max_len: int,
+                   abstract: bool = False) -> dict:
+        """Zeroed leaves of :meth:`cache_defs` on the model's device (meta
+        tensors where ``abstract``)."""
+        return materialize_cache(self.cache_defs(batch, max_len), abstract,
+                                 self.device)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache,
                 extra_embeds=None):
@@ -325,6 +351,9 @@ class EncDecLM:
         """Random parameters drawn from ``generator``, which must live on
         the model's device."""
         return init_params(self.param_defs(), generator, self.device)
+
+    def specs(self) -> dict:
+        return param_specs(self.param_defs())
 
     def encode(self, params: dict, frames: torch.Tensor,
                remat: bool = False) -> torch.Tensor:
@@ -428,24 +457,23 @@ class EncDecLM:
         return softmax_xent(logits, batch["labels"])
 
     def cache_defs(self, batch: int, max_len: int) -> dict:
-        """(shape, dtype) of each cache leaf, as the reference's
-        ``cache_defs``."""
+        """CacheLeaf tree, as the reference's ``cache_defs``: the decoder's
+        self-attention K / V and the encoder's output."""
         cfg = self.cfg
-        kv = ((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-               cfg.resolved_head_dim), cfg.dtype)
+        kv = CacheLeaf((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                        cfg.resolved_head_dim), cfg.dtype,
+                       (None, DP, TP, None, None))
         return {"self": {"k": kv, "v": kv},
-                "enc_out": ((batch, cfg.encoder_frames, cfg.d_model),
-                            cfg.dtype)}
+                "enc_out": CacheLeaf((batch, cfg.encoder_frames,
+                                      cfg.d_model), cfg.dtype,
+                                     (DP, None, None))}
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed leaves of :meth:`cache_defs` on the model's device."""
-        def make(node):
-            if isinstance(node, dict):
-                return {k: make(v) for k, v in node.items()}
-            shape, dt = node
-            return torch.zeros(shape, dtype=torch_dtype(dt),
-                               device=self.device)
-        return make(self.cache_defs(batch, max_len))
+    def init_cache(self, batch: int, max_len: int,
+                   abstract: bool = False) -> dict:
+        """Zeroed leaves of :meth:`cache_defs` on the model's device (meta
+        tensors where ``abstract``)."""
+        return materialize_cache(self.cache_defs(batch, max_len), abstract,
+                                 self.device)
 
     def prefill(self, params: dict, tokens: torch.Tensor, cache,
                 extra_embeds=None):

@@ -11,7 +11,10 @@ sliding-window (local) and global layers (``local_blocks`` and
   * ``init(generator)``                   — concrete params on the device
   * ``forward(params, tokens)``           — logits (prefill math)
   * ``train_loss(params, batch)``         — mean float32 cross-entropy
-  * ``init_cache(batch, max_len)``        — zeroed KV cache
+  * ``specs()``                           — the ParamDef specs
+  * ``cache_defs(batch, max_len)``        — CacheLeaf tree of the cache
+  * ``init_cache(batch, max_len)``        — zeroed KV cache (meta tensors
+    with ``abstract=True``)
   * ``prefill(params, tokens, cache)``    — fills cache, returns logits
   * ``decode_step(params, token, cache, pos)`` — one-token step
 
@@ -30,6 +33,7 @@ input, so K1's forward launches twice per layer and training step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -39,12 +43,51 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (FSDP, TP, ParamDef, apply_ffn,
-                                       embed_defs, ffn_defs, init_params,
-                                       norm_defs, rms_norm, stack_defs,
+from repro_torch.models.layers import (DP, FSDP, TP, ParamDef, _redistribute,
+                                       apply_ffn, embed_defs, ffn_defs,
+                                       init_params, norm_defs, param_specs,
+                                       resolve_spec, rms_norm, stack_defs,
                                        torch_dtype, unembed_logits)
 
 Cache = Any
+
+
+def _shard(x, *spec):
+    """The reference's sharding constraint with ``DP`` resolved and no
+    divisibility check: with no axis environment ``x`` itself; with one,
+    a DTensor redistributed to the placements of the resolved spec, a
+    plain tensor as it is."""
+    rs = resolve_spec(spec)
+    if rs is None:
+        return x
+    return _redistribute(x, rs)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheLeaf:
+    """One cache tensor's shape, dtype name and sharding spec."""
+    shape: tuple
+    dtype: str
+    spec: tuple
+
+
+def _map_cache(fn, defs):
+    if isinstance(defs, CacheLeaf):
+        return fn(defs)
+    return {k: _map_cache(fn, v) for k, v in defs.items()}
+
+
+def materialize_cache(defs, abstract: bool, device="cuda"):
+    """The zeroed cache of a CacheLeaf tree on ``device``; on the meta
+    device (no memory) where ``abstract``."""
+    dev = "meta" if abstract else device
+    return _map_cache(lambda leaf: torch.zeros(
+        leaf.shape, dtype=torch_dtype(leaf.dtype), device=dev), defs)
+
+
+def cache_specs(defs):
+    """The spec of each CacheLeaf."""
+    return _map_cache(lambda leaf: leaf.spec, defs)
 
 
 def _unstack(tree):
@@ -184,6 +227,9 @@ class DecoderLM:
         the model's device (``torch.Generator(device=...)``)."""
         return init_params(self.param_defs(), generator, self.device)
 
+    def specs(self) -> dict:
+        return param_specs(self.param_defs())
+
     # --- forward -----------------------------------------------------------
     def _block(self, p: dict, x, positions, *, window=0, cache=None,
                cache_len=0):
@@ -274,32 +320,40 @@ class DecoderLM:
         return unembed_logits(x, w, cfg.tie_embeddings)
 
     # --- caches ------------------------------------------------------------
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed static cache ``{"blocks": {"k", "v"}}`` (``{"dense":
-        ..., "moe": ...}`` when an MoE config starts with dense layers,
-        ``{"local": ..., "global": ...}`` for gemma3's interleave), each
-        leaf [layers, batch, rows, KV, head_dim] in the config's dtype:
-        ``max_len`` rows, and ``min(sliding_window, max_len)`` for the
-        local layers' rings, as the reference sizes them.  MLA keeps one
-        compressed leaf per stack instead, ``{"c": [layers, batch,
-        max_len, kv_lora_rank + qk_rope_head_dim]}``."""
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        """CacheLeaf tree of the port's static cache: ``{"blocks": {"k",
+        "v"}}`` (``{"dense": ..., "moe": ...}`` when an MoE config starts
+        with dense layers, ``{"local": ..., "global": ...}`` for gemma3's
+        interleave), each leaf [layers, batch, rows, KV, head_dim] in the
+        config's dtype: ``max_len`` rows, and ``min(sliding_window,
+        max_len)`` for the local layers' rings, as the reference sizes
+        them (the ring keeps position p in slot p mod rows, where the
+        reference rolls its cache: ROADMAP H23).  MLA keeps one compressed
+        leaf per stack instead, ``{"c": [layers, batch, max_len,
+        kv_lora_rank + qk_rope_head_dim]}``.  The sequence axis is sharded
+        on ``model``, as in the reference."""
         cfg = self.cfg
-        dt = torch_dtype(cfg.dtype)
         out = {}
         for _, ckey, n, window in self._stacks():
             rows = min(window, max_len) if window else max_len
             if self.mla:
                 m = cfg.mla
-                out[ckey] = {"c": torch.zeros(
+                out[ckey] = {"c": CacheLeaf(
                     (n, batch, rows, m.kv_lora_rank + m.qk_rope_head_dim),
-                    dtype=dt, device=self.device)}
+                    cfg.dtype, (None, DP, TP, None))}
                 continue
-            shape = (n, batch, rows, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            out[ckey] = {
-                "k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+            leaf = CacheLeaf((n, batch, rows, cfg.num_kv_heads,
+                              cfg.resolved_head_dim), cfg.dtype,
+                             (None, DP, TP, None, None))
+            out[ckey] = {"k": leaf, "v": leaf}
         return out
+
+    def init_cache(self, batch: int, max_len: int,
+                   abstract: bool = False) -> dict:
+        """The zeroed cache of :meth:`cache_defs` on the model's device
+        (meta tensors where ``abstract``)."""
+        return materialize_cache(self.cache_defs(batch, max_len), abstract,
+                                 self.device)
 
     # prefill / decode ------------------------------------------------------
     def prefill(self, params: dict, tokens: torch.Tensor, cache,

@@ -44,6 +44,18 @@ def init_state(params: Any) -> AdamWState:
                       mu=tree_map(z, params), nu=tree_map(z, params))
 
 
+def abstract_state(params: Any) -> AdamWState:
+    """The state of meta-tensor parameters: :func:`init_state` makes it
+    on their device, so as meta tensors too (no memory)."""
+    return init_state(params)
+
+
+def state_specs(specs: Any) -> AdamWState:
+    """The state's specs: the step replicated, each moment its
+    parameter's spec (ZeRO-style sharding from the parameters' own)."""
+    return AdamWState(step=(), mu=specs, nu=specs)
+
+
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warm-up, then a cosine decay to ``min_lr_ratio``; float32."""
     s = step.float()

@@ -59,6 +59,54 @@ def test_flash_attention_kernel(card, b, sq, sk, h, kv, d, dtype, causal,
     assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
 
 
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (256, 256),
+                                  (192, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 48)])
+@pytest.mark.parametrize("q_offset", [0, 160, 50, 7])
+def test_flash_attention_kernel_q_offset(card, d, dv, dtype, causal, window,
+                                         q_offset):
+    """Query row i at position q_offset + i over Sk > Sq keys (160 = Sk -
+    Sq: the last Sq positions), against the plain version."""
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (1, 100, 4, d), dtype, card)
+    k = _randn(rng, (1, 260, 2, d), dtype, card)
+    v = _randn(rng, (1, 260, 2, dv), dtype, card)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("n_sp", [2, 4])
+def test_flash_attention_sp_is_one_call(card, dtype, window, n_sp):
+    """n_sp lanes of K1 at their q_offsets give one call's bits: each
+    64-row query tile sees the same positions and key tiles."""
+    from repro_torch.models.attention import flash_attention_sp
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (2, 512, 8, 128), dtype, card)
+    k, v = (_randn(rng, (2, 512, 4, 128), dtype, card) for _ in range(2))
+    whole = ops.flash_attention(q, k, v, window=window)
+    before = ops.flash_attention.launches
+    lanes = flash_attention_sp(q, k, v, window=window, n_sp=n_sp)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + n_sp
+    assert torch.equal(lanes, whole)
+
+
+def test_flash_attention_q_offset_refuses_grad(card):
+    """K1b takes no q_offset: under grad the card raises, naming H2."""
+    q = torch.zeros(1, 64, 2, 64, device=card, requires_grad=True)
+    k = torch.zeros(1, 128, 2, 64, device=card)
+    with pytest.raises(NotImplementedError, match="H2"):
+        ops.flash_attention(q, k, k, q_offset=64)
+
+
 @pytest.mark.parametrize("clen", [512, 300, 17, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kv,d", [(8, 4, 64), (16, 1, 128), (4, 4, 16)])

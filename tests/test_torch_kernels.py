@@ -483,9 +483,12 @@ def test_launch_counts_reset():
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
-    """On a tensor that does not lie on the CPU the wrapper goes to the
-    kernel's library (and raises where it cannot be built): it never
-    falls back to the plain version."""
+    """On a tensor that does not lie on the CPU the wrapper never falls
+    back to the plain version: a card's tensor goes to the kernel's
+    library (and raises where it cannot be built), a meta tensor takes
+    the wrapper's own launch-free path (its checks and allocations, for
+    the dry run) and builds nothing, any other device raises."""
+    import types
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import mamba2_scan as ms_mod
@@ -511,36 +514,43 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     monkeypatch.setattr(_build, "load", no_build)
     q = torch.zeros(1, 4, 4, 16, device="meta")
     kc = torch.zeros(1, 4, 2, 16, device="meta")
-    with pytest.raises(RuntimeError):
-        ops.flash_attention(q, kc, kc)
-    with pytest.raises(RuntimeError):
-        ops.flash_attention_bwd(q, kc, kc, q, q, torch.zeros(
-            1, 4, 4, device="meta"))
-    with pytest.raises(RuntimeError):
-        ops.decode_attention(q[:, :1], kc, kc, 2)
-    with pytest.raises(RuntimeError):
-        ops.moe_gemm(torch.zeros(2, 4, 8, 16, device="meta"),
-                     torch.zeros(4, 16, 8, device="meta"))
-    with pytest.raises(RuntimeError):
-        ops.moe_gemm_dx(torch.zeros(2, 4, 8, 8, device="meta"),
-                        torch.zeros(4, 16, 8, device="meta"))
-    with pytest.raises(RuntimeError):
-        ops.moe_gemm_dw(torch.zeros(2, 4, 8, 16, device="meta"),
-                        torch.zeros(2, 4, 8, 8, device="meta"))
     x = torch.zeros(1, 8, 2, 16, device="meta")
-    with pytest.raises(RuntimeError):
-        ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 16, device="meta"),
-                       chunk=4)
-    with pytest.raises(RuntimeError):
-        ops.rwkv6_scan_bwd(x, x, x, x, torch.zeros(2, 16, device="meta"),
-                           x, chunk=4)
     bc = torch.zeros(1, 8, 8, device="meta")
-    with pytest.raises(RuntimeError):
-        ops.mamba2_scan(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
-                        torch.zeros(2, device="meta"), chunk=4)
-    with pytest.raises(RuntimeError):
-        ops.mamba2_scan_bwd(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
-                            torch.zeros(2, device="meta"), x, chunk=4)
+    calls = [
+        lambda: ops.flash_attention(q, kc, kc),
+        lambda: ops.flash_attention_bwd(q, kc, kc, q, q, torch.zeros(
+            1, 4, 4, device="meta")),
+        lambda: ops.decode_attention(q[:, :1], kc, kc, 2),
+        lambda: ops.moe_gemm(torch.zeros(2, 4, 8, 16, device="meta"),
+                             torch.zeros(4, 16, 8, device="meta")),
+        lambda: ops.moe_gemm_dx(torch.zeros(2, 4, 8, 8, device="meta"),
+                                torch.zeros(4, 16, 8, device="meta")),
+        lambda: ops.moe_gemm_dw(torch.zeros(2, 4, 8, 16, device="meta"),
+                                torch.zeros(2, 4, 8, 8, device="meta")),
+        lambda: ops.rwkv6_scan(x, x, x, x, torch.zeros(2, 16, device="meta"),
+                               chunk=4),
+        lambda: ops.rwkv6_scan_bwd(x, x, x, x,
+                                   torch.zeros(2, 16, device="meta"), x,
+                                   chunk=4),
+        lambda: ops.mamba2_scan(x, bc, bc, torch.zeros(1, 8, 2, device="meta"),
+                                torch.zeros(2, device="meta"), chunk=4),
+        lambda: ops.mamba2_scan_bwd(x, bc, bc,
+                                    torch.zeros(1, 8, 2, device="meta"),
+                                    torch.zeros(2, device="meta"), x,
+                                    chunk=4)]
+    ops.reset_launch_counts()
+    for call in calls:
+        call()
+    assert all(n == 0 for n in ops.counts().values())
+    # the same tensors routed as a card's: the kernel's library or raise
+    monkeypatch.setattr(_build, "kernel_device", lambda t, name: "cuda")
+    for call in calls:
+        with pytest.raises(RuntimeError):
+            call()
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="no flash_attention kernel"):
+        _build.kernel_device(types.SimpleNamespace(
+            device=torch.device("xpu")), "flash_attention")
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",

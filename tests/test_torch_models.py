@@ -248,8 +248,10 @@ def test_gqa_attend_prefill_and_decode_match_jax(arch, pair):
 def test_gqa_attend_window_and_mla_wait(pair):
     """A sliding window takes a ring of at most ``window`` rows; a linear
     cache must hold every position (only a window's cache keeps a tail);
-    sequence-parallel prefill waits for its ROADMAP item (MLA is served
-    since it was ported: ``tests/test_torch_mla.py``)."""
+    sequence-parallel prefill, ported with K1's q_offset, matches the
+    reference's ``flash_attention_sp`` (MLA is served since it was ported:
+    ``tests/test_torch_mla.py``; more lanes and gradients:
+    ``tests/test_torch_sp_attention.py``)."""
     p = pair("qwen3-1.7b", "float32")
     cfg = p.cfg
     tp = {k: v[0] for k, v in p.params["blocks"]["attn"].items()}
@@ -268,8 +270,14 @@ def test_gqa_attend_window_and_mla_wait(pair):
                         cache_len=5)
     out, ring = attn.gqa_attend(tp, cfg, x, pos, window=4, cache=cache(4))
     assert out.shape == x.shape and ring[0].shape[1] == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.flash_attention_sp()
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((1, 16, 4, 8), dtype=np.float32)
+    kv = rng.standard_normal((1, 16, 2, 8), dtype=np.float32)
+    got = attn.flash_attention_sp(*map(torch.from_numpy, (q, kv, kv)),
+                                  n_sp=2)
+    want = jax_attn.flash_attention_sp(*map(jnp.asarray, (q, kv, kv)),
+                                       n_sp=2)
+    assert max_err(got, want) < 1e-5
 
 
 # ---------------------------------------------------------------------------

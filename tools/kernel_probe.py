@@ -49,9 +49,11 @@ twice, as served and writing the rows' log-sum-exp for a backward.  It
 exits 1 unless every output is bitwise equal, which shows that a change
 to K1 left the existing instantiations' results alone.  It then times
 both in bf16 in turns (this tree, the other, the other, this tree; CUDA
-events) at qwen3's
-prefill (``q [8,512,16,128]``, ``k, v [8,512,8,128]``) and gemma3's global
-layer (``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), causal.
+events; each tree's C entry called alike) at qwen3's prefill
+(``q [8,512,16,128]``, ``k, v [8,512,8,128]``), gemma3's global layer
+(``q [8,2048,8,256]``, ``k, v [8,2048,4,256]``), zamba2's (``q, k, v
+[8,512,32,80]``) and granite's (``q [8,512,24,64]``, ``k, v
+[8,512,8,64]``), causal.
 
 ``flash-bwd`` builds ``csrc/flash_attention_bwd.cu`` of another checkout
 (``--against DIR``) into its own library and times it against this tree's
@@ -694,13 +696,17 @@ def flash_bits(against: Path) -> None:
                    check=True, capture_output=True, text=True)
     other = ctypes.CDLL(str(lib)).fate_flash_attention
     other.restype = ctypes.c_int
-    # the other tree's entry takes a value head dim after D, and a
-    # log-sum-exp pointer after out, only if its source says so
+    # the other tree's entry takes a value head dim after D, a
+    # log-sum-exp pointer after out and a q_offset after the window, only
+    # if its source says so
     with_dv = "int D, int Dv," in src
     with_lse = "void* out, float* lse," in src
+    with_offset = "int window, int q_offset, int dtype" in src
+    offset = (0,) if with_offset else ()
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     other.argtypes = [p] * (5 if with_lse else 4) \
-        + [i32] * (7 if with_dv else 6) + [i64] * 12 + [i32] * 3 + [p]
+        + [i32] * (7 if with_dv else 6) + [i64] * 12 \
+        + [i32] * (4 if with_offset else 3) + [p]
     dims = [(d, dv) for d, dv in _build.FLASH_HEAD_DIMS
             if f"launch_flash_mma<{d}, {dv}>(a)" in src
             or (d == dv and f"launch_flash_mma<{d}>(a)" in src)]
@@ -725,7 +731,8 @@ def flash_bits(against: Path) -> None:
                            theirs.data_ptr(), *((None,) if with_lse else ()),
                            b, s, s, h, kv, d, *((dv,) if with_dv else ()),
                            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                           *theirs.stride()[:3], int(causal), window, code,
+                           *theirs.stride()[:3], int(causal), window,
+                           *offset, code,
                            torch.cuda.current_stream().cuda_stream)
                 same = rc == 0 and torch.equal(mine, theirs)
                 same_lse = rc == 0 and torch.equal(mine_lse, theirs)
@@ -741,21 +748,28 @@ def flash_bits(against: Path) -> None:
                       "differ": differ}), flush=True)
     if differ or not dims:
         sys.exit(1)
+    # both trees' C entries called alike (this one at q_offset 0), so the
+    # host path is the same for the two
+    mine_entry = _build.load().fate_flash_attention
     for name, (s, h, kv, d) in {"qwen3": (512, 16, 8, 128),
-                                "gemma3_global": (2048, 8, 4, 256)}.items():
+                                "gemma3_global": (2048, 8, 4, 256),
+                                "zamba2": (512, 32, 32, 80),
+                                "granite": (512, 24, 8, 64)}.items():
         q, k, v = (torch.randn(8, s, n, d, device="cuda",
                                generator=gen).bfloat16() for n in (h, kv, kv))
         theirs = torch.empty_like(q)
 
         def call(lib):
             if lib == "this":
-                return ops.flash_attention(q, k, v)
-            return other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         theirs.data_ptr(), *((None,) if with_lse else ()),
-                         8, s, s, h, kv, d,
-                         *((d,) if with_dv else ()), *q.stride()[:3],
-                         *k.stride()[:3], *v.stride()[:3],
-                         *theirs.stride()[:3], 1, 0, 1,
+                entry, lse, dv, off = mine_entry, (None,), (d,), (0,)
+            else:
+                entry, off = other, offset
+                lse = (None,) if with_lse else ()
+                dv = (d,) if with_dv else ()
+            return entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         theirs.data_ptr(), *lse, 8, s, s, h, kv, d, *dv,
+                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                         *theirs.stride()[:3], 1, 0, *off, 1,
                          torch.cuda.current_stream().cuda_stream)
         times = in_turns(call, {"this": "this", "against": "against"})
         print(json.dumps({"probe": "flash-bits", "timed": name,
