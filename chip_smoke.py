@@ -83,7 +83,10 @@ ends the run with a non-zero exit code and no result line:
    teacher-forced with the kernels and with the plain versions: in bf16
    at full depth (the kernel path must reproduce the served tokens) and
    in float32 at full width with 4 layers (logits within 1e-3 of their
-   largest magnitude, every greedy token equal).
+   largest magnitude, every greedy token equal; granite, whose random
+   init saturates its attention, per layer, and the same cut model with
+   its attention projections at 1 / sqrt(d) held to the whole-model bars
+   under the kernel run's routing: ROADMAP H25).
 8. ``serve_hybrid`` – the same workflow with zamba2-2.7b (54 Mamba2
    layers, one shared attention block at 9 sites, head dim 80) as
    "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and depth with
@@ -95,7 +98,10 @@ ends the run with a non-zero exit code and no result line:
    kernel path must reproduce the served tokens) and in float32 at full
    width with 7 layers, one attention site and one tail layer (logits
    within 1e-3 of their largest magnitude, every greedy token equal);
-   every block's own difference reported beside both.
+   every block's own difference reported beside both; both again with
+   the attention projections at 1 / sqrt(d) (H25): the float32 model held
+   to the same bars, the bf16 one's whole-model reading reported (the
+   phase says why it is not gated).
 10. ``serve_gemma3`` – the same workflow with gemma3-4b (34 layers, 29
    local with a sliding window of 1024 and 5 global, head dim 256, vocab
    262144) as "qwen-7b" and qwen3-1.7b as "llama-8b", at full width and
@@ -127,7 +133,30 @@ ends the run with a non-zero exit code and no result line:
    float32 at full width with the dense layer and one MoE layer (every
    layer's update within 1e-3 of its magnitude, every greedy token equal
    under held routing).
-14. ``whisper`` – whisper-small (12 encoder and 12 decoder layers, d 768,
+14. ``serve_qwen15_llava`` – the same workflow with qwen1.5-4b (40 layers,
+   d 2560, 20 / 20 heads of 128, q / k / v biases, vocab 151936) as
+   "qwen-7b" and llava-next-mistral-7b (32 layers, d 4096, 32 / 8 heads
+   of 128, d_ff 14336, vocab 32000) as "llama-8b", both published, at
+   full width and depth, after deepseek's weights are freed; the engine
+   passes llava no image embeddings, as the reference's does.
+15. ``llava_image`` – llava's bundle from the phase before, through its
+   ``DecodeGraphs.generate`` with seeded image embeddings [8, 576, 4096]
+   in bf16 over the first 576 positions of prompts of 1024 tokens, 32
+   tokens: one warm-up pass captures, then K1 32 times at the prefill and
+   K2 32 x 31 times, every decode step a replay, bitwise the eager step;
+   the same prompts without the embeddings must serve other tokens;
+   prefill seconds, decode ms per replayed step beside the weights'
+   bound, peak memory.
+16. ``parity_qwen15_llava`` – per model its first served shard (and llava
+   also llava_image's prompts with their embeddings) teacher-forced with
+   the kernels and with the plain versions: in bf16 at full depth (the
+   kernel path must reproduce the served tokens); in float32 at full
+   width with 4 layers, every layer's update within 1e-3 of its
+   magnitude at the random init (whose attention scores have a standard
+   deviation of 128-256, ``score_std``), and logits within 1e-3 of their
+   largest magnitude with every greedy token equal with the attention
+   projections at 1 / sqrt(d).
+17. ``whisper`` – whisper-small (12 encoder and 12 decoder layers, d 768,
    12 heads of 64, vocab 51865, 1500 frames) at full width and depth,
    after deepseek's weights are freed, through the model's own API (the
    serving engine passes no frames, as in the reference: ROADMAP H24):
@@ -140,7 +169,7 @@ ends the run with a non-zero exit code and no result line:
    from the encoder's output as the reference does), every decode step
    a replay, bitwise the eager step; encode and prefill seconds, decode
    ms per replayed step beside the step's bound, tok/s, peak memory.
-15. ``parity_whisper`` – the served batch teacher-forced with the kernels
+18. ``parity_whisper`` – the served batch teacher-forced with the kernels
    and with the plain versions: in bf16 at full depth (the kernel path
    must reproduce the served tokens), in float32 at full width with 2
    encoder and 2 decoder layers (every block's update within 1e-3 of its
@@ -148,9 +177,25 @@ ends the run with a non-zero exit code and no result line:
    see the phase), and the same float32 model with its attention
    projections drawn at 1 / sqrt(d) (logits within 1e-3 of their largest
    magnitude, every greedy token equal).
-16. ``train`` – qwen3-1.7b (28 layers, d 2048, 16 / 8 heads of 128, vocab
+19. ``train_whisper`` – whisper-small at full width and depth (12 + 12
+   layers, 335.7 M parameters) trained as ``train`` below, its decoder
+   on train_4k's 4096 tokens a sequence (published whisper's decoder
+   holds 448 positions; this repo's places them by rope) and its encoder
+   on seeded frames [8, 1500, 768] in bf16 beside each step's tokens
+   (``WithFrames``), split into the microbatches with them: per step K1
+   288 and its backward 144 (36 attention calls a microbatch: 12
+   encoder, 12 decoder self, 12 cross; twice forward under remat),
+   nothing else; model FLOPs count the parameters that act on the frames
+   over the frames (``encdec_train_flops``); frames/s beside tokens/s.
+20. ``parity_train_whisper`` – ``parity_train`` for whisper with its
+   frames, on the init with the attention projections at 1 / sqrt(d) (the
+   random init saturates the encoder's softmax: H25): float32 at 12 + 12
+   layers, bf16 at 12 + 12, the reference init's bf16 reading reported; a
+   second kernel run bitwise; the Trainer drill at SMOKE whisper with its
+   frames.
+21. ``train`` – qwen3-1.7b (28 layers, d 2048, 16 / 8 heads of 128, vocab
    151936, tied embeddings, 1.72 B parameters) at full width and depth,
-   after whisper's weights are freed, trained through the port's
+   after whisper's are freed, trained through the port's
    ``make_train_step`` with the reference's ``AdamWConfig()``: bf16
    compute over float32 masters, bf16 moments, remat, sequences of 4096
    (train_4k), 8 per step (cut from 256) in microbatches of 2 (cut from
@@ -159,7 +204,7 @@ ends the run with a non-zero exit code and no result line:
    x 2 and its backward 28 x 4 times per step (remat runs each block's
    forward again in the backward), nothing else launches; step seconds,
    tokens/s, model FLOPs per second against 989 TFLOP/s, peak memory.
-17. ``parity_train`` – one microbatch's loss and gradients with K1 and
+22. ``parity_train`` – one microbatch's loss and gradients with K1 and
    its backward against autograd through the plain version: in float32
    at full width with 2 layers (the loss within 1e-5, every gradient
    leaf within 1e-3 of its largest magnitude) and in bf16 over float32
@@ -169,7 +214,7 @@ ends the run with a non-zero exit code and no result line:
    that fails at step 3, a restart whose restored parameters and moments
    equal the saved ones bit for bit and whose losses equal an
    uninterrupted run's.
-18. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
+23. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
    experts top 8 of d_expert 512, vocab 49155, untied) at full width,
    its depth cut from 32 to 24 layers (``reduced`` says so, with the
    measured peak), after qwen3's are freed, trained as ``train`` (capacity
@@ -178,13 +223,13 @@ ends the run with a non-zero exit code and no result line:
    layer and microbatch, twice under remat), its dX and dW kernels 288
    each, nothing else; model FLOPs counted on the active parameters (the
    routed experts' at top_k / num_experts).
-19. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
+24. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
    gradients among the kernels, the plain run held to the kernel run's
    routing in call order (remat routes twice a layer; the recompute must
    choose the forward's experts): float32 at full width with 2 layers,
    bf16 at 24; a second kernel run bitwise; the Trainer drill at SMOKE
    granite.
-20. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
+25. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
    vocab 262144, tied; a sliding window of 1024 on 5 of every 6 layers)
    at full width, its depth cut from 34 to 18 layers (15 local, 3 global;
    ``reduced`` says so, with the measured peak), after granite's are
@@ -192,11 +237,11 @@ ends the run with a non-zero exit code and no result line:
    column-split kernel at D = 256), 60 of them under the window, nothing
    else; model FLOPs count each local layer's attention over its window's
    pairs.
-21. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
+26. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
    width with its first 6 layers (5 local, 1 global), bf16 at 18; a
    second kernel run bitwise; the Trainer drill at SMOKE gemma3 with head
    dim 256 and a window of 128 over its 512 tokens.
-22. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
+27. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
    latent attention: query rank 1536, latent rank 512, query / key head
    dim 128 + 64, value head dim 128; vocab 102400, untied; dense d_ff
    12288) at full width, its depth cut from 60 to its dense first layer
@@ -205,28 +250,29 @@ ends the run with a non-zero exit code and no result line:
    and its backward 4 (the kv-split kernel at (D, Dv) = (192, 128)),
    nothing else; model FLOPs count attention at 6 (D + Dv) a head and
    pair.
-23. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
+28. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
    layer, float32 and bf16, on sequences of 2048 tokens (the plain
    attention's float32 score tensors over 128 heads would not fit at
    4096); a second kernel run bitwise; the Trainer drill at SMOKE deepseek
    with the published latent attention's head dims (its dense layer and
    two MoE layers: K1's backward at (192, 128) beside K3 and its
    gradients).
-24. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
+29. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
    65536, untied; 3.07 B parameters) at full width and depth (32 layers,
    under expandable segments; the line prints the depth and the peak),
    after deepseek's are freed, trained as ``train``: per step K5 256 (32
    layers x 4 microbatches, twice under remat) and K5b 512 (its four
    launches once a layer and microbatch), nothing else; model FLOPs count
    the WKV scan at three times ``rwkv_flops`` a layer.
-25. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
+30. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
    against the plain forward with the plain backward (``TRAIN_PLAIN``),
    on sequences of 1024 tokens (the plain scan runs one step per token):
-   float32 at the train depth, 32 layers; bf16 at 32 layers reported
+   float32 at its first 8 layers (RWKV_F32_LAYERS; 32 before the run's
+   budget cut it, ROADMAP H7); bf16 at 32 layers reported
    against TRAIN_BARS and held to them at RWKV_BF16_GATE_LAYERS (ROADMAP
    H30); a second kernel run bitwise at 32 layers; the Trainer drill at
    SMOKE rwkv6 (K5b at D = 16, chunk 4).
-26. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
+31. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
    state 64, chunk 128; one shared attention block of 32 heads of 80 at 9
    sites; d 2560, vocab 32000, untied) at full width and depth, under
    expandable segments, after rwkv6's are freed, trained as ``train``:
@@ -236,23 +282,24 @@ ends the run with a non-zero exit code and no result line:
    not recompute it), nothing else; model FLOPs count attention at the 9
    sites and the SSD scan at three times ``mamba_flops`` a layer; the
    parameters are counted from the tree.
-27. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
+32. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
    and its backward against the plain forward with the plain backward of
    the scan (``TRAIN_PLAIN``) and autograd through the plain attention, on
    sequences of 512 tokens, with the attention projections at 1 / sqrt(d)
    (at the reference init the saturated shared attention makes the model
-   chaotic at depth: ROADMAP H32): float32 at 54 layers; bf16 held to
+   chaotic at depth: ROADMAP H32): float32 at 18 layers, three sites of
+   the shared block (ZAMBA2_F32_LAYERS; 54 before H7's cut); bf16 held to
    TRAIN_BARS at ZAMBA2_BF16_GATE_LAYERS (the first attention site), the
    reference init's bf16 reading there reported; bf16 at 54 layers run
    twice through the kernels, bitwise; the Trainer drill at SMOKE zamba2
    (K4b at (P, N) = (16, 8), chunk 4).  ``tools/kernel_probe.py
    mamba2-parity-split`` splits the reference init's bf16 reading between
    K4 and K4b.
-28. ``dryrun`` – the meta-device dry run (``launch/dryrun.py``) held to the
+33. ``dryrun`` – the meta-device dry run (``launch/dryrun.py``) held to the
    card: each train phase's exact configuration (its depth cut, 8 x 4096
    tokens in microbatches of 2, the whole step with AdamW) priced on a
    (1, 1) mesh by ``price_dryrun`` through ``launch.dryrun.price_cell``,
-   in a one-thread child process on the CPU started before the first
+   in a one-thread child process on the CPU started before qwen3's
    train phase; its float32 masters and AdamW state must equal the state
    the phase built at every leaf in shape, dtype and bytes, and its
    priced total (the number the dry run's table prints) must lie within
@@ -281,7 +328,11 @@ the encoder (q, k, v [8, 1500, 12, 64], non-causal), the cross-attention
 prefill (q [8, 224, 12, 64] over k, v [8, 1500, 12, 64]) and the
 decoder's causal prefill ([8, 224, 12, 64]); K2 on the self cache
 ([8, 256, 12, 64], a device length) and the cross K/V ([8, 1500, 12, 64],
-the int length 1500 a decode step passes).  And K1's backward
+the int length 1500 a decode step passes); K1 and K2 at qwen1.5-4b's
+served shapes (q, k, v [8, 512, 20, 128], causal, G = 1; its cache [8,
+544, 20, 128]) and llava's at llava_image's prompt (q [8, 1024, 32, 128]
+over k, v [8, 1024, 8, 128]; its cache [8, 1056, 8, 128]), timed in bf16
+and held in float32.  And K1's backward
 (``csrc/flash_attention_bwd.cu``) against its plain version, relative to
 each gradient's largest magnitude (2e-5 float32, 2e-2 bf16): a sweep over
 every head dim it takes, both types, the masks and ragged lengths, and,
@@ -325,7 +376,12 @@ prefill's shape ([8, 512, 80, 64], with both), timed; each also in float32
 and under strong decay (dt a = -148 a step) with both.  And K1's backward
 at zamba2's shared attention block's training shape (q, k, v [2, 4096,
 32, 80], causal), timed in bf16 beside SDPA's backward and called twice
-for the same bits.
+for the same bits.  And K1's backward at whisper-small's training shapes
+(12 heads of 64, G = 1, microbatch 2): the encoder's bidirectional
+self-attention over its 1500 frames, the decoder's causal self-attention
+over 4096 tokens and its cross-attention (q [2, 4096, 12, 64] over k, v
+[2, 1500, 12, 64], non-causal), timed in bf16 beside SDPA's backward,
+called twice for the same bits, and held in float32.
 
 Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 ``design``: ``wgmma`` for K3's, its gradients' and K1's backward's,
@@ -333,8 +389,9 @@ Then one line ``{"kernels": [...]}`` with every kernel's numbers (its
 the main path takes; K3's decode shape beside its prefill row, K2's
 wrapper host time, K2's and K5's device kernels per call, and the device
 time of each of the scans' backwards' four kernels), a ``total`` line
-(with the seconds of the two whisper phases and of the train phases, the
-rwkv6 pair's and the zamba2 pair's apart, and the seconds from the start
+(with the seconds of the qwen1.5 / llava phases, the two whisper phases,
+whisper's two train phases and all the train phases, the rwkv6 pair's and
+the zamba2 pair's apart, and the seconds from the start
 at which each phase line was printed), the nvidia-smi line, and
 last ``{"ok": true,
 "device": {...}}``.  There is no
@@ -407,6 +464,16 @@ DEEPSEEK_LAYERS, DEEPSEEK_F32_LAYERS = 6, 2
 # 223 tokens and the start token (n_text_ctx 448); its float32 parity at
 # full width with 2 encoder and 2 decoder layers
 WHISPER_PROMPT_LEN, WHISPER_F32_LAYERS = 224, 2
+# train_whisper: published whisper's decoder holds 448 positions (learned
+# embeddings); this repo's model places them by rope, and the reference's
+# train cell (train_4k) gives its decoder 4096 tokens, which the phase keeps
+WHISPER_TRAIN_POSITIONS = ("4096 (train_4k): published whisper's decoder "
+                           "holds 448 learned positions, this repo's model "
+                           "uses rope and the reference's train cell 4096 "
+                           "tokens")
+# llava_image: the prompt whose first num_patches (576) positions the image
+# embeddings replace, and 448 positions of text after them
+LLAVA_PROMPT_LEN = 1024
 # K1's backward, relative to each gradient's largest magnitude: float32 FMA
 # sums in another order; bf16 p and ds rounded as product operands (the
 # plain version keeps them float32) and rounded outputs
@@ -441,6 +508,9 @@ TRAIN_F32_LAYERS, TRAIN_F32_LOSS_REL, TRAIN_F32_GRAD_REL = 2, 1e-5, 1e-3
 # at (192, 128) rounds p^T and ds^T to bf16 over 2.5x qwen3's columns a
 # pair, with 128 heads summed into wo's gradient, and its one layer keeps
 # the MLA projections' roundings beside K1's
+# whisper's, stated before its first run: qwen3's, since its kernels are
+# K1 and its backward alone, as qwen3's (at D = 64, G = 1, in 36 attention
+# calls: 12 bidirectional over the frames, 12 causal, 12 cross)
 # rwkv6's, stated before its first run: granite's, since K5's bf16
 # forward splits its float32 factors into two bf16 terms (16 bits) where
 # the plain forward keeps float32, in each of 32 layers, while K5b's first
@@ -453,7 +523,8 @@ TRAIN_BARS = {"parity_train": (1e-4, 5e-4, 3e-2),
               "parity_train_gemma3": (1e-4, 1e-3, 5e-2),
               "parity_train_deepseek": (1e-4, 1e-3, 5e-2),
               "parity_train_rwkv": (1e-4, 1e-3, 5e-2),
-              "parity_train_zamba2": (1e-4, 1e-3, 5e-2)}
+              "parity_train_zamba2": (1e-4, 1e-3, 5e-2),
+              "parity_train_whisper": (1e-4, 5e-4, 3e-2)}
 # train_moe: granite-moe-3b-a800m at full width, its depth cut from 32 to
 # 24 layers (2.63 B parameters): float32 masters, their gradient sums, bf16
 # copies and moments take about 22 bytes a parameter (qwen3's 50.55 GB
@@ -487,6 +558,12 @@ DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_PARITY_SEQ = 1, 2048
 # thousand launches a layer at 4096 tokens, 32 layers and remat's
 # recompute in the bf16 run)
 RWKV_PARITY_SEQ = 1024
+# the float32 parities of rwkv6 and zamba2 cut in depth to keep the card's
+# run under two thirds of its 900 s (ROADMAP H7): their plain scans run one
+# step a token; rwkv6's to its first 8 layers, zamba2's to its first three
+# sites of the shared attention block, 18 layers (each phase line's
+# ``reduced``)
+RWKV_F32_LAYERS, ZAMBA2_F32_LAYERS = 8, 18
 # rwkv6's parity in float32 at the train depth, and its bf16 bars gated at
 # RWKV_BF16_GATE_LAYERS (ROADMAP H30): at the reference init the two bf16
 # runs drift apart with depth.  On an NVIDIA H100 80GB HBM3 at 700 W
@@ -1839,7 +1916,8 @@ def sweep_err(cases, field="max_abs_err"):
 
 
 def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
-                  deepseek_cfg, whisper_cfg, seed: int) -> dict:
+                  deepseek_cfg, whisper_cfg, qwen15_cfg, llava_cfg,
+                  seed: int) -> dict:
     from repro_torch.models.moe import _capacity
     rng = np.random.default_rng(seed)
     seconds, t_lap = {}, time.perf_counter()
@@ -1935,6 +2013,25 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
             decode_main[tag.format(kind) + f"/len{rows}"] = decode_case(
                 ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
                 timed=timed, device_length=on_device)
+    # qwen1.5-4b (20 / 20 heads of 128, G = 1) at the served prompt and
+    # llava-next-mistral-7b (32 / 8 heads of 128) at llava_image's prompt
+    # (576 image positions, then text): K1 causal, K2 over the cache of
+    # prompt + GEN_LEN rows with its length on the device; timed in the
+    # models' dtype, held to the plain version in float32 as well
+    for cfg, plen in ((qwen15_cfg, PROMPT_LEN), (llava_cfg, LLAVA_PROMPT_LEN)):
+        h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        for dt in (getattr(torch, cfg.dtype), torch.float32):
+            timed = dt == getattr(torch, cfg.dtype)
+            tag = f"{cfg.name}/nq{NUM_QUERIES}" + ("" if timed
+                                                   else "/float32")
+            flash_main[tag] = flash_case(
+                ops, ref, rng, (NUM_QUERIES, plen, plen, h, kv, d), dt, True,
+                0, timed=timed, bands=timed)
+            rows = plen + GEN_LEN
+            decode_main[f"{tag}/len{rows}"] = decode_case(
+                ops, ref, rng, (NUM_QUERIES, rows, h, kv, d), dt, rows,
+                timed=timed)
+        torch.cuda.empty_cache()
     lap("k1_k2_served")
     # K1's q_offset against its plain version, and flash_attention_sp at
     # qwen3's and gemma3's served shapes against one K1 call
@@ -2016,6 +2113,23 @@ def phase_kernels(ops, ref, cfgs, moe_cfg, rwkv_cfg, mamba_cfg, gemma_cfg,
         ops, ref, rng, dshape[:3] + (16, 16, dqk), torch.float32, True, 0,
         dv=ml.v_head_dim)
     torch.cuda.empty_cache()
+    # whisper-small's training shapes (12 heads of 64, G = 1), the
+    # train_whisper phase's microbatch: the encoder's bidirectional
+    # self-attention over its frames, the decoder's causal self-attention
+    # and its cross-attention (the decoder's tokens over the frames,
+    # non-causal); timed in bf16 beside SDPA's backward, held in float32
+    h, kv = whisper_cfg.num_heads, whisper_cfg.num_kv_heads
+    d, seq = whisper_cfg.resolved_head_dim, train_seq_len()
+    for kind, sq, sk, causal in (("encoder", frames, frames, False),
+                                 ("decoder", seq, seq, True),
+                                 ("cross", seq, frames, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = dtype == torch.bfloat16
+            bwd_main[f"{whisper_cfg.name}/train_{kind}"
+                     + ("" if timed else "/float32")] = flash_bwd_case(
+                ops, ref, rng, (TRAIN_MICROBATCH, sq, sk, h, kv, d), dtype,
+                causal, 0, timed=timed)
+            torch.cuda.empty_cache()
     lap("k1b")
     # K3: the sweep, a strided batched case, the serving shapes
     moe_sweep = []
@@ -2469,14 +2583,15 @@ def serve_checked(mods, bundles, wf, prompts, policy_name: str = "FATE",
 
 
 def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
-                prompt_len: int = PROMPT_LEN, reduced: dict | None = None):
+                prompt_len: int = PROMPT_LEN, reduced: dict | None = None,
+                note: str = ""):
     """Serve the example's workflow with ``models`` = {served name:
     (config, weight seed)} at ``prompt_len`` (``serve_checked``); the
     launch counts must be what the placements call for, every kernel the
     models use launched at least once; a local/global model's ring and
     global caches must hold the rows their sizes call for.  ``reduced``
-    names what was cut from a published config, printed on the phase's
-    line."""
+    names what was cut from a published config, and ``note`` what the
+    engine does not pass a model, both printed on the phase's line."""
     t0 = time.perf_counter()
     bundles = {name: mods["ModelBundle"].create(name, cfg, seed=wseed)
                for name, (cfg, wseed) in models.items()}
@@ -2506,6 +2621,7 @@ def phase_serve(mods, models: dict, seed: int, phase: str = "serve",
                                         _tree_leaves(b.params))}
                    for name, b in bundles.items()},
         **({"reduced": reduced} if reduced else {}),
+        **({"note": note} if note else {}),
         "queries": NUM_QUERIES, "virtual_devices": N_DEVICES,
         "prompt_len": prompt_len, "gen_len": GEN_LEN,
         "init_seconds": init_s, "stages": run["stages"],
@@ -2758,23 +2874,29 @@ def swapped_alone(ops, ref, moe_mod, bundle, shard, served) -> dict:
     return out
 
 
-def layerwise(ops, ref, moe_mod, bundle, shard, served) -> dict:
+def layerwise(ops, ref, moe_mod, bundle, shard, served,
+              frames=None) -> dict:
     """Every layer of a DecoderLM run twice on the same input: with the
-    kernels, and with the plain versions under the same routing.  The
-    largest difference of the layer's update (its output less its input)
-    relative to that update's largest magnitude, over the layers, the
-    prefill and every decode step.  The plain call writes the same cache
-    rows again: the projections that fill them use no kernel."""
+    kernels, and with the plain versions under the same routing (an MoE
+    model's, ``moe_mod`` given).  The largest difference of the layer's
+    update (its output less its input) relative to that update's largest
+    magnitude, over the layers, the prefill (with a VLM's image
+    embeddings, ``frames``) and every decode step.  The plain call writes
+    the same cache rows again: the projections that fill them use no
+    kernel."""
     model = bundle._model
     block = model._block
     worst = {"max_rel_update_diff": 0.0, "layer_calls": 0}
+    hold = lambda log, stats=None: (
+        held_routing(moe_mod, log, stats) if moe_mod is not None
+        else contextlib.nullcontext())
 
     def checked(p, x, positions, **kw):
         log = []
-        with held_routing(moe_mod, log):
+        with hold(log):
             out, new_cache = block(p, x, positions, **kw)
         stats = {"decisions": 0, "flipped": 0}
-        with plain_versions(ops, ref), held_routing(moe_mod, log, stats):
+        with plain_versions(ops, ref), hold(log, stats):
             plain, _ = block(p, x, positions, **kw)
         upd = (out - x).float()
         rel = float((plain.float() - out.float()).abs().max()) / max(
@@ -2786,7 +2908,7 @@ def layerwise(ops, ref, moe_mod, bundle, shard, served) -> dict:
 
     model._block = checked
     try:
-        teacher_forced(bundle, shard, served)
+        teacher_forced(bundle, shard, served, frames)
     finally:
         del model._block
     return worst
@@ -2907,6 +3029,20 @@ def phase_parity(mods, bundles, prompts, policy, results, wf) -> dict:
     return out
 
 
+def whole_model_f32(rec: dict, held: bool = False) -> dict:
+    """``rec`` (``kernel_vs_plain`` on a float32 model whose attention
+    projections are at 1 / sqrt(d)) with its init and the whole model's
+    float32 bars, those ROADMAP H25 adds beside the per-layer and
+    per-block gates at the reference's init: logits within PARITY_F32_REL
+    of their largest magnitude, every greedy token equal (``held``: of the
+    plain run held to the kernel run's routing)."""
+    got = rec["routing_held"] if held else rec
+    tol = PARITY_F32_REL * rec["logit_abs_max"]
+    return {**rec, "init": INIT_LABEL[attention_at_input_width], "tol": tol,
+            "within_the_bars": rec["finite"] and got["max_logit_diff"] <= tol
+            and got["greedy_tokens_agree"]}
+
+
 @torch.inference_mode()
 def phase_parity_moe_rwkv(mods, bundles, prompts, policy, results, wf,
                           seed: int) -> dict:
@@ -2919,7 +3055,9 @@ def phase_parity_moe_rwkv(mods, bundles, prompts, policy, results, wf,
     any difference several-fold per layer, every layer's update within
     PARITY_F32_REL of its magnitude on the same input and every greedy
     token equal under the kernel run's routing, with the whole-model
-    numbers reported beside them)."""
+    numbers reported beside them; and the same cut model with its
+    attention projections at 1 / sqrt(d), ``whole_model_f32``'s bars under
+    the kernel run's routing: ROADMAP H25)."""
     ops, ref = mods["ops"], mods["ref"]
     out, problems = {"phase": "parity_moe_rwkv"}, []
     for name, bundle in bundles.items():
@@ -2957,6 +3095,19 @@ def phase_parity_moe_rwkv(mods, bundles, prompts, policy, results, wf,
                             f"or greedy tokens differ")
         out[name] = {"stage": sid, "bf16_full_depth": bf16,
                      "float32_cut_depth": f32}
+        if moe_mod is not None:
+            # the same cut model with the attention projections at
+            # 1 / sqrt(d) (ROADMAP H25): the whole model's bars, under the
+            # kernel run's routing
+            b32 = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+            attention_at_input_width(b32.params)
+            r = whole_model_f32(kernel_vs_plain(ops, ref, b32, shard, served,
+                                                moe_mod), held=True)
+            del b32
+            if not r["within_the_bars"]:
+                problems.append(f"{cfg32.name} float32 ({r['init']}): the "
+                                f"whole model beyond its bars")
+            out[name]["float32_cut_depth_attention_at_input_width"] = r
     out["ok"] = not problems
     out["problems"] = problems
     emit(out)
@@ -2976,7 +3127,10 @@ def phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
     magnitude and every greedy token equal).  Beside both, each block's
     own difference on the same input (``hybrid_layerwise``): where the
     whole model's kernel and plain runs part, it tells a kernel that
-    disagrees from a model that amplifies agreeing blocks' roundings."""
+    disagrees from a model that amplifies agreeing blocks' roundings.
+    Both again with the attention projections at 1 / sqrt(d) (ROADMAP
+    H25): the cut model in float32 gated on ``whole_model_f32``'s bars,
+    the served weights so rescaled in bf16 at full depth reported."""
     ops, ref = mods["ops"], mods["ref"]
     name = "qwen-7b"
     bundle = bundles[name]
@@ -3007,9 +3161,39 @@ def phase_parity_hybrid(mods, bundles, prompts, policy, results, wf,
         problems.append(f"{cfg32.name} float32: kernels and plain versions "
                         f"differ beyond {f32['tol']} or greedy tokens "
                         f"differ")
+    # both again with the attention projections at 1 / sqrt(d) (ROADMAP
+    # H25): the cut model in float32, with each block's difference beside,
+    # held to the whole model's bars; the served weights so rescaled in
+    # bf16 at full depth, whose whole-model reading is reported against
+    # the parity phase's PARITY_LOGIT_TOL and not gated: it did not hold
+    # (0.211, greedy agreement 0.85, each block within
+    # HYBRID_BF16_BLOCK_REL of its output; seed 0 on an H100 80GB HBM3 at
+    # 700 W)
+    b_r = mods["ModelBundle"].create(name, bundle.cfg, seed=seed)
+    attention_at_input_width(b_r.params)
+    r = kernel_vs_plain(ops, ref, b_r, shard, served)
+    del b_r
+    torch.cuda.empty_cache()
+    bf16_rescaled = {**r, "init": INIT_LABEL[attention_at_input_width],
+                     "tol": PARITY_LOGIT_TOL,
+                     "within_the_bars": r["finite"]
+                     and r["max_logit_diff"] < PARITY_LOGIT_TOL}
+    b_r = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+    attention_at_input_width(b_r.params)
+    f32_rescaled = whole_model_f32(kernel_vs_plain(ops, ref, b_r, shard,
+                                                   served))
+    f32_rescaled["layerwise"] = hybrid_layerwise(ops, ref, b_r, shard,
+                                                 served)
+    del b_r
+    if not f32_rescaled["within_the_bars"]:
+        problems.append(f"{cfg32.name} float32 ({f32_rescaled['init']}): "
+                        f"the whole model beyond its bars")
     out = {"phase": "parity_hybrid", "ok": not problems,
            name: {"stage": sid, "bf16_full_depth": bf16,
-                  "float32_cut_depth": f32},
+                  "float32_cut_depth": f32,
+                  "bf16_full_depth_attention_at_input_width": bf16_rescaled,
+                  "float32_cut_depth_attention_at_input_width":
+                      f32_rescaled},
            "problems": problems}
     emit(out)
     if problems:
@@ -3112,7 +3296,146 @@ def phase_parity_deepseek(mods, bundles, prompts, policy, results, wf,
 
 
 # ---------------------------------------------------------------------------
-# phases 14-15: whisper-small's encoder-decoder
+# llava_image, parity_qwen15_llava
+# ---------------------------------------------------------------------------
+
+
+def llava_inputs(cfg, seed: int):
+    """NUM_QUERIES prompts of LLAVA_PROMPT_LEN tokens and their image
+    embeddings [NUM_QUERIES, num_patches, d] in bf16 (the reference's stub
+    vision frontend: seeded random embeddings), on the card."""
+    rng = np.random.default_rng(seed + 11)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (NUM_QUERIES, LLAVA_PROMPT_LEN))).to("cuda")
+    embeds = randn(rng, (NUM_QUERIES, cfg.num_patches, cfg.d_model),
+                   torch.bfloat16)
+    return prompts, embeds
+
+
+@torch.inference_mode()
+def phase_llava_image(mods, bundle, seed: int):
+    """llava-next-mistral-7b with image embeddings, which the serving
+    engine does not pass (as the reference's does not): its bundle from
+    serve_qwen15_llava, weights and decode graphs shared, through
+    ``DecodeGraphs.generate`` on ``llava_inputs`` (the embeddings replace
+    the prompt's first num_patches positions), held as
+    ``checked_generate`` holds it: K1 once per layer at the prefill, K2
+    once per layer at each decode step, every step a replay, bitwise the
+    eager ones.  The same prompts without the embeddings must serve other
+    tokens.  Prefill seconds, decode ms per replayed step beside the
+    weights' bound and the cache's, peak memory."""
+    cfg = bundle.cfg
+    prompts, embeds = llava_inputs(cfg, seed)
+    run, tokens, problems = checked_generate(mods, bundle, prompts, embeds)
+    plain_tokens, _ = bundle.decoder.generate(prompts, GEN_LEN,
+                                              run["max_len"])
+    changed = not torch.equal(plain_tokens, tokens)
+    if not changed:
+        problems.append("the image embeddings do not change the tokens")
+    kv_bytes = (2 * cfg.num_layers * NUM_QUERIES * run["max_len"]
+                * cfg.num_kv_heads * cfg.resolved_head_dim
+                * torch.finfo(getattr(torch, cfg.dtype)).bits // 8)
+    out = {
+        "phase": "llava_image", "ok": not problems,
+        "model": {"arch": cfg.name, "layers": cfg.num_layers,
+                  "d_model": cfg.d_model, "heads": cfg.num_heads,
+                  "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                  "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+                  "params": sum(x.numel() for x in _tree_leaves(
+                      bundle.params))},
+        "image_positions": cfg.num_patches,
+        "text_positions": LLAVA_PROMPT_LEN - cfg.num_patches,
+        "note": "the bundle served by serve_qwen15_llava; the engine "
+                "passes no image embeddings, so they go in here through "
+                "the model's decode graphs",
+        **run,
+        "weights_bound_ms": weight_bytes(bundle) / HBM_BYTES_PER_S * 1e3,
+        "cache_bound_ms": kv_bytes / HBM_BYTES_PER_S * 1e3,
+        "image_embeddings_change_tokens": changed,
+        "problems": problems,
+    }
+    emit(out)
+    if problems:
+        fail("llava_image phase failed: " + "; ".join(problems))
+    return out, {"prompts": prompts, "embeds": embeds, "tokens": tokens}
+
+
+@torch.inference_mode()
+def phase_parity_qwen15_llava(mods, bundles, prompts, policy, results, wf,
+                              image: dict, seed: int) -> dict:
+    """Per model of serve_qwen15_llava, its first served shard, and for
+    llava also llava_image's prompts with their image embeddings (``image``),
+    teacher-forced at int positions with the kernels and with the plain
+    versions: in bf16 at full depth (gates: finite logits, the served
+    tokens reproduced by the kernel path; the logit difference, the
+    greedy agreement and the first layer's ``score_std`` reported); in
+    float32 at full width and PARITY_F32_LAYERS layers from the
+    reference's init (gate: every layer's update within PARITY_F32_REL of
+    its magnitude on the same input, ``layerwise``; the whole model's
+    numbers reported: the init draws the projections at 1 / sqrt(heads)
+    and saturates the softmax, ROADMAP H25) and with the attention
+    projections at 1 / sqrt(d) (gates, as parity_whisper's: logits within
+    PARITY_F32_REL of their largest magnitude, every greedy token
+    equal)."""
+    ops, ref = mods["ops"], mods["ref"]
+    out, problems = {"phase": "parity_qwen15_llava"}, []
+    for name, bundle in bundles.items():
+        sid, shard, served = first_shard(policy.placements, wf, prompts,
+                                         results, name)
+        cases = {"served_shard": (shard, served, None)}
+        if bundle.cfg.family == "vlm":
+            cases["image_prompt"] = (image["prompts"], image["tokens"],
+                                     image["embeds"])
+        rec = {"stage": sid}
+        for case, (toks, done, embeds) in cases.items():
+            bf16 = kernel_vs_plain(ops, ref, bundle, toks, done,
+                                   frames=embeds)
+            bf16["score_std"] = decoder_score_std(bundle, toks, embeds)
+            if not (bf16["finite"]
+                    and bf16["kernel_path_reproduces_served_tokens"]):
+                problems.append(f"{bundle.cfg.name} bf16 ({case}): logits "
+                                f"not finite or served tokens not "
+                                f"reproduced")
+            rec[case] = {"prompt_len": int(toks.shape[1]),
+                         "bf16_full_depth": bf16}
+        cfg32 = dataclasses.replace(bundle.cfg, dtype="float32",
+                                    num_layers=PARITY_F32_LAYERS)
+        for init in (None, attention_at_input_width):
+            b32 = mods["ModelBundle"].create(name, cfg32, seed=seed + 7)
+            if init is not None:
+                init(b32.params)
+            for case, (toks, done, embeds) in cases.items():
+                e32 = None if embeds is None else embeds.float()
+                r = kernel_vs_plain(ops, ref, b32, toks, done, frames=e32)
+                r["init"] = INIT_LABEL[init]
+                r["score_std"] = decoder_score_std(b32, toks, e32)
+                if init is None:
+                    r["layerwise"] = layerwise(ops, ref, None, b32, toks,
+                                               done, e32)
+                    r["tol"] = PARITY_F32_REL
+                    ok = r["layerwise"]["max_rel_update_diff"] <= r["tol"]
+                else:
+                    r = whole_model_f32(r)
+                    ok = r["within_the_bars"]
+                if not (r["finite"] and ok):
+                    problems.append(f"{cfg32.name} float32 ({case}, "
+                                    f"{r['init']} init): kernels and plain "
+                                    f"versions differ beyond {r['tol']}")
+                key = ("float32_cut_depth" if init is None
+                       else "float32_cut_depth_attention_at_input_width")
+                rec[case][key] = r
+            del b32
+            torch.cuda.empty_cache()
+        out[name] = rec
+    out["ok"], out["problems"] = not problems, problems
+    emit(out)
+    if problems:
+        fail("parity_qwen15_llava phase failed: " + "; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# whisper, parity_whisper: whisper-small's encoder-decoder
 # ---------------------------------------------------------------------------
 
 
@@ -3128,17 +3451,102 @@ def whisper_inputs(cfg, seed: int):
     return prompts, frames
 
 
-def whisper_launches(cfg) -> dict:
-    """Kernel launches of one generate call: K1 at the prefill once per
+def generate_launches(cfg) -> dict:
+    """Kernel launches of one ``DecodeGraphs.generate`` call: K1 at the
+    prefill once per layer and K2 once per layer at each of the GEN_LEN - 1
+    decode steps; for an encoder-decoder, K1 at the prefill once per
     encoder layer (bidirectional) and twice per decoder layer (causal
-    self-attention, cross-attention over the frames); K2 at each of the
-    GEN_LEN - 1 decode steps twice per decoder layer (the self cache, the
-    cross K/V)."""
+    self-attention, cross-attention over the frames), K2 at each decode
+    step twice per decoder layer (the self cache, the cross K/V)."""
     exp = dict.fromkeys(REPLACES, 0)
     exp["moe_gemm_decode_tile"] = 0
-    exp["flash_attention"] = cfg.encoder_layers + 2 * cfg.num_layers
-    exp["decode_attention"] = 2 * cfg.num_layers * (GEN_LEN - 1)
+    exp["flash_attention"] = len(layer_kinds(cfg))
+    per_step = 2 if cfg.family == "audio" else 1
+    exp["decode_attention"] = per_step * cfg.num_layers * (GEN_LEN - 1)
     return exp
+
+
+def seconds(fn, repeats: int = 3) -> float:
+    """Mean wall seconds of ``fn`` over ``repeats`` synchronised calls."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t) / repeats
+
+
+def checked_generate(mods, bundle, prompts, extra=None):
+    """GEN_LEN tokens of ``prompts`` (with ``extra``, an encoder-decoder's
+    frames or a VLM's image embeddings) through the bundle's
+    ``DecodeGraphs.generate``: a warm-up pass that captures the key's
+    graph, then the measured pass with the launch counts zeroed just
+    before it, which must launch ``generate_launches`` and run every
+    decode step as a replay; then the prefill (the mean of three calls)
+    and the replayed steps timed, and the replayed steps held bitwise to
+    the eager ones and to the served tokens.  Returns the line's fields,
+    the served tokens and the problems."""
+    ops, cfg, dec = mods["ops"], bundle.cfg, bundle.decoder
+    nq, plen = prompts.shape
+    max_len = plen + GEN_LEN
+    dec.generate(prompts, GEN_LEN, max_len, extra)         # captures
+    before = (dec.replays, dec.eager_steps, dec.captures)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    tokens, _ = dec.generate(prompts, GEN_LEN, max_len, extra)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = ops.counts()
+    peak = torch.cuda.max_memory_allocated()
+    replayed, eager, captured = (now - then for now, then in zip(
+        (dec.replays, dec.eager_steps, dec.captures), before))
+    expect = generate_launches(cfg)
+    problems = []
+    if tuple(tokens.shape) != (nq, GEN_LEN) or \
+            int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        problems.append(f"tokens {tuple(tokens.shape)} outside [0, "
+                        f"{cfg.vocab_size})")
+    for name, n in counts.items():
+        if n != expect[name] or (expect[name] > 0 and n <= 0):
+            problems.append(f"{name}: {n} launches, expected {expect[name]}")
+    if (replayed, eager, captured) != (GEN_LEN - 1, 0, 0):
+        problems.append(f"{replayed} decode steps replayed and {eager} "
+                        f"eager, {captured} captures, in the measured pass")
+    slot = dec.slot(nq, max_len)
+    prefill_s = seconds(lambda: slot.prefill(prompts, extra))
+    decode_s = seconds(lambda: [slot.replay() for _ in range(GEN_LEN - 1)],
+                       repeats=1)
+    slot.prefill(prompts, extra)
+    replays = []
+    for _ in range(GEN_LEN - 1):
+        slot.replay()
+        replays.append(slot.graph_logits.clone())
+    graph_tokens = slot.tokens[:, plen:].clone()
+    slot.prefill(prompts, extra)
+    eager_logits = [slot.step().clone() for _ in range(GEN_LEN - 1)]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(replays, eager_logits))
+               and torch.equal(slot.tokens[:, plen:], graph_tokens)
+               and torch.equal(graph_tokens, tokens))
+    if not bitwise:
+        problems.append("replayed decode steps differ from the eager steps "
+                        "or from the served tokens")
+    if not all(bool(torch.isfinite(x.float()).all()) for x in eager_logits):
+        problems.append("decode logits not finite")
+    fields = {
+        "queries": nq, "prompt_len": plen, "gen_len": GEN_LEN,
+        "max_len": max_len, "generate_wall_s": wall,
+        "generated_tokens_per_s": nq * GEN_LEN / wall,
+        "prefill_s": prefill_s,
+        "decode_ms_per_replayed_step": decode_s / (GEN_LEN - 1) * 1e3,
+        "launches": counts, "launches_expected": expect,
+        "decode_graphs": {"captured": captured,
+                          "decode_steps_replayed": replayed,
+                          "decode_steps_eager": eager,
+                          "decode_steps": GEN_LEN - 1},
+        "graph_equals_eager_bitwise": bitwise, "peak_memory_bytes": peak}
+    return fields, tokens, problems
 
 
 def whisper_step_bound(bundle, max_len: int) -> dict:
@@ -3175,78 +3583,16 @@ def phase_whisper(mods, cfg, seed: int):
     H24): NUM_QUERIES prompts of WHISPER_PROMPT_LEN tokens and their
     frames, GEN_LEN generated tokens through the bundle's
     ``DecodeGraphs.generate`` (the prefill eagerly, the decode steps as
-    replays of the graph captured in a warm-up pass).  The launch counts
-    of the measured pass must be ``whisper_launches``', every decode step
-    a replay, and the replayed steps bitwise the eager ones; then the
-    encode and the prefill (means of three calls) and the replayed steps
-    are timed apart."""
-    ops = mods["ops"]
+    replays of the graph captured in a warm-up pass), held as
+    ``checked_generate`` holds it; the encode (the mean of three calls) is
+    timed apart."""
     t0 = time.perf_counter()
     bundle = mods["ModelBundle"].create("whisper", cfg, seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    model, dec = bundle._model, bundle.decoder
     prompts, frames = whisper_inputs(cfg, seed)
-    plen, max_len = WHISPER_PROMPT_LEN, WHISPER_PROMPT_LEN + GEN_LEN
-    dec.generate(prompts, GEN_LEN, max_len, frames)       # captures
-    before = (dec.replays, dec.eager_steps, dec.captures)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    tokens, _ = dec.generate(prompts, GEN_LEN, max_len, frames)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = ops.counts()
-    peak = torch.cuda.max_memory_allocated()
-    replayed, eager, captured = (now - then for now, then in zip(
-        (dec.replays, dec.eager_steps, dec.captures), before))
-    expect = whisper_launches(cfg)
-    problems = []
-    if tuple(tokens.shape) != (NUM_QUERIES, GEN_LEN) or \
-            int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
-        problems.append(f"tokens {tuple(tokens.shape)} outside [0, "
-                        f"{cfg.vocab_size})")
-    for name, n in counts.items():
-        if n != expect[name] or (expect[name] > 0 and n <= 0):
-            problems.append(f"{name}: {n} launches, expected {expect[name]}")
-    if (replayed, eager, captured) != (GEN_LEN - 1, 0, 0):
-        problems.append(f"{replayed} decode steps replayed and {eager} "
-                        f"eager, {captured} captures, in the measured pass")
-
-    def seconds(fn, repeats: int = 3):
-        """Mean wall seconds of ``fn`` over ``repeats`` synchronised
-        calls."""
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(repeats):
-            fn()
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t) / repeats
-
-    slot = dec.slot(NUM_QUERIES, max_len)
-    encode_s = seconds(lambda: model.encode(bundle.params, frames))
-    prefill_s = seconds(lambda: slot.prefill(prompts, frames))
-    decode_s = seconds(lambda: [slot.replay() for _ in range(GEN_LEN - 1)],
-                       repeats=1)
-    slot.prefill(prompts, frames)
-    replays = []
-    for _ in range(GEN_LEN - 1):
-        slot.replay()
-        replays.append(slot.graph_logits.clone())
-    graph_tokens = slot.tokens[:, plen:].clone()
-    slot.prefill(prompts, frames)
-    eager_logits = [slot.step().clone() for _ in range(GEN_LEN - 1)]
-    bitwise = (all(torch.equal(a, b) for a, b in zip(replays, eager_logits))
-               and torch.equal(slot.tokens[:, plen:], graph_tokens)
-               and torch.equal(graph_tokens, tokens))
-    if not bitwise:
-        problems.append("replayed decode steps differ from the eager steps "
-                        "or from the served tokens")
-    logits_ok = all(bool(torch.isfinite(x.float()).all())
-                    for x in eager_logits)
-    if not logits_ok:
-        problems.append("decode logits not finite")
+    run, tokens, problems = checked_generate(mods, bundle, prompts, frames)
+    encode_s = seconds(lambda: bundle._model.encode(bundle.params, frames))
     out = {
         "phase": "whisper", "ok": not problems,
         "model": {"arch": cfg.name, "encoder_layers": cfg.encoder_layers,
@@ -3257,20 +3603,9 @@ def phase_whisper(mods, cfg, seed: int):
                   "dtype": cfg.dtype,
                   "params": sum(x.numel() for x in _tree_leaves(
                       bundle.params))},
-        "queries": NUM_QUERIES, "prompt_len": plen, "gen_len": GEN_LEN,
-        "max_len": max_len, "init_seconds": init_s,
-        "generate_wall_s": wall,
-        "generated_tokens_per_s": NUM_QUERIES * GEN_LEN / wall,
-        "encode_s": encode_s, "prefill_s": prefill_s,
-        "decode_ms_per_replayed_step": decode_s / (GEN_LEN - 1) * 1e3,
-        "decode_step_bound": whisper_step_bound(bundle, max_len),
-        "launches": counts, "launches_expected": expect,
-        "decode_graphs": {"captured": captured,
-                          "decode_steps_replayed": replayed,
-                          "decode_steps_eager": eager,
-                          "decode_steps": GEN_LEN - 1},
-        "graph_equals_eager_bitwise": bitwise,
-        "peak_memory_bytes": peak, "problems": problems,
+        "init_seconds": init_s, "encode_s": encode_s, **run,
+        "decode_step_bound": whisper_step_bound(bundle, run["max_len"]),
+        "problems": problems,
     }
     emit(out)
     if problems:
@@ -3279,15 +3614,34 @@ def phase_whisper(mods, cfg, seed: int):
 
 
 def encoder_score_std(bundle, frames) -> float:
-    """The standard deviation of the first encoder layer's attention
-    scores on the first query's frames: how far the random init
-    saturates the softmax."""
+    """``score_std`` of the first encoder layer on the first query's
+    frames."""
+    x = frames[:1].to(getattr(torch, bundle.cfg.dtype)) \
+        + bundle.params["pos_enc"][None]
+    return score_std(bundle, x)
+
+
+def decoder_score_std(bundle, tokens, embeds=None) -> float:
+    """``score_std`` of a DecoderLM's first layer on the first query's
+    prompt (its image embeddings in front, ``embeds``)."""
+    x = bundle._model._embed_tokens(
+        bundle.params, tokens[:1], None if embeds is None else embeds[:1])
+    return score_std(bundle, x)
+
+
+def score_std(bundle, x) -> float:
+    """The standard deviation of the first layer's attention scores (over
+    sqrt(head_dim)) on that layer's input ``x`` [1, S, d]: how far the
+    random init saturates the softmax.  The first layer is the first
+    stack of the tree with an ``attn`` block (an encoder-decoder's
+    encoder)."""
     from repro_torch.models.attention import gqa_project_qkv
     from repro_torch.models.layers import rms_norm
-    cfg, params = bundle.cfg, bundle.params
-    p = {k: v[0] for k, v in params["encoder"]["attn"].items()}
-    x = frames[:1].to(getattr(torch, cfg.dtype)) + params["pos_enc"][None]
-    h = rms_norm(x, params["encoder"]["ln_attn"][0], cfg.norm_eps)
+    cfg = bundle.cfg
+    stack = next(v for v in bundle.params.values()
+                 if isinstance(v, dict) and "attn" in v)
+    p = {k: v[0] for k, v in stack["attn"].items()}
+    h = rms_norm(x, stack["ln_attn"][0], cfg.norm_eps)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, _ = gqa_project_qkv(p, cfg, h, pos)
     k = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
@@ -3408,11 +3762,15 @@ def layer_kinds(cfg) -> list[str]:
     """The model's attention layer kinds in execution order ('L' local,
     under the sliding window; 'G' global); none for RWKV6; for the Mamba2
     hybrid one global layer per site of its shared attention block (after
-    every ``attn_every``-th Mamba2 layer)."""
+    every ``attn_every``-th Mamba2 layer); for an encoder-decoder one
+    global kind per attention call, none under a window: each encoder
+    layer's, then each decoder layer's self- and cross-attention."""
     from repro_torch.models.families import Mamba2Hybrid
     from repro_torch.models.transformer import DecoderLM
     if cfg.rwkv is not None:
         return []
+    if cfg.family == "audio":
+        return ["G"] * (cfg.encoder_layers + 2 * cfg.num_layers)
     if cfg.ssm is not None:
         return ["G"] * Mamba2Hybrid(cfg, device="cpu").n_attn
     return DecoderLM(cfg, device="cpu").layer_kinds()
@@ -3441,7 +3799,11 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     block's parameters once, as the tree holds them, although each of its
     sites runs them), attention over the causal pairs at each site of the
     shared block, and the SSD scan's operations (``mamba_flops``) three
-    times a layer.  The forward that remat repeats is not counted."""
+    times a layer.  For an encoder-decoder (``encdec_train_flops``) the
+    encoder's parameters over its frames and the decoder's over its
+    tokens.  The forward that remat repeats is not counted."""
+    if cfg.family == "audio":
+        return encdec_train_flops(cfg, n_params, batch, seq)
     if cfg.rwkv is not None:
         hd = cfg.rwkv.head_dim
         scan = 3.0 * cfg.num_layers * rwkv_flops(
@@ -3461,6 +3823,39 @@ def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     return 6.0 * active_params(cfg, n_params) * batch * seq + attn + scan
 
 
+def frames_side_params(cfg) -> int:
+    """An encoder-decoder's parameters that act on the encoder's frames,
+    counted from its definitions: the encoder's stack, ``pos_enc`` and
+    ``ln_enc``, and the decoder's cross-attention key and value
+    projections, which project the encoder's output."""
+    from repro_torch.models.families import EncDecLM
+    defs = EncDecLM(cfg, device="cpu").param_defs()
+    cross = defs["decoder"]["cross"]
+    return sum(math.prod(d.shape) for d in _tree_leaves(
+        {k: defs[k] for k in ("encoder", "pos_enc", "ln_enc")})
+        + [cross["wk"], cross["wv"]])
+
+
+def encdec_train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step of an encoder-decoder over
+    ``batch`` sequences of ``seq`` decoder tokens and
+    ``cfg.encoder_frames`` frames each: 6 x the parameters that act on the
+    frames (``frames_side_params``) x frames, 6 x the rest (the decoder's
+    stack, the embedding, the head) x tokens, and attention's products at
+    6 (D + Dv) a head and attended pair: frames x frames on each encoder
+    layer (bidirectional), the causal pairs of the tokens on each decoder
+    layer's self-attention and tokens x frames on its cross-attention.
+    ``launch/analysis.py model_flops``, the reference's definition, counts
+    every parameter over the decoder's tokens (ROADMAP queue 3)."""
+    frames = cfg.encoder_frames
+    enc = frames_side_params(cfg)
+    pairs = (cfg.encoder_layers * attended_pairs(frames, frames, False, 0)
+             + cfg.num_layers * (attended_pairs(seq, seq, True, 0)
+                                 + attended_pairs(seq, frames, False, 0)))
+    attn = 6.0 * sum(attention_head_dims(cfg)) * batch * cfg.num_heads * pairs
+    return 6.0 * batch * (enc * frames + (n_params - enc) * seq) + attn
+
+
 def train_launches(cfg, n_accum: int, steps: int) -> dict:
     """Kernel launches of ``steps`` train steps of a decoder with
     ``cfg.remat``, per layer and microbatch: K1's forward once, and again
@@ -3475,7 +3870,10 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
     K4b's kernels once each (``mamba2_scan.bwd_launches`` of the passes
     that xh, b, c, dt and a_log call for: no initial state); per site of
     the shared attention block, which remat does not recompute, K1 and
-    its backward once; nothing else."""
+    its backward once; nothing else.  For an encoder-decoder K1 and its
+    backward as for a decoder layer once per attention call
+    (``layer_kinds``): each encoder layer's, each decoder layer's self-
+    and cross-attention."""
     from repro_torch.kernels import mamba2_scan as ms_mod
     from repro_torch.kernels import rwkv6_scan as rs_mod
     exp = dict.fromkeys(REPLACES, 0)
@@ -3493,13 +3891,48 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
             ms_mod.bwd_passes((True,) * 5 + (False,)))
         exp["flash_attention"] = exp["flash_attention_bwd"] = sites * runs
         return exp
-    exp["flash_attention"] = cfg.num_layers * runs * fwd
-    exp["flash_attention_bwd"] = cfg.num_layers * runs
+    calls = len(layer_kinds(cfg)) if cfg.family == "audio" else \
+        cfg.num_layers
+    exp["flash_attention"] = calls * runs * fwd
+    exp["flash_attention_bwd"] = calls * runs
     if cfg.moe is not None:
         gemms = 3 * (cfg.num_layers - cfg.moe_layer_start) * runs
         exp["moe_gemm"] = gemms * fwd
         exp["moe_gemm_dx"] = exp["moe_gemm_dw"] = gemms
     return exp
+
+
+class WithFrames:
+    """A token stream whose batches also carry an encoder-decoder model's
+    frames, ``extra_embeds`` [batch, encoder_frames, d] in bf16 (the type
+    of the reference's ``input_specs``), drawn on the batch's device from
+    (seed, step): the reference's ``SyntheticTokens``, which the port
+    copies, makes none, and its stub frontend's output is random
+    embeddings.  ``batch_at`` takes the stream's arguments, so the
+    ``Trainer`` reads it as it reads the stream."""
+
+    def __init__(self, tokens, cfg, seed: int):
+        self.tokens, self.cfg, self.seed = tokens, cfg, seed
+        self.device = tokens.device
+
+    def batch_at(self, step: int, device=None) -> dict:
+        batch = self.tokens.batch_at(step, device)
+        dev = batch["tokens"].device
+        gen = torch.Generator(device=dev).manual_seed(int(
+            np.random.SeedSequence((self.seed, step)).generate_state(1)[0]))
+        batch["extra_embeds"] = torch.randn(
+            (batch["tokens"].shape[0], self.cfg.encoder_frames,
+             self.cfg.d_model), generator=gen, device=dev).bfloat16()
+        return batch
+
+
+def train_data(cfg, seq: int, batch: int, seed: int):
+    """The train phases' stream: ``SyntheticTokens`` of ``batch``
+    sequences of ``seq`` tokens a step, with the frames beside them for an
+    encoder-decoder model (``WithFrames``)."""
+    from repro_torch.training.data import DataConfig, SyntheticTokens
+    data = SyntheticTokens(DataConfig(cfg.vocab_size, seq, batch, seed=seed))
+    return WithFrames(data, cfg, seed) if cfg.family == "audio" else data
 
 
 def master_params(model, seed: int, init=None) -> dict:
@@ -3592,7 +4025,6 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     peak memory; ``profile``: one more step traced."""
     ops, steps, opt = mods["ops"], mods["steps"], mods["opt"]
     from repro_torch.models.moe import _capacity
-    from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.tree import tree_leaves
     full = cfg
     cfg = dataclasses.replace(cfg, microbatch=TRAIN_MICROBATCH,
@@ -3608,8 +4040,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     n_params = sum(p.numel() for p in tree_leaves(params))
     state = opt.init_state(params)
     built = state_leaves({"params": params, "opt": state})
-    data = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
-                                      TRAIN_GLOBAL_BATCH, seed=seed))
+    data = train_data(cfg, seq, TRAIN_GLOBAL_BATCH, seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -3700,6 +4131,11 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
             ssm_heads=sc.expand * cfg.d_model // sc.head_dim,
             ssm_head_dim=sc.head_dim, state_dim=sc.state_dim, chunk=sc.chunk,
             attention_sites=len(layer_kinds(cfg)))
+    if cfg.family == "audio":
+        out["shape"].update(encoder_layers=cfg.encoder_layers,
+                            frames=cfg.encoder_frames,
+                            decoder_positions=WHISPER_TRAIN_POSITIONS)
+        out["frames_per_s"] = TRAIN_GLOBAL_BATCH * cfg.encoder_frames / step_s
     if cfg.mla is not None:
         out["shape"].update(head_dims_qk_v=list(attention_head_dims(cfg)),
                             q_lora_rank=cfg.mla.q_lora_rank,
@@ -3768,7 +4204,6 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     vary from run to run on the card)."""
     import tempfile
     from repro_torch.configs.archs import SMOKE
-    from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.trainer import TrainConfig, Trainer
     from repro_torch.training.tree import tree_paths
     steps, opt = mods["steps"], mods["opt"]
@@ -3780,7 +4215,7 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
         device="cuda")
-    data = SyntheticTokens(DataConfig(cfg.vocab_size, 512, 4, seed=seed))
+    data = train_data(cfg, 512, 4, seed)
 
     def trainer(root):
         params = master_params(model, seed)
@@ -3816,11 +4251,20 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
             and report.losses == want}
 
 
+def f32_cut(cfg, layers: int) -> dict:
+    """The ``reduced`` entry of a train parity whose float32 depth is cut
+    below the train depth for the run's time (RWKV_F32_LAYERS)."""
+    return {"float32_layers": f"{cfg.num_layers} -> {layers}: the card's "
+                              f"run under two thirds of its 900 s (ROADMAP "
+                              f"H7)"}
+
+
 def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
                        num_layers: int = 0, f32_layers: int = 0,
                        seq: int = 0, seq_reason: str = "",
                        bf16_gate_layers: int = 0,
-                       gate_init: dict | None = None) -> dict:
+                       gate_init: dict | None = None,
+                       reduced: dict | None = None) -> dict:
     """One microbatch's loss and gradients with the kernels (K1 with its
     log-sum-exp and its backward; for an MoE model K3 and its dX and dW
     kernels; for RWKV6 K5 and K5b; for the Mamba2 hybrid K4 and K4b beside
@@ -3854,13 +4298,13 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     parity_whisper does, and the reference init is read in bf16 at the
     gate depth and reported beside them (zamba2's bf16 gate depth is cut,
     ZAMBA2_BF16_GATE_LAYERS, so there the train depth is run through the
-    kernels alone).  The bf16 run at the train depth is repeated through
-    the kernels on the same microbatch, and the loss and gradients must
-    equal the first's bit for bit.  Then the Trainer drill at SMOKE
-    size."""
+    kernels alone).  ``reduced`` names a cut of the float32 depth below the
+    train depth, printed on the phase's line.  The bf16 run at the train
+    depth is repeated through the kernels on the same microbatch, and the
+    loss and gradients must equal the first's bit for bit.  Then the
+    Trainer drill at SMOKE size."""
     ops, ref, moe_mod = mods["ops"], mods["ref"], mods["moe"]
     from repro_torch.models.families import build_model
-    from repro_torch.training.data import DataConfig, SyntheticTokens
     from repro_torch.training.tree import tree_paths
     loss_bar, norm_bar, grad_bar = TRAIN_BARS[phase]
     # MoE layers at the depths run here (deepseek's first layer is dense)
@@ -3870,15 +4314,15 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
              ["mamba2_scan", "flash_attention"] if cfg.ssm is not None else
              ["flash_attention"] + (["moe_gemm"] if is_moe else []))
     seq = seq or train_seq_len()
-    batch = SyntheticTokens(DataConfig(cfg.vocab_size, seq,
-                                       TRAIN_GLOBAL_BATCH, seed=seed)) \
-        .batch_at(1)
+    batch = train_data(cfg, seq, TRAIN_GLOBAL_BATCH, seed).batch_at(1)
     micro = {k: v[:TRAIN_MICROBATCH] for k, v in batch.items()}
     problems = []
     out = {"phase": phase, "model": cfg.name,
            "microbatch": [TRAIN_MICROBATCH, seq], "plain": names}
     if seq_reason:
         out["seq_len_reason"] = seq_reason
+    if reduced:
+        out["reduced"] = reduced
 
     def both(model, masters, dtype):
         """(kernel loss, grads), (plain loss, grads), launches, routing."""
@@ -3936,6 +4380,7 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
     def reading(layers, dtype, init=None, model=None):
         """``compare`` at ``layers`` from ``init`` (None: the reference's),
         with its model (``model``, where one of that depth is at hand)."""
+        t = time.perf_counter()
         if model is None:
             model = build_model(dataclasses.replace(
                 cfg, num_layers=layers, **({"dtype": "float32"}
@@ -3944,7 +4389,8 @@ def phase_parity_train(mods, cfg, seed: int, phase: str = "parity_train",
         rec, _, _ = compare(model, master_params(model, seed, init), dtype,
                             layers)
         torch.cuda.empty_cache()
-        return {**rec, "init": INIT_LABEL[init]}, model
+        return {**rec, "init": INIT_LABEL[init],
+                "seconds": time.perf_counter() - t}, model
 
     f32, model = reading(f32_layers or TRAIN_F32_LAYERS, torch.float32,
                          gate_init.get(torch.float32))
@@ -4067,7 +4513,8 @@ TRAIN_PHASES = (("train", "qwen3-1.7b", 0),
                 ("train_gemma3", "gemma3-4b", GEMMA_TRAIN_LAYERS),
                 ("train_deepseek", "deepseek-v2-236b", DEEPSEEK_TRAIN_LAYERS),
                 ("train_rwkv", "rwkv6-3b", 0),
-                ("train_zamba2", "zamba2-2.7b", 0))
+                ("train_zamba2", "zamba2-2.7b", 0),
+                ("train_whisper", "whisper-small", 0))
 DRYRUN_PREFILL = ("qwen3-1.7b", NUM_QUERIES, PROMPT_LEN)   # [8, 512]
 DRYRUN_TOL = 0.10           # priced peak against the measured one
 
@@ -4536,6 +4983,7 @@ def main() -> None:
     deepseek = dataclasses.replace(ARCHS["deepseek-v2-236b"],
                                    num_layers=DEEPSEEK_LAYERS)
     whisper = ARCHS["whisper-small"]
+    qwen15, llava = ARCHS["qwen1.5-4b"], ARCHS["llava-next-mistral-7b"]
     attn_cfgs = {"qwen3-1.7b": qwen, "glm4-9b": glm,
                  "granite-moe-3b-a800m": granite, "zamba2-2.7b": zamba}
     wf = make_workflow(NUM_QUERIES)
@@ -4543,7 +4991,8 @@ def main() -> None:
     t_all = T_START
     _, smi_line = phase_device(_build)
     kernels_out = phase_kernels(ops, ref, attn_cfgs, granite, rwkv, zamba,
-                                gemma, deepseek, whisper, args.seed)
+                                gemma, deepseek, whisper, qwen15, llava,
+                                args.seed)
     serve_out, bundles, prompts, policy, results = phase_serve(
         mods, {"qwen-7b": (qwen, args.seed), "llama-8b": (glm, args.seed + 1)},
         args.seed)
@@ -4602,6 +5051,24 @@ def main() -> None:
     del bundles, policy, results
     gc.collect()
     torch.cuda.empty_cache()
+    t_qwen15_llava = time.perf_counter()
+    serve6_out, bundles, prompts, policy, results = phase_serve(
+        mods, {"qwen-7b": (qwen15, args.seed),
+               "llama-8b": (llava, args.seed + 1)},
+        args.seed, phase="serve_qwen15_llava",
+        note="the engine passes llava no image embeddings, as the "
+             "reference's does; llava_image passes them")
+    if args.profile:
+        for name in bundles:
+            phase_profile(bundles, prompts, name)
+    image_out, image = phase_llava_image(mods, bundles["llama-8b"],
+                                         args.seed)
+    phase_parity_qwen15_llava(mods, bundles, prompts, policy, results, wf,
+                              image, args.seed)
+    qwen15_llava_s = time.perf_counter() - t_qwen15_llava
+    del bundles, policy, results, image
+    gc.collect()
+    torch.cuda.empty_cache()
     t_whisper = time.perf_counter()
     whisper_out, bundle, prompts, frames, served = phase_whisper(
         mods, whisper, args.seed)
@@ -4613,8 +5080,22 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t_train = time.perf_counter()
+    train_whisper_out = phase_train(mods, whisper, args.seed,
+                                    profile=args.profile,
+                                    phase="train_whisper")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_parity_train(
+        mods, whisper, args.seed, phase="parity_train_whisper",
+        f32_layers=whisper.num_layers,
+        gate_init=dict.fromkeys((torch.float32, torch.bfloat16),
+                                attention_at_input_width))
+    whisper_train_s = time.perf_counter() - t_train
+    gc.collect()
+    torch.cuda.empty_cache()
     # the dryrun phase's meta-device pricing runs on the CPU meanwhile,
-    # beside the train phases, whose step times are the card's
+    # beside the train phases from qwen3's on, whose step times are the
+    # card's (whisper's, the most host-bound, before it)
     pricing = start_pricing(dryrun_specs())
     atexit.register(stop_process, pricing)
     train_out = phase_train(mods, qwen, args.seed, profile=args.profile)
@@ -4671,11 +5152,12 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_parity_train(
             mods, rwkv, args.seed, phase="parity_train_rwkv",
-            f32_layers=rwkv.num_layers,
+            f32_layers=RWKV_F32_LAYERS,
             bf16_gate_layers=RWKV_BF16_GATE_LAYERS, seq=RWKV_PARITY_SEQ,
             seq_reason="the plain scan runs one step per token forward and "
                        "two backward, about 150 thousand launches a layer "
-                       "at 4096")
+                       "at 4096",
+            reduced=f32_cut(rwkv, RWKV_F32_LAYERS))
     rwkv_s = time.perf_counter() - t_rwkv
     gc.collect()
     torch.cuda.empty_cache()
@@ -4688,11 +5170,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_parity_train(
             mods, zamba, args.seed, phase="parity_train_zamba2",
-            f32_layers=zamba.num_layers,
+            f32_layers=ZAMBA2_F32_LAYERS,
             bf16_gate_layers=ZAMBA2_BF16_GATE_LAYERS, seq=ZAMBA2_PARITY_SEQ,
             seq_reason="the plain scan runs one step per token forward, "
-                       "again in remat's recompute, and back, at 54 "
-                       "layers in float32",
+                       "again in remat's recompute, and back",
+            reduced=f32_cut(zamba, ZAMBA2_F32_LAYERS),
             gate_init=dict.fromkeys((torch.float32, torch.bfloat16),
                                     attention_at_input_width))
     zamba_s = time.perf_counter() - t_zamba
@@ -4701,15 +5183,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_dryrun(mods, pricing, [train_out, train_moe_out, train_gemma_out,
                                  train_deepseek_out, train_rwkv_out,
-                                 train_zamba_out], args.seed)
+                                 train_zamba_out, train_whisper_out],
+                 args.seed)
     emit(kernel_summary(kernels_out, [serve_out, control_out, serve2_out,
                                       serve3_out, serve4_out, serve5_out,
-                                      whisper_out,
+                                      serve6_out, image_out, whisper_out,
+                                      train_whisper_out,
                                       train_out, train_moe_out,
                                       train_gemma_out, train_deepseek_out,
                                       train_rwkv_out, train_zamba_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
+          "qwen15_llava_phases_seconds": qwen15_llava_s,
           "whisper_phases_seconds": whisper_s,
+          "whisper_train_phases_seconds": whisper_train_s,
           "train_phases_seconds": train_s,
           "rwkv_train_phases_seconds": rwkv_s,
           "zamba2_train_phases_seconds": zamba_s,

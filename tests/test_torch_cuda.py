@@ -898,17 +898,22 @@ def _graph_model(arch, size, dtype, card):
 
 
 GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "rwkv6-3b",
-               "zamba2-2.7b", "gemma3-4b", "whisper-small"]
+               "zamba2-2.7b", "gemma3-4b", "whisper-small", "qwen1.5-4b",
+               "llava-next-mistral-7b"]
 
 
-def _frames(cfg, b, card):
-    """An encoder-decoder model's frames [b, encoder_frames, d] from a
-    seed, else None."""
-    if cfg.family != "audio":
+def _frames(cfg, b, card, plen):
+    """An encoder-decoder model's frames [b, encoder_frames, d], or a VLM's
+    image embeddings [b, patches, d] for the first positions of a prompt
+    of ``plen`` tokens (its num_patches, at most half the prompt: a full
+    width llava's 576 would not fit the tests' prompts), from a seed; else
+    None."""
+    n = {"audio": cfg.encoder_frames,
+         "vlm": min(cfg.num_patches, plen // 2)}.get(cfg.family)
+    if n is None:
         return None
     rng = np.random.default_rng(27)
-    return _randn(rng, (b, cfg.encoder_frames, cfg.d_model),
-                  getattr(torch, cfg.dtype), card)
+    return _randn(rng, (b, n, cfg.d_model), getattr(torch, cfg.dtype), card)
 
 
 def _mla_narrow_model(dtype, card):
@@ -939,7 +944,8 @@ def test_decode_graph_replays_equal_eager_steps(card, arch, size, dtype):
     (and against the model's decode step at int positions): the same
     greedy tokens, and logits bitwise equal at every step, where the
     second stage of the key runs on replays alone from a reset cache
-    (whisper's from new frames written into the same cache leaf)."""
+    (whisper's from new frames written into the same cache leaf; llava's
+    prefill with image embeddings)."""
     _graph_equals_eager(*_graph_model(arch, size, dtype, card), card)
 
 
@@ -958,7 +964,7 @@ def _graph_equals_eager(cfg, model, params, card):
     rng = np.random.default_rng(25)
     prompts = torch.from_numpy(rng.integers(
         0, min(cfg.vocab_size, 4096), (b, plen))).to(card)
-    frames = _frames(cfg, b, card)
+    frames = _frames(cfg, b, card, plen)
     with torch.inference_mode():
         eager = StaticDecode(model, params, b, max_len)
         eager.prefill(prompts, frames)
@@ -976,7 +982,7 @@ def _graph_equals_eager(cfg, model, params, card):
         assert (graphs.captures, graphs.eager_steps, graphs.replays) == \
             (1, 1, steps - 1)
         slot = graphs.slots[(b, max_len)]
-        if frames is not None:
+        if cfg.family == "audio":
             # a stage of other frames first: the replays below must read
             # the frames of their own prefill, from the leaf the graph holds
             other = torch.flip(frames, dims=[0])
@@ -1010,7 +1016,7 @@ def test_stage_launch_counts_equal_an_eager_run(card, arch):
     max_len = plen + gen_len
     prompts = torch.from_numpy(np.random.default_rng(26).integers(
         0, cfg.vocab_size, (b, plen))).to(card)
-    frames = _frames(cfg, b, card)
+    frames = _frames(cfg, b, card, plen)
     with torch.inference_mode():
         ops.reset_launch_counts()
         cache = model.init_cache(b, max_len)
@@ -2030,6 +2036,82 @@ def test_flash_attention_bwd_gemma3_training_shape(card, window):
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     assert max(errs) < BWD_TOL[torch.bfloat16], errs
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# whisper-small's three training forms (12 heads of 64, G = 1, microbatch
+# 2): (Sq, Sk, causal) of the encoder over its 1500 frames, the decoder's
+# causal self-attention over train_4k's 4096 tokens, its cross-attention
+WHISPER_BWD = {"encoder": (1500, 1500, False), "decoder": (4096, 4096, True),
+               "cross": (4096, 1500, False)}
+
+
+@pytest.mark.parametrize("kind", list(WHISPER_BWD))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bwd_whisper_training_shapes(card, kind, dtype):
+    """K1's backward at whisper-small's training shapes (q [2, Sq, 12, 64]
+    over k, v [2, Sk, 12, 64]; the wgmma kernel at D = 64 in bf16): the
+    encoder's bidirectional form, the decoder's causal one and the cross-
+    attention with Sq != Sk, against the plain version and repeated bit
+    for bit."""
+    sq, sk, causal = WHISPER_BWD[kind]
+    rng = np.random.default_rng(58)
+    args = _bwd_case(rng, (2, sq, sk, 12, 12), 64, dtype, causal, 0, card)
+    got = ops.flash_attention_bwd(*args, causal=causal)
+    again = ops.flash_attention_bwd(*args, causal=causal)
+    want = ref.flash_attention_bwd_ref(*args, causal=causal)
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert max(errs) < BWD_TOL[dtype], errs
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _whisper_smoke_grads(card, remat=False, dtype="bfloat16"):
+    """SMOKE whisper (2 encoder and 2 decoder layers, head dim 16, 12
+    frames) over 256 tokens and chip_smoke's seeded frames: one
+    microbatch's loss and gradients on the card from seeded float32
+    masters, as ``make_train_step`` takes them."""
+    import chip_smoke
+    from repro_torch.configs.archs import SMOKE
+    from repro_torch.launch import steps
+    from repro_torch.training.tree import (tree_leaves, tree_map,
+                                           tree_unflatten)
+    cfg = dataclasses.replace(SMOKE["whisper-small"], remat=remat,
+                              dtype=dtype)
+    _, model = steps.make_train_step(cfg, dp_size=1, global_batch=2,
+                                     device=card)
+    params = tree_map(lambda p: p.float(), model.init(
+        torch.Generator(device=card).manual_seed(0)))
+    batch = chip_smoke.train_data(cfg, 256, 2, seed=0).batch_at(
+        0, device=card)
+    dt = getattr(torch, dtype)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    cast = tree_map(lambda p: p.to(dt) if p.dim() > 1 else p,
+                    tree_unflatten(params, leaves))
+    loss = model.train_loss(cast, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def test_whisper_smoke_gradients_repeat_bitwise(card, monkeypatch):
+    """SMOKE whisper with its frames: in float32 the kernels' loss and
+    gradients against autograd through K1's plain version (1e-5 relative
+    on the loss, 1e-3 of each leaf's largest magnitude, chip_smoke's
+    float32 training bars), one K1 backward per attention call (2 encoder,
+    2 decoder self, 2 cross); in bf16 two calls give the same bits, and
+    remat gives the bits of no remat."""
+    before = ops.counts()
+    loss, grads = _whisper_smoke_grads(card, dtype="float32")
+    assert ops.counts()["flash_attention_bwd"] - \
+        before["flash_attention_bwd"] == 6
+    with monkeypatch.context() as m:
+        m.setattr(ops, "flash_attention", ref.flash_attention_ref)
+        ploss, pgrads = _whisper_smoke_grads(card, dtype="float32")
+    assert abs(float(loss) - float(ploss)) <= 1e-5 * abs(float(ploss))
+    assert max(_rel_err(a, b) for a, b in zip(grads, pgrads)) < 1e-3
+    a = _whisper_smoke_grads(card)
+    b = _whisper_smoke_grads(card)
+    c = _whisper_smoke_grads(card, remat=True)
+    for x in (b, c):
+        assert torch.equal(a[0], x[0])
+        assert all(torch.equal(g, h) for g, h in zip(a[1], x[1]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
