@@ -203,7 +203,9 @@ ends the run with a non-zero exit code and no result line:
    finite losses, the last below the first; K1's forward launches 28 x 4
    x 2 and its backward 28 x 4 times per step (remat runs each block's
    forward again in the backward), nothing else launches; step seconds,
-   tokens/s, model FLOPs per second against 989 TFLOP/s, peak memory.
+   tokens/s, model FLOPs per second against 989 TFLOP/s, peak memory, and
+   a digest of the final parameters and state (``state_digest``: each
+   leaf's bits as integers, summed with position weights on the card).
 22. ``parity_train`` – one microbatch's loss and gradients with K1 and
    its backward against autograd through the plain version: in float32
    at full width with 2 layers (the loss within 1e-5, every gradient
@@ -214,7 +216,23 @@ ends the run with a non-zero exit code and no result line:
    that fails at step 3, a restart whose restored parameters and moments
    equal the saved ones bit for bit and whose losses equal an
    uninterrupted run's.
-23. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
+23. ``train_graph`` – the train step as one captured CUDA graph
+   (``training/graphs.py`` ``CapturedTrainStep``, the reference's jitted
+   step): whisper-small (run right after ``parity_train_whisper``, before
+   the dryrun phase's pricing child starts) and qwen3-1.7b at full size as
+   ``train_whisper`` and ``train`` run them, the wrapper's first call on
+   batch 0 (an eager step, then the capture) and 4 replays: the losses
+   and the final digest must equal the eager phase's bit for bit, the
+   launches, counted through the replays, ``train_launches``' prediction;
+   step seconds, tok/s (frames/s), the capture's seconds, the peak above
+   what was resident against the eager phase's.  Then granite (2 layers),
+   gemma3 (6: five local, one global), deepseek (its dense layer), rwkv6
+   (2) and zamba2 (6: one site of its shared attention) at full width, 4
+   sequences of 4096 tokens a step in microbatches of 2: three eager
+   steps and the wrapper's first call and two replays from the same
+   seeded state, bitwise equal (``reduced`` names each cut).  With
+   ``--profile`` one more replayed step of whisper and qwen3 traced.
+24. ``train_moe`` – granite-moe-3b-a800m (d 1536, 24 / 8 heads of 64, 40
    experts top 8 of d_expert 512, vocab 49155, untied) at full width,
    its depth cut from 32 to 24 layers (``reduced`` says so, with the
    measured peak), after qwen3's are freed, trained as ``train`` (capacity
@@ -223,13 +241,13 @@ ends the run with a non-zero exit code and no result line:
    layer and microbatch, twice under remat), its dX and dW kernels 288
    each, nothing else; model FLOPs counted on the active parameters (the
    routed experts' at top_k / num_experts).
-24. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
+25. ``parity_train_moe`` – ``parity_train`` for granite, K3 and its
    gradients among the kernels, the plain run held to the kernel run's
    routing in call order (remat routes twice a layer; the recompute must
    choose the forward's experts): float32 at full width with 2 layers,
    bf16 at 24; a second kernel run bitwise; the Trainer drill at SMOKE
    granite.
-25. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
+26. ``train_gemma3`` – gemma3-4b (d 2560, 8 / 4 heads of 256, d_ff 10240,
    vocab 262144, tied; a sliding window of 1024 on 5 of every 6 layers)
    at full width, its depth cut from 34 to 18 layers (15 local, 3 global;
    ``reduced`` says so, with the measured peak), after granite's are
@@ -237,11 +255,11 @@ ends the run with a non-zero exit code and no result line:
    column-split kernel at D = 256), 60 of them under the window, nothing
    else; model FLOPs count each local layer's attention over its window's
    pairs.
-26. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
+27. ``parity_train_gemma3`` – ``parity_train`` for gemma3: float32 at full
    width with its first 6 layers (5 local, 1 global), bf16 at 18; a
    second kernel run bitwise; the Trainer drill at SMOKE gemma3 with head
    dim 256 and a window of 128 over its 512 tokens.
-27. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
+28. ``train_deepseek`` – deepseek-v2-236b (d 5120, 128 heads of multi-head
    latent attention: query rank 1536, latent rank 512, query / key head
    dim 128 + 64, value head dim 128; vocab 102400, untied; dense d_ff
    12288) at full width, its depth cut from 60 to its dense first layer
@@ -250,21 +268,21 @@ ends the run with a non-zero exit code and no result line:
    and its backward 4 (the kv-split kernel at (D, Dv) = (192, 128)),
    nothing else; model FLOPs count attention at 6 (D + Dv) a head and
    pair.
-28. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
+29. ``parity_train_deepseek`` – ``parity_train`` for deepseek at its one
    layer, float32 and bf16, on sequences of 2048 tokens (the plain
    attention's float32 score tensors over 128 heads would not fit at
    4096); a second kernel run bitwise; the Trainer drill at SMOKE deepseek
    with the published latent attention's head dims (its dense layer and
    two MoE layers: K1's backward at (192, 128) beside K3 and its
    gradients).
-29. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
+30. ``train_rwkv`` – rwkv6-3b (d 2560, 40 heads of 64, d_ff 8960, vocab
    65536, untied; 3.07 B parameters) at full width and depth (32 layers,
    under expandable segments; the line prints the depth and the peak),
    after deepseek's are freed, trained as ``train``: per step K5 256 (32
    layers x 4 microbatches, twice under remat) and K5b 512 (its four
    launches once a layer and microbatch), nothing else; model FLOPs count
    the WKV scan at three times ``rwkv_flops`` a layer.
-30. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
+31. ``parity_train_rwkv`` – ``parity_train`` for rwkv6 with K5 and K5b
    against the plain forward with the plain backward (``TRAIN_PLAIN``),
    on sequences of 1024 tokens (the plain scan runs one step per token):
    float32 at its first 8 layers (RWKV_F32_LAYERS; 32 before the run's
@@ -272,7 +290,7 @@ ends the run with a non-zero exit code and no result line:
    against TRAIN_BARS and held to them at RWKV_BF16_GATE_LAYERS (ROADMAP
    H30); a second kernel run bitwise at 32 layers; the Trainer drill at
    SMOKE rwkv6 (K5b at D = 16, chunk 4).
-31. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
+32. ``train_zamba2`` – zamba2-2.7b (54 Mamba2 layers of 80 heads of 64,
    state 64, chunk 128; one shared attention block of 32 heads of 80 at 9
    sites; d 2560, vocab 32000, untied) at full width and depth, under
    expandable segments, after rwkv6's are freed, trained as ``train``:
@@ -282,7 +300,7 @@ ends the run with a non-zero exit code and no result line:
    not recompute it), nothing else; model FLOPs count attention at the 9
    sites and the SSD scan at three times ``mamba_flops`` a layer; the
    parameters are counted from the tree.
-32. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
+33. ``parity_train_zamba2`` – ``parity_train`` for zamba2 with K4, K4b, K1
    and its backward against the plain forward with the plain backward of
    the scan (``TRAIN_PLAIN``) and autograd through the plain attention, on
    sequences of 512 tokens, with the attention projections at 1 / sqrt(d)
@@ -295,7 +313,7 @@ ends the run with a non-zero exit code and no result line:
    (K4b at (P, N) = (16, 8), chunk 4).  ``tools/kernel_probe.py
    mamba2-parity-split`` splits the reference init's bf16 reading between
    K4 and K4b.
-33. ``dryrun`` – the meta-device dry run (``launch/dryrun.py``) held to the
+34. ``dryrun`` – the meta-device dry run (``launch/dryrun.py``) held to the
    card: each train phase's exact configuration (its depth cut, 8 x 4096
    tokens in microbatches of 2, the whole step with AdamW) priced on a
    (1, 1) mesh by ``price_dryrun`` through ``launch.dryrun.price_cell``,
@@ -2427,6 +2445,12 @@ def load_example():
     return mod
 
 
+def no_launches() -> dict:
+    """Every count of ``ops.counts()`` at 0."""
+    from repro_torch.kernels import ops
+    return dict.fromkeys(ops.counts(), 0)
+
+
 def expected_launches(bundles, wf, placements,
                       prompt_len: int = PROMPT_LEN,
                       gen_len: int = GEN_LEN) -> dict:
@@ -2444,8 +2468,7 @@ def expected_launches(bundles, wf, placements,
     shard sizes."""
     from repro_torch.kernels.moe_gemm import PREFILL_MIN_ROWS
     from repro_torch.models.moe import _capacity
-    exp = dict.fromkeys(REPLACES, 0)
-    exp["moe_gemm_decode_tile"] = 0
+    exp = no_launches()
     for p in placements:
         cfg = bundles[wf.stages[p.sid].model].cfg
         runs = sum(1 for n in p.shard_sizes if n)
@@ -3458,8 +3481,7 @@ def generate_launches(cfg) -> dict:
     encoder layer (bidirectional) and twice per decoder layer (causal
     self-attention, cross-attention over the frames), K2 at each decode
     step twice per decoder layer (the self cache, the cross K/V)."""
-    exp = dict.fromkeys(REPLACES, 0)
-    exp["moe_gemm_decode_tile"] = 0
+    exp = no_launches()
     exp["flash_attention"] = len(layer_kinds(cfg))
     per_step = 2 if cfg.family == "audio" else 1
     exp["decode_attention"] = per_step * cfg.num_layers * (GEN_LEN - 1)
@@ -3859,10 +3881,12 @@ def encdec_train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
 def train_launches(cfg, n_accum: int, steps: int) -> dict:
     """Kernel launches of ``steps`` train steps of a decoder with
     ``cfg.remat``, per layer and microbatch: K1's forward once, and again
-    in the backward's recompute; its backward once; in an MoE layer K3's
+    in the backward's recompute; its backward once, under the sliding
+    window on a local layer; in an MoE layer K3's
     forward three times (gate, up, down), again in the recompute, and its
     dX and dW kernels three times each (every rows count of these calls
-    takes the 128-row tile).  For RWKV6 per layer and microbatch K5
+    takes the 128-row tile, and every gradient the persistent kernel, as
+    granite's training shapes do).  For RWKV6 per layer and microbatch K5
     once, and again in the recompute, and K5b's kernels once each
     (``rwkv6_scan.bwd_launches`` of the passes that r, k, v, w and bonus
     call for: no initial state), nothing else.  For the Mamba2 hybrid per
@@ -3876,8 +3900,7 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
     and cross-attention."""
     from repro_torch.kernels import mamba2_scan as ms_mod
     from repro_torch.kernels import rwkv6_scan as rs_mod
-    exp = dict.fromkeys(REPLACES, 0)
-    exp["moe_gemm_decode_tile"] = 0
+    exp = no_launches()
     runs, fwd = n_accum * steps, 2 if cfg.remat else 1
     if cfg.rwkv is not None:
         exp["rwkv6_scan"] = cfg.num_layers * runs * fwd
@@ -3895,10 +3918,12 @@ def train_launches(cfg, n_accum: int, steps: int) -> dict:
         cfg.num_layers
     exp["flash_attention"] = calls * runs * fwd
     exp["flash_attention_bwd"] = calls * runs
+    exp["flash_attention_bwd_window"] = layer_kinds(cfg).count("L") * runs
     if cfg.moe is not None:
         gemms = 3 * (cfg.num_layers - cfg.moe_layer_start) * runs
         exp["moe_gemm"] = gemms * fwd
         exp["moe_gemm_dx"] = exp["moe_gemm_dw"] = gemms
+        exp["moe_gemm_dx_tma"] = exp["moe_gemm_dw_tma"] = gemms
     return exp
 
 
@@ -3945,6 +3970,50 @@ def master_params(model, seed: int, init=None) -> dict:
     if init is not None:
         init(masters)
     return masters
+
+
+def timed_steps(step_fn, trees: list, data, steps) -> tuple:
+    """``step_fn`` over ``data``'s batches of ``steps``, ``trees`` (the
+    parameters and the state) advanced in place: the losses and each
+    step's seconds (host clock between synchronisations), as
+    ``phase_train``'s loop times them.  The caller keeps no other
+    reference to the trees, so that a step's inputs are freed once its
+    outputs are made: the peak holds two states, not three."""
+    losses, times = [], []
+    for step in steps:
+        batch = data.batch_at(step)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, trees[0], trees[1] = step_fn(*trees, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return losses, times
+
+
+# elements of a leaf that ``state_digest`` reads at a time
+DIGEST_CHUNK = 1 << 26
+
+
+def state_digest(tree) -> dict:
+    """Each leaf of ``tree`` by its path: its bits read as integers of its
+    width (16 or 32 bits), each times its position plus one, summed in
+    int64 on the card (the sum wraps; integer sums do not depend on their
+    order).  A change of any one bit changes the sum: it moves the term by
+    2^b (b < 32) times a position below 2^31, which is not 0 modulo
+    2^64."""
+    from repro_torch.training.tree import tree_paths
+    ints = {2: torch.int16, 4: torch.int32}
+    out = {}
+    for path, x in tree_paths(tree):
+        bits = x.detach().reshape(-1).view(ints[x.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=x.device)
+        for i in range(0, bits.numel(), DIGEST_CHUNK):
+            part = bits[i: i + DIGEST_CHUNK].long()
+            total += (part * torch.arange(i + 1, i + 1 + part.numel(),
+                                          device=x.device)).sum()
+        out[path] = int(total)
+    return out
 
 
 def profile_train_step(step_fn, params, state, batch) -> dict:
@@ -4022,7 +4091,9 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     of K3's gradients on their persistent kernel.  Step seconds,
     tokens/s,
     model FLOPs (on active parameters) per second against 989 TFLOP/s,
-    peak memory; ``profile``: one more step traced."""
+    peak memory, and the final parameters' and state's ``state_digest``
+    (``train_graph`` holds its replays to it); ``profile``: one more step
+    traced."""
     ops, steps, opt = mods["ops"], mods["steps"], mods["opt"]
     from repro_torch.models.moe import _capacity
     from repro_torch.training.tree import tree_leaves
@@ -4058,25 +4129,13 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
     counts = ops.counts()
-    windowed = ops.flash_attention_bwd.window_launches
-    tma = {n: getattr(ops, n).tma_launches
-           for n in ("moe_gemm_dx", "moe_gemm_dw")}
     peak = torch.cuda.max_memory_allocated()
     expect = train_launches(cfg, n_accum, TRAIN_STEPS)
-    # K1's backward under the window: once per local layer and microbatch
-    expect_windowed = layer_kinds(cfg).count("L") * n_accum * TRAIN_STEPS
     problems = []
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         problems.append(f"losses {losses}: not finite or not falling")
     if counts != expect:
         problems.append(f"launches {counts}, expected {expect}")
-    if windowed != expect_windowed:
-        problems.append(f"{windowed} windowed backward launches, expected "
-                        f"{expect_windowed}")
-    # every K3 gradient of the step on the persistent kernel
-    if any(tma[n] != expect[n] for n in tma):
-        problems.append(f"K3 gradients on the persistent kernel {tma}, "
-                        f"expected all of {expect}")
     step_s = sum(times) / len(times)
     flops = train_flops(cfg, n_params, TRAIN_GLOBAL_BATCH, seq)
     reduced = {"global_batch": f"256 -> {TRAIN_GLOBAL_BATCH}",
@@ -4115,9 +4174,7 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
         "step_peak_bytes": peak - resident,
         "depth": f"{cfg.num_layers} of {full.num_layers} layers",
         "launches": counts, "launches_expected": expect,
-        "flash_attention_bwd_windowed": {"launches": windowed,
-                                         "expected": expect_windowed},
-        "moe_gemm_grad_persistent": tma,
+        "digest": state_digest({"params": params, "opt": state}),
         "ok": not problems, "problems": problems,
     }
     if cfg.sliding_window:
@@ -4148,6 +4205,205 @@ def phase_train(mods, cfg, seed: int, profile: bool = False,
     if problems:
         fail(f"{phase} phase failed: " + "; ".join(problems))
     out["built_state"] = built       # for the dryrun phase, not printed
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train_graph: the train step as one captured CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def graph_run(step_fn, params, state, data, steps: int) -> dict:
+    """``CapturedTrainStep(step_fn)`` from ``params`` and ``state``: its
+    first call on batch 0 (the eager step on the capture's stream, then the
+    capture), then ``steps`` replays of batches 1 to ``steps``, the launch
+    counts zeroed just before them.  The losses (the first call's first),
+    the replays' seconds and launch counts, the first call's and the
+    capture's seconds, the wrapper's tallies, the peak allocated and the
+    wrapper with its statics (for a traced step)."""
+    from repro_torch.kernels import ops
+    from repro_torch.training.graphs import CapturedTrainStep
+    graphed = CapturedTrainStep(step_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, params, state = graphed(params, state, data.batch_at(0))
+    first = float(loss)
+    first_s = time.perf_counter() - t
+    ops.reset_launch_counts()
+    # the statics: the wrapper returns the same trees at every call
+    losses, times = timed_steps(graphed, [params, state], data,
+                                range(1, steps + 1))
+    counts = ops.counts()
+    (slot,) = graphed.slots.values()
+    return {"losses": [first] + losses, "step_s": times,
+            "step_s_mean": sum(times) / len(times), "first_call_s": first_s,
+            "capture_s": slot.capture_s, "launches": counts,
+            "tallies": {"eager_steps": graphed.eager_steps,
+                        "captures": graphed.captures,
+                        "replays": graphed.replays},
+            "peak": torch.cuda.max_memory_allocated(),
+            "digest": state_digest({"params": params, "opt": state}),
+            "graphed": graphed}
+
+
+def graph_problems(run: dict, want_losses, want_digest, expect,
+                   replays: int) -> list:
+    """What ``graph_run``'s ``run`` got wrong: losses or digest not the eager
+    run's bit for bit, launches not ``expect``, a step not replayed."""
+    problems = []
+    if run["losses"] != want_losses:
+        problems.append(f"losses {run['losses']}, eager {want_losses}")
+    bad = [k for k in want_digest if run["digest"].get(k) != want_digest[k]]
+    if bad or set(run["digest"]) != set(want_digest):
+        problems.append(f"state digest differs from the eager run's at "
+                        f"{bad[:8]}")
+    if run["launches"] != expect:
+        problems.append(f"launches {run['launches']}, expected {expect}")
+    if run["tallies"] != {"eager_steps": 1, "captures": 1,
+                          "replays": replays}:
+        problems.append(f"steps {run['tallies']}: not one eager step, one "
+                        f"capture and {replays} replays")
+    return problems
+
+
+def graph_case(mods, cfg, seed: int, eager: dict,
+               profile: bool = False) -> dict:
+    """``cfg`` at full width and depth as ``phase_train`` trains it, its
+    output ``eager``, through ``CapturedTrainStep`` (``graph_run``, the
+    TRAIN_STEPS replays on batches 1-4): the losses and the final digest
+    must equal the eager phase's bit for bit and the launches, all counted
+    through replays, ``train_launches``' prediction.  Step seconds,
+    tokens/s (frames/s), the first call's and the capture's seconds and the
+    peak above what was resident against the eager phase's; ``profile``:
+    one more replayed step traced."""
+    steps, opt = mods["steps"], mods["opt"]
+    cfg = dataclasses.replace(cfg, microbatch=TRAIN_MICROBATCH)
+    seq = train_seq_len()
+    step_fn, model = steps.make_train_step(
+        cfg, dp_size=1, global_batch=TRAIN_GLOBAL_BATCH,
+        opt_cfg=opt.AdamWConfig(), device="cuda")
+    n_accum = TRAIN_GLOBAL_BATCH // steps.resolve_microbatch(
+        cfg, TRAIN_GLOBAL_BATCH, 1)
+    resident = torch.cuda.memory_allocated()
+    params = master_params(model, seed)
+    data = train_data(cfg, seq, TRAIN_GLOBAL_BATCH, seed)
+    run = graph_run(step_fn, params, opt.init_state(params), data,
+                    TRAIN_STEPS)
+    del params
+    expect = train_launches(cfg, n_accum, TRAIN_STEPS)
+    problems = graph_problems(run, [eager["warmup_loss"]] + eager["losses"],
+                              eager["digest"], expect, TRAIN_STEPS)
+    step_s = run["step_s_mean"]
+    out = {"model": cfg.name, "eager_phase": eager["phase"],
+           "depth": f"{cfg.num_layers} of {cfg.num_layers} layers",
+           "global_batch": TRAIN_GLOBAL_BATCH, "microbatch": TRAIN_MICROBATCH,
+           "reduced": eager["reduced"],
+           **{k: run[k] for k in ("losses", "step_s", "step_s_mean",
+                                  "first_call_s", "capture_s", "launches",
+                                  "tallies")},
+           "eager_losses": [eager["warmup_loss"]] + eager["losses"],
+           "eager_step_s_mean": eager["step_s_mean"],
+           "step_s_over_eager": step_s / eager["step_s_mean"],
+           "tokens_per_s": TRAIN_GLOBAL_BATCH * seq / step_s,
+           "peak_gb": run["peak"] / 1e9,
+           "step_peak_bytes": run["peak"] - resident,
+           "eager_step_peak_bytes": eager["step_peak_bytes"],
+           "peak_over_eager": (run["peak"] - resident)
+           / eager["step_peak_bytes"],
+           "launches_expected": expect,
+           "digest_bitwise": run["digest"] == eager["digest"],
+           "ok": not problems, "problems": problems}
+    if cfg.family == "audio":
+        out["frames_per_s"] = TRAIN_GLOBAL_BATCH * cfg.encoder_frames / step_s
+    if profile:
+        graphed = run["graphed"]
+        out["profile"] = profile_train_step(
+            graphed, graphed.params, graphed.opt_state,
+            data.batch_at(TRAIN_STEPS + 1))
+    return out
+
+
+# the other families at full width and these depths, GRAPH_BATCH sequences
+# of train_4k's length a step in microbatches of TRAIN_MICROBATCH: each
+# depth keeps one of every kind of layer that brings a kernel to the step.
+# granite's first two layers (K3, K3-dX / -dW on the persistent kernel);
+# gemma3's first six (five local, one global: K1b at D = 256 under the
+# window and not); deepseek's dense first layer (K1b at (192, 128));
+# rwkv6's first two (K5, K5b); zamba2's first attn_every = 6 (one site of
+# its shared attention block: K4, K4b, K1b at D = 80)
+GRAPH_REDUCED = (("granite-moe-3b-a800m", 2), ("gemma3-4b", 6),
+                 ("deepseek-v2-236b", 1), ("rwkv6-3b", 2),
+                 ("zamba2-2.7b", 6))
+GRAPH_BATCH, GRAPH_REPLAYS = 4, 2
+
+
+def graph_reduced_case(mods, arch: str, layers: int, seed: int) -> dict:
+    """``arch`` at full width and ``layers`` layers: GRAPH_REPLAYS + 1
+    eager steps of ``make_train_step`` from the seeded state, then the
+    same state through ``graph_run`` (the first call and GRAPH_REPLAYS
+    replays); losses and the final digest bitwise equal, the replays'
+    launches ``train_launches``' prediction; each way's step seconds."""
+    from repro_torch.configs.archs import ARCHS
+    steps, opt = mods["steps"], mods["opt"]
+    full = ARCHS[arch]
+    cfg = dataclasses.replace(full, microbatch=TRAIN_MICROBATCH,
+                              num_layers=layers)
+    seq = train_seq_len()
+    step_fn, model = steps.make_train_step(
+        cfg, dp_size=1, global_batch=GRAPH_BATCH, opt_cfg=opt.AdamWConfig(),
+        device="cuda")
+    n_accum = GRAPH_BATCH // steps.resolve_microbatch(cfg, GRAPH_BATCH, 1)
+    data = train_data(cfg, seq, GRAPH_BATCH, seed)
+    trees = [master_params(model, seed)]
+    trees.append(opt.init_state(trees[0]))
+    losses, times = timed_steps(step_fn, trees, data,
+                                range(GRAPH_REPLAYS + 1))
+    digest = state_digest({"params": trees[0], "opt": trees[1]})
+    del trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    params = master_params(model, seed)
+    run = graph_run(step_fn, params, opt.init_state(params), data,
+                    GRAPH_REPLAYS)
+    del params
+    expect = train_launches(cfg, n_accum, GRAPH_REPLAYS)
+    problems = graph_problems(run, losses, digest, expect, GRAPH_REPLAYS)
+    return {"model": cfg.name, "eager_phase": None,
+            "depth": f"{layers} of {full.num_layers} layers",
+            "global_batch": GRAPH_BATCH, "microbatch": TRAIN_MICROBATCH,
+            "reduced": {"num_layers": f"{full.num_layers} -> {layers}: one "
+                                      f"of each kind of layer, for the "
+                                      f"run's time (ROADMAP H7)",
+                        "global_batch": f"256 -> {GRAPH_BATCH}",
+                        "microbatch": f"{full.microbatch} -> "
+                                      f"{TRAIN_MICROBATCH}"},
+            **{k: run[k] for k in ("losses", "step_s", "step_s_mean",
+                                   "first_call_s", "capture_s", "launches",
+                                   "tallies")},
+            "eager_losses": losses, "eager_step_s": times,
+            # the eager steps after the first, which builds and allocates
+            "eager_step_s_mean": sum(times[1:]) / len(times[1:]),
+            "tokens_per_s": GRAPH_BATCH * seq / run["step_s_mean"],
+            "peak_gb": run["peak"] / 1e9,
+            "step_peak_bytes": run["peak"] - resident,
+            "launches_expected": expect,
+            "digest_bitwise": run["digest"] == digest,
+            "ok": not problems, "problems": problems}
+
+
+def phase_train_graph(cases: list) -> dict:
+    """The ``train_graph`` line: every case (``graph_case``,
+    ``graph_reduced_case``) and the launches of all their replays."""
+    problems = [f"{c['model']}: {p}" for c in cases for p in c["problems"]]
+    out = {"phase": "train_graph", "cases": cases,
+           "launches": {k: sum(c["launches"][k] for c in cases)
+                        for k in cases[0]["launches"]},
+           "ok": not problems, "problems": problems}
+    emit(out)
+    if problems:
+        fail("train_graph phase failed: " + "; ".join(problems))
     return out
 
 
@@ -4187,6 +4443,15 @@ def loss_and_grads(model, masters, batch, dtype):
                                    for p, g in zip(leaves, grads)]
 
 
+def drill_cfg(arch: str):
+    """``arch``'s SMOKE config with its ``DRILL_OVER`` changes."""
+    from repro_torch.configs.archs import SMOKE
+    cfg = SMOKE[arch]
+    return dataclasses.replace(cfg, **{
+        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
+        else v for k, v in DRILL_OVER.get(arch, {}).items()})
+
+
 def trainer_drill(mods, seed: int, arch: str) -> dict:
     """The Trainer on the card at ``arch``'s SMOKE size (qwen3, granite:
     bf16 over float32 masters, K1 and its backward at head dim 16, which
@@ -4203,14 +4468,10 @@ def trainer_drill(mods, seed: int, arch: str) -> dict:
     uninterrupted run's bit for bit (no operation of the step is known to
     vary from run to run on the card)."""
     import tempfile
-    from repro_torch.configs.archs import SMOKE
     from repro_torch.training.trainer import TrainConfig, Trainer
     from repro_torch.training.tree import tree_paths
     steps, opt = mods["steps"], mods["opt"]
-    cfg = SMOKE[arch]
-    cfg = dataclasses.replace(cfg, **{
-        k: dataclasses.replace(getattr(cfg, k), **v) if isinstance(v, dict)
-        else v for k, v in DRILL_OVER.get(arch, {}).items()})
+    cfg = drill_cfg(arch)
     step_fn, model = steps.make_train_step(
         cfg, dp_size=1, global_batch=4,
         opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
@@ -5090,6 +5351,11 @@ def main() -> None:
         f32_layers=whisper.num_layers,
         gate_init=dict.fromkeys((torch.float32, torch.bfloat16),
                                 attention_at_input_width))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # whisper's host-bound step replayed before the pricing child starts
+    graph_cases = [graph_case(mods, whisper, args.seed, train_whisper_out,
+                              profile=args.profile)]
     whisper_train_s = time.perf_counter() - t_train
     gc.collect()
     torch.cuda.empty_cache()
@@ -5102,6 +5368,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_parity_train(mods, qwen, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_graph = time.perf_counter()
+    graph_cases.append(graph_case(mods, qwen, args.seed, train_out,
+                                  profile=args.profile))
+    for arch, layers in GRAPH_REDUCED:
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph_cases.append(graph_reduced_case(mods, arch, layers, args.seed))
+    train_graph_out = phase_train_graph(graph_cases)
+    graph_s = time.perf_counter() - t_graph
     gc.collect()
     torch.cuda.empty_cache()
     train_moe_out = phase_train(mods, granite, args.seed,
@@ -5189,13 +5466,15 @@ def main() -> None:
                                       serve3_out, serve4_out, serve5_out,
                                       serve6_out, image_out, whisper_out,
                                       train_whisper_out,
-                                      train_out, train_moe_out,
+                                      train_out, train_graph_out,
+                                      train_moe_out,
                                       train_gemma_out, train_deepseek_out,
                                       train_rwkv_out, train_zamba_out]))
     emit({"phase": "total", "seconds": time.perf_counter() - t_all,
           "qwen15_llava_phases_seconds": qwen15_llava_s,
           "whisper_phases_seconds": whisper_s,
           "whisper_train_phases_seconds": whisper_train_s,
+          "train_graph_seconds_after_whisper_case": graph_s,
           "train_phases_seconds": train_s,
           "rwkv_train_phases_seconds": rwkv_s,
           "zamba2_train_phases_seconds": zamba_s,

@@ -8,12 +8,13 @@ PyTorch version; a meta tensor runs the wrapper's own checks, output and
 scratch allocations and autograd function with no launch, which is what
 the dry run (``launch/dryrun.py``) traces to price the card's memory.
 There is no switch that forces the plain version on the card.  ``<wrapper>.launches`` counts
-kernel launches; :func:`launch_counts` and :func:`reset_launch_counts`
-read and zero them all.  A wrapper counts where it launches, so a call
-made while a CUDA graph is captured counts a launch that did not run, and
-a replay of the graph calls no wrapper: the graph's owner
-(``serving/graphs.py``) takes a capture's counts back with
-:func:`add_counts` and adds them again at every replay.
+kernel launches, and ``SUB_COUNTS`` names the counts of some of them that
+a wrapper keeps beside it; :func:`counts` reads them all and
+:func:`reset_launch_counts` zeroes them.  A wrapper counts where it
+launches, so a call made while a CUDA graph is captured counts a launch
+that did not run, and a replay of the graph calls no wrapper: the graph's
+owner (``serving/graphs.py``, ``training/graphs.py``) takes a capture's
+counts back with :func:`add_counts` and adds them again at every replay.
 """
 from __future__ import annotations
 
@@ -40,9 +41,22 @@ KERNELS = {
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
            "flash_attention_bwd", "mamba2_scan", "mamba2_scan_bwd",
            "moe_gemm", "moe_gemm_dw",
-           "moe_gemm_dx", "rwkv6_scan", "rwkv6_scan_bwd", "add_counts",
-           "counts",
+           "moe_gemm_dx", "rwkv6_scan", "rwkv6_scan_bwd", "SUB_COUNTS",
+           "add_counts", "counts",
            "launch_counts", "reset_launch_counts"]
+
+
+# counts a wrapper keeps of some of its launches, keyed as :func:`counts`
+# gives them: (wrapper, attribute)
+SUB_COUNTS = {
+    # K3's launches on its 64-row tile
+    "moe_gemm_decode_tile": (moe_gemm, "decode_tile_launches"),
+    # K1's backward calls under a sliding window
+    "flash_attention_bwd_window": (flash_attention_bwd, "window_launches"),
+    # K3's gradients' launches of the persistent TMA kernel
+    "moe_gemm_dx_tma": (moe_gemm_dx, "tma_launches"),
+    "moe_gemm_dw_tma": (moe_gemm_dw, "tma_launches"),
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -51,27 +65,22 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch count to 0 (K3's count of 64-row tile
-    launches, its gradients' counts of persistent-kernel launches and K1's
-    backward's count of windowed calls too)."""
+    """Set every count of :func:`counts` to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
-    moe_gemm.decode_tile_launches = 0
-    moe_gemm_dx.tma_launches = moe_gemm_dw.tma_launches = 0
-    flash_attention_bwd.window_launches = 0
+    for fn, attr in SUB_COUNTS.values():
+        setattr(fn, attr, 0)
 
 
 def counts() -> dict[str, int]:
-    """:func:`launch_counts` and K3's 64-row tile launches, as
-    ``moe_gemm_decode_tile``."""
+    """:func:`launch_counts` and the ``SUB_COUNTS``."""
     return {**launch_counts(),
-            "moe_gemm_decode_tile": moe_gemm.decode_tile_launches}
+            **{name: getattr(fn, attr)
+               for name, (fn, attr) in SUB_COUNTS.items()}}
 
 
 def add_counts(delta: dict[str, int]) -> None:
     """Add ``delta`` (keyed as :func:`counts`) to the counts."""
     for name, n in delta.items():
-        if name == "moe_gemm_decode_tile":
-            moe_gemm.decode_tile_launches += n
-        else:
-            KERNELS[name].launches += n
+        fn, attr = SUB_COUNTS.get(name) or (KERNELS[name], "launches")
+        setattr(fn, attr, getattr(fn, attr) + n)

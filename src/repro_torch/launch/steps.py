@@ -120,7 +120,10 @@ def make_train_step(cfg: ArchConfig, *, dp_size: int, global_batch: int,
     batch) -> (loss, params, opt_state)``, the loss the mean over the
     microbatches.  ``grad_compression`` maps a microbatch's gradient tree
     to the tree that is summed (for example the int8 roundtrip of
-    ``training.compression``)."""
+    ``training.compression``).  The step runs eagerly, one dispatch per
+    operation; ``training.graphs.CapturedTrainStep(train_step)`` runs it
+    as one CUDA graph with the parameters and state donated, as the
+    reference jits it."""
     model = build_model(cfg, device)
     ocfg = opt_cfg or opt.AdamWConfig()
     mb = resolve_microbatch(cfg, global_batch, dp_size)

@@ -104,11 +104,14 @@ def _unstack(tree):
 def _remat(fn, enabled: bool):
     """``fn`` recomputed in the backward instead of keeping its
     activations (``torch.utils.checkpoint``, non-reentrant) when
-    ``enabled`` and autograd records; else ``fn`` itself."""
+    ``enabled`` and autograd records; else ``fn`` itself.  The blocks draw
+    no random numbers, so the recompute needs no generator's state: none
+    is saved or restored around it (also not inside a captured train
+    step, ``training/graphs.py``)."""
     if not (enabled and torch.is_grad_enabled()):
         return fn
     return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False)
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -138,7 +138,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_workflow_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "serve_workflow_torch.py",
+    ROOT / "examples" / "train_small_torch.py"]
 
 
 def test_port_files_found():

@@ -1759,6 +1759,7 @@ def test_moe_gemm_dx_kernel(card, shape, dtype):
     b, e, c, d, f = shape
     _, w, dy = _grad_operands(np.random.default_rng(50), b, e, c, d, f,
                               dtype, card)
+    tma = 0
     if dtype == torch.bfloat16:
         dy4 = dy if b else dy.unsqueeze(0)
         plan = mg_mod.gemm_plan(b or 1, e, c, f, d, dy4.stride(), w.stride(),
@@ -1769,13 +1770,17 @@ def test_moe_gemm_dx_kernel(card, shape, dtype):
                                 w.stride(), w.data_ptr(), 132)
         assert grad.route == ("tma" if d % 8 == 0 and f % 8 == 0
                               else "cp_async")
+        tma = int(grad.route == "tma")
     counts = ops.counts()
     got = ops.moe_gemm_dx(dy, w)
     torch.cuda.synchronize()
     after = ops.counts()
     assert after["moe_gemm_dx"] == counts["moe_gemm_dx"] + 1
-    assert {k: n for k, n in after.items() if k != "moe_gemm_dx"} == \
-        {k: n for k, n in counts.items() if k != "moe_gemm_dx"}
+    # the persistent kernel's launches are counted apart as well
+    assert after["moe_gemm_dx_tma"] == counts["moe_gemm_dx_tma"] + tma
+    own = ("moe_gemm_dx", "moe_gemm_dx_tma")
+    assert {k: n for k, n in after.items() if k not in own} == \
+        {k: n for k, n in counts.items() if k not in own}
     want = ref.moe_gemm_dx_ref(dy, w)
     assert got.shape == want.shape and got.dtype == dtype
     assert bool(torch.isfinite(got.float()).all())
@@ -2250,3 +2255,179 @@ def test_gemma3_smoke_gradients_at_head_dim_256(card, monkeypatch):
     for x in (b, c):
         assert torch.equal(a[0], x[0])
         assert all(torch.equal(g, h) for g, h in zip(a[1], x[1]))
+
+
+# --- the train step as one captured CUDA graph (training/graphs.py) ---------
+
+TRAIN_GRAPH_ARCHS = ["qwen3-1.7b", "granite-moe-3b-a800m", "gemma3-4b",
+                     "deepseek-v2-236b", "rwkv6-3b", "zamba2-2.7b",
+                     "whisper-small"]
+
+
+def _train_graph_setup(arch, remat=True):
+    """The Trainer drill's config of ``arch`` (``chip_smoke.drill_cfg``:
+    SMOKE, gemma3 at head dim 256 under a window of 128, deepseek at its
+    published latent attention's head dims), bf16 over float32 masters,
+    ``make_train_step`` over 4 sequences of 512 tokens in two
+    microbatches, its stream (with frames for whisper), and a function
+    that makes the seeded masters and their AdamW state."""
+    import chip_smoke
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    cfg = dataclasses.replace(chip_smoke.drill_cfg(arch), remat=remat)
+    step, model = steps.make_train_step(
+        cfg, dp_size=1, global_batch=4,
+        opt_cfg=opt.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=50),
+        device="cuda")
+    data = chip_smoke.train_data(cfg, 512, 4, seed=0)
+
+    def fresh():
+        params = chip_smoke.master_params(model, 0)
+        return params, opt.init_state(params)
+
+    return step, data, fresh
+
+
+def _leaves(params, state):
+    from repro_torch.training.tree import tree_leaves
+    return tree_leaves({"params": params, "opt": state})
+
+
+def _count_delta(before):
+    after = ops.counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("arch", TRAIN_GRAPH_ARCHS)
+@pytest.mark.parametrize("remat", [True, False])
+def test_train_graph_replays_equal_eager_steps(card, arch, remat):
+    """Three eager steps against the captured step's three calls (the
+    eager step and the capture, then two replays) from the same seeded
+    state: every loss and the final parameters and state bitwise equal,
+    the returned trees the statics at every call, and the launch counts
+    (K1b's windowed calls and K3's gradients' persistent launches among
+    them) those of the eager steps."""
+    from repro_torch.training.graphs import CapturedTrainStep
+    step, data, fresh = _train_graph_setup(arch, remat)
+    params, state = fresh()
+    before = ops.counts()
+    want = []
+    for t in range(3):
+        loss, params, state = step(params, state, data.batch_at(t))
+        want.append(loss)
+    eager_counts = _count_delta(before)
+    eager_state = _leaves(params, state)
+    graphed = CapturedTrainStep(step)
+    params, state = fresh()
+    statics = _leaves(params, state)
+    before = ops.counts()
+    for t in range(3):
+        loss, params, state = graphed(params, state, data.batch_at(t))
+        assert torch.equal(loss, want[t]), t
+        assert all(a is b for a, b in zip(_leaves(params, state), statics))
+    assert _count_delta(before) == eager_counts
+    assert (graphed.eager_steps, graphed.captures, graphed.replays) == \
+        (1, 1, 2)
+    assert all(torch.equal(a, b) for a, b in zip(statics, eager_state))
+
+
+@pytest.mark.parametrize("arch", TRAIN_GRAPH_ARCHS)
+def test_train_graph_replays_repeat_bitwise(card, arch):
+    """Two replays from the same state (copied into the statics from a
+    saved tree, the path after ``Trainer.try_restore``) on the same batch
+    give the same loss and state bit for bit, and each adds the capture's
+    launch counts."""
+    from repro_torch.training.graphs import CapturedTrainStep
+    from repro_torch.training.tree import tree_map
+    step, data, fresh = _train_graph_setup(arch)
+    graphed = CapturedTrainStep(step)
+    params, state = fresh()
+    graphed(params, state, data.batch_at(0))
+    saved = tree_map(torch.clone, {"params": graphed.params,
+                                   "opt": graphed.opt_state})
+    (slot,) = graphed.slots.values()
+    runs = []
+    for _ in range(2):
+        before = ops.counts()
+        loss, params, state = graphed(saved["params"], saved["opt"],
+                                      data.batch_at(1))
+        assert _count_delta(before) == slot.counts
+        runs.append([loss] + [x.clone() for x in _leaves(params, state)])
+    assert graphed.replays == 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert any(n for n in slot.counts.values())
+
+
+def test_train_graph_new_batch_shape_takes_its_own_capture(card):
+    """A batch of another shape is captured once more into the same pool,
+    with the same statics; both graphs then replay."""
+    import chip_smoke
+    from repro_torch.training.graphs import CapturedTrainStep
+    step, data, fresh = _train_graph_setup("qwen3-1.7b")
+    short = chip_smoke.train_data(chip_smoke.drill_cfg("qwen3-1.7b"), 256,
+                                  4, seed=0)
+    graphed = CapturedTrainStep(step)
+    params, state = fresh()
+    for batch in (data.batch_at(0), short.batch_at(1), data.batch_at(2),
+                  short.batch_at(3)):
+        loss, params, state = graphed(params, state, batch)
+        assert torch.isfinite(loss)
+    assert len(graphed.slots) == 2
+    assert (graphed.eager_steps, graphed.captures, graphed.replays) == \
+        (2, 2, 2)
+
+
+def test_train_graph_under_expandable_segments(card):
+    """The allocator with expandable segments, as the gemma3, rwkv6 and
+    zamba2 train phases run: the captured step equals the eager one bit
+    for bit there too."""
+    import chip_smoke
+    from repro_torch.training.graphs import CapturedTrainStep
+    with chip_smoke.expandable_segments():
+        step, data, fresh = _train_graph_setup("zamba2-2.7b")
+        params, state = fresh()
+        want = []
+        for t in range(3):
+            loss, params, state = step(params, state, data.batch_at(t))
+            want.append(loss)
+        eager_state = _leaves(params, state)
+        graphed = CapturedTrainStep(step)
+        params, state = fresh()
+        for t in range(3):
+            loss, params, state = graphed(params, state, data.batch_at(t))
+            assert torch.equal(loss, want[t]), t
+        assert graphed.replays == 2
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_leaves(params, state), eager_state))
+        del graphed
+
+
+def test_train_graph_capture_of_a_host_read_raises(card):
+    """A step that reads a CUDA value on the host cannot be captured: the
+    call raises after its eager step, no graph is kept, the launch counts
+    hold the eager step's alone, and the next call raises again (no eager
+    path takes over)."""
+    from repro_torch.training.graphs import CapturedTrainStep
+    step, data, fresh = _train_graph_setup("qwen3-1.7b")
+
+    def reading(params, state, batch):
+        loss, params, state = step(params, state, batch)
+        float(loss)
+        return loss, params, state
+
+    params, state = fresh()
+    before = ops.counts()
+    step(params, state, data.batch_at(0))
+    one_step = _count_delta(before)
+    graphed = CapturedTrainStep(reading)
+    before = ops.counts()
+    with pytest.raises(RuntimeError):
+        graphed(params, state, data.batch_at(0))
+    torch.cuda.synchronize()
+    assert _count_delta(before) == one_step
+    (slot,) = graphed.slots.values()
+    assert slot.graph is None and graphed.captures == 0
+    with pytest.raises(RuntimeError):
+        graphed(params, state, data.batch_at(1))
+    torch.cuda.synchronize()
+    assert graphed.replays == 0

@@ -14,6 +14,7 @@
     python3 tools/kernel_probe.py mamba2-bwd-phases # K4's backward, launch by launch
     python3 tools/kernel_probe.py mamba2-parity-split # zamba2's train parity, K4 / K4b apart
     python3 tools/kernel_probe.py train-rwkv-turns --against DIR  # train_rwkv, this tree and another
+    python3 tools/kernel_probe.py train-graph      # whisper's and qwen3's steps, eager and replayed, traced
 
 ``decode-splits`` times decode attention (``csrc/decode_attention.cu``) at
 the four served layouts (B 8, a cache of 544 rows, all valid) for several
@@ -171,6 +172,13 @@ checkout (``--against DIR``): the other, this, this, the other, each in a
 process of its own that builds its tree's kernels; per run the step
 seconds, tokens per second, peak memory, launches and the traced step's
 device seconds by kind, K5b's among them.
+
+``train-graph`` runs ``chip_smoke.py``'s ``train_whisper`` and ``train``
+phases with one more step traced, each followed by its ``train_graph``
+case (``graph_case``: the same steps through ``CapturedTrainStep``,
+bitwise against the eager phase) with one more replayed step traced: per
+model and way the mean step seconds, the traced step's wall and device
+seconds, the card's busy share and the device seconds by kind.
 
 Each prints JSON lines, and the card's name and power limit first.  No
 CPU mode: without a CUDA device it exits with code 1.
@@ -1354,6 +1362,34 @@ def train_rwkv_turns(against: Path) -> None:
             "device_s_by_kind": prof.get("device_s_by_kind")}), flush=True)
 
 
+def train_graph() -> None:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    mods = dict(ops=ops, steps=steps, opt=opt)
+    for arch, phase in (("whisper-small", "train_whisper"),
+                        ("qwen3-1.7b", "train")):
+        eager = cs.phase_train(mods, ARCHS[arch], 0, profile=True,
+                               phase=phase)
+        torch.cuda.empty_cache()
+        graphed = cs.graph_case(mods, ARCHS[arch], 0, eager, profile=True)
+        for way, out in (("eager", eager), ("graph", graphed)):
+            prof = out["profile"]
+            print(json.dumps({
+                "probe": "train-graph", "model": arch, "way": way,
+                "ok": out["ok"], "problems": out["problems"],
+                "step_s_mean": out["step_s_mean"], "peak_gb": out["peak_gb"],
+                "traced_step_wall_s": prof["step_wall_s"],
+                "traced_device_s": prof["device_s"],
+                "busy_share": prof["device_busy_share"],
+                "device_s_by_kind": prof["device_s_by_kind"]}), flush=True)
+        del eager, graphed
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("probe", choices=["decode-splits", "mamba2-phases",
@@ -1364,7 +1400,7 @@ def main() -> None:
                                       "rwkv6-parity-split",
                                       "mamba2-bwd-phases",
                                       "mamba2-parity-split",
-                                      "train-rwkv-turns"])
+                                      "train-rwkv-turns", "train-graph"])
     ap.add_argument("--against", type=Path,
                     help="flash-bits, flash-bwd, train-rwkv-turns: the "
                          "root of the other checkout")
@@ -1404,6 +1440,8 @@ def main() -> None:
         mamba2_parity_split()
     elif args.probe == "train-rwkv-turns":
         train_rwkv_turns(args.against.resolve())
+    elif args.probe == "train-graph":
+        train_graph()
     else:
         flash_bwd_phases()
 
